@@ -1,0 +1,107 @@
+"""Host-side tables: the CPU anchor of the storage/compute bridge.
+
+A Table owns numpy column arrays + dictionaries and produces device
+ColumnBatch views. This is the marshalling boundary the north star names:
+the reference decodes micro-blocks directly into expression vectors
+(storage/blocksstable/ob_imicro_block_reader.h:506-552 get_rows into
+exprs+eval_ctx); here the storage layer (oceanbase_tpu/storage) decodes into
+Table columns and `to_batch()` ships them to HBM once, after which all query
+execution stays on device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .column import ColumnBatch, make_batch
+from .dictionary import Dictionary
+from .dtypes import DataType, Field, Schema, TypeKind
+
+
+@dataclass
+class Table:
+    name: str
+    schema: Schema
+    data: dict[str, np.ndarray] = field(default_factory=dict)
+    dicts: dict[str, Dictionary] = field(default_factory=dict)
+    valid: dict[str, np.ndarray] = field(default_factory=dict)
+
+    @property
+    def nrows(self) -> int:
+        if not self.data:
+            return 0
+        return len(next(iter(self.data.values())))
+
+    @staticmethod
+    def from_pydict(
+        name: str, schema: Schema, pydata: dict[str, list | np.ndarray]
+    ) -> "Table":
+        """Ingest python/numpy values; encodes VARCHAR via sorted dictionaries."""
+        data: dict[str, np.ndarray] = {}
+        dicts: dict[str, Dictionary] = {}
+        for f in schema.fields:
+            col = pydata[f.name]
+            if f.dtype.kind is TypeKind.VARCHAR:
+                arr = np.asarray(col)
+                if arr.dtype.kind not in ("U", "S"):
+                    # coerce everything (objects, numerics) to strings so
+                    # np.unique sorts lexicographically and the sorted-dict
+                    # invariant (code order == string order) holds
+                    arr = arr.astype(str)
+                d, codes = Dictionary.from_strings_bulk(arr)
+                data[f.name] = codes
+                dicts[f.name] = d
+            elif f.dtype.is_decimal:
+                a = np.asarray(col)
+                if np.issubdtype(a.dtype, np.floating):
+                    a = np.round(a * f.dtype.decimal_factor)
+                data[f.name] = a.astype(f.dtype.storage_np)
+            else:
+                data[f.name] = np.asarray(col, dtype=f.dtype.storage_np)
+        return Table(name, schema, data, dicts)
+
+    def to_batch(self, capacity: int | None = None) -> ColumnBatch:
+        return make_batch(
+            self.data, self.schema, self.dicts, capacity=capacity, valid=self.valid
+        )
+
+    def column_as_python(self, name: str):
+        """Decode a column to python values (strings/decimals) for display."""
+        dt = self.schema[name]
+        a = self.data[name]
+        if dt.kind is TypeKind.VARCHAR and name in self.dicts:
+            return self.dicts[name].decode(a)
+        if dt.is_decimal:
+            return a.astype(np.float64) / dt.decimal_factor
+        return a
+
+
+def table_from_arrays(name: str, fields, data: dict[str, np.ndarray],
+                      dict_values: dict[str, list] | None = None,
+                      valid: dict[str, np.ndarray] | None = None) -> Table:
+    """A Table from plain numpy: the port's catalog is built from arrays,
+    never from the JAX package's objects.
+
+    fields: (name, kind, precision, scale, nullable) per column, `kind`
+    a TypeKind value string ("int64", "decimal", "varchar", ...).
+    data: column name -> storage-domain numpy array (dictionary codes for
+    VARCHAR columns). dict_values: column name -> the dictionary's
+    strings in code order."""
+    schema = Schema(tuple(
+        Field(n, DataType(TypeKind(kind), int(prec), int(scale),
+                          bool(nullable)))
+        for n, kind, prec, scale, nullable in fields
+    ))
+    arrays = {
+        f.name: np.asarray(data[f.name], dtype=f.dtype.storage_np)
+        for f in schema.fields
+    }
+    dicts = {}
+    for col, values in (dict_values or {}).items():
+        vals = [str(v) for v in values]
+        dicts[col] = Dictionary(vals, sorted_=vals == sorted(vals))
+    return Table(name, schema, arrays, dicts,
+                 {k: np.asarray(v, dtype=np.bool_)
+                  for k, v in (valid or {}).items()})
