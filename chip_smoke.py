@@ -4,14 +4,18 @@
 Builds the port's CUDA kernels from `oceanbase_tpu_torch/csrc`, generates
 TPC-H at SF 10 (seed 19920101), and drives the port's main path through
 `Session(..., device="cuda").sql(...)`: Q1, Q6, the sorted selective scan
-S1 and S1 again with a rebound date literal, each once cold and
-`--warm` times warm, then once more under torch.profiler for its device
-busy time. Every result must equal the int64 numpy oracles
-exactly, and every kernel on a statement's path must have launched
-during the main path. Then each kernel is called at the main path's
-shapes and held against its plain PyTorch version (exact agreement), and
-timed beside the plain version, a one-call PyTorch yardstick and its
-memory-bandwidth bound.
+S1 and S1 again with a rebound date literal, the join statements Q14, Q3,
+Q10, Q7, Q8 and Q19, and a tie-heavy ORDER BY ... LIMIT (T1, whose top-k
+prefilter overflows and re-runs through the full sort), each once cold
+and `--warm` times warm, then once more under torch.profiler for its
+device busy time. Every result must equal the int64 numpy oracles
+exactly (a ratio to rel 1e-12), and every kernel on a statement's path
+must have launched during its runs. Then each kernel is called at the
+main path's shapes and held against its plain PyTorch version (exact
+agreement, and the same bits on two runs), and timed beside the plain
+version, a one-call PyTorch yardstick and its memory-bandwidth bound.
+Last, every statement runs on the card and on the CPU at SF 0.1, and the
+two results must hold the same bits.
 
 Run from the repository root on a machine with one CUDA device:
 
@@ -43,6 +47,11 @@ where l_shipdate = date '{day}' and l_quantity < 10
 order by l_extendedprice desc, l_orderkey, l_linenumber"""
 S1_DAYS = ("1995-06-17", "1996-02-29")
 
+T1 = """select l_orderkey, l_linenumber, l_quantity from lineitem
+order by l_quantity desc limit 5"""
+
+CMP_SF = 0.1  # the scale at which card and CPU results are compared
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor FP32 rate, as the op rate
 
@@ -59,6 +68,18 @@ KERNEL_META = {
     "K4_gather_rows": (
         "oceanbase_tpu_torch/csrc/k4_gather_rows.cu",
         "oceanbase_tpu/ops/gather.py:54"),
+    "K5_affine_join": (
+        "oceanbase_tpu_torch/csrc/k5_affine_join.cu",
+        "oceanbase_tpu/engine/executor.py:4227"),
+    "K6_clustered_agg": (
+        "oceanbase_tpu_torch/csrc/k6_clustered_agg.cu",
+        "oceanbase_tpu/engine/executor.py:1779"),
+    "K7_topk_candidates": (
+        "oceanbase_tpu_torch/csrc/k7_topk_candidates.cu",
+        "oceanbase_tpu/engine/executor.py:2095"),
+    "K8_segmented_reduce": (
+        "oceanbase_tpu_torch/csrc/k8_segmented_reduce.cu",
+        "oceanbase_tpu/ops/hashagg.py:271"),
 }
 
 # kernels each statement's path must launch
@@ -67,7 +88,21 @@ PATH_KERNELS = {
     "Q6": ("K1_scalar_aggregate",),
     "S1": ("K3_radix_sort", "K4_gather_rows"),
     "S1_rebound": ("K3_radix_sort", "K4_gather_rows"),
+    "Q14": ("K5_affine_join", "K1_scalar_aggregate"),
+    "Q3": ("K5_affine_join", "K6_clustered_agg", "K7_topk_candidates",
+           "K3_radix_sort", "K4_gather_rows"),
+    "Q10": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce",
+            "K7_topk_candidates"),
+    "Q7": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce"),
+    "Q8": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce"),
+    "Q19": ("K5_affine_join", "K1_scalar_aggregate"),
+    "T1": ("K7_topk_candidates", "K3_radix_sort", "K4_gather_rows"),
 }
+
+# exact launch counts over a statement's runs: T1's first run overflows
+# the top-k prefilter (a low-cardinality key ties beyond C), which turns
+# the prefilter off for the cached plan, so K7 runs once in all its runs
+EXACT_LAUNCHES = {"T1": {"K7_topk_candidates": 1}}
 
 
 class SmokeFailure(Exception):
@@ -109,6 +144,17 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / SCALAR_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sector_bytes(rows, elem: int) -> int:
+    """Bytes that reading the elements at `rows` (row indices) of an array
+    of `elem`-byte elements moves: the card reads whole 32-byte sectors, so
+    each distinct sector those rows touch counts once."""
+    import torch
+
+    if rows.numel() == 0:
+        return 0
+    return 32 * int(torch.unique(rows.to(torch.int64) * elem // 32).numel())
 
 
 def check_q1(rs, lineitem, queries) -> int:
@@ -159,13 +205,49 @@ def check_s1(rs, lineitem, queries, day: str) -> int:
     return n
 
 
-def device_busy_ms(fn) -> tuple[float, float, list]:
-    """(device ms, wall ms, longest idle gaps) of one fn() call under
-    torch.profiler. Device time is the union of the intervals of the
-    trace's CUDA events (kernels, copies, sets), so overlapping records
-    count once and host-side records not at all; the wall is the host
-    clock around the same traced call. The gaps are the three longest
-    stretches between device intervals, with the events on either side."""
+def check_oracle(name, rs, ref) -> int:
+    """Every column of the result against the oracle's column of the same
+    name: integers (scaled decimals, dates, dictionary codes) exactly,
+    floats (a ratio) to rel 1e-12."""
+    import numpy as np
+
+    got = rs.storage_columns()
+    n = None
+    for col, v in got.items():
+        want = np.atleast_1d(np.asarray(ref[col]))
+        v = np.asarray(v)
+        require(v.shape == want.shape, f"{name} {col}: {v.shape} rows, "
+                f"the oracle has {want.shape}")
+        if v.dtype.kind == "f":
+            require(bool(np.all(np.isfinite(v))), f"{name} {col} not finite")
+            require(np.allclose(v, want, rtol=1e-12, atol=0.0),
+                    f"{name} {col} differs from the oracle beyond rel 1e-12")
+        else:
+            require(np.array_equal(v.astype(np.int64), want.astype(np.int64)),
+                    f"{name} {col} differs from the int64 oracle")
+        n = len(v)
+    require(bool(n), f"{name} returned no rows")
+    return n
+
+
+def check_q19(rs, tables, queries) -> int:
+    got = rs.storage_columns()["revenue"]
+    want = queries.q19_numpy(tables)
+    require(want > 0, "Q19's oracle selected no rows")
+    require(len(got) == 1 and int(got[0]) == want,
+            "Q19 revenue differs from the int64 oracle")
+    return 1
+
+
+def device_busy_ms(fn) -> tuple[float, float, list, list]:
+    """(device ms, wall ms, longest idle gaps, device ms by kernel) of one
+    fn() call under torch.profiler. Device time is the union of the
+    intervals of the trace's CUDA events (kernels, copies, sets), so
+    overlapping records count once and host-side records not at all; the
+    wall is the host clock around the same traced call. The gaps are the
+    three longest stretches between device intervals, with the events on
+    either side; the kernels are the six names with the most device time,
+    summed over the same CUDA events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -191,7 +273,12 @@ def device_busy_ms(fn) -> tuple[float, float, list]:
             cur_e, cur_name = e, name
     busy_us += cur_e - cur_s
     gaps.sort(reverse=True)
-    return busy_us / 1e3, wall, gaps[:3]
+    by_name: dict = {}
+    for st, en, name in spans:
+        short = name.split("(")[0].split("<")[0].replace("void ", "")
+        by_name[short] = by_name.get(short, 0.0) + (en - st) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return busy_us / 1e3, wall, gaps[:3], top
 
 
 def run_statement(sess, kernels, name, text, check, warm, nrows_li):
@@ -212,12 +299,15 @@ def run_statement(sess, kernels, name, text, check, warm, nrows_li):
         times.append((time.perf_counter() - t0) * 1e3)
     rows = check(rs)
     require(rows == n, f"{name}: row count {n} != checked rows {rows}")
-    busy, traced, gaps = device_busy_ms(lambda: sess.sql(text).nrows)
+    busy, traced, gaps, top = device_busy_ms(lambda: sess.sql(text).nrows)
     require(busy <= traced, f"{name}: device busy {busy} ms exceeds the "
             f"traced wall {traced} ms")
     launches = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
     for k in PATH_KERNELS[name]:
         require(launches[k] > 0, f"{name}: kernel {k} was never launched")
+    for k, want in EXACT_LAUNCHES.get(name, {}).items():
+        require(launches[k] == want, f"{name}: kernel {k} launched "
+                f"{launches[k]} times, expected {want}")
     med = statistics.median(times) if times else cold
     rec = {
         "statement": name, "cold_ms": cold, "warm_median_ms": med,
@@ -228,13 +318,15 @@ def run_statement(sess, kernels, name, text, check, warm, nrows_li):
         "device_idle_share": 1 - busy / traced,
         "longest_idle_gaps": [{"ms": g, "after": a, "before": b}
                               for g, a, b in gaps],
+        "device_ms_by_kernel": [{"name": k, "ms": v} for k, v in top],
     }
     print(f"statement {name}: cold {cold:.3f} ms, warm median {med:.3f} ms, "
           f"{rec['lineitem_rows_per_s']:.6g} lineitem rows/s, {rows} rows, "
           f"exact, launches {launches}, device busy {busy:.3f} ms of "
           f"{traced:.3f} ms traced (idle share "
           f"{rec['device_idle_share']:.4f}, longest gap "
-          f"{gaps[0][0] if gaps else 0.0:.3f} ms)", flush=True)
+          f"{gaps[0][0] if gaps else 0.0:.3f} ms); most device time: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in top[:4]), flush=True)
     return rec
 
 
@@ -246,8 +338,8 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
     from oceanbase_tpu_torch.ops.hashing import pack_keys
 
     cols = ("l_discount", "l_extendedprice", "l_linenumber", "l_linestatus",
-            "l_orderkey", "l_quantity", "l_returnflag", "l_shipdate",
-            "l_tax")
+            "l_orderkey", "l_partkey", "l_quantity", "l_returnflag",
+            "l_shipdate", "l_suppkey", "l_tax")
     b = sess.executor.table_batch("lineitem", cols)
     c = b.cols
     sel = b.sel
@@ -270,6 +362,11 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
                     if g.numel() else 0.0
             err = max(err, float(d))
         require(err == 0.0, f"{name}: max |kernel - plain| = {err}")
+        again = k_fn()
+        if not isinstance(again, (list, tuple)):
+            again = [again]
+        for g, a in zip([g for g, _w in pairs], again):
+            require(torch.equal(g, a), f"{name}: two runs differ in their bits")
         km = cuda_ms(k_fn, reps)
         pm = cuda_ms(p_fn, max(1, reps // 2))
         lm = cuda_ms(lib_fn, reps) if lib_fn is not None else None
@@ -278,7 +375,8 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "max_abs_err": err, "ms": km, "plain_ms": pm, "bound_ms": bm,
                "bound_by": by, "library_ms": lm}
-        print(f"kernel {name}: match exact, kernel_ms {km:.6f}, plain_ms "
+        print(f"kernel {name}: match exact, two runs bit-identical, "
+              f"kernel_ms {km:.6f}, plain_ms "
               f"{pm:.6f}, library_ms {lm}, bound_ms {bm:.6f} ({by})",
               flush=True)
         out.append(rec)
@@ -290,6 +388,7 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
           & (c["l_quantity"] < 2400))
     v6 = c["l_extendedprice"].to(torch.int64) * c["l_discount"].to(torch.int64)
     nsel6 = int(m6.sum())
+    live6 = m6.nonzero().squeeze(1)
     record(
         "K1_scalar_aggregate",
         kernels.scalar_reduce("sum", m6, v6),
@@ -297,7 +396,7 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
         lambda: kernels.scalar_reduce("sum", m6, v6),
         lambda: kernels.scalar_reduce_plain("sum", m6, v6),
         lambda: torch.sum(torch.where(m6, v6, 0)),
-        n + nsel6 * 8 + 8, nsel6)
+        n + sector_bytes(live6, 8) + 8, nsel6)
 
     # K2 at Q1's shape: domain 8, the live count + 9 aggregates
     cutoff = _parse_date("1998-09-02")
@@ -317,8 +416,10 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
     # every row's key and mask; values only where the (one shared) mask is set
     vals = [v for _op, v, _m in aggs if v is not None]
     nsel1 = int(m1.sum())
+    live1 = m1.nonzero().squeeze(1)
     k2_bytes = n * (packed.element_size() + 1) \
-        + nsel1 * sum(v.element_size() for v in vals) + len(aggs) * dom * 8
+        + sum(sector_bytes(live1, v.element_size()) for v in vals) \
+        + len(aggs) * dom * 8
 
     def k2_library():
         res = []
@@ -369,17 +470,149 @@ def kernel_checks(sess, kernels, reps: int) -> list[dict]:
         lambda: kernels.gather_columns_plain(payload, order),
         lambda: [p.index_select(0, order) for p in payload],
         n * (4 + 2 * width), n * len(payload))
+
+    vol = c["l_extendedprice"] * (100 - c["l_discount"].to(torch.int64))
+
+    def flat(res):
+        """(mask or count, [columns]) -> one list of tensors."""
+        return [res[0], *res[1]]
+
+    # K5 at Q14's shape: lineitem's September 1995 rows probe part by
+    # l_partkey, gathering p_partkey and p_type
+    ex = sess.executor
+    pb = ex.table_batch("part", ("p_partkey", "p_type"))
+    pkeys = ex.catalog["part"].data["p_partkey"]
+    a0, stride = int(pkeys[0]), int(pkeys[1]) - int(pkeys[0])
+    m14 = (sel & (c["l_shipdate"] >= _parse_date("1995-09-01"))
+           & (c["l_shipdate"] < _parse_date("1995-10-01")))
+    lk, bkey = c["l_partkey"], pb.cols["p_partkey"]
+    pay = [pb.cols["p_partkey"], pb.cols["p_type"]]
+    nb5 = int(bkey.shape[0])
+
+    def k5_library():
+        cand = torch.div(lk.to(torch.int64) - a0, stride,
+                         rounding_mode="floor").clamp(0, nb5 - 1)
+        hit = (m14 & (bkey.index_select(0, cand) == lk)
+               & pb.sel.index_select(0, cand))
+        return [hit] + [p.index_select(0, cand) for p in pay]
+
+    # every probe row's sel in, sel and payload out; the probe key, and the
+    # build key, sel and payload at the candidate, only at live probe rows
+    pw = sum(p.element_size() for p in pay)
+    live14 = m14.nonzero().squeeze(1)
+    cand14 = torch.div(lk[live14].to(torch.int64) - a0, stride,
+                       rounding_mode="floor").clamp(0, nb5 - 1)
+    k5_bytes = (n * (1 + 1 + pw) + sector_bytes(live14, lk.element_size())
+                + sum(sector_bytes(cand14, t.element_size())
+                      for t in (bkey, pb.sel, *pay)))
+    record(
+        "K5_affine_join",
+        flat(
+            kernels.affine_join(lk, m14, a0, stride, bkey, pb.sel, pay)),
+        flat(
+            kernels.affine_join_plain(lk, m14, a0, stride, bkey, pb.sel,
+                                      pay)),
+        lambda: flat(
+            kernels.affine_join(lk, m14, a0, stride, bkey, pb.sel, pay)),
+        lambda: kernels.affine_join_plain(lk, m14, a0, stride, bkey, pb.sel,
+                                          pay),
+        k5_library, k5_bytes, n)
+
+    # K6 at Q3's shape: per order, the live lineitem rows of its range
+    # (l_shipdate > 1995-03-15) and their discounted volume
+    ob = ex.table_batch("orders", ("o_orderdate", "o_orderkey"))
+    starts, ends = ex.fk_ranges("lineitem", "l_orderkey", "orders",
+                                "o_orderkey")
+    m3 = sel & (c["l_shipdate"] > _parse_date("1995-03-15"))
+    aggs6 = [("sum", vol, None)]
+    lengths = (ends - starts).to(torch.int64)
+    covered = int(lengths.sum())
+    require(int(starts[0]) == 0, "K6: the first range must start at row 0")
+    vals6 = torch.where(m3, vol, 0).to(torch.float64)[:covered].contiguous()
+    nb6 = int(starts.shape[0])
+    # the ranges and the covered rows' sel in, the count and the sum out;
+    # the values only at live rows
+    k6_bytes = (nb6 * 8 + covered
+                + sector_bytes(m3[:covered].nonzero().squeeze(1), 8) + nb6 * 16)
+    k6_out = kernels.clustered_segments(starts, ends, m3, aggs6)
+    record(
+        "K6_clustered_agg", flat(k6_out),
+        flat(
+            kernels.clustered_segments_plain(starts, ends, m3, aggs6)),
+        lambda: flat(
+            kernels.clustered_segments(starts, ends, m3, aggs6)),
+        lambda: kernels.clustered_segments_plain(starts, ends, m3, aggs6),
+        lambda: torch.segment_reduce(vals6, "sum", lengths=lengths),
+        k6_bytes, covered)
+
+    # K7 at Q3's shape: the 256 best order revenues among the orders that
+    # qualify (o_orderdate < 1995-03-15, at least one live line)
+    rev = k6_out[1][0]
+    osel = (ob.sel & (ob.cols["o_orderdate"] < _parse_date("1995-03-15"))
+            & (k6_out[0] > 0))
+    C = 256
+    masked7 = torch.where(osel, rev, torch.iinfo(torch.int64).min)
+    record(
+        "K7_topk_candidates", list(kernels.topk_candidates(rev, osel, True, C)),
+        list(kernels.topk_candidates_plain(rev, osel, True, C)),
+        lambda: list(kernels.topk_candidates(rev, osel, True, C)),
+        lambda: kernels.topk_candidates_plain(rev, osel, True, C),
+        lambda: torch.topk(masked7, C),
+        nb6 + sector_bytes(osel.nonzero().squeeze(1), 8) + C * 4 + 8, nb6)
+
+    # K8 at Q7's shape: three int32 keys (two nation-like codes and a
+    # year) over 60M rows in sorted order, one int64 volume sum, the
+    # two-nation filter keeping a few rows live
+    sk = (c["l_suppkey"] % 25).to(torch.int32)
+    ck = (c["l_partkey"] % 25).to(torch.int32)
+    yr = (torch.div(c["l_shipdate"].to(torch.int64) * 4 + 2, 1461,
+                    rounding_mode="floor") + 1970).to(torch.int32)
+    m7 = (sel & (c["l_shipdate"] >= _parse_date("1995-01-01"))
+          & (c["l_shipdate"] <= _parse_date("1996-12-31"))
+          & (((sk == 6) & (ck == 7)) | ((sk == 7) & (ck == 6))))
+    keys8 = [sk, ck, yr]
+    order8 = kernels.sort_order(keys8, [False] * 3, m7)
+    g8 = kernels.gather_columns(keys8 + [m7], order8)
+    skeys8, ssel8 = g8[:-1], g8[-1]
+    aggs8 = [("sum", vol, None)]
+    packed8 = (((~ssel8).to(torch.int64) << 60)
+               | (skeys8[0].to(torch.int64) << 40)
+               | (skeys8[1].to(torch.int64) << 20)
+               | skeys8[2].to(torch.int64))
+    svals8 = torch.where(ssel8, vol[order8.to(torch.int64)], 0).to(
+        torch.float64)
+
+    def k8_library():
+        _u, counts = torch.unique_consecutive(packed8, return_counts=True)
+        return torch.segment_reduce(svals8, "sum", lengths=counts)
+
+    # every row's sorted sel in, sel and result out; the sorted keys and
+    # the order only over the live rows (the sorted prefix; the result does
+    # not depend on the dead rows' keys), the values at their order rows
+    live7 = int(m7.sum())
+    k8_bytes = (n * (1 + 1 + 8) + live7 * (3 * 4 + 4)
+                + sector_bytes(order8[:live7], vol.element_size()))
+    record(
+        "K8_segmented_reduce",
+        flat(
+            kernels.segmented_reduce(skeys8, ssel8, order8, aggs8)),
+        flat(
+            kernels.segmented_reduce_plain(skeys8, ssel8, order8, aggs8)),
+        lambda: flat(
+            kernels.segmented_reduce(skeys8, ssel8, order8, aggs8)),
+        lambda: kernels.segmented_reduce_plain(skeys8, ssel8, order8, aggs8),
+        k8_library, k8_bytes, n * 4)
     return out
 
 
 def float_checks(sess, kernels) -> list[dict]:
-    """K1 and K2 on float inputs at the main path's shapes (the slice's
+    """The kernels on float inputs at the main path's shapes (the port's
     decimals are scaled integers, so its statements send no floats): two
-    runs of a kernel must give the same bits, and each result must agree
-    with the plain version to rel 1e-12 (float64) or 1e-4 (float32, as
+    runs of a kernel must give the same bits. K1 and K2 must agree with
+    the plain version to rel 1e-12 (float64) or 1e-4 (float32, as
     tests/test_torch_ops.py holds the plain float32 sum to JAX's; the
     kernels add in double, the plain versions in float32), min and max
-    exactly."""
+    exactly; K6 and K8 exactly on integer-valued float64."""
     import torch
 
     from oceanbase_tpu_torch.expr.compile import _parse_date
@@ -427,6 +660,82 @@ def float_checks(sess, kernels) -> list[dict]:
                 print(f"float check {name} {op} {dt}: rel err {rel:.3e} "
                       f"(limit {tol}), two runs bit-identical", flush=True)
                 out.append(rec)
+
+    # K6 and K8 on integer-valued float64 (prices in cents): every prefix
+    # sum is exact, so the kernels' direct sums and the plain versions'
+    # cumsum differences must agree bit for bit, and two runs too. K8 runs
+    # over Q1's two keys, whose few groups span thousands of tiles.
+    ex = sess.executor
+    cents = c["l_extendedprice"].to(torch.float64)
+    starts, ends = ex.fk_ranges("lineitem", "l_orderkey", "orders",
+                                "o_orderkey")
+    keys = [c["l_returnflag"], c["l_linestatus"]]
+    order = kernels.sort_order(keys, [False, False], mask)
+    g = kernels.gather_columns(keys + [mask], order)
+    cases = [
+        ("K6_clustered_agg", "sum",
+         lambda: kernels.clustered_segments(
+             starts, ends, mask, [("sum", cents, None)])[1][0],
+         lambda: kernels.clustered_segments_plain(
+             starts, ends, mask, [("sum", cents, None)])[1][0]),
+    ] + [
+        ("K8_segmented_reduce", op,
+         (lambda op=op: kernels.segmented_reduce(
+             g[:-1], g[-1], order, [(op, cents, None)])[1][0]),
+         (lambda op=op: kernels.segmented_reduce_plain(
+             g[:-1], g[-1], order, [(op, cents, None)])[1][0]))
+        for op in ("sum", "min", "max")
+    ]
+    for name, op, fn, plain in cases:
+        got, again, want = fn(), fn(), plain()
+        require(torch.equal(got, again),
+                f"{name} {op} float64: two runs differ in their bits")
+        require(torch.equal(got, want), f"{name} {op} float64 (integer "
+                "values): differs from the plain version")
+        out.append({"name": name, "op": op, "dtype": "torch.float64",
+                    "max_rel_err": 0.0, "rtol": 0.0, "repeatable": True})
+        print(f"float check {name} {op} torch.float64 (integer values): "
+              "exact, two runs bit-identical", flush=True)
+    return out
+
+
+def card_vs_cpu(tables, Session, unique_keys, stmts) -> list[dict]:
+    """Every statement on the card and on the CPU (the plain versions) over
+    the same small tables: each column must hold the same bits, floats
+    too, since both run the same IEEE operations. A difference is reported
+    by column, with its largest ulp and relative distance for floats."""
+    import numpy as np
+
+    card = Session(tables, unique_keys=unique_keys, device="cuda")
+    cpu = Session(tables, unique_keys=unique_keys, device="cpu")
+    out, bad = [], []
+    for name, text in stmts:
+        got = card.sql(text).storage_columns()
+        want = cpu.sql(text).storage_columns()
+        require(list(got) == list(want), f"card vs CPU {name}: columns differ")
+        diffs = []
+        for col, g in got.items():
+            g, w = np.asarray(g), np.asarray(want[col])
+            if g.dtype == w.dtype and g.shape == w.shape \
+                    and g.tobytes() == w.tobytes():
+                continue
+            d = {"column": col, "rows": int(w.shape[0])}
+            if g.shape == w.shape and g.dtype.kind == "f":
+                g64, w64 = g.astype(np.float64), w.astype(np.float64)
+                d["rows_differing"] = int(np.sum(g64 != w64))
+                d["max_ulp"] = int(np.max(np.abs(
+                    g64.view(np.int64) - w64.view(np.int64))))
+                d["max_rel"] = float(np.max(np.abs(g64 - w64)
+                                            / np.maximum(np.abs(w64), 1e-300)))
+            diffs.append(d)
+        out.append({"statement": name, "rows": len(next(iter(want.values()))),
+                    "columns": len(want), "differing": diffs})
+        print(f"card vs CPU {name}: {len(want)} columns, "
+              + ("identical bits" if not diffs else f"DIFFER {diffs}"),
+              flush=True)
+        if diffs:
+            bad.append(name)
+    require(not bad, f"card and CPU results differ: {bad}")
     return out
 
 
@@ -466,6 +775,22 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     sess = Session(tables, unique_keys=sql_suite.UNIQUE_KEYS, device="cuda")
+    t0 = time.perf_counter()
+    refs = {
+        "Q14": queries.q14_numpy(tables),
+        "Q3": queries.q3_numpy(tables),
+        "Q10": queries.q10_numpy(tables),
+        "Q7": queries.q7_numpy(tables),
+        "Q8": queries.q8_numpy(tables),
+        "T1": queries.topn_desc_numpy(
+            li, "l_quantity", 5, ("l_orderkey", "l_linenumber",
+                                  "l_quantity")),
+    }
+    print(f"join oracles in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    def oracle(name):
+        return lambda rs: check_oracle(name, rs, refs[name])
+
     stmts = [
         ("Q1", sql_suite.QUERIES[1], lambda rs: check_q1(rs, li, queries)),
         ("Q6", sql_suite.QUERIES[6], lambda rs: check_q6(rs, li, queries)),
@@ -473,6 +798,14 @@ def main() -> int:
          lambda rs: check_s1(rs, li, queries, S1_DAYS[0])),
         ("S1_rebound", S1.format(day=S1_DAYS[1]),
          lambda rs: check_s1(rs, li, queries, S1_DAYS[1])),
+        ("Q14", sql_suite.QUERIES[14], oracle("Q14")),
+        ("Q3", sql_suite.QUERIES[3], oracle("Q3")),
+        ("Q10", sql_suite.QUERIES[10], oracle("Q10")),
+        ("Q7", sql_suite.QUERIES[7], oracle("Q7")),
+        ("Q8", sql_suite.QUERIES[8], oracle("Q8")),
+        ("Q19", sql_suite.QUERIES[19],
+         lambda rs: check_q19(rs, tables, queries)),
+        ("T1", T1, oracle("T1")),
     ]
     # the main path: counts at 0 just before, read just after
     kernels.reset_launches()
@@ -481,13 +814,17 @@ def main() -> int:
         for name, text, check in stmts
     ]
     main_launches = dict(kernels.LAUNCHES)
-    require(stmt_recs[-1]["fast_path_hit"],
+    rebound = next(r for r in stmt_recs if r["statement"] == "S1_rebound")
+    require(rebound["fast_path_hit"],
             "rebound S1 did not reuse the cached plan through the text tier")
     for k, v in main_launches.items():
         require(v > 0, f"kernel {k} was never launched on the main path")
 
     krecs = kernel_checks(sess, kernels, args.reps)
     frecs = float_checks(sess, kernels)
+    small = datagen.generate(sf=CMP_SF, seed=args.seed)
+    crecs = card_vs_cpu(small, Session, sql_suite.UNIQUE_KEYS,
+                        [(name, text) for name, text, _check in stmts])
     for r in krecs:
         r["launches"] = main_launches[r["name"]]
     kernels_line = {"kernels": [
@@ -504,6 +841,7 @@ def main() -> int:
         json.dump({"gpu": card, "sf": args.sf, "build_s": build_s,
                    "lineitem_rows": li.nrows, "statements": stmt_recs,
                    "kernels": krecs, "float_checks": frecs,
+                   "card_vs_cpu": {"sf": CMP_SF, "statements": crecs},
                    "main_launches": main_launches,
                    "device": device,
                    "build_log": kernels.BUILD_INFO.get("log", "")},

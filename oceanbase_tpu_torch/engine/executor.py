@@ -1,24 +1,29 @@
 """Physical execution of a logical plan on one torch device.
 
 Counterpart of `oceanbase_tpu/engine/executor.py`, restricted to the plan
-nodes of the port's first slice: Scan (with its pushed filter), Filter,
-Project, Aggregate (the direct-addressed and the scalar paths), Sort and
-Limit, plus the root compaction. Every other node or path raises
-NotImplementedError naming it (joins, sort and hash group-bys, windows,
-set operations, top-n, clustered aggregation, ANN, chunked streaming).
+nodes the port runs so far: Scan (with its pushed filter), Filter,
+Project, inner joins whose build side is unique with an affine key column
+(the direct-address route), Aggregate (the direct-addressed, the
+sort-based with its pack guard, the clustered-FK segment and the scalar
+paths), Sort, Limit and TopN (with its exact top-k candidate prefilter),
+plus the root compaction. Every other node or path raises
+NotImplementedError naming it (the merge join of a non-affine unique
+build, expansion joins, semi/anti/outer joins, the hash group-by,
+DISTINCT aggregates, windows, set operations, ANN, chunked streaming).
 
 The JAX package traces a whole plan into one jitted program; here
 `compile` returns a plain Python closure that runs the same emission
-eagerly on the session's device, with the device functions the slice
-cannot run without on hand-written kernels (K1-K4, `kernels.py`). The
-static-capacity contract is unchanged: every intermediate keeps its
-producer's capacity under a live-row `sel` mask, capacity-bound operators
-report overflow counters in ONE stacked vector, and the host reads it
-once per attempt and re-runs at larger capacities (PhysicalParams.bump).
+eagerly on the session's device, with the device functions on the path
+as hand-written kernels (K1-K8, `kernels.py`). The static-capacity
+contract is unchanged: every intermediate keeps its producer's capacity
+under a live-row `sel` mask, capacity-bound operators report overflow
+counters in ONE stacked vector, and the host reads it once per attempt
+and re-runs at larger capacities (PhysicalParams.bump).
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -41,8 +46,9 @@ from ..expr.compile import (
     evaluate,
     infer_type,
 )
+from ..kernels import affine_join, clustered_segments, topk_candidates
 from ..ops.gather import gather_rows
-from ..ops.hashagg import groupby_direct, scalar_aggregate
+from ..ops.hashagg import groupby_direct, scalar_aggregate, sort_groupby
 from ..ops.hashing import next_pow2, pack_keys
 from ..ops.sort import sort_indices
 from ..sql.logical import (
@@ -58,6 +64,7 @@ from ..sql.logical import (
     Sort,
     TopN,
     Window,
+    output_schema,
 )
 
 # largest packed key domain served by the direct group-by (kernel K2)
@@ -65,6 +72,10 @@ DIRECT_GROUPBY_MAX_DOMAIN = 1 << 6
 
 # synthetic PhysicalParams id for the root result-compaction capacity
 ROOT_COMPACT = -1
+
+# synthetic overflow-node id space for the pack-validity guards (disjoint
+# from plan node ids)
+PACK_GUARD_BASE = 5_000_000
 
 
 def gather_payload(cols: dict, valid: dict, idx, sel=None):
@@ -104,15 +115,53 @@ def compact_batch(b: ColumnBatch, cap2: int):
 
 @dataclass
 class PhysicalParams:
-    """Static capacities per plan node (keyed by pre-order node index).
-    The slice's plans carry one: the root compaction (ROOT_COMPACT)."""
+    """Static capacities per plan node (keyed by pre-order node index)."""
 
     join_cap: dict[int, int] = field(default_factory=dict)
+    # stats-packed group keys: nid -> ((vmin, bits) per key). A runtime
+    # pack-validity counter rides the overflow channel (PACK_GUARD_BASE +
+    # nid); overflow disables packing for that node and recompiles.
+    pack_guard: dict[int, tuple] = field(default_factory=dict)
+    groupby_nopack: set = field(default_factory=set)
+    # clustered-FK segment aggregation specs (nid -> ClusteredAggSpec),
+    # re-detected on every compile (deterministic from plan + catalog)
+    clustered_aggs: dict = field(default_factory=dict)
+    # top-k candidate prefilter sizes (TopN via the exact top-k of the
+    # first key, under the tie-overflow guard)
+    topn_cand: dict[int, int] = field(default_factory=dict)
 
     def bump(self, overflows: dict[int, int]):
         for nid in overflows:
+            if nid >= PACK_GUARD_BASE:
+                self.groupby_nopack.add(nid - PACK_GUARD_BASE)
+                continue
             if nid in self.join_cap:
                 self.join_cap[nid] *= 4
+            if nid in self.topn_cand:
+                # ties on a low-cardinality first key can exceed ANY
+                # candidate budget: one overflow disables the prefilter
+                # (cand >= capacity skips it at emit) and the full sort runs
+                self.topn_cand[nid] = 1 << 62
+
+
+class ClusteredPremiseInvalidated(Exception):
+    """A cached plan's clustered-FK premise no longer holds (the probe
+    table's data changed and its fk column is no longer monotone);
+    PreparedPlan recompiles, which re-detects and drops the spec."""
+
+
+@dataclass(frozen=True)
+class ClusteredAggSpec:
+    """One Aggregate-over-PK-FK-join collapsed into segment reductions
+    (see Executor._clustered_agg_spec)."""
+
+    ji: object        # the JoinOp replaced by per-build-row range sums
+    probe_table: str
+    fk_col: str       # clustered probe key (unqualified storage column)
+    fk_name: str      # qualified probe-side join key name
+    build_table: str
+    pk_col: str
+    input_alias: str  # inputs key carrying the (starts, ends) arrays
 
 
 def _number_nodes(plan: LogicalOp) -> dict[int, LogicalOp]:
@@ -155,16 +204,21 @@ def _not_ported(what: str):
 
 
 class Executor:
-    def __init__(self, catalog, default_rows_estimate=1 << 16, stats=None,
-                 device=None):
+    def __init__(self, catalog, unique_keys=None,
+                 default_rows_estimate=1 << 16, stats=None, device=None):
         self.catalog = catalog
+        self.unique_keys = unique_keys or {}
         self.default_rows_estimate = default_rows_estimate
         self.stats = stats
         self.device = _device(device)
         # per-column device cache: (table, column) -> (values, validity),
-        # plus (table, "#sel"); and the assembled batch per column set
+        # plus (table, "#sel") and the clustered-FK ranges; and the
+        # assembled batch per column set
         self._batch_cache: dict = {}
         self._assembled: dict[tuple, ColumnBatch] = {}
+        # bumped by invalidate_table; derived device structures that span
+        # TWO tables (fk_ranges) revalidate against both versions
+        self._table_version: dict[str, int] = {}
 
     # ---- input preparation -------------------------------------------
     def _collect_scans(self, plan: LogicalOp) -> list[Scan]:
@@ -197,6 +251,11 @@ class Executor:
             if isinstance(op, Project):
                 for _, e in op.exprs:
                     note(e)
+            if isinstance(op, JoinOp):
+                for e in op.left_keys + op.right_keys:
+                    note(e)
+                if op.residual is not None:
+                    note(op.residual)
             if isinstance(op, Aggregate):
                 for _, e in op.group_keys:
                     note(e)
@@ -212,8 +271,82 @@ class Executor:
         rec(plan)
         return needed
 
+    def invalidate_table(self, name: str) -> None:
+        """Drop cached device batches of one table (its data changed)."""
+        self._table_version[name] = self._table_version.get(name, 0) + 1
+        for key in [k for k in self._batch_cache if k[0] == name]:
+            del self._batch_cache[key]
+        for key in [k for k in self._assembled if k[0] == name]:
+            del self._assembled[key]
+
+    def fk_ranges(self, probe_table: str, fk_col: str,
+                  build_table: str, pk_col: str):
+        """Device (starts, ends) int32 tensors over build-table rows: build
+        row i joins exactly the probe rows [starts[i], ends[i]) -- valid
+        because the probe's fk column is stored CLUSTERED (monotone
+        nondecreasing, checked by _monotone_col before any caller gets
+        here). Host-precomputed by binary search once per table version
+        and cached beside the device columns; padded build rows get
+        [0, 0)."""
+        vp = self._table_version.get(probe_table, 0)
+        vb = self._table_version.get(build_table, 0)
+        key = (probe_table, ("#fkr", fk_col, build_table, pk_col))
+        hit = self._batch_cache.get(key)
+        if hit is not None and hit[0] == (vp, vb):
+            return hit[1]
+        # data changed since the spec was detected: the clustering premise
+        # must be re-proven, not assumed
+        if not self._monotone_col(probe_table, fk_col):
+            raise ClusteredPremiseInvalidated(
+                f"{probe_table}.{fk_col} is no longer monotone"
+            )
+        tp = self.catalog[probe_table]
+        tb = self.catalog[build_table]
+        fk = np.asarray(tp.data[fk_col])
+        pk = np.asarray(tb.data[pk_col])
+        lo = np.searchsorted(fk, pk, side="left").astype(np.int32)
+        hi = np.searchsorted(fk, pk, side="right").astype(np.int32)
+        cap = max(1024, -(-max(tb.nrows, 1) // 1024) * 1024)
+        dev = (upload(lo, cap, self.device), upload(hi, cap, self.device))
+        self._batch_cache[key] = ((vp, vb), dev)
+        return dev
+
     def input_batch(self, alias: str, table: str, cols: tuple):
+        """One program input from its input_spec entry: a table
+        ColumnBatch, or the clustered-FK join ranges ('#fkr:' aliases)."""
+        if alias.startswith("#fkr:"):
+            return self.fk_ranges(*cols)
         return self.table_batch(table, cols)
+
+    # host-side monotonicity cache (id + weakref: a bare id can be reused
+    # by a new array after the old one is collected)
+    _monotone_cache: dict = {}
+
+    def _monotone_col(self, table: str, col: str) -> bool:
+        """True when the stored column array is monotone NONDECREASING --
+        the table is physically clustered by this column (TPC-H lineitem
+        by l_orderkey). Nullable columns are excluded: NULL rows carry
+        arbitrary storage values."""
+        try:
+            t = self.catalog[table]
+            arr = t.data[col]
+        except (KeyError, AttributeError):
+            return False
+        if col in getattr(t, "valid", {}):
+            return False
+        if not isinstance(arr, np.ndarray) or arr.ndim != 1 or len(arr) < 1:
+            return False
+        if not np.issubdtype(arr.dtype, np.integer):
+            return False
+        key = id(arr)
+        hit = Executor._monotone_cache.get(key)
+        if hit is not None and hit[0]() is arr:
+            return hit[1]
+        if len(Executor._monotone_cache) > 4096:
+            Executor._monotone_cache.clear()
+        out = bool(np.all(arr[1:] >= arr[:-1]))
+        Executor._monotone_cache[key] = (weakref.ref(arr), out)
+        return out
 
     def table_batch(self, name: str, cols: tuple[str, ...]) -> ColumnBatch:
         """Device batch of a table's columns. The device cache is PER
@@ -294,6 +427,32 @@ class Executor:
             return max(base, 1.0)
         if isinstance(op, Filter):
             return max(est_rows(op.child) * 0.5, 1.0)
+        if isinstance(op, JoinOp):
+            l = est_rows(op.left)
+            r = est_rows(op.right)
+            if op.kind in ("semi", "anti"):
+                return max(l * 0.5, 1.0)
+            if op.kind == "left":
+                return l * 2
+            if op.kind == "full":
+                return l + r
+            if not op.left_keys:  # cross / scalar broadcast
+                return l if self._is_scalar_relation(op.right) else l * r
+            if self._join_build_unique(op):
+                # each probe row matches at most one build row; the MATCH
+                # RATE is the filtered fraction of the build's key space
+                # (containment), floored at 0.05
+                rb = self._build_base_rows(op.right)
+                if rb and rb > 0:
+                    return max(l * max(min(r / rb, 1.0), 0.05), 1.0)
+                return l
+            # M:N equi-join: |L||R| / max(ndv(Lkeys), ndv(Rkeys))
+            lndv = self._keys_ndv(op.left, op.left_keys)
+            rndv = self._keys_ndv(op.right, op.right_keys)
+            if lndv is not None and rndv is not None:
+                denom = max(min(lndv, l), min(rndv, r), 1.0)
+                return max((l * r) / denom, 1.0)
+            return max(l, r) * 2
         if isinstance(op, Aggregate):
             child = est_rows(op.child)
             nd = self._group_ndv(op)
@@ -332,14 +491,418 @@ class Executor:
             prod *= nd
         return prod
 
+    def _static_key_range(self, child: LogicalOp, e) -> tuple[int, int] | None:
+        """(vmin, bits) for a group-key expr whose value domain is known
+        statically: dictionary codes (exact domain from the dict length)
+        or stats min/max (exact at collection; 4x headroom covers drift,
+        and the runtime pack guard catches anything beyond). None = not
+        packable."""
+        name = e.name if isinstance(e, E.ColRef) else None
+        if name is None:
+            return None
+
+        def resolve(node, name):
+            if isinstance(node, Filter):
+                return resolve(node.child, name)
+            if isinstance(node, Project):
+                nxt = dict(node.exprs).get(name)
+                if not isinstance(nxt, E.ColRef):
+                    return None
+                return resolve(node.child, nxt.name)
+            if isinstance(node, JoinOp):
+                return resolve(node.left, name) or resolve(node.right, name)
+            if isinstance(node, Scan) and "." in name:
+                alias, col = name.split(".", 1)
+                if alias == node.alias:
+                    return (node.table, col)
+            return None
+
+        hit = resolve(child, name)
+        if hit is None:
+            return None
+        table, col = hit
+        try:
+            t = self.catalog[table]
+        except KeyError:
+            return None
+        d = t.dicts.get(col)
+        if d is not None:
+            dom = max(len(d), 1)
+            # append-dictionaries can grow: headroom + runtime guard
+            return 0, max((4 * dom - 1).bit_length(), 1)
+        try:
+            ct = t.schema[col]
+        except Exception:
+            return None
+        if not np.issubdtype(ct.storage_np, np.integer):
+            # float keys would TRUNCATE into the packed int domain and
+            # merge distinct groups without tripping the range guard
+            return None
+        ts = self.stats.table_stats(table) if self.stats else None
+        cs = ts.cols.get(col) if ts is not None else None
+        if cs is None or cs.ndv <= 0:
+            return None
+        span = int(cs.vmax) - int(cs.vmin) + 1
+        if span <= 0:
+            return None
+        return int(cs.vmin), max((4 * span - 1).bit_length(), 1)
+
     def seed_params(self, plan: LogicalOp) -> PhysicalParams:
         params = PhysicalParams()
+        nodes = _number_nodes(plan)
         # root compaction capacity: results travel device->host compacted
         # to the estimated output size; overflow retries apply
         params.join_cap[ROOT_COMPACT] = next_pow2(
             int(2 * self._est_rows(plan)) + 1024
         )
+        for nid, op in nodes.items():
+            if (
+                isinstance(op, TopN)
+                and op.n + op.offset <= 1024
+                and nid not in params.topn_cand
+            ):
+                params.topn_cand[nid] = max(
+                    256, -(-4 * (op.n + op.offset) // 64) * 64
+                )
+            if (
+                isinstance(op, Aggregate) and len(op.group_keys) > 1
+                and op.grouping_sets is None
+            ):
+                # multi-key sort group-bys pack into ONE int64 sort key
+                # when every key's domain is statically known
+                ranges = [
+                    self._static_key_range(op.child, e)
+                    for _n, e in op.group_keys
+                ]
+                if all(r is not None for r in ranges) and sum(
+                    b for _v, b in ranges
+                ) <= 62:
+                    params.pack_guard[nid] = tuple(ranges)
         return params
+
+    # host-side column-layout property cache. Keyed by id(array) with a
+    # WEAK reference in the value: a bare id can be reused by a new array
+    # after the old one is collected, which would apply a stale
+    # (a0, stride) to an unrelated column and drop matching join rows.
+    _affine_cache: dict[int, tuple["weakref.ref", tuple[int, int] | None]] = {}
+
+    def _resolve_layout_col(self, node: LogicalOp, name: str):
+        """(table, col) when output column `name` of `node` IS a base
+        Scan's stored array (same length, same order -- only the sel mask
+        differs), seen through the layout-preserving ops: Filter, Project
+        renames, and the PROBE side of joins that keep the probe layout
+        (semi/anti always; inner via the merge/affine path, which emits
+        probe columns untouched and only gathers build columns). None
+        when the column is computed, gathered, or re-ordered."""
+        while True:
+            if isinstance(node, Filter):
+                node = node.child
+            elif isinstance(node, Project):
+                nxt = dict(node.exprs).get(name)
+                if not isinstance(nxt, E.ColRef):
+                    return None
+                name = nxt.name
+                node = node.child
+            elif isinstance(node, JoinOp) and (
+                node.kind in ("semi", "anti")
+                or (node.kind == "inner" and self._merge_joinable(node))
+            ):
+                # a build-side column would gather (new layout), but then
+                # its alias only exists in the right subtree and the final
+                # Scan-alias check below fails
+                node = node.left
+            else:
+                break
+        if not isinstance(node, Scan) or "." not in name:
+            return None
+        alias, col = name.split(".", 1)
+        if alias != node.alias:
+            return None
+        return node.table, col
+
+    def _affine_build_info(self, op: JoinOp) -> tuple[int, int] | None:
+        """(a0, stride) when the build side's single join-key column is an
+        AFFINE sequence in storage order (key[i] = a0 + stride*i) -- true
+        for identifier columns of tables laid out in key order with
+        regular keys (every TPC-H key column). Such joins skip sorting
+        entirely: the matching build row is (key - a0) / stride, verified
+        by one gather (kernel K5)."""
+        if not op.left_keys or len(op.right_keys) != 1:
+            return None
+        e = op.right_keys[0]
+        if not isinstance(e, E.ColRef):
+            return None
+        hit = self._resolve_layout_col(op.right, e.name)
+        if hit is None:
+            return None
+        table, col = hit
+        try:
+            arr = self.catalog[table].data[col]
+        except (KeyError, AttributeError):
+            return None
+        if not isinstance(arr, np.ndarray) or arr.ndim != 1 or len(arr) < 2:
+            return None
+        key = id(arr)
+        hit = Executor._affine_cache.get(key)
+        if hit is not None and hit[0]() is arr:
+            return hit[1]
+        if len(Executor._affine_cache) > 4096:
+            Executor._affine_cache.clear()
+        out = None
+        if np.issubdtype(arr.dtype, np.integer):
+            stride = int(arr[1]) - int(arr[0])
+            if stride > 0:
+                d = np.diff(arr)
+                if (d == stride).all():
+                    out = (int(arr[0]), stride)
+        Executor._affine_cache[key] = (weakref.ref(arr), out)
+        return out
+
+    def _merge_joinable(self, op: JoinOp) -> bool:
+        """True when the join takes the unique-build route (no pair
+        expansion, no capacity): unique build side and one integer-typed
+        key per side (dates, dict codes, ints, decimals)."""
+        if not self._join_build_unique(op):
+            return False
+        if not op.left_keys:  # scalar-subquery cross: constant int key
+            return True
+        if len(op.left_keys) != 1:
+            return False
+        try:
+            lt = infer_type(op.left_keys[0], output_schema(op.left))
+            rt = infer_type(op.right_keys[0], output_schema(op.right))
+        except Exception:
+            return False
+        return (
+            np.issubdtype(lt.storage_np, np.integer)
+            and np.issubdtype(rt.storage_np, np.integer)
+        )
+
+    def _keys_ndv(self, side: LogicalOp, keys) -> float | None:
+        """Product of base-column NDVs for join keys resolvable to scans of
+        `side` (None when any key isn't a plain column or stats are off)."""
+        if self.stats is None:
+            return None
+        amap = {s.alias: s.table for s in self._collect_scans(side)}
+        prod = 1.0
+        for k in keys:
+            if not isinstance(k, E.ColRef) or "." not in k.name:
+                return None
+            a, c = k.name.split(".", 1)
+            tname = amap.get(a)
+            if tname is None:
+                return None
+            ts = self.stats.table_stats(tname)
+            nd = ts.ndv_of(c) if ts is not None else None
+            if nd is None or nd <= 0:
+                return None
+            prod *= nd
+        return prod
+
+    def _build_base_rows(self, node: LogicalOp) -> float | None:
+        """UNFILTERED row count of the base relation a unique-build side
+        reads -- the denominator of the join match-rate estimate."""
+        while isinstance(node, (Filter, Project)):
+            node = node.child
+        if isinstance(node, JoinOp) and node.kind in ("inner", "semi", "anti"):
+            return self._build_base_rows(node.left)
+        if isinstance(node, Scan):
+            try:
+                return float(self.catalog[node.table].nrows or 1)
+            except KeyError:
+                return None
+        return None
+
+    @staticmethod
+    def _is_scalar_relation(node: LogicalOp) -> bool:
+        """True for a guaranteed-1-row relation (grand aggregate, possibly
+        under projections/filters)."""
+        while isinstance(node, (Filter, Project)):
+            node = node.child
+        return isinstance(node, Aggregate) and not node.group_keys
+
+    def _join_build_unique(self, op: JoinOp) -> bool:
+        """True if the build (right) side's join keys cover a unique key of
+        its source: a base table's declared unique key, an Aggregate's full
+        group-key set, or a Distinct's full column set -- seen through
+        Filter/Project (renames followed) and through joins that cannot
+        duplicate probe rows (semi/anti, and inner joins whose own build
+        side is unique)."""
+        if self._is_scalar_relation(op.right):
+            return True
+        names = []
+        for e in op.right_keys:
+            if not isinstance(e, E.ColRef):
+                return False
+            names.append(e.name)
+        node = op.right
+        while True:
+            if isinstance(node, Filter):
+                node = node.child
+            elif isinstance(node, Project):
+                rename = {n: ex for n, ex in node.exprs}
+                nxt = []
+                for n in names:
+                    ex = rename.get(n)
+                    if not isinstance(ex, E.ColRef):
+                        return False
+                    nxt.append(ex.name)
+                names = nxt
+                node = node.child
+            elif isinstance(node, JoinOp) and (
+                node.kind in ("semi", "anti")
+                or (node.kind == "inner" and self._join_build_unique(node))
+            ):
+                node = node.left
+            else:
+                break
+        if isinstance(node, Aggregate):
+            gk = {n for n, _ in node.group_keys}
+            return bool(gk) and gk <= set(names)
+        if isinstance(node, Distinct):
+            cols = set(output_schema(node).names())
+            return cols <= set(names)
+        if isinstance(node, Scan):
+            uks = tuple(self.unique_keys.get(node.table, ()))
+            key_cols = {
+                n.split(".", 1)[1] for n in names
+                if n.startswith(node.alias + ".")
+            }
+            return any(set(uk) <= key_cols for uk in uks)
+        return False
+
+    # ---- clustered-FK segment aggregation -----------------------------
+    def _clustered_agg_spec(self, op: Aggregate):
+        """Match Aggregate directly over an inner PK-FK join whose probe
+        (left) side is a Filter chain over a Scan stored CLUSTERED by the
+        single join key. The join + group-by then collapse into one
+        reduction per build row over its host-precomputed probe range
+        (fk_ranges, kernel K6): no sort, no hash table, no per-probe-row
+        gather.
+
+        Matched shape:
+        - group keys: exprs over the join key and/or build-side columns,
+          one of them the join key itself (each group IS one build row)
+        - aggregates: non-DISTINCT sum/count over probe-side exprs
+        - join: merge-joinable (unique build, single integer key both
+          sides with equal storage types), no residual
+        """
+        if not op.group_keys or op.grouping_sets is not None:
+            return None
+        ji = op.child
+        if (
+            not isinstance(ji, JoinOp)
+            or ji.kind != "inner"
+            or ji.residual is not None
+            or len(ji.left_keys) != 1
+            or not isinstance(ji.left_keys[0], E.ColRef)
+            or not isinstance(ji.right_keys[0], E.ColRef)
+        ):
+            return None
+        if not self._merge_joinable(ji):
+            return None
+        try:
+            lt = infer_type(ji.left_keys[0], output_schema(ji.left))
+            rt = infer_type(ji.right_keys[0], output_schema(ji.right))
+        except Exception:
+            return None
+        if lt.storage_np != rt.storage_np:
+            # the group-key output substitutes the build pk for the probe
+            # fk; a dtype mismatch would change the output column type
+            return None
+        node = ji.left
+        while isinstance(node, Filter):
+            node = node.child
+        if not isinstance(node, Scan):
+            return None
+        base = node
+        fk_name = ji.left_keys[0].name
+        if "." not in fk_name:
+            return None
+        alias, fk_col = fk_name.split(".", 1)
+        if alias != base.alias or not self._monotone_col(base.table, fk_col):
+            return None
+        hit = self._resolve_layout_col(ji.right, ji.right_keys[0].name)
+        if hit is None:
+            return None
+        build_table, pk_col = hit
+        build_names = set(output_schema(ji.right).names())
+        # groups must be 1:1 with build rows: some group key must BE the
+        # join key itself. Keys that are merely functions of the build
+        # side (TPC-H Q10) make groups coarser than build rows.
+        if not any(
+            e == ji.left_keys[0] or e == ji.right_keys[0]
+            for _n, e in op.group_keys
+        ):
+            return None
+        for _name, e in op.group_keys:
+            if not set(E.referenced_columns(e)) <= (build_names | {fk_name}):
+                return None
+        probe_names = set(output_schema(ji.left).names())
+        for _name, fn, arg, distinct in op.aggs:
+            if distinct or fn not in ("sum", "count"):
+                return None
+            if arg is not None and not (
+                set(E.referenced_columns(arg)) <= probe_names
+            ):
+                return None
+        input_alias = f"#fkr:{base.table}.{fk_col}->{build_table}.{pk_col}"
+        return ClusteredAggSpec(
+            ji, base.table, fk_col, fk_name, build_table, pk_col,
+            input_alias,
+        )
+
+    def _emit_clustered_agg(self, op: Aggregate, spec: ClusteredAggSpec,
+                            inputs, emit):
+        """Emit the matched Aggregate-over-join as segment reductions: each
+        live build row with >= 1 joined live probe row becomes a group,
+        its aggregates reduced over its probe range by K6. Exact (no
+        hashing, no capacities, no overflow); NULL arguments skip through
+        their validity, and a sum over an empty or all-NULL group is 0,
+        as in the generic paths."""
+        from ..sql.planner import _substitute
+
+        ji = spec.ji
+        L, lovf = emit(ji.left, inputs)
+        R, rovf = emit(ji.right, inputs)
+        ovf = {**lovf, **rovf}
+        starts, ends = inputs[spec.input_alias]
+        seg_aggs, which = [], []
+        for i, (_name, fn, arg, _d) in enumerate(op.aggs):
+            if arg is None:
+                continue  # count(*) counts joined live rows == cnt
+            v, vv = evaluate(arg, L)
+            if v.dim() == 0:
+                v = v.expand(L.capacity)
+            seg_aggs.append((fn, v.contiguous() if fn == "sum" else None,
+                             vv.contiguous() if vv is not None else None))
+            which.append(i)
+        cnt, res = clustered_segments(starts, ends, L.sel, seg_aggs)
+        seg = dict(zip(which, res))
+        sel = R.sel & (cnt > 0)
+        # group keys evaluate on the build side; the probe fk substitutes
+        # to the build pk (equal on every surviving group by definition)
+        sub = {ji.left_keys[0]: ji.right_keys[0]}
+        cols, valid, dicts = {}, {}, {}
+        for name, e in op.group_keys:
+            e2 = _substitute(e, sub)
+            v, vv = evaluate(e2, R)
+            cols[name] = v
+            if vv is not None:
+                valid[name] = vv
+            if isinstance(e2, E.ColRef) and e2.name in R.dicts:
+                dicts[name] = R.dicts[e2.name]
+        for i, (name, _fn, arg, _d) in enumerate(op.aggs):
+            cols[name] = cnt if arg is None else seg[i]
+        out = ColumnBatch(
+            cols=cols,
+            valid=valid,
+            sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=_agg_schema(op, output_schema(op.child)),
+            dicts=dicts,
+        )
+        return out, ovf
 
     # ---- program construction -----------------------------------------
     def compile(self, plan: LogicalOp, params: PhysicalParams):
@@ -360,7 +923,31 @@ class Executor:
                 )
             input_spec.append((s.alias, s.table, tuple(sorted(cols))))
 
-        overflow_nodes: list[int] = sorted(params.join_cap)
+        # clustered-FK aggregates: re-detect every compile (deterministic
+        # from plan + catalog) and feed the precomputed ranges as inputs
+        params.clustered_aggs.clear()
+        for nid2, op2 in nodes.items():
+            if not isinstance(op2, Aggregate):
+                continue
+            spec = self._clustered_agg_spec(op2)
+            if spec is not None:
+                params.clustered_aggs[nid2] = spec
+                if all(a != spec.input_alias for a, _t, _c in input_spec):
+                    input_spec.append((
+                        spec.input_alias,
+                        spec.probe_table,
+                        (spec.probe_table, spec.fk_col,
+                         spec.build_table, spec.pk_col),
+                    ))
+
+        overflow_nodes: list[int] = sorted(
+            set(params.join_cap) | set(params.topn_cand)
+            | {
+                PACK_GUARD_BASE + nid
+                for nid in params.pack_guard
+                if nid not in params.groupby_nopack
+            }
+        )
 
         def emit(op, inputs):
             return self._emit_node(op, inputs, emit, params, id_of)
@@ -389,6 +976,7 @@ class Executor:
         return run, input_spec, overflow_nodes
 
     def _emit_node(self, op, inputs, emit, params, id_of):
+        nid = id_of[id(op)]
         if isinstance(op, Scan):
             b = inputs[op.alias]
             qschema = Schema(
@@ -417,8 +1005,11 @@ class Executor:
             child, ovf = emit(op.child, inputs)
             return self._project_batch(op, child), ovf
 
+        if isinstance(op, JoinOp):
+            return self._emit_join(op, inputs, emit)
+
         if isinstance(op, Aggregate):
-            return self._emit_aggregate(op, inputs, emit)
+            return self._emit_aggregate(op, nid, inputs, emit, params)
 
         if isinstance(op, Sort):
             child, ovf = emit(op.child, inputs)
@@ -445,7 +1036,133 @@ class Executor:
             )
             return child.with_sel(keep), ovf
 
+        if isinstance(op, TopN):
+            child, ovf = emit(op.child, inputs)
+            cand = params.topn_cand.get(nid)
+            if cand is not None and cand < child.capacity:
+                got = self._topn_candidates(child, op.keys, cand)
+                if got is not None:
+                    mini, over = got
+                    ovf = dict(ovf)
+                    ovf[nid] = over
+                    return (
+                        self._topn_batch(mini, op.keys, op.n, op.offset),
+                        ovf,
+                    )
+            return self._topn_batch(child, op.keys, op.n, op.offset), ovf
+
         raise _not_ported(f"plan node {type(op).__name__}")
+
+    def _topn_candidates(self, child: ColumnBatch, keys, C: int):
+        """EXACT top-k candidate prefilter (kernel K7): the C best rows by
+        the FIRST sort key; any true top-(n+offset) row under the full
+        lexicographic order has a first-key value >= the worst
+        candidate's, so when at most C live rows tie-or-beat that value
+        the candidate set is a superset -- otherwise the tie count rides
+        the overflow channel and the plan retries without the prefilter.
+        None = ineligible (nullable, non-integer, or no key) and the
+        generic sort path runs."""
+        if not keys:
+            return None
+        e0, desc0 = keys[0]
+        v, vv = evaluate(e0, child)
+        if vv is not None or v.dim() != 1:
+            return None
+        if v.dtype.is_floating_point or v.dtype == torch.bool:
+            return None  # float NaNs would outrank everything
+        idx, cnt = topk_candidates(v.contiguous(), child.sel, desc0, C)
+        cols, valid, csel = gather_payload(
+            child.cols, child.valid, idx, child.sel
+        )
+        # guard BOTH clip hazards: boundary ties beyond C, and a LIVE row
+        # whose flipped key equals the dead sentinel being displaced by
+        # dead rows in the index tie-break (it would vanish with cnt <= C)
+        # -- fewer live candidates than min(C, nlive) means something real
+        # was dropped
+        nlive = torch.sum(child.sel, dtype=torch.int64)
+        live_cand = torch.sum(csel, dtype=torch.int64)
+        short = torch.clamp(torch.clamp(nlive, max=C) - live_cand, min=0)
+        over = torch.clamp(cnt - C, min=0) + short
+        mini = ColumnBatch(
+            cols=cols,
+            valid=valid,
+            sel=csel,
+            nrows=live_cand,
+            schema=child.schema,
+            dicts=child.dicts,
+        )
+        return mini, over
+
+    def _topn_batch(self, child: ColumnBatch, keys, n: int,
+                    offset: int) -> ColumnBatch:
+        """Fused ORDER BY + LIMIT: sort for the order (K3), materialize only
+        the top n+offset rows (K4 over a few rows instead of a
+        full-capacity payload permutation). The output keeps global order
+        in its row order."""
+        key_vals, desc = [], []
+        for e, d in keys:
+            v, _ = evaluate(e, child)
+            if v.dim() == 0:
+                v = v.expand(child.capacity)
+            key_vals.append(v.contiguous())
+            desc.append(d)
+        order = sort_indices(key_vals, desc, child.sel)
+        k = n + offset
+        cap2 = min(child.capacity, max(8, -(-k // 8) * 8))
+        take = order[:cap2]
+        pos = torch.arange(cap2, dtype=torch.int64, device=child.device)
+        nlive = torch.sum(child.sel, dtype=torch.int64)
+        sel = (pos >= offset) & (pos < torch.clamp(nlive, max=k))
+        cols, valid, _ = gather_payload(child.cols, child.valid, take)
+        return ColumnBatch(
+            cols=cols, valid=valid, sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=child.schema, dicts=child.dicts,
+        )
+
+    # ---- join emission -------------------------------------------------
+    def _emit_join(self, op: JoinOp, inputs, emit):
+        """Inner join over a unique build side whose single integer key
+        column is affine in storage order: the candidate build row is
+        computed, verified and gathered with its payload in one K5 launch;
+        probe columns pass through untouched. The other join routes raise
+        NotImplementedError naming themselves."""
+        if op.kind != "inner":
+            raise _not_ported(f"{op.kind} join")
+        if not self._merge_joinable(op):
+            raise _not_ported(
+                "inner join by expansion (sort_build_side / expand_join)")
+        aff = self._affine_build_info(op) if op.left_keys else None
+        if aff is None:
+            raise _not_ported("merge_join_unique (non-affine unique build)")
+        left, lovf = emit(op.left, inputs)
+        right, rovf = emit(op.right, inputs)
+        ovf = {**lovf, **rovf}
+        lkey = evaluate(op.left_keys[0], left)[0]
+        rkey = evaluate(op.right_keys[0], right)[0]
+        if lkey.dim() == 0:
+            lkey = lkey.expand(left.capacity)
+        names, vnames = list(right.cols), list(right.valid)
+        payload = [right.cols[n] for n in names] + [
+            right.valid[n] for n in vnames]
+        sel, outs = affine_join(
+            lkey.contiguous(), left.sel, aff[0], aff[1], rkey.contiguous(),
+            right.sel, payload)
+        cols = dict(left.cols)
+        valid = dict(left.valid)
+        cols.update(zip(names, outs[:len(names)]))
+        valid.update(zip(vnames, outs[len(names):]))
+        out = ColumnBatch(
+            cols=cols,
+            valid=valid,
+            sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=_join_schema(left.schema, right.schema),
+            dicts={**left.dicts, **right.dicts},
+        )
+        if op.residual is not None:
+            out = out.with_sel(compile_predicate(op.residual, out))
+        return out, ovf
 
     def _project_batch(self, op: Project, child: ColumnBatch) -> ColumnBatch:
         cols, valid, dicts, fields = {}, {}, {}, []
@@ -476,11 +1193,14 @@ class Executor:
             dicts=dicts,
         )
 
-    def _emit_aggregate(self, op: Aggregate, inputs, emit):
+    def _emit_aggregate(self, op: Aggregate, nid, inputs, emit, params):
         if op.grouping_sets is not None:
             raise _not_ported("grouping sets")
         if any(fn == "approx_ndv" for _n, fn, _a, _d in op.aggs):
             raise _not_ported("approx_ndv")
+        spec = params.clustered_aggs.get(nid)
+        if spec is not None and spec.input_alias in inputs:
+            return self._emit_clustered_agg(op, spec, inputs, emit)
         child, ovf = emit(op.child, inputs)
         dev = child.device
         key_vals, key_valids, domains = [], [], []
@@ -554,8 +1274,65 @@ class Executor:
                 cols[name] = r
             sel = slot_used
         elif op.group_keys:
-            raise _not_ported(
-                "sort-based group-by (key domain beyond the direct path)")
+            # sort-based group-by: K3 order, K4 key gather, K8 reduction;
+            # no hash table, no capacity
+            key_vals = [
+                (v.expand(child.capacity) if v.dim() == 0 else v).contiguous()
+                for v in key_vals
+            ]
+            pack_spec = (
+                params.pack_guard.get(nid)
+                if nid not in params.groupby_nopack else None
+            )
+            if n_nullable:
+                # validity planes don't fit the static pack spec
+                pack_spec = None
+            if pack_spec is not None:
+                # pack all keys into ONE int64 sort key (static bits from
+                # stats/dict domains); a validity counter rides the
+                # overflow channel -- domain drift disables packing and
+                # recompiles rather than mis-grouping
+                pk = torch.zeros(child.capacity, dtype=torch.int64,
+                                 device=dev)
+                invalid = torch.zeros(child.capacity, dtype=torch.bool,
+                                      device=dev)
+                for v, (vmin, bits) in zip(key_vals, pack_spec):
+                    off = v.to(torch.int64) - vmin
+                    invalid = invalid | (off < 0) | (off >= (1 << bits))
+                    pk = (pk << bits) | off.clamp(0, (1 << bits) - 1)
+                ovf = dict(ovf)
+                ovf[PACK_GUARD_BASE + nid] = torch.sum(
+                    invalid & child.sel, dtype=torch.int64)
+                skeys_p, sel, agg_cols, _order = sort_groupby(
+                    [pk], child.sel, agg_ops, agg_vals, agg_masks)
+                # decode the original key columns from the packed bits
+                cols = {}
+                shift = 0
+                for (name, _e), v, (vmin, bits) in zip(
+                    reversed(op.group_keys), reversed(key_vals),
+                    reversed(pack_spec),
+                ):
+                    part = (skeys_p[0] >> shift) & ((1 << bits) - 1)
+                    cols[name] = (part + vmin).to(v.dtype)
+                    shift += bits
+            else:
+                vplanes = [
+                    vv.to(torch.int32) for vv in key_valids
+                    if vv is not None
+                ]
+                skeys, sel, agg_cols, _order = sort_groupby(
+                    key_vals + vplanes, child.sel, agg_ops, agg_vals,
+                    agg_masks)
+                cols = {}
+                for (name, _e), kv in zip(op.group_keys, skeys):
+                    cols[name] = kv
+                vi = len(op.group_keys)
+                for (name, _e), vv in zip(op.group_keys, key_valids):
+                    if vv is not None:
+                        out_valid[name] = skeys[vi].to(torch.bool)
+                        vi += 1
+            for (name, _, _, _), av in zip(op.aggs, agg_cols):
+                cols[name] = av
         else:
             # scalar aggregate: single-row output, per-agg masks; SQL:
             # sum/min/max over ZERO rows is NULL (count is 0)
@@ -616,10 +1393,20 @@ class PreparedPlan:
         )
 
     def _inputs(self):
-        return {
-            alias: self.executor.input_batch(alias, table, cols)
-            for alias, table, cols in self.input_spec
-        }
+        try:
+            return {
+                alias: self.executor.input_batch(alias, table, cols)
+                for alias, table, cols in self.input_spec
+            }
+        except ClusteredPremiseInvalidated:
+            # the probe's clustering dissolved under a cached plan:
+            # recompile (spec re-detection drops the fast path) and
+            # assemble again
+            self.recompile()
+            return {
+                alias: self.executor.input_batch(alias, table, cols)
+                for alias, table, cols in self.input_spec
+            }
 
     def call(self, qparams):
         return self.program(self._inputs(), qparams)
@@ -737,6 +1524,10 @@ class DeviceResult:
         self._sync()
         names = list(names) if names is not None else self._out.schema.names()
         return batch_rows_storage(self._out, names)
+
+
+def _join_schema(ls: Schema, rs: Schema) -> Schema:
+    return Schema(tuple(list(ls.fields) + list(rs.fields)))
 
 
 def _agg_schema(op: Aggregate, child_schema: Schema) -> Schema:

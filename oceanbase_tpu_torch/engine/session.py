@@ -110,8 +110,8 @@ class Session:
         self.stats = StatsManager(catalog)
         self.planner = Planner(catalog, stats=self.stats,
                                unique_keys=unique_keys)
-        self.executor = Executor(catalog, stats=self.stats,
-                                 device=self.device)
+        self.executor = Executor(catalog, unique_keys=unique_keys,
+                                 stats=self.stats, device=self.device)
         self.plan_cache = PlanCache()
         # phase breakdown of the LAST statement (seconds)
         self.last_phases: dict = {}

@@ -258,6 +258,14 @@ def _rescale_decimal(vals, from_scale: int, to_scale: int):
     return torch.where(vals >= 0, (vals + half) // f, -((-vals + half) // f))
 
 
+def _div_scale(v: torch.Tensor, factor) -> torch.Tensor:
+    """v / factor as an IEEE division on every device. CUDA divides by a
+    host scalar as a multiply by its reciprocal, which can land one ulp
+    off the quotient; a divisor on v's own device is divided exactly, as
+    on the CPU."""
+    return v / torch.full((), factor, dtype=v.dtype, device=v.device)
+
+
 def _literal_as(value, target: DataType, batch: ColumnBatch, col_name: str | None):
     """Materialize a python literal in the physical domain of `target`
     (bind_value is the single source of truth, so inline and bound
@@ -402,11 +410,11 @@ def _numeric_align(e_left: Expr, e_right: Expr, batch: ColumnBatch):
             rv.dtype if rt.is_float else torch.float32,
         )
         if lt.is_decimal:
-            lv = lv.to(tgt) / lt.decimal_factor
+            lv = _div_scale(lv.to(tgt), lt.decimal_factor)
         else:
             lv = lv.to(tgt)
         if rt.is_decimal:
-            rv = rv.to(tgt) / rt.decimal_factor
+            rv = _div_scale(rv.to(tgt), rt.decimal_factor)
         else:
             rv = rv.to(tgt)
         return lv, rv, lvalid, rvalid, "float", 0
@@ -473,11 +481,11 @@ def _numeric_align_float(e_left: Expr, e_right: Expr, batch: ColumnBatch):
     tgt = torch.float64 if (lt.kind is TypeKind.FLOAT64 or rt.kind is TypeKind.FLOAT64
                             or not (lt.is_float or rt.is_float)) else torch.float32
     if lt.is_decimal:
-        lv = lv.to(tgt) / lt.decimal_factor
+        lv = _div_scale(lv.to(tgt), lt.decimal_factor)
     else:
         lv = lv.to(tgt)
     if rt.is_decimal:
-        rv = rv.to(tgt) / rt.decimal_factor
+        rv = _div_scale(rv.to(tgt), rt.decimal_factor)
     else:
         rv = rv.to(tgt)
     return lv, rv, lvalid, rvalid, "float", 0
@@ -645,7 +653,7 @@ def _eval_cast(e: Cast, batch: ColumnBatch):
     if src_t.is_decimal and dst.is_decimal:
         return _rescale_decimal(v, src_t.scale, dst.scale).to(dst_t), valid
     if src_t.is_decimal and dst.is_float:
-        return (v.to(dst_t) / src_t.decimal_factor), valid
+        return _div_scale(v.to(dst_t), src_t.decimal_factor), valid
     if src_t.is_decimal and dst.is_integer:
         return _rescale_decimal(v, src_t.scale, 0).to(dst_t), valid
     if dst.is_decimal:

@@ -5,6 +5,10 @@ K1 `scalar_reduce`     masked count/sum/min/max   (csrc/k1_scalar_aggregate.cu)
 K2 `groupby_slots`     direct-addressed group-by  (csrc/k2_groupby_direct.cu)
 K3 `sort_order`        stable multi-key order     (csrc/k3_radix_sort.cu)
 K4 `gather_columns`    multi-column row gather    (csrc/k4_gather_rows.cu)
+K5 `affine_join`       direct-address join probe  (csrc/k5_affine_join.cu)
+K6 `clustered_segments` per-range count and sums  (csrc/k6_clustered_agg.cu)
+K7 `topk_candidates`   exact top-k of a masked key (csrc/k7_topk_candidates.cu)
+K8 `segmented_reduce`  reduce-by-key, sorted rows (csrc/k8_segmented_reduce.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -36,6 +40,10 @@ KERNEL_NAMES = (
     "K2_groupby_direct",
     "K3_radix_sort",
     "K4_gather_rows",
+    "K5_affine_join",
+    "K6_clustered_agg",
+    "K7_topk_candidates",
+    "K8_segmented_reduce",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -54,6 +62,10 @@ SOURCES = (
     "k2_groupby_direct.cu",
     "k3_radix_sort.cu",
     "k4_gather_rows.cu",
+    "k5_affine_join.cu",
+    "k6_clustered_agg.cu",
+    "k7_topk_candidates.cu",
+    "k8_segmented_reduce.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -155,10 +167,23 @@ def _load():
         lib.ob_k3_pass.argtypes = [P, P, L, I, P, P, I, P, P, P]
         lib.ob_k3_tile_rows.argtypes = []
         lib.ob_k4_gather.argtypes = [P, L, L, I, P, P, P, P, I, P]
+        lib.ob_k5_affine.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P,
+                                     P, P, I, P]
+        lib.ob_k6_segments.argtypes = [P, P, L, P, P, I, P, P, P, P, P, I, P]
+        lib.ob_k7_topk.argtypes = [P, I, P, I, L, L, P, P, P, P, P, I, P, I,
+                                   P]
+        lib.ob_k7_tile_rows.argtypes = []
+        lib.ob_k7_state_bytes.argtypes = []
+        lib.ob_k8_segreduce.argtypes = [I, P, P, P, P, L, I, P, P, P, P, P,
+                                        P, P, P, P, P, P, P, I, P]
+        lib.ob_k8_tile_rows.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
-                   lib.ob_k3_tile_rows, lib.ob_k4_gather):
+                   lib.ob_k3_tile_rows, lib.ob_k4_gather, lib.ob_k5_affine,
+                   lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_tile_rows,
+                   lib.ob_k7_state_bytes, lib.ob_k8_segreduce,
+                   lib.ob_k8_tile_rows):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -559,3 +584,445 @@ def gather_columns(cols, idx: torch.Tensor):
             _check(rc, "K4_gather_rows")
     LAUNCHES["K4_gather_rows"] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K5: affine (direct-address) join probe
+# ---------------------------------------------------------------------------
+
+K5_MAX_COLS = 48
+_INT_DTYPES = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.int32,
+               torch.int64)
+
+
+def affine_join_plain(probe_key, probe_sel, a0: int, stride: int,
+                      build_key, build_sel, payload):
+    """Plain version of K5 (executor._affine_candidates + the verify
+    gather): (sel, [column[candc] for each payload column]), with 0 in
+    every payload column at dead probe rows."""
+    nb = int(build_key.shape[0])
+    pk = probe_key.to(torch.int64)
+    off = pk - a0
+    cand = torch.div(off, stride, rounding_mode="floor")
+    in_range = (off >= 0) & (torch.remainder(off, stride) == 0) & (cand < nb)
+    candc = cand.clamp(0, nb - 1)
+    sel = (probe_sel & in_range
+           & (build_key.to(torch.int64)[candc] == pk) & build_sel[candc])
+    return sel, [torch.where(probe_sel, c[candc],
+                             torch.zeros((), dtype=c.dtype, device=c.device))
+                 for c in payload]
+
+
+def affine_join(probe_key, probe_sel, a0: int, stride: int, build_key,
+                build_sel, payload):
+    """K5: the affine join of probe rows against a build side whose key
+    column is a0 + stride * row. Returns (sel, gathered payload columns)."""
+    payload = list(payload)
+    if not _on_cuda(probe_key, probe_sel, build_key, build_sel, *payload):
+        return affine_join_plain(probe_key, probe_sel, a0, stride,
+                                 build_key, build_sel, payload)
+    n = int(probe_key.shape[0])
+    nb = int(build_key.shape[0])
+    _vector(probe_key, n, "K5 probe key")
+    _vector(probe_sel, n, "K5 probe sel")
+    _vector(build_key, nb, "K5 build key")
+    _vector(build_sel, nb, "K5 build sel")
+    for k in (probe_key, build_key):
+        if k.dtype not in _INT_DTYPES:
+            raise TypeError(f"K5 keys must be integers, got {k.dtype}")
+    if probe_sel.dtype != torch.bool or build_sel.dtype != torch.bool:
+        raise TypeError("K5 sel masks must be bool")
+    if stride <= 0 or nb < 1:
+        raise ValueError(f"K5 needs stride > 0 and a build side, got "
+                         f"stride {stride}, {nb} rows")
+    if len(payload) > K5_MAX_COLS:
+        raise ValueError(f"K5 takes at most {K5_MAX_COLS} payload columns")
+    for c in payload:
+        _vector(c, nb, "K5 payload column")
+        if c.element_size() not in _WIDTHS:
+            raise TypeError(f"K5 column width {c.element_size()}")
+    dev = probe_key.device
+    sel = torch.empty(n, dtype=torch.bool, device=dev)
+    outs = [torch.empty(n, dtype=c.dtype, device=dev) for c in payload]
+    if n == 0:
+        return sel, outs
+    lib = _load()
+    with torch.cuda.device(dev):
+        nblk = _blocks(dev, n, 256 * 4)
+        stream = _stream(dev)
+        nc = len(payload)
+        src = (ctypes.c_void_p * max(nc, 1))(*[c.data_ptr() for c in payload])
+        dst = (ctypes.c_void_p * max(nc, 1))(*[o.data_ptr() for o in outs])
+        width = (ctypes.c_int * max(nc, 1))(*[c.element_size()
+                                              for c in payload])
+        rc = lib.ob_k5_affine(
+            probe_key.data_ptr(), DTYPE_CODE[probe_key.dtype],
+            probe_sel.data_ptr(), n, int(a0), int(stride), nb,
+            build_key.data_ptr(), DTYPE_CODE[build_key.dtype],
+            build_sel.data_ptr(), sel.data_ptr(), nc, src, dst, width, nblk,
+            stream)
+        _check(rc, "K5_affine_join")
+    LAUNCHES["K5_affine_join"] += 1
+    return sel, outs
+
+
+# ---------------------------------------------------------------------------
+# K6: clustered-FK segment aggregation
+# ---------------------------------------------------------------------------
+
+K6_MAX_AGGS = 16
+
+
+def _range_sum_plain(x, starts, ends):
+    """The reference's per-range sum: cumsum differences at the bounds."""
+    n = int(x.shape[0])
+    c = torch.cumsum(x, 0)
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    hi = torch.where(ends > 0, c[(ends.to(torch.int64) - 1).clamp(0, n - 1)],
+                     zero)
+    lo = torch.where(starts > 0,
+                     c[(starts.to(torch.int64) - 1).clamp(0, n - 1)], zero)
+    return hi - lo
+
+
+def clustered_segments_plain(starts, ends, sel, aggs):
+    """Plain version of K6 (executor._emit_clustered_agg's cumsums and
+    their differences at [starts, ends))."""
+    cnt = _range_sum_plain(sel.to(torch.int64), starts, ends)
+    outs = []
+    for op, v, m in aggs:
+        am = sel if m is None else sel & m
+        if op == "count":
+            outs.append(_range_sum_plain(am.to(torch.int64), starts, ends))
+        else:
+            acc = _acc_dtype("sum", v.dtype)
+            outs.append(_range_sum_plain(
+                torch.where(am, v.to(acc), torch.zeros((), dtype=acc,
+                                                       device=v.device)),
+                starts, ends))
+    return cnt, outs
+
+
+def clustered_segments(starts, ends, sel, aggs):
+    """K6: per build row i, the count of live probe rows in
+    [starts[i], ends[i]) and, for each (op, values|None, mask|None) in
+    `aggs` (op count or sum), that aggregate over the range's live rows
+    whose mask is set. Returns (cnt int64, [per-aggregate results])."""
+    aggs = list(aggs)
+    if not _on_cuda(starts, ends, sel, *(v for _, v, _ in aggs),
+                    *(m for _, _, m in aggs)):
+        return clustered_segments_plain(starts, ends, sel, aggs)
+    nb = int(starts.shape[0])
+    n = int(sel.shape[0])
+    _vector(starts, nb, "K6 starts")
+    _vector(ends, nb, "K6 ends")
+    _vector(sel, n, "K6 sel")
+    if starts.dtype != torch.int32 or ends.dtype != torch.int32:
+        raise TypeError("K6 ranges must be int32")
+    if sel.dtype != torch.bool:
+        raise TypeError("K6 sel must be bool")
+    if len(aggs) > K6_MAX_AGGS:
+        raise ValueError(f"K6 takes at most {K6_MAX_AGGS} aggregates")
+    for op, v, m in aggs:
+        if op not in ("count", "sum"):
+            raise NotImplementedError(f"K6 aggregate {op}")
+        if op == "sum":
+            _vector(v, n, "K6 values")
+        if m is not None:
+            _vector(m, n, "K6 mask")
+            if m.dtype != torch.bool:
+                raise TypeError("K6 masks must be bool")
+    dev = sel.device
+    cnt = torch.empty(nb, dtype=torch.int64, device=dev)
+    raw = []
+    for op, v, _m in aggs:
+        fl = op == "sum" and v.dtype.is_floating_point
+        raw.append(torch.empty(nb, dtype=torch.float64 if fl else torch.int64,
+                               device=dev))
+    if nb == 0:
+        return cnt, [r for r in raw]
+    lib = _load()
+    with torch.cuda.device(dev):
+        nblk = _blocks(dev, nb, 256)
+        stream = _stream(dev)
+        na = len(aggs)
+        k = max(na, 1)
+        vals = (ctypes.c_void_p * k)(*[
+            v.data_ptr() if op == "sum" else None for op, v, _m in aggs])
+        masks = (ctypes.c_void_p * k)(*[
+            m.data_ptr() if m is not None else None for _op, _v, m in aggs])
+        outs = (ctypes.c_void_p * k)(*[r.data_ptr() for r in raw])
+        dts = (ctypes.c_int * k)(*[
+            DTYPE_CODE[v.dtype] if op == "sum" else 0 for op, v, _m in aggs])
+        isf = (ctypes.c_int * k)(*[
+            1 if r.dtype == torch.float64 else 0 for r in raw])
+        rc = lib.ob_k6_segments(
+            starts.data_ptr(), ends.data_ptr(), nb, sel.data_ptr(),
+            cnt.data_ptr(), na, vals, masks, outs, dts, isf, nblk, stream)
+        _check(rc, "K6_clustered_agg")
+    res = []
+    for (op, v, _m), r in zip(aggs, raw):
+        res.append(r.to(v.dtype) if r.dtype == torch.float64 else r)
+    LAUNCHES["K6_clustered_agg"] += 1
+    return cnt, res
+
+
+# ---------------------------------------------------------------------------
+# K7: exact top-k candidates
+# ---------------------------------------------------------------------------
+
+_I64_MIN = -(2**63)
+
+
+def _topk_masked(key, sel, desc: bool):
+    flip = key.to(torch.int64)
+    if not desc:
+        flip = ~flip  # exact order reversal, no int64-min overflow
+    return torch.where(sel, flip, torch.full((), _I64_MIN, dtype=torch.int64,
+                                             device=key.device))
+
+
+def topk_candidates_plain(key, sel, desc: bool, c: int):
+    """Plain version of K7: a stable descending sort of the masked key, its
+    first c rows (lax.top_k's order: ties by lower index), and the count
+    of live rows at or above the c-th value."""
+    masked = _topk_masked(key, sel, desc)
+    idx = torch.sort(masked, descending=True, stable=True).indices[:c]
+    kth = masked[idx[c - 1]]
+    cnt = torch.sum((masked >= kth) & sel, dtype=torch.int64)
+    return idx.to(torch.int32), cnt
+
+
+def topk_candidates(key, sel, desc: bool, c: int):
+    """K7: (int32 [c] row indices of the c largest of
+    where(sel, key or ~key, INT64_MIN), value descending and ties by lower
+    index; the 0-d int64 count of live rows whose value is >= the c-th)."""
+    if not _on_cuda(key, sel):
+        return topk_candidates_plain(key, sel, desc, c)
+    n = int(key.shape[0])
+    _vector(key, n, "K7 key")
+    _vector(sel, n, "K7 sel")
+    if key.dtype not in _INT_DTYPES or key.dtype == torch.bool:
+        raise TypeError(f"K7 key must be an integer column, got {key.dtype}")
+    if sel.dtype != torch.bool:
+        raise TypeError("K7 sel must be bool")
+    if not 1 <= c <= n:
+        raise ValueError(f"K7 needs 1 <= c <= rows, got c {c}, {n} rows")
+    if n >= 2**31:
+        raise ValueError("K7 takes at most 2^31 - 1 rows")
+    lib = _load()
+    dev = key.device
+    with torch.cuda.device(dev):
+        tile = lib.ob_k7_tile_rows()
+        ntiles = -(-n // tile)
+        out = torch.empty(c, dtype=torch.int32, device=dev)
+        state = torch.empty(-(-lib.ob_k7_state_bytes() // 8),
+                            dtype=torch.int64, device=dev)
+        hist = torch.empty(256, dtype=torch.int64, device=dev)
+        tiles = torch.empty((2, ntiles), dtype=torch.int32, device=dev)
+        cand = torch.empty(c, dtype=torch.int32, device=dev)
+        rc = lib.ob_k7_topk(
+            key.data_ptr(), DTYPE_CODE[key.dtype], sel.data_ptr(),
+            int(bool(desc)), n, c, out.data_ptr(), state.data_ptr(),
+            hist.data_ptr(), tiles[0].data_ptr(), tiles[1].data_ptr(),
+            ntiles, cand.data_ptr(), _blocks(dev, n, 256 * 8), _stream(dev))
+        _check(rc, "K7_topk_candidates")
+    LAUNCHES["K7_topk_candidates"] += 1
+    # K7State: prefix, himask, need, cnt, ngt (int64 each)
+    return out, state[3]
+
+
+# ---------------------------------------------------------------------------
+# K8: segmented reduce-by-key over sorted rows
+# ---------------------------------------------------------------------------
+
+K8_MAX_KEYS = 16
+K8_MAX_AGGS = 16
+
+
+def _segreduce_dtype(op: str, v) -> torch.dtype:
+    if op == "count":
+        return torch.int64
+    if op == "sum":
+        return _acc_dtype("sum", v.dtype)
+    return v.dtype
+
+
+# The segmented scans of the reference's ops/window.py (:31 boundaries,
+# :43 segment_starts, :49 peer_ends, :60 segmented_cumsum, :67
+# segmented_scan_minmax) that K8's plain version runs on; ops/window.py
+# exports them to the operators.
+def boundaries(sorted_keys: list[torch.Tensor]) -> torch.Tensor:
+    """True where any key column differs from the previous row (or row 0)."""
+    if not sorted_keys:
+        return torch.zeros(0, dtype=torch.bool)
+    n = int(sorted_keys[0].shape[0])
+    new = torch.zeros(n, dtype=torch.bool, device=sorted_keys[0].device)
+    if n:
+        new[0] = True
+    for k in sorted_keys:
+        new[1:] |= k[1:] != k[:-1]
+    return new
+
+
+def segment_starts(new_seg: torch.Tensor) -> torch.Tensor:
+    """Index of the segment's first row, per row (int64)."""
+    idx = torch.arange(new_seg.shape[0], dtype=torch.int64,
+                       device=new_seg.device)
+    marked = torch.where(new_seg, idx, torch.zeros_like(idx))
+    return torch.cummax(marked, 0).values
+
+
+def peer_ends(new_peer: torch.Tensor) -> torch.Tensor:
+    """Index of the peer group's last row, per row (int64)."""
+    n = int(new_peer.shape[0])
+    idx = torch.arange(n, dtype=torch.int64, device=new_peer.device)
+    arr = torch.where(new_peer, idx, torch.full_like(idx, n))
+    suffix_min = torch.flip(torch.cummin(torch.flip(arr, [0]), 0).values,
+                            [0])
+    after = torch.cat([suffix_min[1:], torch.full_like(idx[:1], n)])
+    return after - 1
+
+
+def segmented_cumsum(values: torch.Tensor,
+                     seg_start: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum within each segment. `values` must already be
+    masked (dead/NULL rows contribute 0)."""
+    c = torch.cumsum(values, 0)
+    return c - c[seg_start] + values[seg_start]
+
+
+def segmented_scan_minmax(values: torch.Tensor, new_seg: torch.Tensor,
+                          is_min: bool) -> torch.Tensor:
+    """Inclusive segmented running min/max (NaN propagating, as jnp's
+    minimum/maximum); masked rows must carry the identity. A doubling
+    scan over (flag, value) pairs, like lax.associative_scan's."""
+    v = values.clone()
+    f = new_seg.clone()
+    n = int(v.shape[0])
+    comb = torch.minimum if is_min else torch.maximum
+    off = 1
+    while off < n:
+        nv = torch.where(f[off:], v[off:], comb(v[:-off], v[off:]))
+        nf = f[off:] | f[:-off]
+        v = torch.cat([v[:off], nv])
+        f = torch.cat([f[:off], nf])
+        off *= 2
+    return v
+
+
+def segmented_reduce_plain(skeys, ssel, order, aggs):
+    """Plain version of K8 (the reduction half of ops/hashagg.py
+    sort_groupby on the ops/window.py scans): segment starts where any
+    sorted key or the live flag changes; each aggregate's segment total at
+    the first row of each live segment, 0 elsewhere; sel = start & live."""
+    new_seg = boundaries(list(skeys) + [ssel])
+    seg_start = segment_starts(new_seg)
+    seg_end = peer_ends(new_seg)
+    o = order.to(torch.int64)
+    outs = []
+    for op, v, m in aggs:
+        vm = ssel if m is None else ssel & m[o]
+        dt = _segreduce_dtype(op, v)
+        zero = torch.zeros((), dtype=dt, device=ssel.device)
+        if op == "count":
+            run = segmented_cumsum(vm.to(torch.int64), seg_start)
+        elif op == "sum":
+            run = segmented_cumsum(torch.where(vm, v[o].to(dt), zero),
+                                   seg_start)
+        elif op in ("min", "max"):
+            ident = torch.full((), _identity(op, v.dtype), dtype=v.dtype,
+                               device=v.device)
+            run = segmented_scan_minmax(torch.where(vm, v[o], ident),
+                                        new_seg, op == "min")
+        else:
+            raise NotImplementedError(op)
+        outs.append(torch.where(new_seg & ssel, run[seg_end], zero))
+    return new_seg & ssel, outs
+
+
+def segmented_reduce(skeys, ssel, order, aggs):
+    """K8: over rows in sorted order (`skeys` the sorted key columns,
+    `ssel` the sorted live flags, `order` the sort order that maps sorted
+    positions to value rows), every (op, values|None, mask|None) in `aggs`
+    reduced per segment of equal keys, at the segment's first row.
+    Returns (sel = segment start & live, [per-aggregate results])."""
+    skeys = list(skeys)
+    aggs = list(aggs)
+    if not _on_cuda(ssel, order, *skeys, *(v for _, v, _ in aggs),
+                    *(m for _, _, m in aggs)):
+        return segmented_reduce_plain(skeys, ssel, order, aggs)
+    n = int(ssel.shape[0])
+    _vector(ssel, n, "K8 sorted sel")
+    _vector(order, n, "K8 order")
+    if ssel.dtype != torch.bool or order.dtype != torch.int32:
+        raise TypeError("K8 takes a bool sorted sel and an int32 order")
+    if len(skeys) > K8_MAX_KEYS:
+        raise ValueError(f"K8 takes at most {K8_MAX_KEYS} keys")
+    if len(aggs) > K8_MAX_AGGS:
+        raise ValueError(f"K8 takes at most {K8_MAX_AGGS} aggregates")
+    for k in skeys:
+        _vector(k, n, "K8 sorted key")
+    for op, v, m in aggs:
+        if op not in AGG_CODE:
+            raise NotImplementedError(op)
+        if op != "count":
+            _vector(v, n, "K8 values")
+        if m is not None:
+            _vector(m, n, "K8 mask")
+            if m.dtype != torch.bool:
+                raise TypeError("K8 masks must be bool")
+    dev = ssel.device
+    sel = torch.empty(n, dtype=torch.bool, device=dev)
+    raw = []
+    for op, v, _m in aggs:
+        fl = op != "count" and v.dtype.is_floating_point
+        raw.append(torch.empty(n, dtype=torch.float64 if fl else torch.int64,
+                               device=dev))
+    if n == 0:
+        return sel, [r.to(_segreduce_dtype(op, v))
+                     for (op, v, _m), r in zip(aggs, raw)]
+    lib = _load()
+    with torch.cuda.device(dev):
+        tile = lib.ob_k8_tile_rows()
+        ntiles = -(-n // tile)
+        stream = _stream(dev)
+        tile_has = torch.empty(ntiles, dtype=torch.int32, device=dev)
+        last_start = torch.empty(ntiles, dtype=torch.int64, device=dev)
+        first_flag = torch.empty(ntiles, dtype=torch.uint8, device=dev)
+        nk = len(skeys)
+        keys = (ctypes.c_void_p * max(nk, 1))(*[k.data_ptr() for k in skeys])
+        kdts = (ctypes.c_int * max(nk, 1))(*[DTYPE_CODE[k.dtype]
+                                             for k in skeys])
+        na = len(aggs)
+        k = max(na, 1)
+        carries = [torch.empty(ntiles, dtype=r.dtype, device=dev) for r in raw]
+        ops = (ctypes.c_int * k)(*[AGG_CODE[op] for op, _v, _m in aggs])
+        vals = (ctypes.c_void_p * k)(*[
+            v.data_ptr() if op != "count" else None for op, v, _m in aggs])
+        vdts = (ctypes.c_int * k)(*[
+            DTYPE_CODE[v.dtype] if op != "count" else 0
+            for op, v, _m in aggs])
+        masks = (ctypes.c_void_p * k)(*[
+            m.data_ptr() if m is not None else None for _op, _v, m in aggs])
+        outs = (ctypes.c_void_p * k)(*[r.data_ptr() for r in raw])
+        carr = (ctypes.c_void_p * k)(*[t.data_ptr() for t in carries])
+        isf = (ctypes.c_int * k)(*[
+            1 if r.dtype == torch.float64 else 0 for r in raw])
+        idents = (ctypes.c_longlong * k)()
+        for j, (op, v, _m) in enumerate(aggs):
+            idv = _identity(op, v.dtype if op != "count" else torch.int64)
+            idents[j] = (struct.unpack("<q", struct.pack("<d", idv))[0]
+                         if isf[j] else int(idv))
+        rc = lib.ob_k8_segreduce(
+            nk, keys, kdts, ssel.data_ptr(), order.data_ptr(), n, na, ops,
+            vals, vdts, masks, outs, carr, isf, idents, sel.data_ptr(),
+            tile_has.data_ptr(), last_start.data_ptr(), first_flag.data_ptr(),
+            ntiles, stream)
+        _check(rc, "K8_segmented_reduce")
+    res = []
+    for (op, v, _m), r in zip(aggs, raw):
+        dt = _segreduce_dtype(op, v)
+        res.append(r if r.dtype == dt else r.to(dt))
+    LAUNCHES["K8_segmented_reduce"] += 1
+    return sel, res

@@ -1,16 +1,23 @@
 """Aggregation operators over the port's kernels.
 
 Counterpart of `oceanbase_tpu/ops/hashagg.py` for the ungrouped path
-(`scalar_aggregate`, kernel K1) and the direct-addressed group-by
-(`groupby_direct`, kernel K2). The sort-based and hash group-bys are not
-ported yet.
+(`scalar_aggregate`, kernel K1), the direct-addressed group-by
+(`groupby_direct`, kernel K2) and the sort-based group-by (`sort_groupby`:
+the order from K3, the sorted keys through K4, the segmented reduction
+K8). The hash group-by and DISTINCT masks are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import groupby_slots, scalar_reduce
+from ..kernels import (
+    gather_columns,
+    groupby_slots,
+    scalar_reduce,
+    segmented_reduce,
+)
+from .sort import sort_indices
 
 
 def scalar_aggregate(mask: torch.Tensor, agg_ops: list[str],
@@ -43,3 +50,26 @@ def groupby_direct(packed_keys: torch.Tensor, domain: int,
     ]
     res = groupby_slots(packed_keys, domain, specs)
     return res[0] > 0, res[1:]
+
+
+def sort_groupby(key_cols: list[torch.Tensor], mask: torch.Tensor,
+                 agg_ops: list[str], agg_values: list,
+                 agg_masks: list | None = None):
+    """Sort-based group-by for unbounded key domains: one stable sort on
+    (dead flag, keys..., row) (K3), the key columns and the live flag in
+    sorted order (K4), then every aggregate reduced per run of equal keys
+    (K8). The output reuses the input capacity with one live row per group
+    at its segment start, in sorted key order.
+
+    Returns (group_keys [N] each, sel [N] bool, aggs [N] each, order [N]
+    int32). agg_masks[i] (optional) restricts which rows feed aggregate i;
+    rows outside `mask` never contribute."""
+    order = sort_indices(list(key_cols), [False] * len(key_cols), mask)
+    gathered = gather_columns(list(key_cols) + [mask], order)
+    skeys, ssel = gathered[:-1], gathered[-1]
+    masks = agg_masks if agg_masks is not None else [None] * len(agg_ops)
+    sel, aggs = segmented_reduce(skeys, ssel, order, [
+        (op, None if op == "count" else v, m)
+        for op, v, m in zip(agg_ops, agg_values, masks)
+    ])
+    return skeys, sel, aggs, order

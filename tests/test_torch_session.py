@@ -1,7 +1,8 @@
-"""The slice end to end: SQL text through the JAX Session and the torch
+"""The port end to end: SQL text through the JAX Session and the torch
 port's Session (on the CPU, plain kernel versions) over the same TPC-H
-data at SF 0.01, plus the plan cache's text tier and the root-compaction
-overflow retry.
+data at SF 0.01, plus the plan cache's text tier, the overflow retries
+(root compaction, the top-k prefilter, the pack guard), the clustered-FK
+route, and the int64 numpy oracles of the join statements.
 
 Integers, scaled decimals, dates, dictionary strings, counts and row order
 must match exactly; float64 columns (the AVGs) compare at rel 1e-12.
@@ -10,10 +11,12 @@ must match exactly; float64 columns (the AVGs) compare at rel 1e-12.
 import numpy as np
 import pytest
 
+from oceanbase_tpu.engine.executor import PACK_GUARD_BASE as J_PACK
 from oceanbase_tpu.engine.executor import ROOT_COMPACT as J_ROOT
 from oceanbase_tpu.engine.session import Session as JSession
 from oceanbase_tpu.models.tpch import datagen as JD
 from oceanbase_tpu.sql import parser as JP
+from oceanbase_tpu_torch.engine.executor import PACK_GUARD_BASE as T_PACK
 from oceanbase_tpu_torch.engine.executor import ROOT_COMPACT as T_ROOT
 from oceanbase_tpu_torch.engine.session import Session as TSession
 from oceanbase_tpu_torch.models.tpch import datagen as TD
@@ -43,6 +46,34 @@ STATEMENTS = {
     "filter_sort_strings": """select l_returnflag, l_shipmode, l_orderkey
         from lineitem where l_shipmode = 'AIR' and l_quantity > 49
         order by l_returnflag desc, l_orderkey desc, l_linenumber""",
+    # the join slice: affine joins (K5), clustered-FK aggregation (K6),
+    # top-k candidates (K7), the sort group-by (K3 + K4 + K8)
+    "q3": TS.QUERIES[3],
+    "q14": TS.QUERIES[14],
+    "q10": TS.QUERIES[10],
+    "q7": TS.QUERIES[7],
+    "q8": TS.QUERIES[8],
+    "q19": TS.QUERIES[19],
+    "affine_filtered_build": """select p_brand, count(*), sum(l_extendedprice),
+        min(p_size) from lineitem, part
+        where l_partkey = p_partkey and p_size < 10 and l_quantity < 5
+        group by p_brand order by p_brand""",
+    "clustered_count_col": """select l_orderkey, o_orderdate, count(*),
+        count(case when l_quantity > 2500 then l_tax end), sum(l_quantity)
+        from lineitem, orders
+        where l_orderkey = o_orderkey and o_orderdate < date '1992-03-01'
+        group by l_orderkey, o_orderdate order by l_orderkey limit 15""",
+    "tie_topn": """select l_orderkey, l_linenumber, l_quantity from lineitem
+        order by l_quantity desc limit 5""",
+    "sort_groupby_packed": """select l_suppkey, l_returnflag, count(*),
+        sum(l_quantity), min(l_discount), max(l_tax) from lineitem
+        where l_shipdate < date '1992-06-01'
+        group by l_suppkey, l_returnflag order by l_suppkey, l_returnflag""",
+    "sort_groupby_three_keys": """select o_orderpriority, o_orderstatus,
+        extract(year from o_orderdate) as y, count(*), max(o_totalprice),
+        min(o_custkey) from orders where o_orderdate < date '1993-01-01'
+        group by o_orderpriority, o_orderstatus, y
+        order by o_orderpriority, o_orderstatus, y""",
 }
 
 
@@ -161,11 +192,17 @@ def test_overflow_retry_through_the_lazy_cursor(sessions):
 
 def test_unported_nodes_raise_by_name(sessions):
     _, ts, _ = sessions
-    with pytest.raises(NotImplementedError, match="TopN"):
-        ts.sql(TS.QUERIES[3])
-    with pytest.raises(NotImplementedError, match="JoinOp"):
-        ts.sql("select count(*) from orders, lineitem "
-               "where o_orderkey = l_orderkey")
+    with pytest.raises(NotImplementedError, match="semi join"):
+        ts.sql(TS.QUERIES[4])
+    with pytest.raises(NotImplementedError, match="left join"):
+        ts.sql(TS.QUERIES[13])
+    with pytest.raises(NotImplementedError, match="merge_join_unique"):
+        ts.sql(TS.QUERIES[2])
+    with pytest.raises(NotImplementedError, match="expand_join"):
+        ts.sql(TS.QUERIES[5])
+    with pytest.raises(NotImplementedError, match="Window"):
+        ts.sql("select l_orderkey, row_number() over (order by l_quantity) "
+               "from lineitem")
 
 
 def test_run_host_matches_lazy_cursor(sessions):
@@ -180,3 +217,131 @@ def test_run_host_matches_lazy_cursor(sessions):
     want = js.sql(text)
     got = list(zip(*[host[n] for n in schema.names()]))
     _rows_equal(want.rows(), got, "run_host")
+
+
+ORACLES = {
+    "q3": (3, TQ.q3_numpy),
+    "q14": (14, TQ.q14_numpy),
+    "q10": (10, TQ.q10_numpy),
+    "q7": (7, TQ.q7_numpy),
+    "q8": (8, TQ.q8_numpy),
+    "q19": (19, TQ.q19_numpy),
+}
+
+
+@pytest.mark.parametrize("name", list(ORACLES))
+def test_join_oracles_equal_jax(sessions, name):
+    """Each int64 oracle equals the JAX Session's result: scaled decimals,
+    dates and dictionary codes exactly, a ratio at rel 1e-12."""
+    from oceanbase_tpu.core.column import batch_rows_storage
+
+    js, _ts, tt = sessions
+    q, oracle = ORACLES[name]
+    planned = js.planner.plan(JP.parse(TS.QUERIES[q]))
+    out = js.executor.prepare(planned.plan).run()
+    got = batch_rows_storage(out, list(planned.output_names))
+    ref = oracle(tt)
+    if name == "q19":
+        assert int(got["revenue"][0]) == ref
+        return
+    for col, v in got.items():
+        want = ref[col]
+        if np.asarray(v).dtype.kind == "f":
+            np.testing.assert_allclose(v, want, rtol=1e-12, atol=0.0)
+        else:
+            assert np.array_equal(np.asarray(v), np.asarray(want)), col
+
+
+def test_topn_tie_overflow_retry_matches_jax(sessions):
+    """A low-cardinality first key puts more live ties at the C-th value
+    than C candidates: both engines count the overflow, turn the
+    prefilter off and re-run through the full sort the same number of
+    times, and land on the same rows."""
+    from oceanbase_tpu.core.column import batch_to_host as j_host
+    from oceanbase_tpu_torch.core.column import batch_to_host as t_host
+
+    js, ts, _ = sessions
+    text = STATEMENTS["tie_topn"]
+    jp = js.executor.prepare(js.planner.plan(JP.parse(text)).plan)
+    tp = ts.executor.prepare(ts.planner.plan(TP.parse(text)).plan)
+    assert jp.params.topn_cand == tp.params.topn_cand
+    assert tp.params.topn_cand
+    jo, to = jp.run(), tp.run()
+    assert jp.retries == tp.retries == 1
+    assert jp.params.topn_cand == tp.params.topn_cand
+    assert set(tp.params.topn_cand.values()) == {1 << 62}
+    jh, th = j_host(jo), t_host(to)
+    for c in jh:
+        assert np.array_equal(np.asarray(jh[c]), np.asarray(th[c])), c
+
+
+def test_pack_guard_overflow_retry_matches_jax(sessions):
+    """A pack spec narrower than the data trips the pack-validity guard:
+    both engines drop packing for the node and re-run unpacked, the same
+    number of times, with the same rows."""
+    js, ts, _ = sessions
+    text = STATEMENTS["sort_groupby_packed"]
+    jp = js.executor.prepare(js.planner.plan(JP.parse(text)).plan)
+    tp = ts.executor.prepare(ts.planner.plan(TP.parse(text)).plan)
+    assert jp.params.pack_guard == tp.params.pack_guard
+    (nid, spec), = tp.params.pack_guard.items()
+    narrow = tuple((vmin, 2) for vmin, _bits in spec)
+    for prep in (jp, tp):
+        prep.params.pack_guard[nid] = narrow
+        prep.recompile()
+    jo, to = jp.run(), tp.run()
+    assert jp.retries == tp.retries == 1
+    assert jp.params.groupby_nopack == tp.params.groupby_nopack == {nid}
+    assert J_PACK == T_PACK
+    from oceanbase_tpu.core.column import batch_to_host as j_host
+    from oceanbase_tpu_torch.core.column import batch_to_host as t_host
+
+    jh, th = j_host(jo), t_host(to)
+    for c in jh:
+        assert np.array_equal(np.asarray(jh[c]), np.asarray(th[c])), c
+
+
+@pytest.mark.parametrize("name,want", [("q3", True), ("q10", False),
+                                       ("clustered_count_col", True)])
+def test_clustered_route_detection_matches_jax(sessions, name, want):
+    """The clustered-FK segment route is chosen for the same plans (Q3
+    groups by the join key; Q10 groups coarser than build rows)."""
+    js, ts, _ = sessions
+    text = STATEMENTS[name]
+    jp = js.executor.prepare(js.planner.plan(JP.parse(text)).plan)
+    tp = ts.executor.prepare(ts.planner.plan(TP.parse(text)).plan)
+    assert sorted(jp.params.clustered_aggs) == sorted(tp.params.clustered_aggs)
+    assert bool(tp.params.clustered_aggs) is want
+    assert [a for a, _t, _c in jp.input_spec] == [
+        a for a, _t, _c in tp.input_spec]
+
+
+def test_clustered_premise_invalidation_matches_jax():
+    """The clustered-FK route rests on lineitem being stored in l_orderkey
+    order. Reorder the rows (same data, so the answer stays) and
+    invalidate the table: a cached plan finds the premise gone at input
+    assembly, recompiles without the segment route, and both engines
+    still give the same rows."""
+    jt = JD.generate(sf=0.01, seed=19920101)
+    tt = TD.generate(sf=0.01, seed=19920101)
+    js = JSession(jt, unique_keys=TS.UNIQUE_KEYS)
+    ts = TSession(tt, unique_keys=TS.UNIQUE_KEYS, device="cpu")
+    text = STATEMENTS["clustered_count_col"]
+    jp = js.executor.prepare(js.planner.plan(JP.parse(text)).plan)
+    tp = ts.executor.prepare(ts.planner.plan(TP.parse(text)).plan)
+    assert tp.params.clustered_aggs and jp.params.clustered_aggs
+    _rows_equal(js.sql(text).rows(), ts.sql(text).rows(), "clustered")
+    perm = np.random.default_rng(4).permutation(tt["lineitem"].nrows)
+    for tables, sess in ((jt, js), (tt, ts)):
+        li = tables["lineitem"]
+        for c in list(li.data):
+            li.data[c] = np.ascontiguousarray(li.data[c][perm])
+        sess.executor.invalidate_table("lineitem")
+    from oceanbase_tpu.core.column import batch_to_host as j_host
+    from oceanbase_tpu_torch.core.column import batch_to_host as t_host
+
+    jo, to = jp.run(), tp.run()
+    assert not tp.params.clustered_aggs and not jp.params.clustered_aggs
+    jh, th = j_host(jo), t_host(to)
+    for c in jh:
+        assert np.array_equal(np.asarray(jh[c]), np.asarray(th[c])), c
