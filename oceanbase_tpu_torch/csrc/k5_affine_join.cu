@@ -24,6 +24,11 @@
 // and writes sel 0 and payload 0: no operator reads a dead row's payload,
 // and the plain version does the same, so kernel and plain agree bit for
 // bit.
+//
+// A second entry, ob_k5_probe, serves oceanbase_tpu/engine/executor.py:4240
+// _affine_probe (the semi/anti joins against an affine build side): the
+// same verified candidate with no payload, written as the int32 match row
+// (candc where the join keeps the row, else -1).
 #include "ob_common.cuh"
 
 #define K5_THREADS 256
@@ -104,5 +109,44 @@ extern "C" int ob_k5_affine(const void* pkey, int pdt, const void* psel,
   k5_probe<<<nblocks, K5_THREADS, 0, (cudaStream_t)stream>>>(
       pkey, pdt, (const unsigned char*)psel, n, a0, stride, nb, bkey, bdt,
       (const unsigned char*)bsel, (unsigned char*)out_sel, a);
+  return (int)cudaGetLastError();
+}
+
+__global__ void k5_match(const void* __restrict__ pkey, int pdt,
+                         const unsigned char* __restrict__ psel, long long n,
+                         long long a0, long long stride, long long nb,
+                         const void* __restrict__ bkey, int bdt,
+                         const unsigned char* __restrict__ bsel,
+                         int* __restrict__ match) {
+  long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    int m = -1;
+    if (__ldg(psel + i)) {
+      long long key = ob_ldg_i64(pkey, pdt, i);
+      long long off =
+          (long long)((unsigned long long)key - (unsigned long long)a0);
+      long long cand = off >= 0 ? off / stride : -1;
+      if (off >= 0 && off % stride == 0 && cand < nb &&
+          ob_ldg_i64(bkey, bdt, cand) == key && __ldg(bsel + cand) != 0) {
+        m = (int)cand;
+      }
+    }
+    match[i] = m;
+  }
+}
+
+// The no-payload probe: match int32 [n], candc or -1.
+extern "C" int ob_k5_probe(const void* pkey, int pdt, const void* psel,
+                           long long n, long long a0, long long stride,
+                           long long nb, const void* bkey, int bdt,
+                           const void* bsel, void* match, int nblocks,
+                           void* stream) {
+  if (stride <= 0 || nb < 1 || nb >= (1ll << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  k5_match<<<nblocks, K5_THREADS, 0, (cudaStream_t)stream>>>(
+      pkey, pdt, (const unsigned char*)psel, n, a0, stride, nb, bkey, bdt,
+      (const unsigned char*)bsel, (int*)match);
   return (int)cudaGetLastError();
 }

@@ -92,3 +92,15 @@ __device__ __forceinline__ void ob_atomic_i64(int op, long long* p,
     atomicAdd((unsigned long long*)p, (unsigned long long)x);
   }
 }
+
+// splitmix64 finalizer (oceanbase_tpu/ops/hashing.py:32 mix64), uint64
+// arithmetic wrapping modulo 2^64 as jnp's uint64 does.
+#define OB_MIX_C1 0xBF58476D1CE4E5B9ull
+#define OB_MIX_C2 0x94D049BB133111EBull
+#define OB_GOLDEN64 0x9E3779B97F4A7C15ull
+
+__device__ __forceinline__ unsigned long long ob_mix64(unsigned long long x) {
+  x = (x ^ (x >> 30)) * OB_MIX_C1;
+  x = (x ^ (x >> 27)) * OB_MIX_C2;
+  return x ^ (x >> 31);
+}

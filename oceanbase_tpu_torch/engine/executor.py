@@ -2,19 +2,21 @@
 
 Counterpart of `oceanbase_tpu/engine/executor.py`, restricted to the plan
 nodes the port runs so far: Scan (with its pushed filter), Filter,
-Project, inner joins whose build side is unique with an affine key column
-(the direct-address route), Aggregate (the direct-addressed, the
-sort-based with its pack guard, the clustered-FK segment and the scalar
-paths), Sort, Limit and TopN (with its exact top-k candidate prefilter),
-plus the root compaction. Every other node or path raises
-NotImplementedError naming it (the merge join of a non-affine unique
-build, expansion joins, semi/anti/outer joins, the hash group-by,
-DISTINCT aggregates, windows, set operations, ANN, chunked streaming).
+Project, the inner joins (the direct-address route of an affine unique
+build, the unique-build merge join, the M:N expansion), the semi and anti
+joins (affine probe, sorted-range search, residual pairs), the left outer
+join, Distinct, Aggregate (the direct-addressed, the sort-based with its
+pack guard, the clustered-FK segment and the scalar paths), Sort, Limit
+and TopN (with its exact top-k candidate prefilter), plus the root
+compaction. Every other node or path raises NotImplementedError naming it
+(the full outer join, the multi-column semi/anti join without residual on
+the hash table, the hash group-by, DISTINCT aggregates, windows, set
+operations, ANN, chunked streaming).
 
 The JAX package traces a whole plan into one jitted program; here
 `compile` returns a plain Python closure that runs the same emission
 eagerly on the session's device, with the device functions on the path
-as hand-written kernels (K1-K8, `kernels.py`). The static-capacity
+as hand-written kernels (K1-K12, `kernels.py`). The static-capacity
 contract is unchanged: every intermediate keeps its producer's capacity
 under a live-row `sel` mask, capacity-bound operators report overflow
 counters in ONE stacked vector, and the host reads it once per attempt
@@ -46,10 +48,25 @@ from ..expr.compile import (
     evaluate,
     infer_type,
 )
-from ..kernels import affine_join, clustered_segments, topk_candidates
+from ..kernels import (
+    ENTRY_LAUNCHES,
+    affine_join,
+    affine_probe,
+    boundaries,
+    clustered_segments,
+    gather_columns,
+    topk_candidates,
+)
 from ..ops.gather import gather_rows
 from ..ops.hashagg import groupby_direct, scalar_aggregate, sort_groupby
 from ..ops.hashing import next_pow2, pack_keys
+from ..ops.join import (
+    expand_join,
+    merge_join_unique,
+    probe_has_match,
+    probe_run_any,
+    sort_build_side,
+)
 from ..ops.sort import sort_indices
 from ..sql.logical import (
     Aggregate,
@@ -578,6 +595,24 @@ class Executor:
                     b for _v, b in ranges
                 ) <= 62:
                     params.pack_guard[nid] = tuple(ranges)
+            if isinstance(op, JoinOp):
+                needs_cap = (
+                    (op.kind in ("inner", "cross")
+                     and not self._merge_joinable(op))
+                    or (op.kind in ("semi", "anti")
+                        and op.residual is not None)
+                    or op.kind in ("left", "full")
+                )
+                if needs_cap:
+                    if op.kind in ("semi", "anti", "left", "full"):
+                        # candidate-pair capacity, not output rows
+                        cap = int(
+                            max(self._est_rows(op.left),
+                                self._est_rows(op.right)) * 2
+                        ) + 1024
+                    else:
+                        cap = int(self._est_rows(op)) * 2 + 1024
+                    params.join_cap[nid] = -(-cap // 1024) * 1024
         return params
 
     # host-side column-layout property cache. Keyed by id(array) with a
@@ -1006,10 +1041,14 @@ class Executor:
             return self._project_batch(op, child), ovf
 
         if isinstance(op, JoinOp):
-            return self._emit_join(op, inputs, emit)
+            return self._emit_join(op, nid, inputs, emit, params)
 
         if isinstance(op, Aggregate):
             return self._emit_aggregate(op, nid, inputs, emit, params)
+
+        if isinstance(op, Distinct):
+            child, ovf = emit(op.child, inputs)
+            return self._dedup_batch(child, ovf)
 
         if isinstance(op, Sort):
             child, ovf = emit(op.child, inputs)
@@ -1121,38 +1160,25 @@ class Executor:
         )
 
     # ---- join emission -------------------------------------------------
-    def _emit_join(self, op: JoinOp, inputs, emit):
-        """Inner join over a unique build side whose single integer key
-        column is affine in storage order: the candidate build row is
-        computed, verified and gathered with its payload in one K5 launch;
-        probe columns pass through untouched. The other join routes raise
-        NotImplementedError naming themselves."""
-        if op.kind != "inner":
-            raise _not_ported(f"{op.kind} join")
-        if not self._merge_joinable(op):
-            raise _not_ported(
-                "inner join by expansion (sort_build_side / expand_join)")
-        aff = self._affine_build_info(op) if op.left_keys else None
-        if aff is None:
-            raise _not_ported("merge_join_unique (non-affine unique build)")
-        left, lovf = emit(op.left, inputs)
-        right, rovf = emit(op.right, inputs)
-        ovf = {**lovf, **rovf}
-        lkey = evaluate(op.left_keys[0], left)[0]
-        rkey = evaluate(op.right_keys[0], right)[0]
-        if lkey.dim() == 0:
-            lkey = lkey.expand(left.capacity)
-        names, vnames = list(right.cols), list(right.valid)
-        payload = [right.cols[n] for n in names] + [
-            right.valid[n] for n in vnames]
-        sel, outs = affine_join(
-            lkey.contiguous(), left.sel, aff[0], aff[1], rkey.contiguous(),
-            right.sel, payload)
-        cols = dict(left.cols)
-        valid = dict(left.valid)
-        cols.update(zip(names, outs[:len(names)]))
-        valid.update(zip(vnames, outs[len(names):]))
-        out = ColumnBatch(
+    @staticmethod
+    def _key_columns(exprs, batch: ColumnBatch) -> list[torch.Tensor]:
+        out = []
+        for e in exprs:
+            v = evaluate(e, batch)[0]
+            if v.dim() == 0:
+                v = v.expand(batch.capacity)
+            out.append(v.contiguous())
+        return out
+
+    @staticmethod
+    def _pair_batch(left, right, pr, br, sel) -> ColumnBatch:
+        """The expanded pairs as one batch: left columns gathered by the
+        probe rows, right columns by the build rows (K4)."""
+        cols, valid, _ = gather_payload(left.cols, left.valid, pr)
+        rcols, rvalid, _ = gather_payload(right.cols, right.valid, br)
+        cols.update(rcols)
+        valid.update(rvalid)
+        return ColumnBatch(
             cols=cols,
             valid=valid,
             sel=sel,
@@ -1160,8 +1186,205 @@ class Executor:
             schema=_join_schema(left.schema, right.schema),
             dicts={**left.dicts, **right.dicts},
         )
+
+    def _emit_join(self, op: JoinOp, nid, inputs, emit, params):
+        """Inner joins. A unique build with one integer key merges: an
+        affine key column takes the direct-address route (candidate,
+        verify and payload gather in one K5 launch), any other goes
+        through the hash join of K9 and one payload gather; probe columns
+        pass through untouched. Otherwise the build side sorts by its
+        64-bit key (K12 hashes several columns, K3 + K4 sort), K10 expands
+        the pairs into the node's capacity (the total rides the overflow
+        channel) and multi-column keys are verified exactly per pair."""
+        if op.kind in ("semi", "anti"):
+            return self._emit_semi_anti(op, nid, inputs, emit, params)
+        if op.kind == "left":
+            return self._emit_left(op, nid, inputs, emit, params)
+        if op.kind != "inner":
+            raise _not_ported(f"{op.kind} join")
+        left, lovf = emit(op.left, inputs)
+        right, rovf = emit(op.right, inputs)
+        ovf = {**lovf, **rovf}
+        lkeys = self._key_columns(op.left_keys, left)
+        rkeys = self._key_columns(op.right_keys, right)
+        dev = left.device
+        if not lkeys:
+            # cross join: a constant key matches every probe row to every
+            # build row; a 1-row build (scalar subquery) merges as a
+            # broadcast, a general cross join expands
+            lkeys = [torch.zeros(left.capacity, dtype=torch.int32, device=dev)]
+            rkeys = [torch.zeros(right.capacity, dtype=torch.int32,
+                                 device=dev)]
+        if self._merge_joinable(op):
+            aff = self._affine_build_info(op) if op.left_keys else None
+            cols = dict(left.cols)
+            valid = dict(left.valid)
+            if aff is not None:
+                names, vnames = list(right.cols), list(right.valid)
+                payload = [right.cols[n] for n in names] + [
+                    right.valid[n] for n in vnames]
+                sel, outs = affine_join(
+                    lkeys[0], left.sel, aff[0], aff[1], rkeys[0], right.sel,
+                    payload)
+                cols.update(zip(names, outs[:len(names)]))
+                valid.update(zip(vnames, outs[len(names):]))
+            else:
+                match = merge_join_unique(rkeys[0], right.sel, lkeys[0],
+                                          left.sel)
+                sel = left.sel & (match >= 0)
+                rcols, rvalid, _ = gather_payload(
+                    right.cols, right.valid, match.clamp(min=0))
+                cols.update(rcols)
+                valid.update(rvalid)
+            out = ColumnBatch(
+                cols=cols,
+                valid=valid,
+                sel=sel,
+                nrows=torch.sum(sel, dtype=torch.int64),
+                schema=_join_schema(left.schema, right.schema),
+                dicts={**left.dicts, **right.dicts},
+            )
+        else:
+            cap = params.join_cap[nid]
+            skeys, order = sort_build_side(rkeys, right.sel)
+            pr, br, valid_rows, total, _st, _of = expand_join(
+                skeys, order, right.nrows, lkeys, left.sel, cap)
+            sel = valid_rows
+            if len(op.left_keys) > 1:
+                sel = sel & _pair_keys_equal(lkeys, rkeys, pr, br)
+            out = self._pair_batch(left, right, pr, br, sel)
+            ovf = dict(ovf)
+            ovf[nid] = torch.clamp(total - cap, min=0)
         if op.residual is not None:
             out = out.with_sel(compile_predicate(op.residual, out))
+        return out, ovf
+
+    def _emit_semi_anti(self, op: JoinOp, nid, inputs, emit, params):
+        """Semi/anti join: the left rows with (without) a matching right
+        row. No residual and one integer key: the affine probe (K5's probe
+        entry) where the build key column is affine, else the sorted build
+        side and a range search per probe key (K10's first phase), exact
+        on true keys. With a residual: the candidate pairs expand (K10),
+        the residual runs per pair, and each left row ORs its pairs (K11).
+        Multi-column keys with no residual need the hash table, which is
+        not ported."""
+        left, lovf = emit(op.left, inputs)
+        right, rovf = emit(op.right, inputs)
+        ovf = {**lovf, **rovf}
+        lkeys = self._key_columns(op.left_keys, left)
+        rkeys = self._key_columns(op.right_keys, right)
+        if op.residual is None:
+            if len(lkeys) != 1 or not (_is_int(lkeys[0])
+                                       and _is_int(rkeys[0])):
+                raise _not_ported(
+                    "multi-column semi/anti join without residual "
+                    "(build_hash_table / hash_join_probe)")
+            aff = self._affine_build_info(op)
+            if aff is not None:
+                has = _affine_probe(rkeys[0], right.sel, lkeys[0], left.sel,
+                                    aff) >= 0
+            else:
+                skeys, _order = sort_build_side(rkeys, right.sel)
+                has = probe_has_match(skeys, right.nrows, lkeys[0], left.sel)
+        else:
+            cap = params.join_cap[nid]
+            skeys, order = sort_build_side(rkeys, right.sel)
+            pr, br, valid_rows, total, starts, offs = expand_join(
+                skeys, order, right.nrows, lkeys, left.sel, cap)
+            pair_sel = valid_rows
+            if len(op.left_keys) > 1:
+                pair_sel = pair_sel & _pair_keys_equal(lkeys, rkeys, pr, br)
+            pairs = self._pair_batch(left, right, pr, br, pair_sel)
+            pair_ok = compile_predicate(op.residual, pairs)
+            del pairs
+            has = probe_run_any(pair_ok, starts, offs)
+            ovf = dict(ovf)
+            ovf[nid] = torch.clamp(total - cap, min=0)
+        sel = left.sel & (has if op.kind == "semi" else ~has)
+        return left.with_sel(sel), ovf
+
+    def _emit_left(self, op: JoinOp, nid, inputs, emit, params):
+        """Left outer join by expansion: the matched pairs (K10, the
+        residual per pair) plus, in a tail of the left capacity, each left
+        row that no pair kept, with NULL right columns (K11 finds them).
+        The output is [cap matched pairs] ++ [nl unmatched left rows], and
+        the right columns become nullable."""
+        left, lovf = emit(op.left, inputs)
+        right, rovf = emit(op.right, inputs)
+        ovf = {**lovf, **rovf}
+        lkeys = self._key_columns(op.left_keys, left)
+        rkeys = self._key_columns(op.right_keys, right)
+        cap = params.join_cap[nid]
+        skeys, order = sort_build_side(rkeys, right.sel)
+        pr, br, valid_rows, total, starts, offs = expand_join(
+            skeys, order, right.nrows, lkeys, left.sel, cap)
+        pair_sel = valid_rows
+        if len(op.left_keys) > 1:
+            pair_sel = pair_sel & _pair_keys_equal(lkeys, rkeys, pr, br)
+        pairs = self._pair_batch(left, right, pr, br, pair_sel)
+        if op.residual is not None:
+            pair_sel = compile_predicate(op.residual, pairs)
+        nl = left.capacity
+        dev = left.device
+        has = probe_run_any(pair_sel, starts, offs)
+        cols, valid = {}, {}
+        for n, c in left.cols.items():
+            cols[n] = torch.cat([pairs.cols[n], c])
+        for n, v in left.valid.items():
+            valid[n] = torch.cat([pairs.valid[n], v])
+        for n, c in right.cols.items():
+            cols[n] = torch.cat([pairs.cols[n],
+                                 torch.zeros(nl, dtype=c.dtype, device=dev)])
+            matched = (pairs.valid[n] if n in right.valid
+                       else torch.ones(cap, dtype=torch.bool, device=dev))
+            valid[n] = torch.cat([matched, torch.zeros(nl, dtype=torch.bool,
+                                                       device=dev)])
+        del pairs
+        sel = torch.cat([pair_sel, left.sel & ~has])
+        rs_nullable = Schema(tuple(
+            Field(f.name, f.dtype.with_nullable(True))
+            for f in right.schema.fields
+        ))
+        out = ColumnBatch(
+            cols=cols,
+            valid=valid,
+            sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=_join_schema(left.schema, rs_nullable),
+            dicts={**left.dicts, **right.dicts},
+        )
+        ovf = dict(ovf)
+        ovf[nid] = torch.clamp(total - cap, min=0)
+        return out, ovf
+
+    def _dedup_batch(self, b: ColumnBatch, ovf):
+        """Distinct over all columns, NULLs comparing equal: one stable
+        sort over every column (K3; a nullable column contributes its
+        values zeroed under NULL, then its validity), the sorted operands
+        and live flags gathered (K4), and run boundaries marking the one
+        surviving row of each run -- no hash table, no capacity. NaN is
+        not equal to NaN at a boundary, as in the reference."""
+        keys, spec = _row_key_operands(b.cols, b.valid, b.schema)
+        order = sort_indices(keys, [False] * len(keys), b.sel)
+        gathered = gather_columns(keys + [b.sel], order)
+        svals, ssel = gathered[:-1], gathered[-1]
+        new = boundaries([~ssel] + svals)
+        sel = new & ssel
+        cols, valid = {}, {}
+        i = 0
+        for name, nullable in spec:
+            cols[name] = svals[i]
+            i += 1
+            if nullable:
+                valid[name] = svals[i]
+                i += 1
+        if b.device.type == "cuda":
+            ENTRY_LAUNCHES["dedup_batch"] += 1
+        out = ColumnBatch(
+            cols=cols, valid=valid, sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=b.schema, dicts=b.dicts,
+        )
         return out, ovf
 
     def _project_batch(self, op: Project, child: ColumnBatch) -> ColumnBatch:
@@ -1524,6 +1747,45 @@ class DeviceResult:
         self._sync()
         names = list(names) if names is not None else self._out.schema.names()
         return batch_rows_storage(self._out, names)
+
+
+def _pair_keys_equal(lkeys, rkeys, pr, br) -> torch.Tensor:
+    """Exact key equality of expanded pairs: multi-column keys join on
+    their 64-bit hash, so a 2^-64 collision must not make a row."""
+    eq = torch.ones(pr.shape[0], dtype=torch.bool, device=pr.device)
+    for a, b in zip(gather_columns(lkeys, pr), gather_columns(rkeys, br)):
+        eq = eq & (a == b)
+    return eq
+
+
+def _is_int(t: torch.Tensor) -> bool:
+    return not t.dtype.is_floating_point and t.dtype != torch.bool
+
+
+def _row_key_operands(cols, valid, schema):
+    """Whole-row sort operands with NULLs-compare-equal semantics: each
+    column's values (zeroed under NULL), then its validity if nullable.
+    Returns (operands, spec of (name, nullable)) for unpacking."""
+    operands, spec = [], []
+    for f in schema.fields:
+        c = cols[f.name]
+        v = valid.get(f.name)
+        if v is not None:
+            c = torch.where(v, c, torch.zeros((), dtype=c.dtype,
+                                              device=c.device))
+        operands.append(c.contiguous())
+        if v is not None:
+            operands.append(v.contiguous())
+        spec.append((f.name, v is not None))
+    return operands, spec
+
+
+def _affine_probe(build_key, build_sel, probe_key, probe_sel, aff):
+    """Verified affine probe for callers that need only the match row
+    (semi/anti joins): int32 candidate build rows, -1 where the probe row
+    has no live build row with its key (K5's probe entry)."""
+    return affine_probe(probe_key.contiguous(), probe_sel, aff[0], aff[1],
+                        build_key.contiguous(), build_sel)
 
 
 def _join_schema(ls: Schema, rs: Schema) -> Schema:

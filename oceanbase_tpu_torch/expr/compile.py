@@ -239,11 +239,37 @@ def _merge_valid(*vs):
     return out
 
 
-def _lut_gather(lut: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
-    """A host lookup table indexed on device by (clamped) dictionary codes."""
+def _lut_gather(lut, codes: torch.Tensor) -> torch.Tensor:
+    """A lookup table (host array or device tensor) indexed on device by
+    (clamped) dictionary codes."""
     n = max(len(lut) - 1, 0)
-    t = torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)
+    t = lut if isinstance(lut, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)
     return t[codes.clamp(0, n).long()]
+
+
+# Boolean LUTs over dictionary values, per (dictionary, its length, the
+# test, device). The JAX package builds them once when it traces a plan;
+# the port's plans run eagerly, so without this a LIKE over a 2M-value
+# dictionary (Q9's p_name at SF 10) would rerun its regex on every
+# statement. A dictionary only grows (appends change its length), and the
+# entry keeps the dictionary itself to rule out a reused id.
+_LUT_CACHE: dict = {}
+_LUT_CACHE_MAX = 256
+
+
+def _cached_lut(d, key, test, device) -> torch.Tensor:
+    ck = (id(d), len(d), key, str(device))
+    hit = _LUT_CACHE.get(ck)
+    if hit is not None and hit[0] is d:
+        return hit[1]
+    lut = np.fromiter((test(v) for v in d.values()), dtype=np.bool_,
+                      count=len(d))
+    t = torch.from_numpy(lut).to(device)
+    if len(_LUT_CACHE) >= _LUT_CACHE_MAX:
+        _LUT_CACHE.clear()
+    _LUT_CACHE[ck] = (d, t)
+    return t
 
 
 def _rescale_decimal(vals, from_scale: int, to_scale: int):
@@ -603,9 +629,8 @@ def _dict_compare(col_expr: ColRef, op: str, value: str, batch: ColumnBatch):
         code = d.encode_one(value, add=False)
         return codes != code, valid
     # general fallback: boolean LUT over dictionary values
-    lut = np.fromiter(
-        (_CMP[op](v, value) for v in d.values()), dtype=np.bool_, count=len(d)
-    )
+    lut = _cached_lut(d, ("cmp", op, value), lambda v: _CMP[op](v, value),
+                      codes.device)
     return _lut_gather(lut, codes), valid
 
 
@@ -822,13 +847,13 @@ def derive_dict_column(e: Expr, batch: ColumnBatch):
 
 
 def _dict_lut(e: Func, batch: ColumnBatch, test):
-    """Boolean LUT over a dictionary column's values, gathered by code."""
+    """Boolean LUT over a dictionary column's values, gathered by code;
+    `test` is the function's fixed test of its literal argument."""
     col_expr = e.args[0]
     assert isinstance(col_expr, ColRef) and isinstance(e.args[1], Literal)
     d = batch.dicts[col_expr.name]
-    lut = np.fromiter((test(v) for v in d.values()), dtype=np.bool_,
-                      count=len(d))
     codes, valid = evaluate(col_expr, batch)
+    lut = _cached_lut(d, (e.name, str(e.args[1].value)), test, codes.device)
     return _lut_gather(lut, codes), valid
 
 

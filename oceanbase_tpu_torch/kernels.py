@@ -9,6 +9,10 @@ K5 `affine_join`       direct-address join probe  (csrc/k5_affine_join.cu)
 K6 `clustered_segments` per-range count and sums  (csrc/k6_clustered_agg.cu)
 K7 `topk_candidates`   exact top-k of a masked key (csrc/k7_topk_candidates.cu)
 K8 `segmented_reduce`  reduce-by-key, sorted rows (csrc/k8_segmented_reduce.cu)
+K9 `merge_join`        unique-build equi-join     (csrc/k9_merge_join.cu)
+K10 `expand_join`      M:N join expansion         (csrc/k10_expand_join.cu)
+K11 `probe_run_any`    OR over each probe's pairs (csrc/k11_probe_run_any.cu)
+K12 `hash_columns`     splitmix64 multi-key hash  (csrc/k12_hash_combine.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -44,15 +48,26 @@ KERNEL_NAMES = (
     "K6_clustered_agg",
     "K7_topk_candidates",
     "K8_segmented_reduce",
+    "K9_merge_join",
+    "K10_expand_join",
+    "K11_probe_run_any",
+    "K12_hash_combine",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNEL_NAMES}
+# launches of the second entry points, counted in their kernel's LAUNCHES
+# entry too: K5's no-payload probe and K10's range search alone; and
+# the Distinct operator's runs on the card (K3 + K4, executor._dedup_batch)
+ENTRY_LAUNCHES: dict[str, int] = {"K5_affine_join.probe": 0,
+                                  "K10_expand_join.ranges": 0,
+                                  "dedup_batch": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, ENTRY_LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -66,6 +81,10 @@ SOURCES = (
     "k6_clustered_agg.cu",
     "k7_topk_candidates.cu",
     "k8_segmented_reduce.cu",
+    "k9_merge_join.cu",
+    "k10_expand_join.cu",
+    "k11_probe_run_any.cu",
+    "k12_hash_combine.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -177,13 +196,24 @@ def _load():
         lib.ob_k8_segreduce.argtypes = [I, P, P, P, P, L, I, P, P, P, P, P,
                                         P, P, P, P, P, P, P, I, P]
         lib.ob_k8_tile_rows.argtypes = []
+        lib.ob_k5_probe.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P]
+        lib.ob_k9_merge_join.argtypes = [P, I, P, L, P, I, P, L, P, L, P, I,
+                                         P]
+        lib.ob_k10_ranges.argtypes = [P, P, P, P, L, P, I, P]
+        lib.ob_k10_expand.argtypes = [P, P, L, P, P, P, L, L, P, P, P, L, P,
+                                      P, P, P, P, P, I, P]
+        lib.ob_k10_tile_rows.argtypes = []
+        lib.ob_k11_run_any.argtypes = [P, L, P, P, L, P, I, P]
+        lib.ob_k12_hash.argtypes = [I, P, P, L, P, I, P]
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
                    lib.ob_k3_tile_rows, lib.ob_k4_gather, lib.ob_k5_affine,
                    lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_tile_rows,
                    lib.ob_k7_state_bytes, lib.ob_k8_segreduce,
-                   lib.ob_k8_tile_rows):
+                   lib.ob_k8_tile_rows, lib.ob_k5_probe, lib.ob_k9_merge_join,
+                   lib.ob_k10_ranges, lib.ob_k10_expand, lib.ob_k10_tile_rows,
+                   lib.ob_k11_run_any, lib.ob_k12_hash):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -1026,3 +1056,380 @@ def segmented_reduce(skeys, ssel, order, aggs):
         res.append(r if r.dtype == dt else r.to(dt))
     LAUNCHES["K8_segmented_reduce"] += 1
     return sel, res
+
+
+# ---------------------------------------------------------------------------
+# K5 (second entry): the verified affine probe, no payload
+# ---------------------------------------------------------------------------
+
+
+def affine_probe_plain(probe_key, probe_sel, a0: int, stride: int,
+                       build_key, build_sel):
+    """Plain version of K5's probe entry (executor._affine_probe): the
+    int32 candidate build row where the join keeps the probe row, else
+    -1."""
+    nb = int(build_key.shape[0])
+    pk = probe_key.to(torch.int64)
+    off = pk - a0
+    cand = torch.div(off, stride, rounding_mode="floor")
+    in_range = (off >= 0) & (torch.remainder(off, stride) == 0) & (cand < nb)
+    candc = cand.clamp(0, nb - 1)
+    hit = (probe_sel & in_range
+           & (build_key.to(torch.int64)[candc] == pk) & build_sel[candc])
+    return torch.where(hit, candc, -1).to(torch.int32)
+
+
+def affine_probe(probe_key, probe_sel, a0: int, stride: int, build_key,
+                 build_sel):
+    """K5's probe entry: int32 [n] match rows (or -1) of probe rows against
+    a build side whose key column is a0 + stride * row. Counts as a K5
+    launch."""
+    if not _on_cuda(probe_key, probe_sel, build_key, build_sel):
+        return affine_probe_plain(probe_key, probe_sel, a0, stride,
+                                  build_key, build_sel)
+    n = int(probe_key.shape[0])
+    nb = int(build_key.shape[0])
+    _vector(probe_key, n, "K5 probe key")
+    _vector(probe_sel, n, "K5 probe sel")
+    _vector(build_key, nb, "K5 build key")
+    _vector(build_sel, nb, "K5 build sel")
+    for k in (probe_key, build_key):
+        if k.dtype not in _INT_DTYPES:
+            raise TypeError(f"K5 keys must be integers, got {k.dtype}")
+    if probe_sel.dtype != torch.bool or build_sel.dtype != torch.bool:
+        raise TypeError("K5 sel masks must be bool")
+    if stride <= 0 or not 1 <= nb < 2**31:
+        raise ValueError(f"K5 needs stride > 0 and 1..2^31-1 build rows, got "
+                         f"stride {stride}, {nb} rows")
+    dev = probe_key.device
+    match = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return match
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k5_probe(
+            probe_key.data_ptr(), DTYPE_CODE[probe_key.dtype],
+            probe_sel.data_ptr(), n, int(a0), int(stride), nb,
+            build_key.data_ptr(), DTYPE_CODE[build_key.dtype],
+            build_sel.data_ptr(), match.data_ptr(), _blocks(dev, n, 256 * 4),
+            _stream(dev))
+        _check(rc, "K5_affine_join probe")
+    LAUNCHES["K5_affine_join"] += 1
+    ENTRY_LAUNCHES["K5_affine_join.probe"] += 1
+    return match
+
+
+# ---------------------------------------------------------------------------
+# K9: unique-build equi-join on one integer key
+# ---------------------------------------------------------------------------
+
+
+def _int_key(k: torch.Tensor, what: str) -> None:
+    if k.dtype not in _INT_DTYPES:
+        raise TypeError(f"{what} must be an integer column, got {k.dtype}")
+
+
+def merge_join_plain(build_key, build_sel, probe_key, probe_sel):
+    """Plain version of K9 (ops/join.py merge_join_unique): for each probe
+    row, the lowest live build row whose key equals its live key, or -1
+    (int32, probe order). A stable sort of the live build keys, their
+    first rows per key, and a binary search per probe key."""
+    npr = int(probe_key.shape[0])
+    dev = probe_key.device
+    live = torch.nonzero(build_sel).squeeze(1)
+    if live.numel() == 0:
+        return torch.full((npr,), -1, dtype=torch.int32, device=dev)
+    bk = build_key.to(torch.int64)[live]
+    order = torch.argsort(bk, stable=True)
+    sk, srow = bk[order], live[order]
+    first = torch.ones(sk.shape[0], dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    uk, urow = sk[first].contiguous(), srow[first]
+    pk = probe_key.to(torch.int64).contiguous()
+    pos = torch.searchsorted(uk, pk)
+    posc = pos.clamp(max=uk.shape[0] - 1)
+    hit = probe_sel & (pos < uk.shape[0]) & (uk[posc] == pk)
+    return torch.where(hit, urow[posc], -1).to(torch.int32)
+
+
+def merge_join(build_key, build_sel, probe_key, probe_sel):
+    """K9: int32 [np] match rows of the probe rows (probe order, -1 = no
+    match) against a build side joined on one integer key; among equal
+    live build keys the lowest row wins."""
+    if not _on_cuda(build_key, build_sel, probe_key, probe_sel):
+        return merge_join_plain(build_key, build_sel, probe_key, probe_sel)
+    nb = int(build_key.shape[0])
+    npr = int(probe_key.shape[0])
+    _vector(build_key, nb, "K9 build key")
+    _vector(build_sel, nb, "K9 build sel")
+    _vector(probe_key, npr, "K9 probe key")
+    _vector(probe_sel, npr, "K9 probe sel")
+    _int_key(build_key, "K9 build key")
+    _int_key(probe_key, "K9 probe key")
+    if build_sel.dtype != torch.bool or probe_sel.dtype != torch.bool:
+        raise TypeError("K9 sel masks must be bool")
+    if nb >= 2**30:
+        raise ValueError("K9 builds at most 2^30 - 1 rows")
+    dev = probe_key.device
+    tsize = 1 << max(4, (2 * nb - 1).bit_length())
+    slot = torch.empty(tsize, dtype=torch.int32, device=dev)
+    match = torch.empty(npr, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k9_merge_join(
+            build_key.data_ptr(), DTYPE_CODE[build_key.dtype],
+            build_sel.data_ptr(), nb, probe_key.data_ptr(),
+            DTYPE_CODE[probe_key.dtype], probe_sel.data_ptr(), npr,
+            slot.data_ptr(), tsize, match.data_ptr(),
+            _blocks(dev, max(nb, npr, tsize // 4), 256 * 4), _stream(dev))
+        _check(rc, "K9_merge_join")
+    LAUNCHES["K9_merge_join"] += 1
+    return match
+
+
+# ---------------------------------------------------------------------------
+# K10: M:N join expansion against a key-sorted build side
+# ---------------------------------------------------------------------------
+
+
+def _ranges_plain(skeys, nlive, probe_keys, probe_sel):
+    """(lo, cnt) int64 per probe row: the searchsorted bounds of each probe
+    key in the sorted build keys clamped to the live build count (the
+    reference's expand_join), cnt zero at dead probe rows."""
+    nl = nlive.to(torch.int64)
+    lo = torch.minimum(torch.searchsorted(skeys, probe_keys), nl)
+    hi = torch.minimum(torch.searchsorted(skeys, probe_keys, right=True), nl)
+    cnt = torch.where(probe_sel, hi - lo, torch.zeros((), dtype=torch.int64,
+                                                      device=lo.device))
+    return lo, cnt
+
+
+def join_ranges_plain(skeys, nlive, probe_keys, probe_sel):
+    """Plain version of K10's range phase: cnt int64 per probe row."""
+    return _ranges_plain(skeys, nlive, probe_keys, probe_sel)[1]
+
+
+def _check_ranges_args(skeys, nlive, probe_keys, probe_sel):
+    nb = int(skeys.shape[0])
+    npr = int(probe_keys.shape[0])
+    _vector(skeys, nb, "K10 sorted build keys")
+    _vector(probe_keys, npr, "K10 probe keys")
+    _vector(probe_sel, npr, "K10 probe sel")
+    if skeys.dtype != torch.int64 or probe_keys.dtype != torch.int64:
+        raise TypeError("K10 keys must be int64")
+    if probe_sel.dtype != torch.bool:
+        raise TypeError("K10 probe sel must be bool")
+    if nlive.numel() != 1 or nlive.dtype != torch.int64:
+        raise TypeError("K10 nlive must be one int64")
+    if npr >= 2**31:
+        raise ValueError("K10 probes at most 2^31 - 1 rows")
+    return nb, npr
+
+
+def join_ranges(skeys, nlive, probe_keys, probe_sel):
+    """K10's range phase alone (the sorted-range semi/anti join): cnt
+    int64 [np], the live build rows each live probe key matches. Counts as
+    a K10 launch."""
+    if not _on_cuda(skeys, nlive, probe_keys, probe_sel):
+        return join_ranges_plain(skeys, nlive, probe_keys, probe_sel)
+    _nb, npr = _check_ranges_args(skeys, nlive, probe_keys, probe_sel)
+    dev = probe_keys.device
+    cnt = torch.empty(npr, dtype=torch.int64, device=dev)
+    nl = nlive.reshape(1).contiguous()
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k10_ranges(
+            skeys.data_ptr(), nl.data_ptr(), probe_keys.data_ptr(),
+            probe_sel.data_ptr(), npr, cnt.data_ptr(),
+            _blocks(dev, npr, 256 * 4), _stream(dev))
+        _check(rc, "K10_expand_join ranges")
+    LAUNCHES["K10_expand_join"] += 1
+    ENTRY_LAUNCHES["K10_expand_join.ranges"] += 1
+    return cnt
+
+
+def expand_join_plain(skeys, order, nlive, probe_keys, probe_sel, cap: int):
+    """Plain version of K10 (ops/join.py expand_join, the reference's
+    formulas): (probe_row int32 [cap], build_row int32 [cap], valid bool
+    [cap], total 0-d int64, starts int64 [np], offs int64 [np])."""
+    npr = int(probe_keys.shape[0])
+    nb = int(order.shape[0])
+    dev = probe_keys.device
+    lo, cnt = _ranges_plain(skeys, nlive, probe_keys, probe_sel)
+    offs = torch.cumsum(cnt, 0)
+    total = offs[-1]
+    starts = offs - cnt
+    t = torch.arange(cap, dtype=torch.int64, device=dev)
+    p = torch.searchsorted(offs, t, right=True)
+    pc = p.clamp(0, npr - 1)
+    pos = (lo[pc] + (t - starts[pc])).to(torch.int32)
+    build_row = order[pos.clamp(0, nb - 1).to(torch.int64)]
+    return pc.to(torch.int32), build_row, t < total, total, starts, offs
+
+
+def expand_join(skeys, order, nlive, probe_keys, probe_sel, cap: int):
+    """K10: the M:N expansion of probe rows (int64 keys, sel) against the
+    sorted build keys `skeys` (dead tail last), `order` the build row of
+    each sorted position and `nlive` the live build count (0-d int64 on
+    the device). Returns what expand_join_plain returns, bit for bit."""
+    if not _on_cuda(skeys, order, nlive, probe_keys, probe_sel):
+        return expand_join_plain(skeys, order, nlive, probe_keys, probe_sel,
+                                 cap)
+    nb, npr = _check_ranges_args(skeys, nlive, probe_keys, probe_sel)
+    _vector(order, nb, "K10 build order")
+    if order.dtype != torch.int32:
+        raise TypeError("K10 build order must be int32")
+    if npr < 1 or nb < 1 or cap < 0:
+        raise ValueError(f"K10 needs rows on both sides and cap >= 0, got "
+                         f"{npr} probe rows, {nb} build rows, cap {cap}")
+    dev = probe_keys.device
+    lib = _load()
+    tile = lib.ob_k10_tile_rows()
+    ntiles = -(-npr // tile)
+    i64 = dict(dtype=torch.int64, device=dev)
+    lo = torch.empty(npr, **i64)
+    cnt = torch.empty(npr, **i64)
+    tsum = torch.empty(ntiles, **i64)
+    total = torch.empty(1, **i64)
+    starts = torch.empty(npr, **i64)
+    offs = torch.empty(npr, **i64)
+    pr = torch.empty(cap, dtype=torch.int32, device=dev)
+    br = torch.empty(cap, dtype=torch.int32, device=dev)
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    nl = nlive.reshape(1).contiguous()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k10_expand(
+            skeys.data_ptr(), order.data_ptr(), nb, nl.data_ptr(),
+            probe_keys.data_ptr(), probe_sel.data_ptr(), npr, cap,
+            lo.data_ptr(), cnt.data_ptr(), tsum.data_ptr(), ntiles,
+            total.data_ptr(), starts.data_ptr(), offs.data_ptr(),
+            pr.data_ptr(), br.data_ptr(), valid.data_ptr(),
+            _blocks(dev, max(npr, cap), 256 * 4), _stream(dev))
+        _check(rc, "K10_expand_join")
+    LAUNCHES["K10_expand_join"] += 1
+    return pr, br, valid, total[0], starts, offs
+
+
+# ---------------------------------------------------------------------------
+# K11: OR of pair_ok over each probe row's run
+# ---------------------------------------------------------------------------
+
+
+def probe_run_any_plain(pair_ok, starts, offs):
+    """Plain version of K11 (ops/join.py probe_run_any): cumsum of pair_ok
+    and its differences at the run bounds clamped to the capacity."""
+    cap = int(pair_ok.shape[0])
+    c = torch.cumsum(pair_ok.to(torch.int64), 0)
+    zero = torch.zeros((), dtype=torch.int64, device=c.device)
+
+    def upto(x):
+        return torch.where(x > 0, c[(x - 1).clamp(0, cap - 1)], zero)
+
+    return (upto(offs.clamp(max=cap)) - upto(starts.clamp(max=cap))) > 0
+
+
+def probe_run_any(pair_ok, starts, offs):
+    """K11: bool [np], whether any pair_ok in [min(starts, cap),
+    min(offs, cap)) is set, per probe row."""
+    if not _on_cuda(pair_ok, starts, offs):
+        return probe_run_any_plain(pair_ok, starts, offs)
+    cap = int(pair_ok.shape[0])
+    npr = int(starts.shape[0])
+    _vector(pair_ok, cap, "K11 pair_ok")
+    _vector(starts, npr, "K11 starts")
+    _vector(offs, npr, "K11 offs")
+    if pair_ok.dtype != torch.bool:
+        raise TypeError("K11 pair_ok must be bool")
+    if starts.dtype != torch.int64 or offs.dtype != torch.int64:
+        raise TypeError("K11 starts and offs must be int64")
+    dev = pair_ok.device
+    out = torch.empty(npr, dtype=torch.bool, device=dev)
+    if npr == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k11_run_any(pair_ok.data_ptr(), cap, starts.data_ptr(),
+                                offs.data_ptr(), npr, out.data_ptr(),
+                                _blocks(dev, npr, 256 * 4), _stream(dev))
+        _check(rc, "K11_probe_run_any")
+    LAUNCHES["K11_probe_run_any"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K12: splitmix64 hash of multi-column keys
+# ---------------------------------------------------------------------------
+
+K12_MAX_COLS = 8
+
+
+def _i64(u: int) -> int:
+    """An unsigned 64-bit constant as the int64 with the same bits."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+MIX_C1 = _i64(0xBF58476D1CE4E5B9)
+MIX_C2 = _i64(0x94D049BB133111EB)
+GOLDEN64 = _i64(0x9E3779B97F4A7C15)
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bits: the arithmetic shift with its
+    sign bits masked off (torch has no uint64 shift)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def mix64_plain(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer (ops/hashing.py mix64) on int64 bits: int64
+    multiplies and adds wrap modulo 2^64 as uint64 ones do, and the shifts
+    are logical."""
+    x = x.to(torch.int64)
+    x = (x ^ _shr(x, 30)) * MIX_C1
+    x = (x ^ _shr(x, 27)) * MIX_C2
+    return x ^ _shr(x, 31)
+
+
+def _hash_operand(c: torch.Tensor) -> torch.Tensor:
+    if c.dtype.is_floating_point:
+        raise NotImplementedError("hash of float key columns is not ported")
+    return c.to(torch.int64)  # sign-extends, as astype(uint64) converts
+
+
+def hash_columns_plain(cols):
+    """Plain version of K12 (ops/hashing.py hash_combine, read as int64 as
+    join_keys64 does)."""
+    h = torch.zeros(cols[0].shape, dtype=torch.int64, device=cols[0].device)
+    for c in cols:
+        h = mix64_plain(h ^ (_hash_operand(c) + GOLDEN64))
+    return h
+
+
+def hash_columns(cols):
+    """K12: int64 [n] hash_combine of 1..8 integer key columns."""
+    cols = list(cols)
+    if not cols:
+        raise ValueError("K12 needs at least one column")
+    if not _on_cuda(*cols):
+        return hash_columns_plain(cols)
+    n = int(cols[0].shape[0])
+    if len(cols) > K12_MAX_COLS:
+        raise ValueError(f"K12 takes at most {K12_MAX_COLS} columns")
+    for c in cols:
+        _vector(c, n, "K12 key column")
+        if c.dtype.is_floating_point:
+            raise NotImplementedError(
+                "hash of float key columns is not ported")
+    dev = cols[0].device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        nc = len(cols)
+        rc = lib.ob_k12_hash(
+            nc, (ctypes.c_void_p * nc)(*[c.data_ptr() for c in cols]),
+            (ctypes.c_int * nc)(*[DTYPE_CODE[c.dtype] for c in cols]), n,
+            out.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
+        _check(rc, "K12_hash_combine")
+    LAUNCHES["K12_hash_combine"] += 1
+    return out

@@ -1,4 +1,4 @@
-"""numpy oracles for the TPC-H statements of the port's first slice.
+"""numpy oracles for TPC-H statements that the port runs.
 
 Counterparts of `q6_numpy` and `q1_numpy_fast` in
 `oceanbase_tpu/models/tpch/queries.py`, with every sum taken in int64 so
@@ -7,6 +7,8 @@ bincount weights of the original pass 2^53 and round.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -304,3 +306,130 @@ def topn_desc_numpy(lineitem, col: str, n: int, cols) -> dict:
     rows = np.flatnonzero(v >= kth)
     rows = rows[np.argsort(-v[rows], kind="stable")][:n]
     return {c: np.asarray(lineitem.data[c])[rows] for c in cols}
+
+
+def _by_string(table, col: str, codes: np.ndarray) -> np.ndarray:
+    """Dictionary codes ordered by their strings (ORDER BY the column)."""
+    values = table.dicts[col].values()
+    return np.asarray(sorted(codes.tolist(), key=lambda c: values[c]),
+                      dtype=np.int64)
+
+
+def q4_numpy(tables) -> dict:
+    """Q4: per o_orderpriority, the orders of 1993-Q3 with at least one
+    line received after its commit date."""
+    o, li = tables["orders"], tables["lineitem"]
+    od, ld = o.data, li.data
+    late = ld["l_commitdate"] < ld["l_receiptdate"]
+    orow, ok = _lookup(od["o_orderkey"], ld["l_orderkey"][late])
+    has = np.bincount(orow[ok], minlength=o.nrows) > 0
+    m = (has & (od["o_orderdate"] >= _day("1993-07-01"))
+         & (od["o_orderdate"] < _day("1993-10-01")))
+    counts = np.bincount(od["o_orderpriority"][m].astype(np.int64),
+                         minlength=len(o.dicts["o_orderpriority"]))
+    prio = _by_string(o, "o_orderpriority", np.flatnonzero(counts))
+    return {"o_orderpriority": prio, "order_count": counts[prio]}
+
+
+def q12_numpy(tables) -> dict:
+    """Q12: per ship mode (MAIL, SHIP), the 1994 lines received late but
+    shipped before their commit date, split by their order's priority."""
+    o, li = tables["orders"], tables["lineitem"]
+    od, ld = o.data, li.data
+    modes = np.asarray([_code(li, "l_shipmode", x) for x in ("MAIL", "SHIP")])
+    m = (np.isin(ld["l_shipmode"], modes)
+         & (ld["l_commitdate"] < ld["l_receiptdate"])
+         & (ld["l_shipdate"] < ld["l_commitdate"])
+         & (ld["l_receiptdate"] >= _day("1994-01-01"))
+         & (ld["l_receiptdate"] < _day("1995-01-01")))
+    orow, ok = _lookup(od["o_orderkey"], ld["l_orderkey"][m])
+    mode = ld["l_shipmode"][m][ok].astype(np.int64)
+    urgent = np.asarray([_code(o, "o_orderpriority", x)
+                         for x in ("1-URGENT", "2-HIGH")])
+    high = np.isin(od["o_orderpriority"][orow[ok]], urgent)
+    dom = len(li.dicts["l_shipmode"])
+    hi = np.bincount(mode[high], minlength=dom)
+    lo = np.bincount(mode[~high], minlength=dom)
+    keys = _by_string(li, "l_shipmode", np.flatnonzero(hi + lo))
+    return {"l_shipmode": keys, "high_line_count": hi[keys],
+            "low_line_count": lo[keys]}
+
+
+def q13_numpy(tables) -> dict:
+    """Q13: how many customers have each count of orders whose comment
+    does not match '%special%requests%' (customers with none count 0),
+    ordered by custdist desc, c_count desc."""
+    c, o = tables["customer"], tables["orders"]
+    pat = re.compile("special.*requests", re.S)
+    bad = _codes(o, "o_comment", lambda s: pat.search(s) is not None)
+    keep = ~np.isin(o.data["o_comment"], bad)
+    crow, ok = _lookup(c.data["c_custkey"], o.data["o_custkey"][keep])
+    c_count = np.bincount(crow[ok], minlength=c.nrows)
+    dist = np.bincount(c_count)
+    cc = np.flatnonzero(dist)
+    order = np.lexsort((-cc, -dist[cc]))
+    return {"c_count": cc[order].astype(np.int64),
+            "custdist": dist[cc][order].astype(np.int64)}
+
+
+def q20_numpy(tables, nation: str = "CANADA") -> dict:
+    """Q20: the suppliers of `nation` holding a 'forest%' part whose
+    available quantity exceeds half the 1994 shipped quantity of that
+    (part, supplier) pair -- pairs with no 1994 lines drop out (the
+    subquery's NULL) -- ordered by s_name. The decimal compare is exact:
+    ps_availqty > 0.5 * sum(l_quantity) at scale 3 is
+    200 * ps_availqty > sum(l_quantity at scale 2)."""
+    p, ps, li = tables["part"], tables["partsupp"], tables["lineitem"]
+    s, n = tables["supplier"], tables["nation"]
+    forest = np.isin(p.data["p_name"],
+                     _codes(p, "p_name", lambda x: x.startswith("forest")))
+    fkeys = p.data["p_partkey"][forest].astype(np.int64)
+    ld = li.data
+    m = (np.isin(ld["l_partkey"], fkeys)
+         & (ld["l_shipdate"] >= _day("1994-01-01"))
+         & (ld["l_shipdate"] < _day("1995-01-01")))
+    span = int(s.data["s_suppkey"].max()) + 1
+    pair = ld["l_partkey"][m].astype(np.int64) * span + ld["l_suppkey"][m]
+    upair, inv = np.unique(pair, return_inverse=True)
+    qty = np.zeros(len(upair), dtype=np.int64)
+    np.add.at(qty, inv, ld["l_quantity"][m].astype(np.int64))
+    pd = ps.data
+    pm = np.isin(pd["ps_partkey"], fkeys)
+    ppair = pd["ps_partkey"][pm].astype(np.int64) * span + pd["ps_suppkey"][pm]
+    row, found = _lookup(upair, ppair) if len(upair) else (
+        np.zeros(len(ppair), dtype=np.int64), np.zeros(len(ppair), bool))
+    ok = found & (200 * pd["ps_availqty"][pm].astype(np.int64)
+                  > (qty[row] if len(upair) else 0))
+    supp = np.unique(pd["ps_suppkey"][pm][ok])
+    nk = n.data["n_nationkey"][n.data["n_name"] == _code(n, "n_name", nation)]
+    sm = np.isin(s.data["s_suppkey"], supp) & np.isin(s.data["s_nationkey"],
+                                                      nk)
+    names = s.data["s_name"][sm]
+    values = s.dicts["s_name"].values()
+    order = sorted(range(len(names)), key=lambda i: values[names[i]])
+    return {"s_name": names[order].astype(np.int64),
+            "s_address": s.data["s_address"][sm][order].astype(np.int64)}
+
+
+def q11_numpy(tables, fraction: str = "0.0001") -> dict:
+    """Q11: per part, the value (ps_supplycost * ps_availqty, scale 2) of
+    its German suppliers' stock, kept above `fraction` of the German
+    total (TPC-H sets FRACTION = 0.0001 / SF), by value desc and then
+    partkey. The compare is exact on integers:
+    value > total * n / d  <=>  value * d > total * n."""
+    from fractions import Fraction
+
+    ps, s, n = tables["partsupp"], tables["supplier"], tables["nation"]
+    nk = n.data["n_nationkey"][n.data["n_name"] == _code(n, "n_name",
+                                                         "GERMANY")]
+    srow, ok = _lookup(s.data["s_suppkey"], ps.data["ps_suppkey"])
+    m = ok & np.isin(s.data["s_nationkey"][srow], nk)
+    v = (ps.data["ps_supplycost"][m].astype(np.int64)
+         * ps.data["ps_availqty"][m].astype(np.int64))
+    (pk,), value = _group_sum([ps.data["ps_partkey"][m].astype(np.int64)], v)
+    total = int(value.sum())
+    f = Fraction(fraction)
+    keep = value * f.denominator > total * f.numerator
+    pk, value = pk[keep], value[keep]
+    order = np.lexsort((pk, -value))
+    return {"ps_partkey": pk[order], "value": value[order]}

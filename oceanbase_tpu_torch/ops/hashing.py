@@ -1,15 +1,21 @@
-"""Key packing for the direct-addressed group-by.
+"""Key packing for the direct-addressed group-by, and the 64-bit key hash.
 
-Counterpart of the packing half of `oceanbase_tpu/ops/hashing.py`: when
-every group key has a small static domain (dictionary codes, bools), the
-keys bit-pack into one int key that is its own perfect-hash slot. The
-avalanche hashes of that module serve the join paths and are not ported
-yet.
+Counterpart of `oceanbase_tpu/ops/hashing.py`: when every group key has a
+small static domain (dictionary codes, bools), the keys bit-pack into one
+int key that is its own perfect-hash slot (`pack_keys`). Multi-column join
+keys hash-combine through the splitmix64 finalizer (`mix64`,
+`hash_combine`, kernel K12). torch has no uint64 shift or add, so the
+hash runs on int64 bits: multiplies and adds wrap modulo 2^64 alike, and
+each right shift masks off the sign bits. The 32-bit mixes and the HLL
+hashes of that module are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..kernels import hash_columns as hash_combine  # noqa: F401 (K12)
+from ..kernels import mix64_plain as mix64  # noqa: F401
 
 
 def pack_keys(columns: list[torch.Tensor], domains: list[int]

@@ -2,7 +2,8 @@
 port's Session (on the CPU, plain kernel versions) over the same TPC-H
 data at SF 0.01, plus the plan cache's text tier, the overflow retries
 (root compaction, the top-k prefilter, the pack guard), the clustered-FK
-route, and the int64 numpy oracles of the join statements.
+route, the int64 numpy oracles of the join statements, and the Distinct
+operator against the JAX package's `_dedup_batch` on NULLs and NaNs.
 
 Integers, scaled decimals, dates, dictionary strings, counts and row order
 must match exactly; float64 columns (the AVGs) compare at rel 1e-12.
@@ -10,6 +11,7 @@ must match exactly; float64 columns (the AVGs) compare at rel 1e-12.
 
 import numpy as np
 import pytest
+import torch
 
 from oceanbase_tpu.engine.executor import PACK_GUARD_BASE as J_PACK
 from oceanbase_tpu.engine.executor import ROOT_COMPACT as J_ROOT
@@ -74,6 +76,31 @@ STATEMENTS = {
         min(o_custkey) from orders where o_orderdate < date '1993-01-01'
         group by o_orderpriority, o_orderstatus, y
         order by o_orderpriority, o_orderstatus, y""",
+    # left joins with a residual, Distinct over NULL groups, semi/anti
+    # joins on each route
+    "left_join_residual": """select c_custkey, count(o_orderkey),
+        sum(o_totalprice), min(o_orderdate) from customer left join orders
+        on c_custkey = o_custkey and o_totalprice > c_acctbal * 20
+        group by c_custkey order by c_custkey limit 40""",
+    "left_join_rows": """select c_custkey, o_orderkey, o_totalprice
+        from customer left outer join orders on c_custkey = o_custkey
+        and o_orderdate < date '1992-02-01' where c_custkey < 60
+        order by c_custkey, o_orderkey""",
+    "distinct_null_groups": """select distinct o_orderstatus, l_returnflag,
+        l_linestatus from orders left join lineitem
+        on o_orderkey = l_orderkey and l_quantity > 49
+        order by o_orderstatus, l_returnflag, l_linestatus""",
+    "distinct_keys": """select distinct l_shipmode, l_returnflag, l_quantity
+        from lineitem where l_discount = 0.1
+        order by l_shipmode, l_returnflag, l_quantity""",
+    "semi_residual": """select o_orderpriority, count(*) from orders
+        where exists (select * from lineitem where l_orderkey = o_orderkey
+        and l_suppkey <> o_custkey and l_quantity > 4800)
+        group by o_orderpriority order by o_orderpriority""",
+    "anti_sorted_range": """select count(*), sum(c_acctbal) from customer
+        where not exists (select * from orders where o_custkey = c_custkey)""",
+    "anti_affine": """select count(*) from partsupp where ps_suppkey not in
+        (select s_suppkey from supplier where s_acctbal < 0)""",
 }
 
 
@@ -192,17 +219,94 @@ def test_overflow_retry_through_the_lazy_cursor(sessions):
 
 def test_unported_nodes_raise_by_name(sessions):
     _, ts, _ = sessions
-    with pytest.raises(NotImplementedError, match="semi join"):
-        ts.sql(TS.QUERIES[4])
-    with pytest.raises(NotImplementedError, match="left join"):
-        ts.sql(TS.QUERIES[13])
-    with pytest.raises(NotImplementedError, match="merge_join_unique"):
-        ts.sql(TS.QUERIES[2])
-    with pytest.raises(NotImplementedError, match="expand_join"):
-        ts.sql(TS.QUERIES[5])
+    with pytest.raises(NotImplementedError, match="full join"):
+        ts.sql("select l_orderkey, o_orderkey from lineitem full outer join "
+               "orders on l_orderkey = o_orderkey")
+    with pytest.raises(NotImplementedError, match="build_hash_table"):
+        ts.sql("select count(*) from partsupp where exists (select * from "
+               "lineitem where l_partkey = ps_partkey and l_suppkey = "
+               "ps_suppkey)")
+    with pytest.raises(NotImplementedError, match="DISTINCT aggregates"):
+        ts.sql("select sum(distinct l_quantity) from lineitem")
+    with pytest.raises(NotImplementedError, match="SetOp"):
+        ts.sql("select l_orderkey from lineitem union "
+               "select o_orderkey from orders")
     with pytest.raises(NotImplementedError, match="Window"):
         ts.sql("select l_orderkey, row_number() over (order by l_quantity) "
                "from lineitem")
+
+
+def _dedup_case(seed: int):
+    """A batch with duplicate rows, NULLs in two columns, NaNs, int64
+    extremes, a bool column and dead rows."""
+    rng = np.random.default_rng(seed)
+    n = 900
+    pool = 40
+    f = rng.normal(0.0, 5.0, pool).round(1)
+    f[:3] = np.nan
+    i64 = rng.integers(-3, 3, pool) * (2**62)
+    i64[:2] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max]
+    rows = rng.integers(0, pool, n)
+    data = {
+        "a": rng.integers(0, 4, pool).astype(np.int32)[rows],
+        "f": f[rows],
+        "i": i64[rows],
+        "b": (rng.random(pool) < 0.5)[rows],
+    }
+    vf = rng.random(pool) < 0.8
+    vf[:3] = True  # the NaN values are not NULL
+    valid = {"a": (rng.random(pool) < 0.7)[rows], "f": vf[rows]}
+    sel = rng.random(n) < 0.8
+    return data, valid, sel
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dedup_batch_matches_jax(seed):
+    """The Distinct operator (Executor._dedup_batch) on both engines over
+    the same batch: NULLs compare equal (a NULL group per column), NaN
+    does not equal NaN (each NaN row survives), dead rows drop out; the
+    surviving rows, in sorted order, must be the same values and
+    validity bit for bit."""
+    from oceanbase_tpu.core.column import make_batch as j_make
+    from oceanbase_tpu.core.dtypes import DataType as JDT
+    from oceanbase_tpu.core.dtypes import Field as JF
+    from oceanbase_tpu.core.dtypes import Schema as JS
+    from oceanbase_tpu.engine.executor import Executor as JEx
+    from oceanbase_tpu_torch.core.column import make_batch as t_make
+    from oceanbase_tpu_torch.core.dtypes import DataType as TDT
+    from oceanbase_tpu_torch.core.dtypes import Field as TF
+    from oceanbase_tpu_torch.core.dtypes import Schema as TSch
+    from oceanbase_tpu_torch.engine.executor import Executor as TEx
+
+    data, valid, sel = _dedup_case(seed)
+    types = {"a": "int32", "f": "float64", "i": "int64", "b": "bool_"}
+    nullable = {"a", "f"}
+    js = JS(tuple(JF(c, getattr(JDT, t)(nullable=c in nullable))
+                  for c, t in types.items()))
+    tsch = TSch(tuple(TF(c, getattr(TDT, t)(nullable=c in nullable))
+                      for c, t in types.items()))
+    jb = j_make(data, js, valid=valid)
+    tb = t_make(data, tsch, valid=valid, device="cpu")
+    jb = jb.with_sel(jb.sel & np.pad(sel, (0, jb.capacity - len(sel))))
+    tb = tb.with_sel(tb.sel & torch.from_numpy(
+        np.pad(sel, (0, tb.capacity - len(sel)))))
+    jo, _ = JEx({})._dedup_batch(jb, {})
+    to, _ = TEx({}, device="cpu")._dedup_batch(tb, {})
+    jsel, tsel = np.asarray(jo.sel), to.sel.numpy()
+    assert jsel.sum() == tsel.sum() > 0
+    assert int(to.nrows) == int(jo.nrows)
+    for c in types:
+        j = np.asarray(jo.cols[c])[jsel]
+        t = to.cols[c].numpy()[tsel]
+        assert j.dtype == t.dtype, c
+        assert np.array_equal(j, t, equal_nan=j.dtype.kind == "f"), c
+        if c in nullable:
+            assert np.array_equal(np.asarray(jo.valid[c])[jsel],
+                                  to.valid[c].numpy()[tsel]), c
+    # NaN != NaN: every live NaN row survives on its own
+    fv = to.cols["f"].numpy()[tsel]
+    live_nan = np.isnan(data["f"]) & valid["f"] & sel
+    assert np.isnan(fv).sum() >= 1 and np.isnan(fv).sum() <= live_nan.sum()
 
 
 def test_run_host_matches_lazy_cursor(sessions):
