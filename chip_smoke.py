@@ -14,14 +14,23 @@ oracle (Q1, Q6, S1, Q14, Q3, Q10, Q7, Q8, Q19, T1, Q4, Q11, Q12, Q13,
 Q20) must equal it exactly (a ratio to rel 1e-12), the others must be
 non-empty and finite (Q11 runs with TPC-H's FRACTION for the scale,
 0.0001 / SF), and every kernel on a statement's path must have launched during
-its runs. Then each kernel is called at the main path's shapes (the
-arguments of the join kernels are captured from one more run of Q17,
-Q21, Q13, Q9 and Q16) and held against its plain PyTorch version (exact
-agreement, and the same bits on two runs), and timed beside the plain
-version, a one-call PyTorch yardstick and its memory-bandwidth bound.
-Last, all 22 queries run on the card at SF 0.01 against sqlite, and every
-statement runs on the card and on the CPU at SF 0.1, where the two
-results must hold the same bits.
+its runs. The analytic statements follow in the same way: window
+functions over all orders (W1-W3) and TPC-DS's revenue ratio (W4), set
+operations (U1-U4), DISTINCT aggregates (D1, D2), approx_count_distinct
+(A1, within 2% of the exact NDVs and equal to the plain estimate), ROLLUP
+and CUBE (R1, R2), FULL and RIGHT joins (F1, F2), and the four TPC-DS
+star queries (DS3, DS42, DS52, DS55) over TPC-DS at the same scale factor
+(seed 20030101); U1, D2, F1 and F2 against int64 numpy oracles. Then each
+kernel is called at the main path's shapes (the arguments of the join and
+analytic kernels are captured from one more run of Q17, Q21, Q13, Q9,
+Q16, W1-W3, U2, D1, A1 and F1) and held against its plain PyTorch version
+(exact agreement, and the same bits on two runs), and timed beside the
+plain version, a one-call PyTorch yardstick and its memory-bandwidth
+bound. Last, all 22 queries and the analytic statements run on the card
+at SF 0.01 against sqlite (ROLLUP/CUBE against the union of plain
+group-bys, INTERSECT/EXCEPT ALL against bag counts, approx_count_distinct
+against the plain estimate), and every statement runs on the card and on
+the CPU at SF 0.1, where the two results must hold the same bits.
 
 Run from the repository root on a machine with one CUDA device:
 
@@ -55,6 +64,116 @@ S1_DAYS = ("1995-06-17", "1996-02-29")
 
 T1 = """select l_orderkey, l_linenumber, l_quantity from lineitem
 order by l_quantity desc limit 5"""
+
+# The analytic statements. Each wraps an operator whose result would be
+# millions of rows in an outer aggregate, so it measures the operator and
+# not the copy to the host.
+WIN_SPEC = "partition by o_custkey order by o_orderdate, o_orderkey"
+W1 = f"""select count(*) as n, max(rn) as max_rn, sum(rk) as sum_rk,
+       sum(run) as sum_run, sum(rmax) as sum_rmax
+from (select row_number() over ({WIN_SPEC}) as rn,
+             rank() over (partition by o_custkey order by o_orderdate) as rk,
+             sum(o_totalprice) over ({WIN_SPEC}) as run,
+             max(o_totalprice) over ({WIN_SPEC}) as rmax
+      from orders) w"""
+W2 = f"""select count(*) as n, sum(mv) as sum_mv, sum(mx) as sum_mx,
+       sum(lg) as sum_lg, sum(ld) as sum_ld
+from (select sum(o_totalprice) over ({WIN_SPEC}
+                 rows between 2 preceding and current row) as mv,
+             max(o_totalprice) over ({WIN_SPEC}
+                 rows between current row and unbounded following) as mx,
+             lag(o_totalprice, 1, 0) over ({WIN_SPEC}) as lg,
+             lead(o_shippriority, 2, -1) over ({WIN_SPEC}) as ld
+      from orders) w"""
+W3 = """select count(*) as n, sum(recent) as sum_recent,
+       max(recent) as max_recent
+from (select count(*) over (partition by o_custkey order by o_orderdate
+                 range between 30 preceding and current row) as recent
+      from orders) w"""
+# TPC-DS Q98/Q12/Q20's revenue ratio (an aggregate's share of its
+# category's total, a window over the aggregate) on store_sales
+W4 = """select item.i_category, item.i_brand,
+       sum(ss.ss_ext_sales_price) as itemrevenue,
+       sum(ss.ss_ext_sales_price) * 100
+         / sum(sum(ss.ss_ext_sales_price))
+           over (partition by item.i_category) as revenueratio
+from store_sales ss, item, date_dim dt
+where ss.ss_item_sk = item.i_item_sk
+  and ss.ss_sold_date_sk = dt.d_date_sk
+  and dt.d_year = 2000 and dt.d_moy between 1 and 3
+group by item.i_category, item.i_brand
+order by item.i_category, item.i_brand"""
+U1 = """with u as (
+    select c_custkey from customer
+    except
+    select o_custkey from orders)
+select count(*) as n, sum(c_custkey) as sum_key from u"""
+U2 = """with u as (
+    select o_custkey, o_orderpriority from orders
+    where o_orderdate < date '1995-01-01'
+    intersect
+    select o_custkey, o_orderpriority from orders
+    where o_orderdate >= date '1995-01-01')
+select count(*) as n, sum(o_custkey) as sum_key from u"""
+U3_SIDES = ("select l_suppkey as s from lineitem where l_shipmode = 'AIR'",
+            "select l_suppkey from lineitem where l_shipmode = 'RAIL'")
+U3 = f"""with u as (
+    {U3_SIDES[0]}
+    intersect all
+    {U3_SIDES[1]})
+select count(*) as n, sum(s) as sum_supp from u"""
+U3E = U3.replace("intersect all", "except all")
+U4 = """with u as (
+    select l_orderkey as k from lineitem where l_shipmode = 'AIR'
+    union
+    select o_orderkey from orders where o_orderpriority = '1-URGENT')
+select count(*) as n, sum(k) as sum_k from u"""
+D1 = """select l_returnflag, l_linestatus,
+       count(distinct l_suppkey) as n_supp,
+       sum(distinct l_quantity) as sum_qty,
+       count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus"""
+D2 = """select o_orderpriority, approx_count_distinct(o_custkey) as n_cust
+from orders group by o_orderpriority order by o_orderpriority"""
+A1_COLS = ("l_orderkey", "l_partkey", "l_extendedprice")
+A1 = ("select " + ", ".join(f"approx_count_distinct({c}) as ndv_{c}"
+                            for c in A1_COLS) + " from lineitem")
+R1_PARTS = ("lineitem", "where l_shipdate <= date '1998-09-02'",
+            ("l_returnflag", "l_linestatus"),
+            "sum(l_quantity) as sum_qty, count(*) as count_order")
+R2_PARTS = ("orders", "", ("o_orderstatus", "o_orderpriority"),
+            "count(*) as n, sum(o_totalprice) as total")
+
+
+def grouping_text(parts, how: str) -> str:
+    table, where, keys, aggs = parts
+    return (f"select {', '.join(keys)}, {aggs} from {table} {where} "
+            f"group by {how}({', '.join(keys)})")
+
+
+R1 = grouping_text(R1_PARTS, "rollup")
+R2 = grouping_text(R2_PARTS, "cube")
+F1 = """select count(*) as n, count(c_custkey) as n_cust,
+       count(o_orderkey) as n_ord
+from customer full join orders on c_custkey = o_custkey"""
+F2 = """select count(*) as n, count(o_orderkey) as n_ord,
+       sum(c_acctbal) as bal
+from orders right join customer on o_custkey = c_custkey"""
+
+# name -> (text, data set); the TPC-DS star queries are added in main()
+ANALYTIC = {
+    "W1": (W1, "tpch"), "W2": (W2, "tpch"), "W3": (W3, "tpch"),
+    "W4": (W4, "tpcds"), "U1": (U1, "tpch"), "U2": (U2, "tpch"),
+    "U3": (U3, "tpch"), "U3E": (U3E, "tpch"), "U4": (U4, "tpch"),
+    "D1": (D1, "tpch"), "D2": (D2, "tpch"), "A1": (A1, "tpch"),
+    "R1": (R1, "tpch"), "R2": (R2, "tpch"), "F1": (F1, "tpch"),
+    "F2": (F2, "tpch"),
+}
+DS_QUERIES = (3, 42, 52, 55)
+DS_SEED = 20030101  # the TPC-DS generator's default seed
 
 
 def q11_fraction(sf: float) -> str:
@@ -114,17 +233,36 @@ KERNEL_META = {
     "K12_hash_combine": (
         "oceanbase_tpu_torch/csrc/k12_hash_combine.cu",
         "oceanbase_tpu/ops/hashing.py:40"),
-    # a second entry of K5 (its launches count as K5's too)
+    "K13_window_scan": (
+        "oceanbase_tpu_torch/csrc/k13_window_scan.cu",
+        "oceanbase_tpu/ops/window.py:31"),
+    "K14_hash_set": (
+        "oceanbase_tpu_torch/csrc/k14_hash_set.cu",
+        "oceanbase_tpu/ops/join.py:56"),
+    "K15_distinct_first": (
+        "oceanbase_tpu_torch/csrc/k15_distinct_first.cu",
+        "oceanbase_tpu/ops/hashagg.py:240"),
+    "K16_hll": (
+        "oceanbase_tpu_torch/csrc/k16_hll.cu",
+        "oceanbase_tpu/ops/hll.py:55"),
+    # second entries of K5, K11 and K15 (their launches count as the
+    # kernel's too)
     "K5_affine_join.probe": (
         "oceanbase_tpu_torch/csrc/k5_affine_join.cu",
         "oceanbase_tpu/engine/executor.py:4240"),
+    "K11_probe_run_any.mark_build": (
+        "oceanbase_tpu_torch/csrc/k11_probe_run_any.cu",
+        "oceanbase_tpu/engine/executor.py:2998"),
+    "K15_distinct_first.scatter": (
+        "oceanbase_tpu_torch/csrc/k15_distinct_first.cu",
+        "oceanbase_tpu/engine/executor.py:2687"),
     # not a kernel of its own: the Distinct operator on K3 + K4
     "dedup_batch": (
         "oceanbase_tpu_torch/engine/executor.py",
         "oceanbase_tpu/engine/executor.py:2606"),
 }
 
-# the entries of the {"kernels": ...} line: K1-K12 and K5's probe entry
+# the entries of the {"kernels": ...} line: K1-K16 and the second entries
 KERNEL_LINE = [k for k in KERNEL_META if k != "dedup_batch"]
 
 # the TPC-H queries run through the merge, expansion, semi/anti/left
@@ -175,6 +313,37 @@ PATH_KERNELS = {
             "K7_topk_candidates"),
     "Q22": ("K9_merge_join", "K10_expand_join", "K3_radix_sort",
             "K4_gather_rows", "K2_groupby_direct", "K1_scalar_aggregate"),
+    "W1": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
+           "K15_distinct_first", "K1_scalar_aggregate"),
+    "W2": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
+           "K15_distinct_first", "K1_scalar_aggregate"),
+    "W3": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
+           "K15_distinct_first", "K1_scalar_aggregate"),
+    "W4": ("K5_affine_join", "K3_radix_sort", "K4_gather_rows",
+           "K8_segmented_reduce", "K13_window_scan", "K15_distinct_first"),
+    "U1": ("K14_hash_set", "K3_radix_sort", "K4_gather_rows",
+           "K13_window_scan", "K1_scalar_aggregate"),
+    "U2": ("K14_hash_set", "K3_radix_sort", "K4_gather_rows",
+           "K13_window_scan", "K1_scalar_aggregate"),
+    "U3": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
+           "K1_scalar_aggregate"),
+    "U3E": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
+            "K1_scalar_aggregate"),
+    "U4": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
+           "K1_scalar_aggregate"),
+    "D1": ("K3_radix_sort", "K15_distinct_first", "K2_groupby_direct"),
+    "D2": ("K3_radix_sort", "K15_distinct_first", "K2_groupby_direct"),
+    "A1": ("K16_hll",),
+    "R1": ("K2_groupby_direct",),
+    "R2": ("K2_groupby_direct",),
+    "F1": ("K10_expand_join", "K11_probe_run_any", "K3_radix_sort",
+           "K4_gather_rows", "K1_scalar_aggregate"),
+    "F2": ("K10_expand_join", "K11_probe_run_any", "K3_radix_sort",
+           "K4_gather_rows", "K1_scalar_aggregate"),
+    # the star joins probe each unique dimension by its affine key
+    **{f"DS{q}": ("K5_affine_join", "K3_radix_sort", "K4_gather_rows",
+                  "K8_segmented_reduce", "K7_topk_candidates")
+       for q in (3, 42, 52, 55)},
 }
 
 # second entry points and operators each statement's path must run:
@@ -186,6 +355,14 @@ PATH_ENTRIES = {
     "Q18": ("K10_expand_join.ranges",),
     "Q20": ("K5_affine_join.probe", "K10_expand_join.ranges"),
     "Q22": ("K10_expand_join.ranges",),
+    "W1": ("K15_distinct_first.scatter",),
+    "W2": ("K15_distinct_first.scatter",),
+    "W3": ("K15_distinct_first.scatter",),
+    "W4": ("K15_distinct_first.scatter",),
+    "U1": ("dedup_batch",),
+    "U2": ("dedup_batch",),
+    "U4": ("dedup_batch",),
+    "F1": ("K11_probe_run_any.mark_build",),
 }
 
 # exact launch counts over a statement's runs: T1's first run overflows
@@ -392,14 +569,78 @@ def device_busy_ms(fn) -> tuple[float, float, list, list]:
 def checked_by(name: str) -> str:
     if name in SANE_ONLY:
         return "non-empty and finite (no oracle at this scale)"
+    if name == "A1":
+        return "within 2% of the exact NDVs, equal to the plain estimate"
     return "exact against the int64 oracle"
 
 
 SANE_ONLY = ({f"Q{q}" for q in NEW_QUERIES}
-             - {"Q4", "Q11", "Q12", "Q13", "Q20"})
+             - {"Q4", "Q11", "Q12", "Q13", "Q20"}
+             | ({*ANALYTIC} - {"U1", "D2", "F1", "F2", "A1"})
+             | {f"DS{q}" for q in DS_QUERIES})
 
 
-def run_statement(sess, kernels, name, text, check, warm, nrows_li):
+def analytic_oracles(tables) -> dict:
+    """int64 numpy oracles of U1 (customers with no order), D2 (distinct
+    customers per order priority, in priority order), F1 and F2 (the
+    full and right joins' counts and the balance sum)."""
+    import numpy as np
+
+    cust = np.asarray(tables["customer"].data["c_custkey"], dtype=np.int64)
+    bal = np.asarray(tables["customer"].data["c_acctbal"], dtype=np.int64)
+    ocust = np.asarray(tables["orders"].data["o_custkey"], dtype=np.int64)
+    prio = np.asarray(tables["orders"].data["o_orderpriority"],
+                      dtype=np.int64)
+    no = len(ocust)
+    without = np.setdiff1d(np.unique(cust), ocust)
+    cust_wo = len(cust) - int(np.isin(cust, ocust).sum())
+    # orders per customer row (c_custkey is unique)
+    order = np.argsort(cust, kind="stable")
+    pos = np.minimum(np.searchsorted(cust[order], ocust), len(cust) - 1)
+    hit = cust[order][pos] == ocust
+    matched = int(hit.sum())
+    per_cust = np.bincount(order[pos[hit]], minlength=len(cust))
+    pairs = np.unique((prio << 32) | ocust)
+    d2 = np.bincount(pairs >> 32, minlength=int(prio.max()) + 1)
+    pdict = tables["orders"].dicts["o_orderpriority"]
+    codes = np.flatnonzero(d2)
+    strings = pdict.decode(codes)
+    by_name = np.argsort(np.asarray(strings, dtype=object), kind="stable")
+    return {
+        "U1": {"n": len(without), "sum_key": int(without.sum())},
+        "D2": {"o_orderpriority": codes[by_name], "n_cust": d2[codes][by_name]},
+        "F1": {"n": no + cust_wo, "n_cust": matched + cust_wo, "n_ord": no},
+        "F2": {"n": matched + cust_wo, "n_ord": matched,
+               "bal": int((bal * np.maximum(per_cust, 1)).sum())},
+    }
+
+
+def check_a1(rs, sess, kernels) -> int:
+    """A1's estimates: within 2% of the exact NDVs (numpy on the host) and
+    equal to the estimates of the plain registers on the same columns."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.ops.hll import hll_estimate
+
+    got = rs.storage_columns()
+    t = sess.executor.catalog["lineitem"]
+    b = sess.executor.table_batch("lineitem", A1_COLS)
+    for c in A1_COLS:
+        est = int(got[f"ndv_{c}"][0])
+        exact = len(np.unique(np.asarray(t.data[c])))
+        plain = int(hll_estimate(kernels.hll_registers_plain(b.cols[c],
+                                                             b.sel)))
+        require(abs(est - exact) <= 0.02 * exact,
+                f"A1 {c}: estimate {est} vs exact NDV {exact}")
+        require(est == plain, f"A1 {c}: estimate {est} != plain {plain}")
+        print(f"A1 {c}: estimate {est}, exact NDV {exact} (rel "
+              f"{(est - exact) / exact:+.5f}), plain estimate {plain}",
+              flush=True)
+    return 1
+
+
+def run_statement(sess, kernels, name, text, check, warm, fact_rows,
+                  fact="lineitem"):
     import torch
 
     before = dict(kernels.LAUNCHES)
@@ -436,7 +677,8 @@ def run_statement(sess, kernels, name, text, check, warm, nrows_li):
     med = statistics.median(times) if times else cold
     rec = {
         "statement": name, "cold_ms": cold, "warm_median_ms": med,
-        "warm_ms": times, "lineitem_rows_per_s": nrows_li / (med / 1e3),
+        "warm_ms": times, "fact_table": fact,
+        "fact_rows_per_s": fact_rows / (med / 1e3),
         "result_rows": rows, "checked_by": checked_by(name),
         "launches": launches,
         "entries": {k: v for k, v in entries.items() if v},
@@ -449,7 +691,7 @@ def run_statement(sess, kernels, name, text, check, warm, nrows_li):
         "device_ms_by_kernel": [{"name": k, "ms": v} for k, v in top],
     }
     print(f"statement {name}: cold {cold:.3f} ms, warm median {med:.3f} ms, "
-          f"{rec['lineitem_rows_per_s']:.6g} lineitem rows/s, {rows} rows, "
+          f"{rec['fact_rows_per_s']:.6g} {fact} rows/s, {rows} rows, "
           f"{rec['checked_by']}, peak memory {peak / 2**30:.3f} GiB, "
           f"launches { {k: v for k, v in launches.items() if v} }, "
           f"entries {rec['entries']}, device busy {busy:.3f} ms of "
@@ -514,6 +756,80 @@ def capture_join_kernels(sess, kernels, queries_text) -> dict:
     return out
 
 
+def capture_analytic_kernels(sess, kernels) -> dict:
+    """The arguments the main path gives K11's mark entry (F1), K13 (W1:
+    flags, starts, ends, prefix sum and running max; W2: the suffix max;
+    W3: the frame-bound search), K14 (U2's build and probe), K15 (D1's
+    first occurrences, W1's write-back) and K16 (A1)."""
+    import oceanbase_tpu_torch.engine.executor as ex
+    import oceanbase_tpu_torch.ops.hashagg as hashagg
+    import oceanbase_tpu_torch.ops.hll as hll
+
+    def n0(t, *rest):
+        return t.numel()
+
+    def cols_n(cols, *rest):
+        return cols[0].numel() * len(cols)
+
+    plan = [
+        (W1, {"K13.flags": (ex, "boundaries", lambda keys: keys[0].numel()
+                            * len(keys)),
+              "K13.starts": (ex, "segment_starts", n0),
+              "K13.ends": (ex, "peer_ends", n0),
+              "K13.sum": (ex, "prefix_sum", n0),
+              "K13.fwd": (ex, "segmented_scan_minmax", n0),
+              "K15_distinct_first.scatter": (ex, "scatter_rows", cols_n)}),
+        (W2, {"K13.suffix": (ex, "suffix_scan_minmax", n0)}),
+        (W3, {"K13.search": (ex, "bound_search",
+                             lambda arr, t, lo=None, hi=None, right=False:
+                             t.numel() + (0 if lo is None else 1))}),
+        (U2, {"K14.build": (ex, "build_hash_table", cols_n),
+              "K14.probe": (ex, "hash_join_probe",
+                            lambda tag, row, b, p, m: m.numel())}),
+        (D1, {"K15_distinct_first": (hashagg, "first_occurrence", cols_n)}),
+        (A1, {"K16_hll": (hll, "hll_registers", n0)}),
+        (F1, {"K11_probe_run_any.mark_build": (ex, "mark_build", n0)}),
+    ]
+    out = {}
+    for text, targets in plan:
+        out.update(capture_args(sess, text, targets))
+    return out
+
+
+def k13_steps(kernels, cap: dict, plain: bool) -> list:
+    """K13's entries on their captured main-path arguments (run flags,
+    segment starts and ends, the prefix sum, the forward and backward
+    segmented max, the frame-bound search), through the kernel or the
+    plain versions."""
+    def fn(name):
+        return getattr(kernels, f"{name}_plain" if plain else name)
+
+    (keys,) = cap["K13.flags"]
+    vals, flags, is_min = cap["K13.fwd"]
+    svals, sflags, s_is_min = cap["K13.suffix"]
+    arr, target, lo, hi, *right = cap["K13.search"]
+    return [
+        fn("boundaries")(keys),
+        fn("segment_starts")(*cap["K13.starts"]),
+        fn("peer_ends")(*cap["K13.ends"]),
+        fn("prefix_sum")(*cap["K13.sum"]),
+        fn("segmented_scan_minmax")(vals, flags, is_min),
+        fn("suffix_scan_minmax")(svals, sflags, s_is_min),
+        fn("bound_search")(arr, target, lo, hi, *right),
+    ]
+
+
+def k14_steps(kernels, cap: dict, plain: bool):
+    """K14's build and probe on U2's captured arguments: the match rows
+    (the slot layout depends on the schedule; the match rows do not)."""
+    build = kernels.hash_set_build_plain if plain else kernels.hash_set_build
+    probe = kernels.hash_set_probe_plain if plain else kernels.hash_set_probe
+    keys, mask, ts = cap["K14.build"]
+    _tag, _row, bcols, pcols, pmask = cap["K14.probe"]
+    tag, row = build(keys, mask, ts)
+    return probe(tag, row, bcols, pcols, pmask)
+
+
 def dedup_steps(kernels, b, plain: bool):
     """The Distinct operator's device steps (executor._dedup_batch): the
     sort order over every operand, the gather, the run boundaries; returns
@@ -523,9 +839,10 @@ def dedup_steps(kernels, b, plain: bool):
     keys, _spec = _row_key_operands(b.cols, b.valid, b.schema)
     sort = kernels.sort_order_plain if plain else kernels.sort_order
     gather = kernels.gather_columns_plain if plain else kernels.gather_columns
+    bounds = kernels.boundaries_plain if plain else kernels.boundaries
     order = sort(keys, [False] * len(keys), b.sel)
     g = gather(keys + [b.sel], order)
-    new = kernels.boundaries([~g[-1]] + g[:-1])
+    new = bounds([~g[-1]] + g[:-1])
     return [new & g[-1]] + g[:-1]
 
 
@@ -925,6 +1242,118 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
            lambda: dedup_steps(kernels, b16, plain=True),
            dedup_library, b16.capacity * (2 * (width16 + 1) + 1),
            b16.capacity * len(cols16))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if isinstance(t, torch.Tensor))
+
+    # K13 at W1/W2/W3's shapes (15M orders): every entry once; the bound
+    # reads each entry's inputs once and writes its outputs once
+    got13 = k13_steps(kernels, captured, plain=False)
+    (keys13,) = captured["K13.flags"]
+    args13 = ([*keys13], captured["K13.starts"], captured["K13.ends"],
+              captured["K13.sum"], captured["K13.fwd"][:2],
+              captured["K13.suffix"][:2], captured["K13.search"][:4])
+    k13_bytes = (sum(nbytes(a) for a in args13) + nbytes(got13))
+    sum_in = captured["K13.sum"][0]
+    fwd_in = captured["K13.fwd"][0]
+    arr13, tgt13 = captured["K13.search"][:2]
+
+    def k13_library():
+        return [torch.cumsum(sum_in, 0), torch.cummax(fwd_in, 0).values,
+                torch.searchsorted(arr13, tgt13)]
+
+    record("K13_window_scan", got13,
+           k13_steps(kernels, captured, plain=True),
+           lambda: k13_steps(kernels, captured, plain=False),
+           lambda: k13_steps(kernels, captured, plain=True),
+           k13_library, k13_bytes, sum(int(t.numel()) for t in got13))
+
+    # K14 at U2's shape: the later orders' (o_custkey, o_orderpriority)
+    # built into the set, the earlier orders' distinct pairs probed
+    bkeys14, bmask14, _ts = captured["K14.build"]
+    _t, _r, _b, pkeys14, pmask14 = captured["K14.probe"]
+    np14 = int(pmask14.shape[0])
+
+    def k14_library():
+        hb = kernels.hash_columns_plain(bkeys14)
+        hb = torch.where(bmask14, hb, torch.iinfo(torch.int64).max)
+        sk, si = torch.sort(hb)
+        hp = kernels.hash_columns_plain(pkeys14)
+        pos = torch.searchsorted(sk, hp).clamp(max=sk.numel() - 1)
+        return torch.where(pmask14 & (sk[pos] == hp), si[pos], -1)
+
+    record("K14_hash_set", k14_steps(kernels, captured, plain=False),
+           k14_steps(kernels, captured, plain=True),
+           lambda: k14_steps(kernels, captured, plain=False),
+           lambda: k14_steps(kernels, captured, plain=True),
+           k14_library,
+           nbytes([*bkeys14, bmask14, *pkeys14, pmask14]) + np14 * 4,
+           int(bmask14.numel()) + np14)
+
+    # K15 at D1's shape: lineitem's (flag, status, l_suppkey) first rows
+    # along K3's order, written straight into row order
+    cols15, mask15, order15 = captured["K15_distinct_first"]
+    packed15 = torch.zeros_like(cols15[0], dtype=torch.int64)
+    for c in cols15:
+        packed15 = packed15 * 1_000_003 + c.to(torch.int64)
+
+    record("K15_distinct_first",
+           kernels.first_occurrence(cols15, mask15, order15),
+           kernels.first_occurrence_plain(cols15, mask15, order15),
+           lambda: kernels.first_occurrence(cols15, mask15, order15),
+           lambda: kernels.first_occurrence_plain(cols15, mask15, order15),
+           lambda: torch.unique(packed15, return_inverse=True),
+           nbytes([*cols15, mask15, order15]) + mask15.numel(),
+           int(mask15.numel()) * len(cols15))
+
+    # K15's write-back at W1's shape (the results of one window spec)
+    cols15s, order15s = captured["K15_distinct_first.scatter"]
+
+    def scatter_library():
+        o = order15s.to(torch.int64)
+        return [torch.empty_like(c).index_copy_(0, o, c) for c in cols15s]
+
+    record("K15_distinct_first.scatter",
+           kernels.scatter_rows(cols15s, order15s),
+           kernels.scatter_rows_plain(cols15s, order15s),
+           lambda: kernels.scatter_rows(cols15s, order15s),
+           lambda: kernels.scatter_rows_plain(cols15s, order15s),
+           scatter_library, 2 * nbytes(cols15s) + nbytes([order15s]),
+           int(order15s.numel()) * len(cols15s))
+
+    # K16 at A1's shape: one lineitem column, 60M values
+    col16, mask16 = captured["K16_hll"]
+
+    def k16_library():
+        h1, h2 = kernels.hll_hashes_plain(col16)
+        rank = torch.where(h2 == 0, 33, 33 - kernels._bit_length32(h2))
+        regs = torch.zeros(kernels.HLL_M, dtype=torch.int64,
+                           device=col16.device)
+        return regs.scatter_reduce_(
+            0, h1 & (kernels.HLL_M - 1), torch.where(mask16, rank, 0),
+            "amax")
+
+    record("K16_hll", kernels.hll_registers(col16, mask16),
+           kernels.hll_registers_plain(col16, mask16),
+           lambda: kernels.hll_registers(col16, mask16),
+           lambda: kernels.hll_registers_plain(col16, mask16),
+           k16_library, nbytes([col16, mask16]) + kernels.HLL_M * 4,
+           int(col16.numel()) * 24)
+
+    # K11's build-side marks at F1's shape (orders into customer)
+    br11, ps11, nr11 = captured["K11_probe_run_any.mark_build"]
+
+    def mark_library():
+        return torch.zeros(nr11, dtype=torch.bool, device=br11.device
+                           ).index_fill_(0, br11[ps11].to(torch.int64), True)
+
+    record("K11_probe_run_any.mark_build",
+           kernels.mark_build(br11, ps11, nr11),
+           kernels.mark_build_plain(br11, ps11, nr11),
+           lambda: kernels.mark_build(br11, ps11, nr11),
+           lambda: kernels.mark_build_plain(br11, ps11, nr11),
+           mark_library, nbytes([br11, ps11]) + nr11, int(br11.numel()))
     return out
 
 
@@ -1100,6 +1529,37 @@ def sqlite_checks(tables, Session, unique_keys, queries) -> list[dict]:
     import numpy as np
 
     sess = Session(tables, unique_keys=unique_keys, device="cuda")
+    conn = sqlite_conn(tables)
+    for ddl in ("create index li_ok on lineitem(l_orderkey)",
+                "create index li_ps on lineitem(l_partkey, l_suppkey)",
+                "create index ps_pk on partsupp(ps_partkey)",
+                "create index o_ck on orders(o_custkey)"):
+        conn.execute(ddl)
+    conn.commit()
+    out, bad = [], []
+    for qid, text in queries:
+        rs = sess.sql(text)
+        want = [tuple(_norm(v) for v in row)
+                for row in conn.execute(to_sqlite(text)).fetchall()]
+        ok = same_rows(engine_rows(rs), want)
+        out.append({"query": qid, "rows": rs.nrows, "sqlite_rows": len(want),
+                    "match": bool(ok)})
+        print(f"sqlite Q{qid}: {rs.nrows} rows, sqlite {len(want)}, "
+              + ("match" if ok else "DIFFER"), flush=True)
+        if not ok:
+            bad.append(qid)
+    conn.close()
+    require(not bad, f"results differ from sqlite: {bad}")
+    return out
+
+
+def sqlite_conn(tables):
+    """An in-memory sqlite database holding the tables decoded (strings,
+    decimals as floats, dates as ISO text)."""
+    import sqlite3
+
+    import numpy as np
+
     conn = sqlite3.connect(":memory:")
     for name, t in tables.items():
         cols = t.schema.names()
@@ -1119,36 +1579,110 @@ def sqlite_checks(tables, Session, unique_keys, queries) -> list[dict]:
         conn.executemany(
             f"insert into {name} values ({','.join('?' * len(cols))})",
             list(zip(*[decoded[c] for c in cols])))
-    for ddl in ("create index li_ok on lineitem(l_orderkey)",
-                "create index li_ps on lineitem(l_partkey, l_suppkey)",
-                "create index ps_pk on partsupp(ps_partkey)",
-                "create index o_ck on orders(o_custkey)"):
-        conn.execute(ddl)
     conn.commit()
-    out, bad = [], []
-    for qid, text in queries:
-        rs = sess.sql(text)
-        want = [tuple(_norm(v) for v in row)
+    return conn
+
+
+def engine_rows(rs) -> list:
+    return [tuple(_norm_engine_value(rs.columns[n][i], n) for n in rs.names)
+            for i in range(rs.nrows)]
+
+
+def same_rows(got, want) -> bool:
+    """Multisets of rounded rows equal, floats to rel 1e-4, abs 1e-2."""
+    if len(got) != len(want):
+        return False
+    ok = True
+    for g, w in zip(sorted(got, key=repr), sorted(want, key=repr)):
+        for gv, wv in zip(g, w):
+            if isinstance(gv, float) or isinstance(wv, float):
+                ok &= (gv is not None and wv is not None
+                       and abs(gv - wv) <= max(1e-2, 1e-4 * abs(wv)))
+            else:
+                ok &= gv == wv
+    return bool(ok)
+
+
+def analytic_sqlite_checks(tiny, tiny_ds, Session, uk, uk_ds,
+                           ds_stmts) -> list[dict]:
+    """The analytic statements on the card against sqlite (3.39 or later:
+    windows, set operations and FULL/RIGHT joins). sqlite lacks ROLLUP,
+    CUBE, INTERSECT ALL, EXCEPT ALL and approx_count_distinct, so R1/R2
+    hold to the union of their plain group-bys, U3/U3E to the bag counts
+    of their two sides, D2 to count(distinct) and A1 to the plain
+    estimate (the port's Session on the CPU, whose wrappers run the plain
+    versions). W3's RANGE frame orders by julianday(), since the dates are
+    text there."""
+    import itertools
+    import sqlite3
+    from collections import Counter
+
+    require(sqlite3.sqlite_version_info >= (3, 39),
+            f"sqlite {sqlite3.sqlite_version} lacks FULL/RIGHT JOIN")
+    conns = {"tpch": sqlite_conn(tiny), "tpcds": sqlite_conn(tiny_ds)}
+    card = {"tpch": Session(tiny, unique_keys=uk, device="cuda"),
+            "tpcds": Session(tiny_ds, unique_keys=uk_ds, device="cuda")}
+    cpu = Session(tiny, unique_keys=uk, device="cpu")
+
+    def fetch(conn, text):
+        return [tuple(_norm(v) for v in row)
                 for row in conn.execute(to_sqlite(text)).fetchall()]
-        got = [tuple(_norm_engine_value(rs.columns[n][i], n)
-                     for n in rs.names) for i in range(rs.nrows)]
-        ok = len(got) == len(want)
-        if ok:
-            for g, w in zip(sorted(got, key=repr), sorted(want, key=repr)):
-                for gv, wv in zip(g, w):
-                    if isinstance(gv, float) or isinstance(wv, float):
-                        ok &= (gv is not None and wv is not None
-                               and abs(gv - wv) <= max(1e-2, 1e-4 * abs(wv)))
-                    else:
-                        ok &= gv == wv
-        out.append({"query": qid, "rows": len(got), "sqlite_rows": len(want),
-                    "match": bool(ok)})
-        print(f"sqlite Q{qid}: {len(got)} rows, sqlite {len(want)}, "
-              + ("match" if ok else "DIFFER"), flush=True)
+
+    def grouping_union(conn, parts, sets):
+        table, where, keys, aggs = parts
+        rows = []
+        for present in sets:
+            cols = [k if k in present else f"null as {k}" for k in keys]
+            grp = f"group by {', '.join(present)}" if present else ""
+            rows += fetch(conn, f"select {', '.join(cols)}, {aggs} "
+                                f"from {table} {where} {grp}")
+        return rows
+
+    def bag(conn, intersect):
+        left = Counter(r[0] for r in fetch(conn, U3_SIDES[0]))
+        right = Counter(r[0] for r in fetch(conn, U3_SIDES[1]))
+        keep = {v: (min(c, right[v]) if intersect
+                    else max(c - right[v], 0)) for v, c in left.items()}
+        return [(sum(keep.values()), sum(v * c for v, c in keep.items()))]
+
+    out, bad = [], []
+    stmts = list(ANALYTIC.items()) + [(n, (t, "tpcds")) for n, t in ds_stmts]
+    for name, (text, data) in stmts:
+        conn = conns[data]
+        if name == "R1":
+            keys = R1_PARTS[2]
+            want = grouping_union(conn, R1_PARTS, [keys[:i] for i in
+                                                   range(len(keys), -1, -1)])
+        elif name == "R2":
+            keys = R2_PARTS[2]
+            want = grouping_union(conn, R2_PARTS, [
+                c for r in range(len(keys), -1, -1)
+                for c in itertools.combinations(keys, r)])
+        elif name in ("U3", "U3E"):
+            want = bag(conn, name == "U3")
+        elif name == "A1":
+            want = engine_rows(cpu.sql(text))
+        else:
+            text_sql = text
+            if name == "W3":
+                text_sql = text.replace("order by o_orderdate",
+                                        "order by julianday(o_orderdate)")
+            if name == "D2":
+                text_sql = text.replace("approx_count_distinct(o_custkey)",
+                                        "count(distinct o_custkey)")
+            want = fetch(conn, text_sql)
+        got = engine_rows(card[data].sql(text))
+        ok = same_rows(got, want)
+        out.append({"statement": name, "rows": len(got),
+                    "oracle_rows": len(want), "match": ok})
+        print(f"sqlite {name}: {len(got)} rows, oracle {len(want)}, "
+              + ("match" if ok else f"DIFFER {got[:3]} vs {want[:3]}"),
+              flush=True)
         if not ok:
-            bad.append(qid)
-    conn.close()
-    require(not bad, f"results differ from sqlite: {bad}")
+            bad.append(name)
+    for c in conns.values():
+        c.close()
+    require(not bad, f"analytic results differ from their oracles: {bad}")
     return out
 
 
@@ -1211,6 +1745,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from oceanbase_tpu_torch import kernels
     from oceanbase_tpu_torch.engine.session import Session
+    from oceanbase_tpu_torch.models import tpcds
     from oceanbase_tpu_torch.models.tpch import datagen, queries, sql_suite
 
     card = gpu_line()
@@ -1227,7 +1762,15 @@ def main() -> int:
     print(f"datagen sf {args.sf}: {li.nrows} lineitem rows in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
+    t0 = time.perf_counter()
+    ds_tables = tpcds.datagen.generate(sf=args.sf, seed=DS_SEED)
+    ss = ds_tables["store_sales"]
+    print(f"TPC-DS datagen sf {args.sf}: {ss.nrows} store_sales rows in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
     sess = Session(tables, unique_keys=sql_suite.UNIQUE_KEYS, device="cuda")
+    ds_sess = Session(ds_tables, unique_keys=tpcds.UNIQUE_KEYS,
+                      device="cuda")
     t0 = time.perf_counter()
     refs = {
         "Q14": queries.q14_numpy(tables),
@@ -1243,8 +1786,10 @@ def main() -> int:
         "Q13": queries.q13_numpy(tables),
         "Q20": queries.q20_numpy(tables),
         "Q11": queries.q11_numpy(tables, q11_fraction(args.sf)),
+        **analytic_oracles(tables),
     }
-    print(f"join oracles in {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"join and analytic oracles in {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     def oracle(name):
         return lambda rs: check_oracle(name, rs, refs[name],
@@ -1271,11 +1816,29 @@ def main() -> int:
         stmts.append((name, statement_text(sql_suite.QUERIES, q, args.sf),
                       oracle(name) if name in refs
                       else (lambda rs, name=name: check_sane(name, rs))))
+    ds_stmts = [(f"DS{q}", tpcds.QUERIES[q]) for q in DS_QUERIES]
+    runs = [(sess, name, text, check, li.nrows, "lineitem")
+            for name, text, check in stmts]
+    for name, (text, data) in ANALYTIC.items():
+        if name == "A1":
+            check = (lambda rs: check_a1(rs, sess, kernels))
+        elif name in refs:
+            check = oracle(name)
+        else:
+            check = (lambda rs, name=name: check_sane(name, rs))
+        if data == "tpch":
+            runs.append((sess, name, text, check, li.nrows, "lineitem"))
+        else:
+            runs.append((ds_sess, name, text, check, ss.nrows, "store_sales"))
+    for name, text in ds_stmts:
+        runs.append((ds_sess, name, text,
+                     lambda rs, name=name: check_sane(name, rs), ss.nrows,
+                     "store_sales"))
     # the main path: counts at 0 just before, read just after
     kernels.reset_launches()
     stmt_recs = [
-        run_statement(sess, kernels, name, text, check, args.warm, li.nrows)
-        for name, text, check in stmts
+        run_statement(se, kernels, name, text, check, args.warm, rows, fact)
+        for se, name, text, check, rows, fact in runs
     ]
     main_launches = dict(kernels.LAUNCHES)
     rebound = next(r for r in stmt_recs if r["statement"] == "S1_rebound")
@@ -1289,20 +1852,32 @@ def main() -> int:
         require(v > 0, f"{k} was never run on the main path")
 
     captured = capture_join_kernels(sess, kernels, sql_suite.QUERIES)
+    captured.update(capture_analytic_kernels(sess, kernels))
     krecs = kernel_checks(sess, kernels, args.reps, captured)
     del captured
     frecs = float_checks(sess, kernels)
-    del sess
+    del sess, ds_sess
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     tiny = datagen.generate(sf=SQLITE_SF, seed=args.seed)
     srecs = sqlite_checks(tiny, Session, sql_suite.UNIQUE_KEYS,
                           [(q, sql_suite.QUERIES[q]) for q in range(1, 23)])
+    tiny_ds = tpcds.datagen.generate(sf=SQLITE_SF, seed=DS_SEED)
+    arecs = analytic_sqlite_checks(tiny, tiny_ds, Session,
+                                   sql_suite.UNIQUE_KEYS, tpcds.UNIQUE_KEYS,
+                                   ds_stmts)
     print(f"sqlite phase in {time.perf_counter() - t0:.3f} s", flush=True)
     small = datagen.generate(sf=CMP_SF, seed=args.seed)
-    # every statement: all 22 queries, S1 twice and T1
+    small_ds = tpcds.datagen.generate(sf=CMP_SF, seed=DS_SEED)
+    # every statement: all 22 queries, S1 twice, T1, the analytic ones and
+    # the TPC-DS star queries
     crecs = card_vs_cpu(small, Session, sql_suite.UNIQUE_KEYS,
-                        [(name, text) for name, text, _check in stmts])
+                        [(name, text) for name, text, _check in stmts]
+                        + [(n, t) for n, (t, d) in ANALYTIC.items()
+                           if d == "tpch"])
+    crecs += card_vs_cpu(small_ds, Session, tpcds.UNIQUE_KEYS,
+                         [(n, t) for n, (t, d) in ANALYTIC.items()
+                          if d == "tpcds"] + ds_stmts)
     for r in krecs:
         r["launches"] = (main_launches[r["name"]] if r["name"] in main_launches
                          else main_entries[r["name"]])
@@ -1318,9 +1893,11 @@ def main() -> int:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump({"gpu": card, "sf": args.sf, "build_s": build_s,
-                   "lineitem_rows": li.nrows, "statements": stmt_recs,
+                   "lineitem_rows": li.nrows, "store_sales_rows": ss.nrows,
+                   "statements": stmt_recs,
                    "kernels": krecs, "float_checks": frecs,
-                   "sqlite": {"sf": SQLITE_SF, "queries": srecs},
+                   "sqlite": {"sf": SQLITE_SF, "queries": srecs,
+                              "analytic": arecs},
                    "card_vs_cpu": {"sf": CMP_SF, "statements": crecs},
                    "main_launches": main_launches,
                    "main_entries": main_entries,

@@ -15,6 +15,14 @@
 // so neighbouring threads read neighbouring bytes. Runs of TPC-H's joins
 // are short (a customer's orders, an order's lines); a warp per row would
 // serve long runs and is left for a later PR.
+//
+// Second entry, ob_k11_mark_build: the build side's matched bit of the
+// full outer join (oceanbase_tpu/engine/executor.py:2998-2999,
+// zeros(nr).at[br].max(pair_sel, mode="drop")): has_r[br[i]] = 1 for
+// every pair slot i whose pair_sel is set, build rows outside [0, nr)
+// dropped. It reads 5 bytes a pair slot and writes the bit rows it marks
+// (bytes bound). The stores all write 1, so they need no atomics and the
+// result does not depend on their order.
 #include "ob_common.cuh"
 
 #define K11_THREADS 256
@@ -50,5 +58,30 @@ extern "C" int ob_k11_run_any(const void* pair_ok, long long cap,
   k11_run_any<<<nblocks, K11_THREADS, 0, (cudaStream_t)stream>>>(
       (const unsigned char*)pair_ok, cap, (const long long*)starts,
       (const long long*)offs, np, (unsigned char*)out);
+  return (int)cudaGetLastError();
+}
+
+__global__ void k11_mark_build(const int* __restrict__ br,
+                               const unsigned char* __restrict__ pair_sel,
+                               long long cap, long long nr,
+                               unsigned char* __restrict__ has_r) {
+  long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < cap; i += step) {
+    if (!__ldg(pair_sel + i)) continue;
+    long long r = __ldg(br + i);
+    if (r >= 0 && r < nr) has_r[r] = 1;
+  }
+}
+
+// br: int32 [cap] build rows of the pair slots; pair_sel: bool [cap];
+// has_r: bool [nr], zeroed by the caller.
+extern "C" int ob_k11_mark_build(const void* br, const void* pair_sel,
+                                 long long cap, long long nr, void* has_r,
+                                 int nblocks, void* stream) {
+  if (cap <= 0 || nr <= 0) return (int)cudaGetLastError();
+  k11_mark_build<<<nblocks, K11_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)br, (const unsigned char*)pair_sel, cap, nr,
+      (unsigned char*)has_r);
   return (int)cudaGetLastError();
 }

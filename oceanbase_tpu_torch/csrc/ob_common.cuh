@@ -9,6 +9,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #define OB_BOOL 0
 #define OB_I8 1
@@ -26,7 +27,9 @@
 
 #define OB_FULL_MASK 0xffffffffu
 
-static inline bool ob_is_float(int dt) { return dt == OB_F32 || dt == OB_F64; }
+static inline __host__ __device__ bool ob_is_float(int dt) {
+  return dt == OB_F32 || dt == OB_F64;
+}
 
 // Load element i of a typed column widened to int64 (integer types) or to
 // double (floats), through the read-only data path (ld.global.nc): the
@@ -103,4 +106,61 @@ __device__ __forceinline__ unsigned long long ob_mix64(unsigned long long x) {
   x = (x ^ (x >> 30)) * OB_MIX_C1;
   x = (x ^ (x >> 27)) * OB_MIX_C2;
   return x ^ (x >> 31);
+}
+
+// murmur3 fmix32 (oceanbase_tpu/ops/hashing.py:48 mix32) and the
+// width-stable 32-bit fold of a key column (:63 fold32), uint32 wrapping.
+#define OB_MIX32_M1 0x85EBCA6Bu
+#define OB_MIX32_M2 0xC2B2AE35u
+#define OB_GOLDEN32 0x9E3779B9u
+
+__device__ __forceinline__ unsigned int ob_mix32(unsigned int x) {
+  x = (x ^ (x >> 16)) * OB_MIX32_M1;
+  x = (x ^ (x >> 13)) * OB_MIX32_M2;
+  return x ^ (x >> 16);
+}
+
+// fold32 of a 64-bit pattern: xor of the high word into the low one.
+__device__ __forceinline__ unsigned int ob_fold64(unsigned long long u) {
+  return (unsigned int)(u ^ (u >> 32));
+}
+
+// fold32 of element i: columns of at most 4 bytes convert to int32 and
+// fold the sign in (i ^ (i >> 31), arithmetic shift); 8-byte columns
+// convert to uint64 and fold the high word. Float conversions truncate
+// toward zero and saturate, NaN giving 0, as XLA converts (float32 to
+// int32; float64 to uint64, so every negative double gives 0).
+__device__ __forceinline__ unsigned int ob_fold32(const void* p, int dt,
+                                                  long long i) {
+  if (dt == OB_F32) {
+    float f = __ldg((const float*)p + i);
+    int v;
+    if (f != f) {
+      v = 0;
+    } else if (f >= 2147483648.0f) {
+      v = 2147483647;
+    } else if (f <= -2147483648.0f) {
+      v = (int)0x80000000u;
+    } else {
+      v = (int)f;
+    }
+    return (unsigned int)(v ^ (v >> 31));
+  }
+  if (dt == OB_F64) {
+    double d = __ldg((const double*)p + i);
+    unsigned long long u;
+    if (!(d >= 1.0)) {
+      u = 0ull;  // NaN, every negative, and (-1, 1) truncate to 0
+    } else if (d >= 18446744073709551616.0) {
+      u = ~0ull;
+    } else {
+      u = (unsigned long long)d;
+    }
+    return ob_fold64(u);
+  }
+  if (dt == OB_I64) {
+    return ob_fold64((unsigned long long)__ldg((const long long*)p + i));
+  }
+  int v = (int)ob_ldg_i64(p, dt, i);
+  return (unsigned int)(v ^ (v >> 31));
 }

@@ -1,22 +1,28 @@
 """Physical execution of a logical plan on one torch device.
 
-Counterpart of `oceanbase_tpu/engine/executor.py`, restricted to the plan
-nodes the port runs so far: Scan (with its pushed filter), Filter,
-Project, the inner joins (the direct-address route of an affine unique
-build, the unique-build merge join, the M:N expansion), the semi and anti
-joins (affine probe, sorted-range search, residual pairs), the left outer
-join, Distinct, Aggregate (the direct-addressed, the sort-based with its
-pack guard, the clustered-FK segment and the scalar paths), Sort, Limit
-and TopN (with its exact top-k candidate prefilter), plus the root
-compaction. Every other node or path raises NotImplementedError naming it
-(the full outer join, the multi-column semi/anti join without residual on
-the hash table, the hash group-by, DISTINCT aggregates, windows, set
-operations, ANN, chunked streaming).
+Counterpart of `oceanbase_tpu/engine/executor.py` for the plan nodes of
+a single-chip statement: Scan (with its pushed filter), Filter, Project,
+the inner joins (the direct-address route of an affine unique build, the
+unique-build merge join, the M:N expansion), the semi and anti joins
+(affine probe, sorted-range search, the hash set of multi-column keys,
+residual pairs), the left and full outer joins (RIGHT joins arrive as
+left joins from the planner), Distinct, the set operations (UNION,
+INTERSECT, EXCEPT, with and without ALL), Window, Aggregate (the
+direct-addressed, the sort-based with its pack guard, the clustered-FK
+segment and the scalar paths; DISTINCT aggregates, approx_count_distinct
+and ROLLUP/CUBE/GROUPING SETS), Sort, Limit and TopN (with its exact
+top-k candidate prefilter), plus the root compaction. Not ported: the
+sorted-projection scan slice and the ANN top-n (they need the server's
+projections and vector indexes, which the port does not have yet), and
+the PX, chunked and grace-hash executors that subclass the reference's;
+a plan node or join kind this module does not know raises
+NotImplementedError naming it (the Session raises so for WITH
+RECURSIVE).
 
 The JAX package traces a whole plan into one jitted program; here
 `compile` returns a plain Python closure that runs the same emission
 eagerly on the session's device, with the device functions on the path
-as hand-written kernels (K1-K12, `kernels.py`). The static-capacity
+as hand-written kernels (K1-K16, `kernels.py`). The static-capacity
 contract is unchanged: every intermediate keeps its producer's capacity
 under a live-row `sel` mask, capacity-bound operators report overflow
 counters in ONE stacked vector, and the host reads it once per attempt
@@ -40,9 +46,11 @@ from ..core.column import (
     torch_dtype,
     upload,
 )
+from ..core.dictionary import Dictionary
 from ..core.dtypes import DataType, Field, Schema, TypeKind
 from ..expr import ir as E
 from ..expr.compile import (
+    _div_scale,
     compile_predicate,
     derive_dict_column,
     evaluate,
@@ -52,22 +60,41 @@ from ..kernels import (
     ENTRY_LAUNCHES,
     affine_join,
     affine_probe,
-    boundaries,
+    bound_search,
     clustered_segments,
     gather_columns,
+    mark_build,
+    scalar_reduce,
+    scatter_rows,
     topk_candidates,
 )
 from ..ops.gather import gather_rows
-from ..ops.hashagg import groupby_direct, scalar_aggregate, sort_groupby
+from ..ops.hashagg import (
+    distinct_first_mask,
+    groupby_direct,
+    scalar_aggregate,
+    sort_groupby,
+)
 from ..ops.hashing import next_pow2, pack_keys
 from ..ops.join import (
+    build_hash_table,
     expand_join,
+    hash_join_probe,
     merge_join_unique,
     probe_has_match,
     probe_run_any,
     sort_build_side,
 )
 from ..ops.sort import sort_indices
+from ..ops.window import (
+    agg_identity,
+    boundaries,
+    peer_ends,
+    prefix_sum,
+    segment_starts,
+    segmented_scan_minmax,
+    suffix_scan_minmax,
+)
 from ..sql.logical import (
     Aggregate,
     Distinct,
@@ -82,6 +109,8 @@ from ..sql.logical import (
     TopN,
     Window,
     output_schema,
+    setop_schema,
+    window_out_type,
 )
 
 # largest packed key domain served by the direct group-by (kernel K2)
@@ -282,6 +311,17 @@ class Executor:
             if isinstance(op, (Sort, TopN)):
                 for e, _ in op.keys:
                     note(e)
+            if isinstance(op, Window):
+                for _name, fn, a, pk, ok, extra in op.funcs:
+                    if a is not None:
+                        note(a)
+                    if fn in ("lag", "lead") and extra is not None \
+                            and extra[1] is not None:
+                        note(extra[1])
+                    for p in pk:
+                        note(p)
+                    for oe, _d in ok:
+                        note(oe)
             for c in _children(op):
                 rec(c)
 
@@ -480,6 +520,13 @@ class Executor:
             return est_rows(op.child)
         if isinstance(op, (Limit, TopN)):
             return float(op.n + op.offset)
+        if isinstance(op, SetOp):
+            l, r = est_rows(op.left), est_rows(op.right)
+            if op.kind == "union":
+                return l + r
+            if op.kind == "intersect":
+                return min(l, r)
+            return l  # except
         return float(self.default_rows_estimate)
 
     @staticmethod
@@ -1090,6 +1137,12 @@ class Executor:
                     )
             return self._topn_batch(child, op.keys, op.n, op.offset), ovf
 
+        if isinstance(op, SetOp):
+            return self._emit_setop(op, nid, inputs, emit, params)
+
+        if isinstance(op, Window):
+            return self._emit_window(op, nid, inputs, emit, params)
+
         raise _not_ported(f"plan node {type(op).__name__}")
 
     def _topn_candidates(self, child: ColumnBatch, keys, C: int):
@@ -1200,6 +1253,8 @@ class Executor:
             return self._emit_semi_anti(op, nid, inputs, emit, params)
         if op.kind == "left":
             return self._emit_left(op, nid, inputs, emit, params)
+        if op.kind == "full":
+            return self._emit_full(op, nid, inputs, emit, params)
         if op.kind != "inner":
             raise _not_ported(f"{op.kind} join")
         left, lovf = emit(op.left, inputs)
@@ -1264,10 +1319,11 @@ class Executor:
         row. No residual and one integer key: the affine probe (K5's probe
         entry) where the build key column is affine, else the sorted build
         side and a range search per probe key (K10's first phase), exact
-        on true keys. With a residual: the candidate pairs expand (K10),
-        the residual runs per pair, and each left row ORs its pairs (K11).
-        Multi-column keys with no residual need the hash table, which is
-        not ported."""
+        on true keys. No residual and several (or float) key columns: the
+        open-addressing hash set of the right rows' key tuples and an
+        existence probe (K14). With a residual: the candidate pairs expand
+        (K10), the residual runs per pair, and each left row ORs its pairs
+        (K11)."""
         left, lovf = emit(op.left, inputs)
         right, rovf = emit(op.right, inputs)
         ovf = {**lovf, **rovf}
@@ -1276,9 +1332,12 @@ class Executor:
         if op.residual is None:
             if len(lkeys) != 1 or not (_is_int(lkeys[0])
                                        and _is_int(rkeys[0])):
-                raise _not_ported(
-                    "multi-column semi/anti join without residual "
-                    "(build_hash_table / hash_join_probe)")
+                ts = next_pow2(max(2 * rkeys[0].shape[0], 16))
+                slot_tag, slot_row = build_hash_table(rkeys, right.sel, ts)
+                has = hash_join_probe(slot_tag, slot_row, rkeys, lkeys,
+                                      left.sel) >= 0
+                sel = left.sel & (has if op.kind == "semi" else ~has)
+                return left.with_sel(sel), ovf
             aff = self._affine_build_info(op)
             if aff is not None:
                 has = _affine_probe(rkeys[0], right.sel, lkeys[0], left.sel,
@@ -1357,6 +1416,510 @@ class Executor:
         ovf[nid] = torch.clamp(total - cap, min=0)
         return out, ovf
 
+    def _emit_full(self, op: JoinOp, nid, inputs, emit, params):
+        """Full outer join: [cap matched pairs] ++ [nl left rows no pair
+        kept, right NULL] ++ [nr right rows no pair kept, left NULL]; both
+        sides' columns become nullable. The pairs expand as in the left
+        join (K10, the residual per pair); K11 finds the unmatched left
+        rows, and its second entry marks the build rows some kept pair
+        joins (the reference's scatter-max of pair_sel by build row)."""
+        left, lovf = emit(op.left, inputs)
+        right, rovf = emit(op.right, inputs)
+        ovf = {**lovf, **rovf}
+        lkeys = self._key_columns(op.left_keys, left)
+        rkeys = self._key_columns(op.right_keys, right)
+        cap = params.join_cap[nid]
+        skeys, order = sort_build_side(rkeys, right.sel)
+        pr, br, valid_rows, total, starts, offs = expand_join(
+            skeys, order, right.nrows, lkeys, left.sel, cap)
+        pair_sel = valid_rows
+        if len(op.left_keys) > 1:
+            pair_sel = pair_sel & _pair_keys_equal(lkeys, rkeys, pr, br)
+        pairs = self._pair_batch(left, right, pr, br, pair_sel)
+        if op.residual is not None:
+            pair_sel = compile_predicate(op.residual, pairs)
+        nl, nr = left.capacity, right.capacity
+        dev = left.device
+        has_l = probe_run_any(pair_sel, starts, offs)
+        has_r = mark_build(br, pair_sel, nr)
+        cols, valid = {}, {}
+        for side, other, tail_first in ((left, nr, True), (right, nl, False)):
+            n_own = side.capacity
+            for n, c in side.cols.items():
+                zeros = torch.zeros(other, dtype=c.dtype, device=dev)
+                mv = (pairs.valid[n] if n in side.valid
+                      else torch.ones(cap, dtype=torch.bool, device=dev))
+                tv = side.valid.get(n)
+                if tv is None:
+                    tv = torch.ones(n_own, dtype=torch.bool, device=dev)
+                nulls = torch.zeros(other, dtype=torch.bool, device=dev)
+                if tail_first:
+                    cols[n] = torch.cat([pairs.cols[n], c, zeros])
+                    valid[n] = torch.cat([mv, tv, nulls])
+                else:
+                    cols[n] = torch.cat([pairs.cols[n], zeros, c])
+                    valid[n] = torch.cat([mv, nulls, tv])
+        del pairs
+        sel = torch.cat([pair_sel, left.sel & ~has_l, right.sel & ~has_r])
+        out = ColumnBatch(
+            cols=cols,
+            valid=valid,
+            sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=output_schema(op),
+            dicts={**left.dicts, **right.dicts},
+        )
+        ovf = dict(ovf)
+        ovf[nid] = torch.clamp(total - cap, min=0)
+        return out, ovf
+
+    # ---- set-operation emission ----------------------------------------
+    @staticmethod
+    def _cast_col(c, from_t: DataType, to_t: DataType):
+        """Physically convert one column to the promoted set-op type."""
+        to_dt = torch_dtype(to_t.storage_np)
+        if from_t.kind == to_t.kind and not to_t.is_decimal:
+            return c if c.dtype == to_dt else c.to(to_dt)
+        if from_t.is_decimal and to_t.is_decimal:
+            shift = 10 ** (to_t.scale - from_t.scale)
+            return c.to(to_dt) * shift if shift != 1 else c.to(to_dt)
+        if to_t.kind is TypeKind.FLOAT64:
+            if from_t.is_decimal:
+                return _div_scale(c.to(torch.float64), from_t.decimal_factor)
+            return c.to(torch.float64)
+        if to_t.is_integer:
+            return c.to(to_dt)
+        raise NotImplementedError(f"set-op cast {from_t} -> {to_t}")
+
+    @staticmethod
+    def _setop_key_cols(cols, valids, schema: Schema):
+        """Compare key columns with SQL set-op NULL semantics (NULLs compare
+        equal): NULL payloads normalize to 0 and the validity bit joins the
+        key."""
+        keys = []
+        for f in schema.fields:
+            c = cols[f.name]
+            v = valids.get(f.name)
+            if v is not None:
+                keys.append(torch.where(
+                    v, c, torch.zeros((), dtype=c.dtype, device=c.device)))
+                keys.append(v)
+            else:
+                keys.append(c)
+        return [k.contiguous() for k in keys]
+
+    def _setop_promote(self, op: SetOp, left: ColumnBatch,
+                       right: ColumnBatch):
+        """Align both sides positionally onto the promoted schema: merged
+        dictionaries (codes remapped by one gather), numeric casts,
+        materialized validity. Returns (lb, rb, out_schema, dicts)."""
+        out_schema = setop_schema(left.schema, right.schema)
+        lcols, rcols, lvalid, rvalid, dicts = {}, {}, {}, {}, {}
+        for i, f in enumerate(out_schema.fields):
+            ln = left.schema.fields[i].name
+            rn = right.schema.fields[i].name
+            lt = left.schema.fields[i].dtype
+            rt = right.schema.fields[i].dtype
+            lc, rc = left.cols[ln], right.cols[rn]
+            if f.dtype.kind is TypeKind.VARCHAR:
+                md, lmap, rmap = Dictionary.merge(
+                    left.dicts.get(ln), right.dicts.get(rn))
+                if md is not None:
+                    dicts[f.name] = md
+                if lmap is not None:
+                    lc = _remap_codes(lc, lmap)
+                if rmap is not None:
+                    rc = _remap_codes(rc, rmap)
+            else:
+                lc = self._cast_col(lc, lt, f.dtype)
+                rc = self._cast_col(rc, rt, f.dtype)
+            lcols[f.name], rcols[f.name] = lc, rc
+            if f.dtype.nullable:
+                lv, rv = left.valid.get(ln), right.valid.get(rn)
+                lvalid[f.name] = (lv if lv is not None else torch.ones(
+                    left.capacity, dtype=torch.bool, device=left.device))
+                rvalid[f.name] = (rv if rv is not None else torch.ones(
+                    right.capacity, dtype=torch.bool, device=right.device))
+        lb = ColumnBatch(cols=lcols, valid=lvalid, sel=left.sel,
+                         nrows=left.nrows, schema=out_schema, dicts=dicts)
+        rb = ColumnBatch(cols=rcols, valid=rvalid, sel=right.sel,
+                         nrows=right.nrows, schema=out_schema, dicts=dicts)
+        return lb, rb, out_schema, dicts
+
+    def _emit_setop(self, op: SetOp, nid, inputs, emit, params):
+        left, lovf = emit(op.left, inputs)
+        right, rovf = emit(op.right, inputs)
+        ovf = {**lovf, **rovf}
+        lb, rb, out_schema, dicts = self._setop_promote(op, left, right)
+        return self._setop_combine(op, lb, rb, out_schema, dicts, ovf)
+
+    def _setop_combine(self, op: SetOp, left: ColumnBatch,
+                       right: ColumnBatch, out_schema, dicts, ovf):
+        """Combine two promoted same-schema sides. UNION concatenates (and
+        dedups through the Distinct's sort); INTERSECT/EXCEPT dedup the
+        left side and probe each of its rows in the hash set of the right
+        side's key tuples (K14); the ALL forms count runs of one combined
+        sort (_emit_setop_all)."""
+        if op.kind == "union":
+            cols = {n: torch.cat([left.cols[n], right.cols[n]])
+                    for n in left.cols}
+            valid = {n: torch.cat([left.valid[n], right.valid[n]])
+                     for n in left.valid}
+            sel = torch.cat([left.sel, right.sel])
+            out = ColumnBatch(cols=cols, valid=valid, sel=sel,
+                              nrows=torch.sum(sel, dtype=torch.int64),
+                              schema=out_schema, dicts=dicts)
+            if op.all:
+                return out, ovf
+            return self._dedup_batch(out, ovf)
+        if op.all:
+            return self._emit_setop_all(op.kind, left, right, out_schema,
+                                        dicts, ovf)
+        db, ovf = self._dedup_batch(left, ovf)
+        lkeys = self._setop_key_cols(db.cols, db.valid, out_schema)
+        rkeys = self._setop_key_cols(right.cols, right.valid, out_schema)
+        # a table sized by the right capacity never fills: no overflow
+        bts = next_pow2(max(2 * right.capacity, 16))
+        slot_tag, slot_row = build_hash_table(rkeys, right.sel, bts)
+        has = hash_join_probe(slot_tag, slot_row, rkeys, lkeys, db.sel) >= 0
+        sel = db.sel & (has if op.kind == "intersect" else ~has)
+        return db.with_sel(sel), ovf
+
+    def _emit_setop_all(self, kind, left: ColumnBatch, right: ColumnBatch,
+                        out_schema, dicts, ovf):
+        """INTERSECT ALL / EXCEPT ALL (bag semantics): one stable sort of
+        both sides (K3) with the side flag as the last key, so in each run
+        of equal rows with l left and r right copies the left copies come
+        first; the k-th left copy survives iff k < r (INTERSECT ALL) or
+        k >= r (EXCEPT ALL). Run starts, run ends and the count of left
+        rows before a position are K13 scans."""
+        nl, nr = left.capacity, right.capacity
+        n = nl + nr
+        dev = left.device
+        cols = {f.name: torch.cat([left.cols[f.name], right.cols[f.name]])
+                for f in out_schema.fields}
+        valid = {name: torch.cat([left.valid[name], right.valid[name]])
+                 for name in left.valid}
+        live = torch.cat([left.sel, right.sel])
+        side = torch.cat([torch.zeros(nl, dtype=torch.int32, device=dev),
+                          torch.ones(nr, dtype=torch.int32, device=dev)])
+        operands, spec = _row_key_operands(cols, valid, out_schema)
+        order = sort_indices(operands + [side],
+                             [False] * (len(operands) + 1), live)
+        g = gather_columns(operands + [live, side], order)
+        svals, slive, sside = g[:-2], g[-2], g[-1]
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+        # runs are delimited by value (and liveness) changes, not by side
+        new_run = boundaries(svals + [slive])
+        run_start = segment_starts(new_run)
+        run_end = peer_ends(new_run) + 1  # exclusive: the next run's start
+        is_left = sside == 0
+        cum_left = prefix_sum(is_left.to(torch.int64))
+
+        def left_before(x):
+            return torch.where(x > 0, _take(cum_left, x - 1), 0)
+
+        l_run = left_before(run_end) - left_before(run_start)
+        r_run = (run_end - run_start) - l_run
+        left_rank = pos - run_start
+        keep = left_rank < r_run if kind == "intersect" \
+            else left_rank >= r_run
+        sel = slive & is_left & keep
+        out_cols, out_valid = {}, {}
+        i = 0
+        for name, nullable in spec:
+            out_cols[name] = svals[i]
+            i += 1
+            if nullable:
+                out_valid[name] = svals[i]
+                i += 1
+        out = ColumnBatch(cols=out_cols, valid=out_valid, sel=sel,
+                          nrows=torch.sum(sel, dtype=torch.int64),
+                          schema=out_schema, dicts=dicts)
+        return out, ovf
+
+    # ---- window emission ------------------------------------------------
+    def _emit_window(self, op: Window, nid, inputs, emit, params):
+        """Window functions. Per (partition keys, order keys) spec: one
+        stable sort (K3) and the keys in sorted order (K4); segment and
+        peer-group flags, starts and ends, running sums and segmented
+        min/max as scans over the sorted rows (K13); every function of the
+        spec computed in sorted order and written back to row order in one
+        scatter through the permutation (K15), where the reference gathers
+        by an argsort inverse."""
+        child, ovf = emit(op.child, inputs)
+        n = child.capacity
+        dev = child.device
+        i64 = torch.int64
+        out_cols = dict(child.cols)
+        out_valid = dict(child.valid)
+        out_dicts = dict(child.dicts)
+        fields = list(child.schema.fields)
+
+        by_spec: dict[tuple, list] = {}
+        for name, fn, arg, pk, ok, extra in op.funcs:
+            by_spec.setdefault((pk, ok), []).append((name, fn, arg, extra))
+
+        idx = torch.arange(n, dtype=i64, device=dev)
+        for (pk, ok), funcs in by_spec.items():
+            pkv = self._key_columns(pk, child)
+            okv = self._key_columns([e for e, _d in ok], child)
+            odesc = [d for _e, d in ok]
+            order = sort_indices(pkv + okv, [False] * len(pkv) + odesc,
+                                 child.sel)
+            g = gather_columns([child.sel] + pkv + okv, order)
+            ssel, spk, sok = g[0], g[1:1 + len(pkv)], g[1 + len(pkv):]
+            # dead rows sort to the tail; the live->dead transition starts
+            # its OWN segment, or frames that end at the segment end (ntile,
+            # lead defaults, UNBOUNDED FOLLOWING) would count dead rows
+            new_seg = boundaries(spk + [ssel])
+            seg_start = segment_starts(new_seg)
+            seg_end = peer_ends(new_seg)
+            if ok:
+                new_peer = boundaries(spk + [ssel] + sok)
+                peer_start = segment_starts(new_peer)
+                pend_idx = peer_ends(new_peer)
+            else:
+                # no ORDER BY: the frame is the whole partition
+                new_peer = peer_start = None
+                pend_idx = seg_end
+
+            def sorted_arg(e):
+                """(values, live-and-valid) of an expression in sorted
+                order."""
+                v, vv = evaluate(e, child)
+                if v.dim() == 0:
+                    v = v.expand(n)
+                if vv is None:
+                    return _take(v, order), ssel
+                vs, vvs = gather_columns([v.contiguous(), vv.contiguous()],
+                                         order)
+                return vs, ssel & vvs
+
+            def frame_lo_hi(extra):
+                """Inclusive frame bounds [lo, hi] per row in sorted
+                order. None = the SQL default frame (partition start ..
+                last peer with ORDER BY, the whole partition without)."""
+                if extra is None:
+                    return seg_start, pend_idx
+                unit, lo_b, hi_b = extra
+                if unit == "rows":
+                    lo = seg_start if lo_b is None else torch.maximum(
+                        seg_start, idx + lo_b)
+                    hi = seg_end if hi_b is None else torch.minimum(
+                        seg_end, idx + hi_b)
+                    return lo, hi
+                # RANGE: value bounds on the single order key; CURRENT
+                # ROW maps to the peer group's edges
+                lo = hi = None
+                if lo_b is None:
+                    lo = seg_start
+                elif lo_b == 0:
+                    lo = peer_start
+                if hi_b is None:
+                    hi = seg_end
+                elif hi_b == 0:
+                    hi = pend_idx
+                if lo is not None and hi is not None:
+                    return lo, hi
+                return self._range_bounds(
+                    ok, odesc, sok, ssel, new_seg, seg_start, seg_end,
+                    child, lo, hi, lo_b, hi_b)
+
+            def csum_range(masked_vals, lo, hi):
+                """Sum over [lo, hi] from one global inclusive prefix sum
+                (frames never cross segments)."""
+                c = prefix_sum(masked_vals)
+                hi_v = _take(c, hi)
+                lo_v = torch.where(lo > 0, _take(c, lo - 1),
+                                   torch.zeros((), dtype=c.dtype, device=dev))
+                return torch.where(hi >= lo, hi_v - lo_v,
+                                   torch.zeros((), dtype=c.dtype, device=dev))
+
+            pending, pending_valid = [], []
+            for name, fn, arg, extra in funcs:
+                res_valid = None
+                if fn == "row_number":
+                    res = idx - seg_start + 1
+                elif fn == "rank":
+                    res = peer_start - seg_start + 1
+                elif fn == "dense_rank":
+                    dcum = prefix_sum(new_peer.to(i64))
+                    res = dcum - _take(dcum, seg_start) + 1
+                elif fn == "ntile":
+                    k = int(extra)
+                    cnt = seg_end - seg_start + 1
+                    j = idx - seg_start
+                    q = cnt // k
+                    r = cnt % k
+                    cut = r * (q + 1)
+                    res = torch.where(
+                        j < cut, j // (q + 1),
+                        r + (j - cut) // torch.clamp(q, min=1)) + 1
+                elif fn in ("lag", "lead"):
+                    off, dflt = extra
+                    av_s, srcvalid = sorted_arg(arg)
+                    src = idx - off if fn == "lag" else idx + off
+                    inside = src >= seg_start if fn == "lag" \
+                        else src <= seg_end
+                    val = _take(av_s, src)
+                    vvalid = _take(srcvalid, src)
+                    if dflt is None:
+                        res = torch.where(inside, val,
+                                          torch.zeros((), dtype=val.dtype,
+                                                      device=dev))
+                        res_valid = inside & vvalid
+                    else:
+                        dv, dvv = evaluate(dflt, child)
+                        dv_s = _take(dv.expand(n) if dv.dim() == 0 else dv,
+                                     order)
+                        dvalid = (torch.ones(n, dtype=torch.bool, device=dev)
+                                  if dvv is None else _take(dvv, order))
+                        res = torch.where(inside, val, dv_s.to(val.dtype))
+                        res_valid = torch.where(inside, vvalid, dvalid)
+                elif fn in ("first_value", "last_value"):
+                    av_s, srcvalid = sorted_arg(arg)
+                    lo, hi = frame_lo_hi(extra)
+                    at = lo if fn == "first_value" else hi
+                    res = _take(av_s, at)
+                    res_valid = (hi >= lo) & _take(srcvalid, at)
+                else:
+                    # frame aggregates: count / sum from prefix-sum range
+                    # reads; min/max from one-end-bounded segmented scans
+                    if arg is None:
+                        av_s, vmask = None, ssel
+                    else:
+                        av_s, vmask = sorted_arg(arg)
+                    lo, hi = frame_lo_hi(extra)
+                    frame_cnt = csum_range(vmask.to(i64), lo, hi)
+                    if fn == "count":
+                        res = frame_cnt
+                    elif fn == "sum":
+                        acc = av_s.dtype if av_s.dtype.is_floating_point \
+                            else i64
+                        mv = torch.where(vmask, av_s.to(acc),
+                                         torch.zeros((), dtype=acc,
+                                                     device=dev))
+                        res = csum_range(mv, lo, hi)
+                        res_valid = frame_cnt > 0
+                    elif fn in ("min", "max"):
+                        is_min = fn == "min"
+                        mv = torch.where(vmask, av_s, torch.full(
+                            (), agg_identity(av_s.dtype, is_min),
+                            dtype=av_s.dtype, device=dev))
+                        if extra is None or extra[1] is None:
+                            res = _take(segmented_scan_minmax(
+                                mv, new_seg, is_min), hi)
+                        else:
+                            # hi unbounded (the resolver guarantees one end)
+                            res = _take(suffix_scan_minmax(
+                                mv, new_seg, is_min), lo)
+                        res_valid = frame_cnt > 0
+                    else:
+                        raise NotImplementedError(f"window function {fn}")
+
+                dt = window_out_type(fn, arg, child.schema)
+                pending.append((name, res.to(torch_dtype(dt.storage_np))))
+                if res_valid is not None:
+                    pending_valid.append((name, res_valid))
+                    dt = dt.with_nullable(True)
+                fields.append(Field(name, dt))
+                if (
+                    fn in ("min", "max", "lag", "lead",
+                           "first_value", "last_value")
+                    and isinstance(arg, E.ColRef)
+                    and arg.name in child.dicts
+                ):
+                    out_dicts[name] = child.dicts[arg.name]
+
+            # one write-back scatter per spec group (K15)
+            back = scatter_rows(
+                [c.contiguous() for _n, c in pending]
+                + [v.contiguous() for _n, v in pending_valid], order)
+            out_cols.update(zip([nm for nm, _c in pending],
+                                back[:len(pending)]))
+            out_valid.update(zip([nm for nm, _v in pending_valid],
+                                 back[len(pending):]))
+
+        out = ColumnBatch(
+            cols=out_cols, valid=out_valid, sel=child.sel, nrows=child.nrows,
+            schema=Schema(tuple(fields)), dicts=out_dicts,
+        )
+        return out, ovf
+
+    def _range_bounds(self, ok, odesc, sok, ssel, new_seg, seg_start,
+                      seg_end, child, lo, hi, lo_b, hi_b):
+        """The value-offset ends of a RANGE frame over the single order key
+        in sorted order. The reference packs (segment rank, key - kmin)
+        into one nondecreasing int64 and searches it globally while
+        nseg * span < 2^62, else binary-searches each row's own segment
+        (34 rounds), choosing at run time with lax.cond. Here both searches
+        run (K13) and a torch.where keeps the one the reference chooses:
+        the choice stays on the device, at the cost of one more search per
+        frame end."""
+        i64 = torch.int64
+        dev = ssel.device
+        imax, imin = torch.iinfo(i64).max, torch.iinfo(i64).min
+        kk = sok[0].to(i64)
+        kt = infer_type(ok[0][0], child.schema)
+        if kt.is_decimal:
+            # RANGE offsets are in value units; the column stores scaled ints
+            lo_b = None if lo_b is None else lo_b * kt.decimal_factor
+            hi_b = None if hi_b is None else hi_b * kt.decimal_factor
+        if odesc[0]:
+            # ~k = -k - 1 reverses the order without int64-min overflow;
+            # the uniform shift cancels in every key-target comparison
+            kk = ~kk
+        kk = kk.contiguous()
+        live_k = torch.where(ssel, kk, torch.zeros((), dtype=i64, device=dev))
+        kmin = scalar_reduce("min", ssel, kk)
+        kmax = scalar_reduce("max", ssel, kk)
+        one = torch.ones((), dtype=i64, device=dev)
+        span = torch.maximum(kmax - kmin + 1, one)
+        seg_rank = prefix_sum(new_seg.to(i64)) - 1
+        nseg_total = torch.maximum(seg_rank[-1] + 1, one)
+        lim = torch.div(torch.full((), 1 << 62, dtype=i64, device=dev),
+                        nseg_total, rounding_mode="floor")
+        pack_ok = span <= lim
+        span_c = torch.minimum(span, lim)
+        zero = torch.zeros((), dtype=i64, device=dev)
+        packed = torch.where(
+            ssel,
+            seg_rank * span_c + torch.minimum(
+                torch.maximum(live_k - kmin, zero), span_c),
+            torch.full((), imax, dtype=i64, device=dev)).contiguous()
+        seg_hi = seg_end + 1
+
+        def sat_add(v, off):
+            # saturating v + off: a wrapped target would flip comparisons
+            t = v + off
+            if off >= 0:
+                return torch.where(t < v, imax, t)
+            return torch.where(t > v, imin, t)
+
+        def bound_at(off, side):
+            # out-of-domain targets give EMPTY frames (lo > hi), never the
+            # edge rows
+            off = max(min(off, imax), imin)
+            if side == "lo":
+                rel = torch.minimum(torch.maximum(
+                    sat_add(live_k - kmin, off), zero), span_c)
+                p = bound_search(packed, seg_rank * span_c + rel)
+                q = bound_search(kk, sat_add(live_k, off), seg_start, seg_hi)
+                return torch.where(pack_ok, p, q)
+            rel = torch.minimum(torch.maximum(
+                sat_add(live_k - kmin, off), -one), span_c - 1)
+            p = bound_search(packed, seg_rank * span_c + rel, right=True)
+            q = bound_search(kk, sat_add(live_k, off), seg_start, seg_hi,
+                             right=True)
+            return torch.where(pack_ok, p, q) - 1
+
+        if lo is None:
+            lo = bound_at(lo_b, "lo")
+        if hi is None:
+            hi = bound_at(hi_b, "hi")
+        return lo, hi
+
     def _dedup_batch(self, b: ColumnBatch, ovf):
         """Distinct over all columns, NULLs comparing equal: one stable
         sort over every column (K3; a nullable column contributes its
@@ -1417,14 +1980,83 @@ class Executor:
         )
 
     def _emit_aggregate(self, op: Aggregate, nid, inputs, emit, params):
+        if any(fn == "approx_ndv" for _n, fn, _a, _d in op.aggs) and (
+            op.group_keys or op.grouping_sets is not None
+        ):
+            # grouped approx NDV: per-group registers would need a [groups,
+            # 16K] sketch; the reference runs the exact first-occurrence
+            # distinct count instead, and so does the port
+            op = replace(op, aggs=tuple(
+                (n, "count", a, True) if fn == "approx_ndv"
+                else (n, fn, a, d)
+                for n, fn, a, d in op.aggs
+            ))
         if op.grouping_sets is not None:
-            raise _not_ported("grouping sets")
-        if any(fn == "approx_ndv" for _n, fn, _a, _d in op.aggs):
-            raise _not_ported("approx_ndv")
+            return self._emit_grouping_sets(op, nid, inputs, emit, params)
         spec = params.clustered_aggs.get(nid)
         if spec is not None and spec.input_alias in inputs:
             return self._emit_clustered_agg(op, spec, inputs, emit)
         child, ovf = emit(op.child, inputs)
+        return self._aggregate_batch(op, nid, child, ovf, params)
+
+    def _emit_grouping_sets(self, op: Aggregate, nid, inputs, emit, params):
+        """ROLLUP/CUBE/GROUPING SETS: the child batch is emitted ONCE and
+        aggregated once per set on the ordinary group-by routes; the
+        results stack, with the keys a set lacks NULL-filled. (The
+        reference re-emits the child per set and relies on XLA's CSE to
+        merge the copies; this executor runs eagerly, so it shares the
+        batch instead. The results are the same.)"""
+        child, ovf = emit(op.child, inputs)
+        out_schema = _agg_schema(op, child.schema)
+        parts = []
+        ovf_all = dict(ovf)
+        for si, idxs in enumerate(op.grouping_sets):
+            sub = Aggregate(op.child, tuple(op.group_keys[i] for i in idxs),
+                            op.aggs)
+            # a pseudo node id: nothing seeded, so each set takes the
+            # parameter-free routes (direct or unpacked sort)
+            pseudo = -(1_000_000 + nid * 64 + si)
+            b, o = self._aggregate_batch(sub, pseudo, child, ovf, params)
+            ovf_all.update(o)
+            parts.append((idxs, b))
+        key_names = [n for n, _e in op.group_keys]
+        cols: dict[str, list] = {n: [] for n in out_schema.names()}
+        valid: dict[str, list] = {}
+        sels = []
+        for idxs, b in parts:
+            cap = b.capacity
+            dev = b.device
+            present = {key_names[i] for i in idxs}
+            for f in out_schema.fields:
+                n = f.name
+                dt = torch_dtype(f.dtype.storage_np)
+                if n in present or n not in key_names:
+                    cols[n].append(b.cols[n].to(dt))
+                    if f.dtype.nullable:
+                        v = b.valid.get(n)
+                        valid.setdefault(n, []).append(
+                            v if v is not None else torch.ones(
+                                cap, dtype=torch.bool, device=dev))
+                else:  # a key this set lacks: NULL
+                    cols[n].append(torch.zeros(cap, dtype=dt, device=dev))
+                    valid.setdefault(n, []).append(
+                        torch.zeros(cap, dtype=torch.bool, device=dev))
+            sels.append(b.sel)
+        sel = torch.cat(sels)
+        out = ColumnBatch(
+            cols={n: torch.cat(v) for n, v in cols.items()},
+            valid={n: torch.cat(v) for n, v in valid.items()},
+            sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=out_schema,
+            dicts={n: d for _idxs, b in parts for n, d in b.dicts.items()},
+        )
+        return out, ovf_all
+
+    def _aggregate_batch(self, op: Aggregate, nid, child: ColumnBatch, ovf,
+                         params):
+        """One Aggregate over its child's batch: the direct, sort-based or
+        scalar route."""
         dev = child.device
         key_vals, key_valids, domains = [], [], []
         for _, e in op.group_keys:
@@ -1448,12 +2080,18 @@ class Executor:
                 agg_vals.append(None)
                 agg_masks.append(child.sel)
             else:
-                if distinct and fn in ("count", "sum", "avg"):
-                    raise _not_ported("DISTINCT aggregates")
                 v, vv = evaluate(arg, child)
                 if v.dim() == 0:
                     v = v.expand(child.capacity)
                 am = child.sel if vv is None else child.sel & vv
+                if distinct and fn in ("count", "sum", "avg"):
+                    # DISTINCT: only the first live row of each (group
+                    # keys, value) feeds the aggregate; min/max need no
+                    # dedup. The keys' validity planes join the dedup key,
+                    # so the NULL group shares no first rows with group 0
+                    dk = key_vals + [kv.to(torch.int32)
+                                     for kv in key_valids if kv is not None]
+                    am = am & distinct_first_mask(dk, v, am)
                 agg_ops.append(fn)
                 agg_vals.append(None if fn == "count" else v.contiguous())
                 agg_masks.append(am.contiguous())
@@ -1565,7 +2203,7 @@ class Executor:
             ):
                 (v,) = scalar_aggregate(am, [aop], [av])
                 cols[name] = v[None]
-                if aop != "count":
+                if aop not in ("count", "approx_ndv"):
                     out_valid[name] = torch.any(am)[None]
             sel = torch.ones(1, dtype=torch.bool, device=dev)
 
@@ -1811,3 +2449,17 @@ def _agg_schema(op: Aggregate, child_schema: Schema) -> Schema:
                 t = DataType.int64()
             fields.append(Field(name, t))
     return Schema(tuple(fields))
+
+
+def _take(col: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """col[at] with `at` clipped into the column, by one K4 gather."""
+    n = int(col.shape[0])
+    idx = at.clamp(0, max(n - 1, 0)).to(torch.int32)
+    return gather_columns([col.contiguous()], idx)[0]
+
+
+def _remap_codes(codes: torch.Tensor, remap) -> torch.Tensor:
+    """Dictionary codes through a merge's remap table (codes clipped into
+    the table, as a jnp gather clips)."""
+    table = torch.as_tensor(np.asarray(remap), device=codes.device)
+    return _take(table, codes.to(torch.int64))

@@ -12,10 +12,12 @@ and raises when there is none; the CPU tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
 from .. import device as _device
+from ..sql import ast as A
 from ..sql import parser as P
 from ..sql.plan_cache import (
     CacheEntry,
@@ -170,6 +172,10 @@ class Session:
                 fastparse_s: float = 0.0):
         """Plan + execute a parsed SELECT under the plan cache; a success
         registers the text in the fast tier when `fast_reg` is given."""
+        if _self_referencing_cte(ast):
+            raise NotImplementedError(
+                "WITH RECURSIVE (engine/recursive.py) is not ported to the "
+                "torch engine yet")
         t0 = time.perf_counter()
         planned = self.planner.plan(ast)
         pz = parameterize(planned.plan)
@@ -226,3 +232,25 @@ class Session:
                       fast_hit=fast)
         self.last_phases = phases
         return rs
+
+
+def _self_referencing_cte(ast) -> bool:
+    """True when a CTE declared RECURSIVE names itself in its body (the
+    reference runs such statements as a host-driven fixpoint,
+    engine/recursive.py); a plain WITH naming its own name reads the
+    catalog table, as standard scoping says."""
+    declared = set(getattr(ast, "recursive_ctes", ()) or ())
+    return any(name in declared and name in _table_refs(body, set())
+               for name, body in getattr(ast, "ctes", ()) or ())
+
+
+def _table_refs(node, out: set) -> set:
+    if isinstance(node, A.TableRef):
+        out.add(node.name)
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        for f in dataclasses.fields(node):
+            _table_refs(getattr(node, f.name), out)
+    elif isinstance(node, (tuple, list)):
+        for x in node:
+            _table_refs(x, out)
+    return out

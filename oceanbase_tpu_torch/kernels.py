@@ -13,6 +13,14 @@ K9 `merge_join`        unique-build equi-join     (csrc/k9_merge_join.cu)
 K10 `expand_join`      M:N join expansion         (csrc/k10_expand_join.cu)
 K11 `probe_run_any`    OR over each probe's pairs (csrc/k11_probe_run_any.cu)
 K12 `hash_columns`     splitmix64 multi-key hash  (csrc/k12_hash_combine.cu)
+K13 `boundaries`, `segment_starts`, `peer_ends`, `prefix_sum`,
+    `segmented_scan_minmax`, `suffix_scan_minmax`, `bound_search`
+                       window and bag set-op scans (csrc/k13_window_scan.cu)
+K14 `hash_set_build`, `hash_set_probe`
+                       multi-column hash set      (csrc/k14_hash_set.cu)
+K15 `first_occurrence`, `scatter_rows`
+                       first rows through an order (csrc/k15_distinct_first.cu)
+K16 `hll_registers`    HyperLogLog registers      (csrc/k16_hll.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -52,15 +60,23 @@ KERNEL_NAMES = (
     "K10_expand_join",
     "K11_probe_run_any",
     "K12_hash_combine",
+    "K13_window_scan",
+    "K14_hash_set",
+    "K15_distinct_first",
+    "K16_hll",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # launches of the second entry points, counted in their kernel's LAUNCHES
-# entry too: K5's no-payload probe and K10's range search alone; and
-# the Distinct operator's runs on the card (K3 + K4, executor._dedup_batch)
+# entry too: K5's no-payload probe, K10's range search alone, K11's
+# build-side marks of the full outer join and K15's write-back scatter;
+# and the Distinct operator's
+# runs on the card (K3 + K4 + K13, executor._dedup_batch)
 ENTRY_LAUNCHES: dict[str, int] = {"K5_affine_join.probe": 0,
                                   "K10_expand_join.ranges": 0,
+                                  "K11_probe_run_any.mark_build": 0,
+                                  "K15_distinct_first.scatter": 0,
                                   "dedup_batch": 0}
 
 
@@ -85,6 +101,10 @@ SOURCES = (
     "k10_expand_join.cu",
     "k11_probe_run_any.cu",
     "k12_hash_combine.cu",
+    "k13_window_scan.cu",
+    "k14_hash_set.cu",
+    "k15_distinct_first.cu",
+    "k16_hll.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -205,6 +225,17 @@ def _load():
         lib.ob_k10_tile_rows.argtypes = []
         lib.ob_k11_run_any.argtypes = [P, L, P, P, L, P, I, P]
         lib.ob_k12_hash.argtypes = [I, P, P, L, P, I, P]
+        lib.ob_k11_mark_build.argtypes = [P, P, L, L, P, I, P]
+        lib.ob_k13_tile_rows.argtypes = []
+        lib.ob_k13_scan.argtypes = [P, I, P, I, I, I, I, L, P, I, L, P, P,
+                                    L, P]
+        lib.ob_k13_flags.argtypes = [I, P, P, L, P, I, P]
+        lib.ob_k13_search.argtypes = [P, L, P, P, P, I, L, P, I, P]
+        lib.ob_k14_build.argtypes = [I, P, P, P, L, P, P, L, I, P]
+        lib.ob_k14_probe.argtypes = [I, P, P, P, P, P, L, P, P, L, P, I, P]
+        lib.ob_k15_first.argtypes = [I, P, P, P, P, L, P, I, P]
+        lib.ob_k15_scatter.argtypes = [I, P, P, P, P, P, L, I, P]
+        lib.ob_k16_registers.argtypes = [P, I, P, L, P, I, P]
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -213,7 +244,11 @@ def _load():
                    lib.ob_k7_state_bytes, lib.ob_k8_segreduce,
                    lib.ob_k8_tile_rows, lib.ob_k5_probe, lib.ob_k9_merge_join,
                    lib.ob_k10_ranges, lib.ob_k10_expand, lib.ob_k10_tile_rows,
-                   lib.ob_k11_run_any, lib.ob_k12_hash):
+                   lib.ob_k11_run_any, lib.ob_k12_hash,
+                   lib.ob_k11_mark_build, lib.ob_k13_tile_rows,
+                   lib.ob_k13_scan, lib.ob_k13_flags, lib.ob_k13_search,
+                   lib.ob_k14_build, lib.ob_k14_probe, lib.ob_k15_first,
+                   lib.ob_k15_scatter, lib.ob_k16_registers):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -880,9 +915,9 @@ def _segreduce_dtype(op: str, v) -> torch.dtype:
 
 # The segmented scans of the reference's ops/window.py (:31 boundaries,
 # :43 segment_starts, :49 peer_ends, :60 segmented_cumsum, :67
-# segmented_scan_minmax) that K8's plain version runs on; ops/window.py
-# exports them to the operators.
-def boundaries(sorted_keys: list[torch.Tensor]) -> torch.Tensor:
+# segmented_scan_minmax, :83 suffix_scan_minmax) as plain torch code: K8's
+# plain version runs on them, and they are K13's plain versions.
+def boundaries_plain(sorted_keys: list[torch.Tensor]) -> torch.Tensor:
     """True where any key column differs from the previous row (or row 0)."""
     if not sorted_keys:
         return torch.zeros(0, dtype=torch.bool)
@@ -895,7 +930,7 @@ def boundaries(sorted_keys: list[torch.Tensor]) -> torch.Tensor:
     return new
 
 
-def segment_starts(new_seg: torch.Tensor) -> torch.Tensor:
+def segment_starts_plain(new_seg: torch.Tensor) -> torch.Tensor:
     """Index of the segment's first row, per row (int64)."""
     idx = torch.arange(new_seg.shape[0], dtype=torch.int64,
                        device=new_seg.device)
@@ -903,7 +938,7 @@ def segment_starts(new_seg: torch.Tensor) -> torch.Tensor:
     return torch.cummax(marked, 0).values
 
 
-def peer_ends(new_peer: torch.Tensor) -> torch.Tensor:
+def peer_ends_plain(new_peer: torch.Tensor) -> torch.Tensor:
     """Index of the peer group's last row, per row (int64)."""
     n = int(new_peer.shape[0])
     idx = torch.arange(n, dtype=torch.int64, device=new_peer.device)
@@ -914,16 +949,16 @@ def peer_ends(new_peer: torch.Tensor) -> torch.Tensor:
     return after - 1
 
 
-def segmented_cumsum(values: torch.Tensor,
-                     seg_start: torch.Tensor) -> torch.Tensor:
+def segmented_cumsum_plain(values: torch.Tensor,
+                           seg_start: torch.Tensor) -> torch.Tensor:
     """Inclusive running sum within each segment. `values` must already be
     masked (dead/NULL rows contribute 0)."""
     c = torch.cumsum(values, 0)
     return c - c[seg_start] + values[seg_start]
 
 
-def segmented_scan_minmax(values: torch.Tensor, new_seg: torch.Tensor,
-                          is_min: bool) -> torch.Tensor:
+def segmented_scan_minmax_plain(values: torch.Tensor, new_seg: torch.Tensor,
+                                is_min: bool) -> torch.Tensor:
     """Inclusive segmented running min/max (NaN propagating, as jnp's
     minimum/maximum); masked rows must carry the identity. A doubling
     scan over (flag, value) pairs, like lax.associative_scan's."""
@@ -946,9 +981,9 @@ def segmented_reduce_plain(skeys, ssel, order, aggs):
     sort_groupby on the ops/window.py scans): segment starts where any
     sorted key or the live flag changes; each aggregate's segment total at
     the first row of each live segment, 0 elsewhere; sel = start & live."""
-    new_seg = boundaries(list(skeys) + [ssel])
-    seg_start = segment_starts(new_seg)
-    seg_end = peer_ends(new_seg)
+    new_seg = boundaries_plain(list(skeys) + [ssel])
+    seg_start = segment_starts_plain(new_seg)
+    seg_end = peer_ends_plain(new_seg)
     o = order.to(torch.int64)
     outs = []
     for op, v, m in aggs:
@@ -956,15 +991,15 @@ def segmented_reduce_plain(skeys, ssel, order, aggs):
         dt = _segreduce_dtype(op, v)
         zero = torch.zeros((), dtype=dt, device=ssel.device)
         if op == "count":
-            run = segmented_cumsum(vm.to(torch.int64), seg_start)
+            run = segmented_cumsum_plain(vm.to(torch.int64), seg_start)
         elif op == "sum":
-            run = segmented_cumsum(torch.where(vm, v[o].to(dt), zero),
-                                   seg_start)
+            run = segmented_cumsum_plain(torch.where(vm, v[o].to(dt), zero),
+                                         seg_start)
         elif op in ("min", "max"):
             ident = torch.full((), _identity(op, v.dtype), dtype=v.dtype,
                                device=v.device)
-            run = segmented_scan_minmax(torch.where(vm, v[o], ident),
-                                        new_seg, op == "min")
+            run = segmented_scan_minmax_plain(torch.where(vm, v[o], ident),
+                                              new_seg, op == "min")
         else:
             raise NotImplementedError(op)
         outs.append(torch.where(new_seg & ssel, run[seg_end], zero))
@@ -1356,6 +1391,42 @@ def probe_run_any(pair_ok, starts, offs):
     return out
 
 
+def mark_build_plain(br, pair_sel, nr: int):
+    """Plain version of K11's second entry (the full outer join's
+    zeros(nr).at[br].max(pair_sel, mode="drop")): bool [nr], set at every
+    build row some selected pair slot names; rows outside [0, nr) drop."""
+    has = torch.zeros(nr, dtype=torch.bool, device=pair_sel.device)
+    b = br.to(torch.int64)
+    keep = pair_sel & (b >= 0) & (b < nr)
+    has[b[keep]] = True
+    return has
+
+
+def mark_build(br, pair_sel, nr: int):
+    """K11's second entry: bool [nr], whether any selected pair slot joins
+    each build row. Counts as a K11 launch."""
+    if not _on_cuda(br, pair_sel):
+        return mark_build_plain(br, pair_sel, nr)
+    cap = int(br.shape[0])
+    _vector(br, cap, "K11 build rows")
+    _vector(pair_sel, cap, "K11 pair sel")
+    if br.dtype != torch.int32 or pair_sel.dtype != torch.bool:
+        raise TypeError("K11 marks take int32 build rows and a bool sel")
+    dev = br.device
+    has = torch.zeros(nr, dtype=torch.bool, device=dev)
+    if cap == 0 or nr == 0:
+        return has
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k11_mark_build(br.data_ptr(), pair_sel.data_ptr(), cap,
+                                   nr, has.data_ptr(),
+                                   _blocks(dev, cap, 256 * 4), _stream(dev))
+        _check(rc, "K11_probe_run_any mark_build")
+    LAUNCHES["K11_probe_run_any"] += 1
+    ENTRY_LAUNCHES["K11_probe_run_any.mark_build"] += 1
+    return has
+
+
 # ---------------------------------------------------------------------------
 # K12: splitmix64 hash of multi-column keys
 # ---------------------------------------------------------------------------
@@ -1433,3 +1504,598 @@ def hash_columns(cols):
         _check(rc, "K12_hash_combine")
     LAUNCHES["K12_hash_combine"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K13: the scans of window functions and of INTERSECT/EXCEPT ALL
+# ---------------------------------------------------------------------------
+
+K13_MAX_KEYS = 16
+# value modes of ob_k13_scan (csrc/k13_window_scan.cu)
+_K13_VAL, _K13_START_MARK, _K13_END_MARK = 0, 1, 2
+_I64_MAX = 2**63 - 1
+
+
+def _f64_bits(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+def _k13_scan(x, flags, mode: int, op: str, reverse: bool, segmented: bool,
+              n: int, out_dtype: torch.dtype, dev: torch.device):
+    """One K13 scan launch (three kernels: tile pairs, carries, scan)."""
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    if n == 0:
+        return out
+    if op == "sum":
+        ident = 0
+    elif out_dtype.is_floating_point:
+        ident = _f64_bits(float("inf") if op == "min" else float("-inf"))
+    else:
+        ident = _I64_MAX if op == "min" else _I64_MIN
+    lib = _load()
+    with torch.cuda.device(dev):
+        ntiles = -(-n // lib.ob_k13_tile_rows())
+        tile_v = torch.empty(ntiles, dtype=torch.int64, device=dev)
+        tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
+        rc = lib.ob_k13_scan(
+            x.data_ptr() if x is not None else None,
+            DTYPE_CODE[x.dtype] if x is not None else 0,
+            flags.data_ptr() if flags is not None else None, mode,
+            AGG_CODE[op], int(reverse), int(segmented), n, out.data_ptr(),
+            DTYPE_CODE[out_dtype], ident, tile_v.data_ptr(),
+            tile_f.data_ptr(), ntiles, _stream(dev))
+        _check(rc, "K13_window_scan")
+    LAUNCHES["K13_window_scan"] += 1
+    return out
+
+
+def _flags_arg(flags: torch.Tensor, what: str) -> int:
+    n = int(flags.shape[0])
+    _vector(flags, n, what)
+    if flags.dtype != torch.bool:
+        raise TypeError(f"{what} must be bool")
+    return n
+
+
+def boundaries(sorted_keys):
+    """K13: bool [n], set at row 0 and wherever any of the sorted key
+    columns differs (`!=`) from the previous row."""
+    keys = list(sorted_keys)
+    if not keys:
+        return torch.zeros(0, dtype=torch.bool)
+    if not _on_cuda(*keys):
+        return boundaries_plain(keys)
+    n = int(keys[0].shape[0])
+    for k in keys:
+        _vector(k, n, "K13 key")
+    dev = keys[0].device
+    out = None
+    lib = _load()
+    with torch.cuda.device(dev):
+        for c0 in range(0, len(keys), K13_MAX_KEYS):
+            part = keys[c0:c0 + K13_MAX_KEYS]
+            nk = len(part)
+            got = torch.empty(n, dtype=torch.bool, device=dev)
+            rc = lib.ob_k13_flags(
+                nk, (ctypes.c_void_p * nk)(*[k.data_ptr() for k in part]),
+                (ctypes.c_int * nk)(*[DTYPE_CODE[k.dtype] for k in part]), n,
+                got.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
+            _check(rc, "K13_window_scan flags")
+            LAUNCHES["K13_window_scan"] += 1
+            out = got if out is None else out | got
+    return out
+
+
+def segment_starts(new_seg: torch.Tensor) -> torch.Tensor:
+    """K13: int64 [n], the index of each row's segment start (the cummax
+    of the flagged positions)."""
+    if not _on_cuda(new_seg):
+        return segment_starts_plain(new_seg)
+    n = _flags_arg(new_seg, "K13 segment flags")
+    return _k13_scan(None, new_seg, _K13_START_MARK, "max", False, False, n,
+                     torch.int64, new_seg.device)
+
+
+def peer_ends(new_peer: torch.Tensor) -> torch.Tensor:
+    """K13: int64 [n], the index of each row's last peer (the reversed
+    cummin of the flagged next starts)."""
+    if not _on_cuda(new_peer):
+        return peer_ends_plain(new_peer)
+    n = _flags_arg(new_peer, "K13 peer flags")
+    return _k13_scan(None, new_peer, _K13_END_MARK, "min", True, False, n,
+                     torch.int64, new_peer.device)
+
+
+def prefix_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13's sum: the inclusive cumsum in x's type."""
+    return torch.cumsum(x, 0)
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """K13: the inclusive prefix sum of an int64, float32 or float64
+    column, in its type (floats add in double, in tile order)."""
+    if not _on_cuda(x):
+        return prefix_sum_plain(x)
+    n = int(x.shape[0])
+    _vector(x, n, "K13 values")
+    if x.dtype not in (torch.int64, torch.float32, torch.float64):
+        raise TypeError(f"K13 sums int64 or float columns, got {x.dtype}")
+    return _k13_scan(x, None, _K13_VAL, "sum", False, False, n, x.dtype,
+                     x.device)
+
+
+def _minmax_args(values, new_seg):
+    n = int(values.shape[0])
+    _vector(values, n, "K13 values")
+    if values.dtype == torch.bool:
+        raise TypeError("K13 min/max takes numeric values")
+    if _flags_arg(new_seg, "K13 segment flags") != n:
+        raise ValueError("K13 values and flags differ in length")
+    return n
+
+
+def segmented_scan_minmax(values: torch.Tensor, new_seg: torch.Tensor,
+                          is_min: bool) -> torch.Tensor:
+    """K13: inclusive running min/max within each segment (NaN
+    propagating); masked rows must carry the identity."""
+    if not _on_cuda(values, new_seg):
+        return segmented_scan_minmax_plain(values, new_seg, is_min)
+    n = _minmax_args(values, new_seg)
+    return _k13_scan(values, new_seg, _K13_VAL, "min" if is_min else "max",
+                     False, True, n, values.dtype, values.device)
+
+
+def suffix_scan_minmax_plain(values: torch.Tensor, new_seg: torch.Tensor,
+                             is_min: bool) -> torch.Tensor:
+    """Plain version of K13's backward min/max (ops/window.py:83): the
+    forward scan over the reversed rows with the segments' last rows as
+    starts."""
+    seg_last = torch.cat([new_seg[1:],
+                          torch.ones(1, dtype=torch.bool,
+                                     device=new_seg.device)])
+    out = segmented_scan_minmax_plain(torch.flip(values, [0]),
+                                      torch.flip(seg_last, [0]), is_min)
+    return torch.flip(out, [0])
+
+
+def suffix_scan_minmax(values: torch.Tensor, new_seg: torch.Tensor,
+                       is_min: bool) -> torch.Tensor:
+    """K13: min/max over [row, its segment's last row], per row."""
+    if not _on_cuda(values, new_seg):
+        return suffix_scan_minmax_plain(values, new_seg, is_min)
+    n = _minmax_args(values, new_seg)
+    return _k13_scan(values, new_seg, _K13_VAL, "min" if is_min else "max",
+                     True, True, n, values.dtype, values.device)
+
+
+def bound_search_plain(arr, target, lo=None, hi=None, right: bool = False):
+    """Plain version of K13's search: searchsorted over the whole array
+    when no ranges are given (the packed frame search), else the
+    reference's 34-round binary search of each target inside its own
+    [lo, hi) (executor._emit_window's _lex_bound)."""
+    if lo is None:
+        return torch.searchsorted(arr, target, right=right)
+    n = int(arr.shape[0])
+    l, h = lo.clone(), hi.clone()
+    for _ in range(34):
+        mid = (l + h) >> 1
+        kv = arr[mid.clamp(0, n - 1)]
+        go = (kv <= target) if right else (kv < target)
+        act = l < h
+        l = torch.where(act & go, mid + 1, l)
+        h = torch.where(act & ~go, mid, h)
+    return l
+
+
+def bound_search(arr, target, lo=None, hi=None, right: bool = False):
+    """K13: int64 [m], the first position p in [lo, hi) (all of arr when
+    no ranges are given) with arr[p] > target (right) or >= target,
+    else hi, for each target; arr ascends over every searched range."""
+    if not _on_cuda(arr, target, lo, hi):
+        return bound_search_plain(arr, target, lo, hi, right)
+    n = int(arr.shape[0])
+    m = int(target.shape[0])
+    _vector(arr, n, "K13 search array")
+    _vector(target, m, "K13 search targets")
+    for t in (lo, hi):
+        if t is not None:
+            _vector(t, m, "K13 search range")
+            if t.dtype != torch.int64:
+                raise TypeError("K13 search ranges must be int64")
+    if (lo is None) != (hi is None):
+        raise ValueError("K13 search takes both range ends or neither")
+    if arr.dtype != torch.int64 or target.dtype != torch.int64:
+        raise TypeError("K13 searches int64 arrays")
+    if n < 1:
+        raise ValueError("K13 searches a non-empty array")
+    dev = arr.device
+    out = torch.empty(m, dtype=torch.int64, device=dev)
+    if m == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k13_search(
+            arr.data_ptr(), n, target.data_ptr(),
+            lo.data_ptr() if lo is not None else None,
+            hi.data_ptr() if hi is not None else None, int(bool(right)), m,
+            out.data_ptr(), _blocks(dev, m, 256 * 4), _stream(dev))
+        _check(rc, "K13_window_scan search")
+    LAUNCHES["K13_window_scan"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K14: the multi-column hash set (build and existence probe)
+# ---------------------------------------------------------------------------
+
+K14_MAX_COLS = 16
+M32 = 0xFFFFFFFF
+MIX32_M1 = 0x85EBCA6B
+MIX32_M2 = 0xC2B2AE35
+GOLDEN32 = 0x9E3779B9
+_I32_MAX = 2**31 - 1
+
+
+def mix32_plain(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 (ops/hashing.py mix32) on uint32 values held in
+    int64: the products wrap modulo 2^64 and keep their low 32 bits."""
+    x = x.to(torch.int64) & M32
+    x = ((x ^ (x >> 16)) * MIX32_M1) & M32
+    x = ((x ^ (x >> 13)) * MIX32_M2) & M32
+    return x ^ (x >> 16)
+
+
+def _sat_int32(c: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA converts: truncation, saturation, NaN -> 0."""
+    d = torch.nan_to_num(c.to(torch.float64), nan=0.0, posinf=2.0**31,
+                         neginf=-(2.0**31))
+    return torch.trunc(d).clamp(-(2.0**31), 2.0**31 - 1).to(torch.int64)
+
+
+def _sat_uint64_bits(c: torch.Tensor) -> torch.Tensor:
+    """float64 -> uint64 as XLA converts (truncation, saturation at 0 and
+    2^64 - 1, NaN -> 0), as the int64 with the same bits."""
+    d = torch.trunc(torch.nan_to_num(c.to(torch.float64), nan=0.0,
+                                     posinf=2.0**64, neginf=0.0))
+    zero = torch.zeros_like(d)
+    low = torch.where(d < 2.0**63, d, zero).clamp(min=0.0).to(torch.int64)
+    high = torch.where((d >= 2.0**63) & (d < 2.0**64), d - 2.0**63,
+                       zero).to(torch.int64) + _I64_MIN
+    return torch.where(d >= 2.0**64, torch.full_like(low, -1),
+                       torch.where(d >= 2.0**63, high, low))
+
+
+def fold32_plain(c: torch.Tensor) -> torch.Tensor:
+    """ops/hashing.py fold32 as uint32 values in int64: columns of at most
+    4 bytes convert to int32 and fold the sign in, 8-byte columns convert
+    to uint64 and xor-fold the high word (a logical shift)."""
+    if c.element_size() <= 4:
+        i = _sat_int32(c) if c.dtype.is_floating_point else c.to(torch.int64)
+        return (i ^ (i >> 31)) & M32
+    u = _sat_uint64_bits(c) if c.dtype.is_floating_point else c.to(torch.int64)
+    return (u ^ _shr(u, 32)) & M32
+
+
+def hash32_combine_plain(cols) -> torch.Tensor:
+    """ops/hashing.py hash32_combine as uint32 values in int64."""
+    h = torch.zeros(cols[0].shape, dtype=torch.int64, device=cols[0].device)
+    for c in cols:
+        h = mix32_plain(h ^ ((fold32_plain(c) + GOLDEN32) & M32))
+    return h
+
+
+def _as_int32(u: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the int32 with the same bits."""
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+
+
+def hash_set_build_plain(key_cols, mask: torch.Tensor, table_size: int):
+    """Plain version of K14's build (ops/join.py build_hash_table over
+    ops/hashagg.py assign_group_slots): every live row probes in lockstep,
+    the lowest row id wins each empty slot, rows meeting an equal tag and
+    key tuple join its slot, the others advance. Returns (slot_tag,
+    slot_row) int32 [T]; empty slots hold row -1, tag 0."""
+    cols = list(key_cols)
+    n = int(cols[0].shape[0])
+    ts = int(table_size)
+    dev = mask.device
+    tags64 = hash32_combine_plain(cols)
+    tags = _as_int32(tags64)
+    h = tags64 & (ts - 1)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    slot_tag = torch.zeros(ts + 1, dtype=torch.int32, device=dev)
+    slot_row = torch.full((ts + 1,), -1, dtype=torch.int32, device=dev)
+    pending = mask.clone()
+    probe_of = torch.zeros(n, dtype=torch.int64, device=dev)
+    rnd = 0
+    while rnd < ts and bool(pending.any()):
+        pos = (h + probe_of) & (ts - 1)
+        at_raw = slot_row[pos]
+        at_used = at_raw >= 0
+        at_tag = slot_tag[pos]
+        at_row = at_raw.to(torch.int64).clamp(0, max(n - 1, 0))
+        exact = torch.ones(n, dtype=torch.bool, device=dev)
+        for c in cols:
+            exact &= c[at_row] == c
+        same = pending & at_used & (at_tag == tags) & exact
+        want = pending & ~at_used
+        claim = torch.full((ts + 1,), _I32_MAX, dtype=torch.int64, device=dev)
+        claim.scatter_reduce_(0, torch.where(want, pos, ts), rows, "amin")
+        winner = want & (claim[pos] == rows)
+        wpos = torch.where(winner, pos, ts)
+        slot_tag[wpos] = tags
+        slot_row[wpos] = rows.to(torch.int32)
+        pending = pending & ~(winner | same)
+        advance = pending & at_used & ~((at_tag == tags) & exact)
+        probe_of = probe_of + advance.to(torch.int64)
+        rnd += 1
+    return slot_tag[:ts].clone(), slot_row[:ts].clone()
+
+
+def hash_set_probe_plain(slot_tag, slot_row, build_cols, probe_cols,
+                         probe_mask):
+    """Plain version of K14's probe (ops/join.py hash_join_probe): int32
+    [np], the build row of the first slot on each live probe row's path
+    with an equal tag and an equal key tuple, -1 past the first empty
+    slot."""
+    ts = int(slot_tag.shape[0])
+    nb = int(build_cols[0].shape[0])
+    n = int(probe_cols[0].shape[0])
+    dev = probe_mask.device
+    tags64 = hash32_combine_plain(list(probe_cols))
+    tags = _as_int32(tags64)
+    h = tags64 & (ts - 1)
+    pending = probe_mask.clone()
+    match = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    probe = 0
+    while probe < ts and bool(pending.any()):
+        pos = (h + probe) & (ts - 1)
+        at_raw = slot_row[pos]
+        empty = at_raw < 0
+        at_row = at_raw.to(torch.int64).clamp(0, max(nb - 1, 0))
+        exact = torch.ones(n, dtype=torch.bool, device=dev)
+        for bc, pc in zip(build_cols, probe_cols):
+            exact &= bc[at_row] == pc
+        hit = pending & ~empty & (slot_tag[pos] == tags) & exact
+        match = torch.where(hit, at_raw, match)
+        pending = pending & ~hit & ~empty
+        probe += 1
+    return match
+
+
+def _k14_cols(cols, n: int, what: str):
+    if not 1 <= len(cols) <= K14_MAX_COLS:
+        raise ValueError(f"K14 takes 1..{K14_MAX_COLS} key columns")
+    for c in cols:
+        _vector(c, n, what)
+    k = len(cols)
+    return ((ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
+            (ctypes.c_int * k)(*[DTYPE_CODE[c.dtype] for c in cols]))
+
+
+def hash_set_build(key_cols, mask: torch.Tensor, table_size: int):
+    """K14 build: (slot_tag, slot_row) int32 [table_size] of the live rows'
+    key tuples; a slot's row is the lowest live row of its key. Which key
+    sits in which slot depends on the schedule; hash_set_probe's result
+    does not."""
+    cols = list(key_cols)
+    if not _on_cuda(mask, *cols):
+        return hash_set_build_plain(cols, mask, table_size)
+    nb = int(mask.shape[0])
+    _flags_arg(mask, "K14 build sel")
+    ptrs, dts = _k14_cols(cols, nb, "K14 build key")
+    ts = int(table_size)
+    if ts < 2 * nb or ts & (ts - 1) or nb >= 2**31:
+        raise ValueError(f"K14 needs a power-of-two table of >= 2 x {nb} "
+                         f"slots, got {ts}")
+    dev = mask.device
+    slot_tag = torch.empty(ts, dtype=torch.int32, device=dev)
+    slot_row = torch.empty(ts, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k14_build(len(cols), ptrs, dts, mask.data_ptr(), nb,
+                              slot_tag.data_ptr(), slot_row.data_ptr(), ts,
+                              _blocks(dev, max(nb, ts // 4), 256 * 4),
+                              _stream(dev))
+        _check(rc, "K14_hash_set build")
+    LAUNCHES["K14_hash_set"] += 1
+    return slot_tag, slot_row
+
+
+def hash_set_probe(slot_tag, slot_row, build_cols, probe_cols, probe_mask):
+    """K14 probe: int32 [np], per live probe row the lowest live build row
+    with an equal key tuple (and tag), else -1."""
+    bcols, pcols = list(build_cols), list(probe_cols)
+    if len(bcols) != len(pcols):
+        raise ValueError("K14 probes as many columns as it built")
+    if not _on_cuda(slot_tag, slot_row, probe_mask, *bcols, *pcols):
+        return hash_set_probe_plain(slot_tag, slot_row, bcols, pcols,
+                                    probe_mask)
+    ts = int(slot_tag.shape[0])
+    _vector(slot_tag, ts, "K14 slot tags")
+    _vector(slot_row, ts, "K14 slot rows")
+    if slot_tag.dtype != torch.int32 or slot_row.dtype != torch.int32:
+        raise TypeError("K14 slots must be int32")
+    npr = _flags_arg(probe_mask, "K14 probe sel")
+    bp, bd = _k14_cols(bcols, int(bcols[0].shape[0]), "K14 build key")
+    pp, pd = _k14_cols(pcols, npr, "K14 probe key")
+    dev = probe_mask.device
+    match = torch.empty(npr, dtype=torch.int32, device=dev)
+    if npr == 0:
+        return match
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k14_probe(len(bcols), bp, bd, pp, pd,
+                              probe_mask.data_ptr(), npr, slot_tag.data_ptr(),
+                              slot_row.data_ptr(), ts, match.data_ptr(),
+                              _blocks(dev, npr, 256 * 4), _stream(dev))
+        _check(rc, "K14_hash_set probe")
+    LAUNCHES["K14_hash_set"] += 1
+    return match
+
+
+# ---------------------------------------------------------------------------
+# K15: first occurrences through a sort order; rows back through it
+# ---------------------------------------------------------------------------
+
+K15_MAX_COLS = 16
+K15_MAX_SCATTER = 48
+
+
+def first_occurrence_plain(key_cols, mask: torch.Tensor, order: torch.Tensor):
+    """Plain version of K15 (the tail of ops/hashagg.py
+    distinct_first_mask): run boundaries over (dead, keys...) in sorted
+    order, live run starts, mapped back by the inverse permutation."""
+    o = order.to(torch.int64)
+    sdead = (~mask)[o]
+    new_run = boundaries_plain([sdead] + [k[o] for k in key_cols])
+    first = new_run & ~sdead
+    return first[torch.argsort(o)]
+
+
+def first_occurrence(key_cols, mask: torch.Tensor, order: torch.Tensor):
+    """K15: bool [n] in row order, set at the first live row of every run
+    of equal (keys...) along `order` (K3's stable order of (dead,
+    keys...))."""
+    cols = list(key_cols)
+    if not _on_cuda(mask, order, *cols):
+        return first_occurrence_plain(cols, mask, order)
+    n = _flags_arg(mask, "K15 mask")
+    _vector(order, n, "K15 order")
+    if order.dtype != torch.int32:
+        raise TypeError("K15 order must be int32")
+    if not 1 <= len(cols) <= K15_MAX_COLS:
+        raise ValueError(f"K15 takes 1..{K15_MAX_COLS} key columns")
+    for c in cols:
+        _vector(c, n, "K15 key")
+    dev = mask.device
+    first = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return first
+    lib = _load()
+    with torch.cuda.device(dev):
+        k = len(cols)
+        rc = lib.ob_k15_first(
+            k, (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
+            (ctypes.c_int * k)(*[DTYPE_CODE[c.dtype] for c in cols]),
+            mask.data_ptr(), order.data_ptr(), n, first.data_ptr(),
+            _blocks(dev, n, 256 * 4), _stream(dev))
+        _check(rc, "K15_distinct_first")
+    LAUNCHES["K15_distinct_first"] += 1
+    return first
+
+
+def scatter_rows_plain(cols, order: torch.Tensor):
+    """Plain version of K15's scatter (executor._emit_window's write-back):
+    each column gathered by the inverse permutation, argsort(order)."""
+    inv = torch.argsort(order.to(torch.int64))
+    return [c[inv] for c in cols]
+
+
+def scatter_rows(cols, order: torch.Tensor):
+    """K15's second entry: out[c][order[i]] = cols[c][i] for every column,
+    order a permutation. Counts as a K15 launch."""
+    cols = list(cols)
+    if not cols:
+        return []
+    if not _on_cuda(order, *cols):
+        return scatter_rows_plain(cols, order)
+    n = int(order.shape[0])
+    _vector(order, n, "K15 order")
+    if order.dtype != torch.int32:
+        raise TypeError("K15 order must be int32")
+    for c in cols:
+        _vector(c, n, "K15 column")
+        if c.element_size() not in _WIDTHS:
+            raise TypeError(f"K15 column width {c.element_size()}")
+    outs = [torch.empty_like(c) for c in cols]
+    if n == 0:
+        return outs
+    dev = order.device
+    inv = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        for c0 in range(0, len(cols), K15_MAX_SCATTER):
+            part = list(range(c0, min(c0 + K15_MAX_SCATTER, len(cols))))
+            k = len(part)
+            rc = lib.ob_k15_scatter(
+                k, (ctypes.c_void_p * k)(*[cols[i].data_ptr() for i in part]),
+                (ctypes.c_void_p * k)(*[outs[i].data_ptr() for i in part]),
+                (ctypes.c_int * k)(*[cols[i].element_size() for i in part]),
+                order.data_ptr(), inv.data_ptr(), n, _blocks(dev, n, 256 * 4),
+                _stream(dev))
+            _check(rc, "K15_distinct_first scatter")
+    LAUNCHES["K15_distinct_first"] += 1
+    ENTRY_LAUNCHES["K15_distinct_first.scatter"] += 1
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# K16: HyperLogLog registers
+# ---------------------------------------------------------------------------
+
+HLL_M_LOG2 = 14
+HLL_M = 1 << HLL_M_LOG2
+_RANK_BITS = 6
+
+
+def hll_hashes_plain(col: torch.Tensor):
+    """ops/hll.py _two_hashes as uint32 values in int64: floats widen to
+    float64 and fold by their bits."""
+    if col.dtype.is_floating_point:
+        col = col.to(torch.float64).view(torch.int64)
+    f = fold32_plain(col)
+    h1 = mix32_plain((f + GOLDEN32) & M32)
+    h2 = mix32_plain(h1 ^ f ^ MIX32_M1)
+    return h1, h2
+
+
+def _bit_length32(x: torch.Tensor) -> torch.Tensor:
+    n = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        big = x >= (1 << s)
+        x = torch.where(big, x >> s, x)
+        n = n + torch.where(big, s, 0)
+    return n + (x > 0).to(torch.int64)
+
+
+def hll_registers_plain(col: torch.Tensor, mask: torch.Tensor):
+    """Plain version of K16 (ops/hll.py hll_registers): rank = 33 -
+    bit_length(h2), which is the reference's 32 - floor(log2(h2)) and 33
+    for h2 = 0; (bucket << 6 | rank) of the live rows sorted, and each
+    register the rank of the largest entry of its bucket (0 if none)."""
+    dev = mask.device
+    if int(mask.shape[0]) == 0:
+        return torch.zeros(HLL_M, dtype=torch.int32, device=dev)
+    h1, h2 = hll_hashes_plain(col)
+    bucket = h1 & (HLL_M - 1)
+    rank = torch.where(h2 == 0, 33, 33 - _bit_length32(h2))
+    packed = torch.where(mask, (bucket << _RANK_BITS) | rank, -1).to(
+        torch.int32)
+    sp = torch.sort(packed).values
+    buckets = torch.arange(HLL_M, dtype=torch.int32, device=dev)
+    pos = torch.searchsorted(sp, (buckets + 1) << _RANK_BITS) - 1
+    v = sp[pos.clamp(min=0)]
+    hit = (pos >= 0) & (v >= (buckets << _RANK_BITS)) & (v >= 0)
+    return torch.where(hit, v & ((1 << _RANK_BITS) - 1), 0).to(torch.int32)
+
+
+def hll_registers(col: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K16: int32 [16384] HyperLogLog registers of the values where mask
+    is set."""
+    if not _on_cuda(col, mask):
+        return hll_registers_plain(col, mask)
+    n = _flags_arg(mask, "K16 mask")
+    _vector(col, n, "K16 values")
+    dev = mask.device
+    regs = torch.empty(HLL_M, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nb = max(1, min(-(-max(n, 1) // (512 * 16)), sms * 2))
+        rc = lib.ob_k16_registers(col.data_ptr(), DTYPE_CODE[col.dtype],
+                                  mask.data_ptr(), n, regs.data_ptr(), nb,
+                                  _stream(dev))
+        _check(rc, "K16_hll")
+    LAUNCHES["K16_hll"] += 1
+    return regs

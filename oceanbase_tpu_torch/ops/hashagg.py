@@ -2,9 +2,12 @@
 
 Counterpart of `oceanbase_tpu/ops/hashagg.py` for the ungrouped path
 (`scalar_aggregate`, kernel K1), the direct-addressed group-by
-(`groupby_direct`, kernel K2) and the sort-based group-by (`sort_groupby`:
+(`groupby_direct`, kernel K2), the sort-based group-by (`sort_groupby`:
 the order from K3, the sorted keys through K4, the segmented reduction
-K8). The hash group-by and DISTINCT masks are not ported yet.
+K8), the first-occurrence mask of DISTINCT aggregates
+(`distinct_first_mask`: the order from K3, the run starts written back
+through it by K15) and the HyperLogLog count of `approx_ndv` (K16). The
+hash group-by is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,11 +15,13 @@ from __future__ import annotations
 import torch
 
 from ..kernels import (
+    first_occurrence,
     gather_columns,
     groupby_slots,
     scalar_reduce,
     segmented_reduce,
 )
+from .hll import hll_count
 from .sort import sort_indices
 
 
@@ -27,8 +32,8 @@ def scalar_aggregate(mask: torch.Tensor, agg_ops: list[str],
     out = []
     for op, v in zip(agg_ops, agg_values):
         if op == "approx_ndv":
-            raise NotImplementedError(
-                "approx_ndv (HyperLogLog) is not ported yet")
+            out.append(hll_count(v, mask))
+            continue
         out.append(scalar_reduce(op, mask, v))
     return out
 
@@ -73,3 +78,18 @@ def sort_groupby(key_cols: list[torch.Tensor], mask: torch.Tensor,
         for op, v, m in zip(agg_ops, agg_values, masks)
     ])
     return skeys, sel, aggs, order
+
+
+def distinct_first_mask(key_vals: list[torch.Tensor], val: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """First-occurrence mask for DISTINCT aggregates: True for exactly one
+    live row per (group keys, value) combination, the lowest such row, in
+    row order. K3 orders (dead, keys..., value) stably, and K15 marks each
+    run's first live row straight into row order (no inverse sort).
+    Values compare with `!=`: every NaN row is its own value, -0.0 and 0.0
+    are one."""
+    n = int(mask.shape[0])
+    cols = [(k.expand(n) if k.dim() == 0 else k).contiguous()
+            for k in (*key_vals, val)]
+    order = sort_indices(cols, [False] * len(cols), mask)
+    return first_occurrence(cols, mask, order)

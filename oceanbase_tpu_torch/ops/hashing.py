@@ -1,4 +1,4 @@
-"""Key packing for the direct-addressed group-by, and the 64-bit key hash.
+"""Key packing for the direct-addressed group-by, and the key hashes.
 
 Counterpart of `oceanbase_tpu/ops/hashing.py`: when every group key has a
 small static domain (dictionary codes, bools), the keys bit-pack into one
@@ -6,8 +6,10 @@ int key that is its own perfect-hash slot (`pack_keys`). Multi-column join
 keys hash-combine through the splitmix64 finalizer (`mix64`,
 `hash_combine`, kernel K12). torch has no uint64 shift or add, so the
 hash runs on int64 bits: multiplies and adds wrap modulo 2^64 alike, and
-each right shift masks off the sign bits. The 32-bit mixes and the HLL
-hashes of that module are not ported yet.
+each right shift masks off the sign bits. The 32-bit murmur3 mixes
+(`mix32`, `fold32`, `hash32_combine`) run the same way on uint32 values
+held in int64; the hash set (K14) and the HyperLogLog registers (K16)
+compute them inside their kernels on the card, with the same bits.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from __future__ import annotations
 import torch
 
 from ..kernels import hash_columns as hash_combine  # noqa: F401 (K12)
+from ..kernels import fold32_plain as fold32  # noqa: F401
+from ..kernels import hash32_combine_plain as hash32_combine  # noqa: F401
+from ..kernels import mix32_plain as mix32  # noqa: F401
 from ..kernels import mix64_plain as mix64  # noqa: F401
 
 

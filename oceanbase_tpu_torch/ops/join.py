@@ -5,8 +5,9 @@ Counterpart of `oceanbase_tpu/ops/join.py`: the unique-build join
 build side (`sort_build_side` on K3 + K4, `expand_join`, kernel K10), the
 per-probe-row OR over its pair run (`probe_run_any`, kernel K11), and the
 canonical 64-bit join key (`join_keys64`, kernel K12 for keys of several
-columns). The open-addressing hash table of that module
-(`build_hash_table`, `hash_join_probe`) is not ported yet.
+columns), and the open-addressing hash set of multi-column keys
+(`build_hash_table`, `hash_join_probe`, kernel K14) that set operations
+and multi-column semi/anti joins probe for existence.
 """
 
 from __future__ import annotations
@@ -77,3 +78,23 @@ def merge_join_unique(build_key, build_mask, probe_key, probe_mask):
     the lowest row wins, as the reference's combined sort makes it."""
     return kernels.merge_join(build_key.contiguous(), build_mask,
                               probe_key.contiguous(), probe_mask)
+
+
+def build_hash_table(key_cols: list[torch.Tensor], mask: torch.Tensor,
+                     table_size: int):
+    """Insert the live rows' key tuples into an open-addressing table of
+    `table_size` (a power of two >= 2 rows) int32 slots (K14). Returns
+    (slot_tag, slot_row); empty slots hold row -1, and each key's slot
+    holds its lowest live row."""
+    return kernels.hash_set_build([c.contiguous() for c in key_cols], mask,
+                                  table_size)
+
+
+def hash_join_probe(slot_tag, slot_row, build_key_cols, probe_key_cols,
+                    probe_mask) -> torch.Tensor:
+    """Probe the table (K14): match_row [Np] int32, the build row whose key
+    tuple equals each live probe row's exactly, or -1. A 32-bit tag
+    collision costs a probe step, never a wrong match."""
+    return kernels.hash_set_probe(
+        slot_tag, slot_row, [c.contiguous() for c in build_key_cols],
+        [c.contiguous() for c in probe_key_cols], probe_mask)
