@@ -26,11 +26,33 @@ analytic kernels are captured from one more run of Q17, Q21, Q13, Q9,
 Q16, W1-W3, U2, D1, A1 and F1) and held against its plain PyTorch version
 (exact agreement, and the same bits on two runs), and timed beside the
 plain version, a one-call PyTorch yardstick and its memory-bandwidth
-bound. Last, all 22 queries and the analytic statements run on the card
+bound. Then all 22 queries and the analytic statements run on the card
 at SF 0.01 against sqlite (ROLLUP/CUBE against the union of plain
 group-bys, INTERSECT/EXCEPT ALL against bag counts, approx_count_distinct
 against the plain estimate), and every statement runs on the card and on
 the CPU at SF 0.1, where the two results must hold the same bits.
+
+The rest of Executor.prepare follows, each path with its launch counts
+set to 0 just before it and read just after. The projection phase builds
+`lineitem#sp:l_shipdate` (the reference bench's covered columns) and runs
+Q6, Q6 over 1995 (rebound through the text tier), Q14, a one-week range
+and the same statement over six months (wider than the slice capacity
+seeded from the week: it overflows once and re-runs as a full scan), and
+Q1 (not selective, so it stays on the base table), each through the
+range slice K17 where routed. The streamed phase runs Q1, Q6, Q3 and Q14
+under a 1 GiB device budget (scaled by SF / 10) and a memory governor:
+the chunks are wire-encoded on the host, copied by the prefetch thread
+and decoded by K18; then Q1 once in each prefetch x compression leg. The
+grace phase runs a lineitem-orders join and a keyed group-by with a
+count distinct under 128 MiB (scaled likewise), partitioned to host
+spill files, once cold and once traced. All are exact against int64
+oracles and the default Session's rows, balance the governor's ledger,
+and every one of the 45 statements above prepared a resident plan at the
+card's default budget. K17 and K18 are held against their plain versions
+on the arguments of Q6's projection run, of one streamed Q3 chunk and of
+a synthetic chunk (validity bits, runs that exactly fill their capacity,
+-0.0 and NaN), and the projection and streamed statements run on the
+card and on the CPU at SF 0.1 with identical bits.
 
 Run from the repository root on a machine with one CUDA device:
 
@@ -245,6 +267,12 @@ KERNEL_META = {
     "K16_hll": (
         "oceanbase_tpu_torch/csrc/k16_hll.cu",
         "oceanbase_tpu/ops/hll.py:55"),
+    "K17_slice_scan": (
+        "oceanbase_tpu_torch/csrc/k17_slice_scan.cu",
+        "oceanbase_tpu/engine/executor.py:4179"),
+    "K18_decode_staged": (
+        "oceanbase_tpu_torch/csrc/k18_decode_staged.cu",
+        "oceanbase_tpu/engine/pipeline.py:187"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -262,8 +290,36 @@ KERNEL_META = {
         "oceanbase_tpu/engine/executor.py:2606"),
 }
 
-# the entries of the {"kernels": ...} line: K1-K16 and the second entries
+# the entries of the {"kernels": ...} line: K1-K18 and the second entries
 KERNEL_LINE = [k for k in KERNEL_META if k != "dedup_batch"]
+# the kernels of each path (the rest of prepare's paths launch K17, K18)
+MAIN_KERNELS = [k for k in KERNEL_LINE
+                if "." not in k and k not in ("K17_slice_scan",
+                                              "K18_decode_staged")]
+
+# the reference bench's sorted projection: lineitem by l_shipdate,
+# covering every column of the headline queries (bench.py SP_COLS)
+SP_COLS = ["l_shipdate", "l_quantity", "l_extendedprice", "l_discount",
+           "l_tax", "l_returnflag", "l_linestatus", "l_partkey",
+           "l_orderkey"]
+P_RANGE = """select sum(l_extendedprice) as s, count(*) as n from lineitem
+where l_shipdate >= date '{lo}' and l_shipdate < date '{hi}'"""
+P_NARROW = ("1995-03-01", "1995-03-08")
+P_WIDE = ("1995-03-01", "1995-09-01")
+# the reference tests' grace-hash statements (tests/test_stream_pipeline.py)
+GRACE_JOIN = """select o.o_orderpriority, sum(l.l_quantity) as qty,
+       count(*) as cnt
+from lineitem l, orders o
+where l.l_orderkey = o.o_orderkey and l.l_quantity < 30
+group by o.o_orderpriority
+order by o.o_orderpriority"""
+GRACE_GROUPBY = """select l_orderkey, sum(l_quantity) as q,
+       count(distinct l_linenumber) as dl
+from lineitem group by l_orderkey order by l_orderkey limit 7"""
+# the budgets at SF 10, scaled by SF / 10 (the reference tests' 1 MiB and
+# 48 KiB at SF 0.01, raised to what makes both grace sides exceed it)
+STREAM_BUDGET_SF10 = 1 << 30
+GRACE_BUDGET_SF10 = 128 << 20
 
 # the TPC-H queries run through the merge, expansion, semi/anti/left
 # joins and DISTINCT, by query number
@@ -344,6 +400,25 @@ PATH_KERNELS = {
     **{f"DS{q}": ("K5_affine_join", "K3_radix_sort", "K4_gather_rows",
                   "K8_segmented_reduce", "K7_topk_candidates")
        for q in (3, 42, 52, 55)},
+    # the projection phase: the sliced scans, and Q1 on the base table
+    "P_Q6": ("K17_slice_scan", "K1_scalar_aggregate"),
+    "P_Q6_1995": ("K17_slice_scan", "K1_scalar_aggregate"),
+    "P_Q14": ("K17_slice_scan", "K5_affine_join", "K1_scalar_aggregate"),
+    "P_NARROW": ("K17_slice_scan", "K1_scalar_aggregate"),
+    "P_WIDE": ("K17_slice_scan", "K1_scalar_aggregate"),
+    "P_Q1": ("K2_groupby_direct",),
+    # the streamed phase: every chunk decoded by K18
+    "ST_Q1": ("K18_decode_staged", "K2_groupby_direct"),
+    "ST_Q6": ("K18_decode_staged", "K1_scalar_aggregate"),
+    "ST_Q3": ("K18_decode_staged", "K5_affine_join", "K3_radix_sort",
+              "K4_gather_rows", "K8_segmented_reduce"),
+    "ST_Q14": ("K18_decode_staged", "K5_affine_join", "K1_scalar_aggregate"),
+    # the grace phase: partitions of host spill files (a partition of
+    # orders is no longer affine, nor declared unique: the expansion join)
+    "G_JOIN": ("K10_expand_join", "K2_groupby_direct", "K3_radix_sort",
+               "K4_gather_rows"),
+    "G_GROUPBY": ("K3_radix_sort", "K4_gather_rows", "K8_segmented_reduce",
+                  "K15_distinct_first"),
 }
 
 # second entry points and operators each statement's path must run:
@@ -368,7 +443,11 @@ PATH_ENTRIES = {
 # exact launch counts over a statement's runs: T1's first run overflows
 # the top-k prefilter (a low-cardinality key ties beyond C), which turns
 # the prefilter off for the cached plan, so K7 runs once in all its runs
-EXACT_LAUNCHES = {"T1": {"K7_topk_candidates": 1}}
+EXACT_LAUNCHES = {"T1": {"K7_topk_candidates": 1},
+                  # the six-month range overflows the week's slice once;
+                  # the bumped plan scans the whole projection
+                  "P_WIDE": {"K17_slice_scan": 1},
+                  "P_Q1": {"K17_slice_scan": 0}}
 
 
 class SmokeFailure(Exception):
@@ -640,7 +719,10 @@ def check_a1(rs, sess, kernels) -> int:
 
 
 def run_statement(sess, kernels, name, text, check, warm, fact_rows,
-                  fact="lineitem"):
+                  fact="lineitem", after=None):
+    """Run `text` cold, `warm` times warm and once traced; `check` holds
+    the result to its oracle, `after(rs)` (when given) checks the route
+    and the state after the runs."""
     import torch
 
     before = dict(kernels.LAUNCHES)
@@ -661,6 +743,7 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
     rows = check(rs)
     require(rows == n, f"{name}: row count {n} != checked rows {rows}")
     busy, traced, gaps, top = device_busy_ms(lambda: sess.sql(text).nrows)
+    extra = after(rs) if after is not None else {}
     require(busy <= traced, f"{name}: device busy {busy} ms exceeds the "
             f"traced wall {traced} ms")
     peak = torch.cuda.max_memory_allocated()
@@ -689,6 +772,9 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
         "longest_idle_gaps": [{"ms": g, "after": a, "before": b}
                               for g, a, b in gaps],
         "device_ms_by_kernel": [{"name": k, "ms": v} for k, v in top],
+        "plan": type(rs._cursor.prepared).__name__,
+        "result": rs.storage_columns(),
+        **extra,
     }
     print(f"statement {name}: cold {cold:.3f} ms, warm median {med:.3f} ms, "
           f"{rec['fact_rows_per_s']:.6g} {fact} rows/s, {rows} rows, "
@@ -1686,19 +1772,29 @@ def analytic_sqlite_checks(tiny, tiny_ds, Session, uk, uk_ds,
     return out
 
 
-def card_vs_cpu(tables, Session, unique_keys, stmts) -> list[dict]:
+def card_vs_cpu(tables, Session, unique_keys, stmts, setup=None,
+                route=None) -> list[dict]:
     """Every statement on the card and on the CPU (the plain versions) over
     the same small tables: each column must hold the same bits, floats
     too, since both run the same IEEE operations. A difference is reported
-    by column, with its largest ulp and relative distance for floats."""
+    by column, with its largest ulp and relative distance for floats.
+    `setup(session)` configures both sessions (a device budget), and
+    `route(name, rs)` checks each result's plan."""
     import numpy as np
 
     card = Session(tables, unique_keys=unique_keys, device="cuda")
     cpu = Session(tables, unique_keys=unique_keys, device="cpu")
+    for se in (card, cpu):
+        if setup is not None:
+            setup(se)
     out, bad = [], []
     for name, text in stmts:
-        got = card.sql(text).storage_columns()
-        want = cpu.sql(text).storage_columns()
+        crs, prs = card.sql(text), cpu.sql(text)
+        if route is not None:
+            route(name, crs)
+            route(name, prs)
+        got = crs.storage_columns()
+        want = prs.storage_columns()
         require(list(got) == list(want), f"card vs CPU {name}: columns differ")
         diffs = []
         for col, g in got.items():
@@ -1723,6 +1819,461 @@ def card_vs_cpu(tables, Session, unique_keys, stmts) -> list[dict]:
         if diffs:
             bad.append(name)
     require(not bad, f"card and CPU results differ: {bad}")
+    return out
+
+
+def release_device() -> None:
+    """Free the device memory of dropped sessions before the next phase
+    (an executor's program closure is a reference cycle, so only the
+    cyclic collector frees its cached columns), so that each phase's
+    peak memory counts its own tensors."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def q6_text(queries_text, year: int) -> str:
+    """TPC-H Q6 over shipping year `year` (the suite's text has 1994)."""
+    return queries_text[6].replace("1995-01-01", f"{year + 1}-01-01") \
+        .replace("1994-01-01", f"{year}-01-01")
+
+
+def same_bits(got: dict, want: dict) -> bool:
+    import numpy as np
+
+    return list(got) == list(want) and all(
+        np.asarray(got[c]).dtype == np.asarray(want[c]).dtype
+        and np.asarray(got[c]).tobytes() == np.asarray(want[c]).tobytes()
+        for c in want)
+
+
+def range_oracle(lineitem, lo: str, hi: str) -> dict:
+    import numpy as np
+
+    from oceanbase_tpu_torch.models.tpch.queries import _day
+
+    d = lineitem.data
+    m = (d["l_shipdate"] >= _day(lo)) & (d["l_shipdate"] < _day(hi))
+    return {"s": np.array([int(d["l_extendedprice"][m].astype(np.int64)
+                               .sum())]),
+            "n": np.array([int(m.sum())])}
+
+
+def grace_oracles(tables) -> dict:
+    """int64 oracles of the grace statements: per order priority, the
+    quantity sum and count of the lines under 30 units; and the first 7
+    order keys' quantity sums and distinct line numbers (lineitem is
+    stored by l_orderkey, so they lie in its first rows)."""
+    import numpy as np
+
+    li, od = tables["lineitem"].data, tables["orders"].data
+    m = li["l_quantity"] < 3000
+    okeys = np.asarray(od["o_orderkey"], dtype=np.int64)
+    order = np.argsort(okeys, kind="stable")
+    pos = np.searchsorted(okeys[order], li["l_orderkey"][m])
+    prio = np.asarray(od["o_orderpriority"])[order][pos].astype(np.int64)
+    codes = np.unique(prio)  # the dictionary is sorted: code order = text
+    cnt = np.bincount(prio, minlength=int(codes.max()) + 1)
+    # float64 sums of integers far below 2**53 are exact
+    qsum = np.bincount(prio, weights=li["l_quantity"][m],
+                       minlength=int(codes.max()) + 1).astype(np.int64)
+    lk = np.asarray(li["l_orderkey"], dtype=np.int64)
+    head = lk[:4096]
+    first = np.unique(head)[:7]
+    require(int(lk[4096:].min(initial=first[-1] + 1)) > int(first[-1]),
+            "lineitem is not stored by l_orderkey")
+    q = np.array([int(li["l_quantity"][:4096][head == k].astype(np.int64)
+                      .sum()) for k in first])
+    dl = np.array([len(np.unique(li["l_linenumber"][:4096][head == k]))
+                   for k in first])
+    return {
+        "G_JOIN": {"o_orderpriority": codes, "qty": qsum[codes],
+                   "cnt": cnt[codes]},
+        "G_GROUPBY": {"l_orderkey": first, "q": q, "dl": dl},
+    }
+
+
+def _join_of(prepared):
+    from oceanbase_tpu_torch.engine.executor import _number_nodes
+    from oceanbase_tpu_torch.sql.logical import JoinOp
+
+    return next(op for op in _number_nodes(prepared.plan).values()
+                if isinstance(op, JoinOp))
+
+
+def projection_phase(tables, Session, uk, kernels, queries_text, oracles,
+                     resident, warm) -> tuple[list, dict, dict]:
+    """The sorted-projection path: build lineitem#sp:l_shipdate, run the
+    projection statements through a fresh Session (launch counts from 0),
+    capture K17's arguments from one more Q6 run, drop the projection.
+    Returns (statement records, launches, K17 arguments)."""
+    import oceanbase_tpu_torch.engine.executor as ex
+    from oceanbase_tpu_torch.storage.sorted_projection import (
+        drop_projections,
+        make_sorted_projection,
+        projection_name,
+    )
+
+    li = tables["lineitem"]
+    pname = projection_name("lineitem", "l_shipdate")
+    t0 = time.perf_counter()
+    make_sorted_projection(tables, "lineitem", "l_shipdate", cols=SP_COLS)
+    print(f"projection {pname} over {len(SP_COLS)} columns built in "
+          f"{time.perf_counter() - t0:.3f} s (host)", flush=True)
+    psess = Session(tables, unique_keys=uk, device="cuda")
+
+    def sliced(name):
+        def after(rs):
+            prep = rs._cursor.prepared
+            scans = [s.table for s in prep.executor._collect_scans(prep.plan)]
+            require(pname in scans, f"{name}: the scan did not route to "
+                    f"{pname} ({scans})")
+            require(bool(prep.params.scan_slice), f"{name}: no slice")
+            return {"scans": scans, "scan_cap": list(
+                prep.params.scan_cap.values())}
+        return after
+
+    def q14_after(rs):
+        out = sliced("P_Q14")(rs)
+        prep = rs._cursor.prepared
+        join = _join_of(prep)
+        build = [s.table for s in prep.executor._collect_scans(join.right)]
+        probe = [s.table for s in prep.executor._collect_scans(join.left)]
+        require(prep.executor._affine_build_info(join) is not None
+                and build == ["part"] and probe == [pname],
+                f"P_Q14: not the affine join of part over the sliced "
+                f"lineitem (build {build}, probe {probe})")
+        return out
+
+    def wide_after(rs):
+        prep = rs._cursor.prepared
+        require(list(prep.params.scan_cap.values()) == [1 << 62],
+                "P_WIDE: the overflow did not bump the slice to a full "
+                "scan")
+        return {"retries": prep.retries}
+
+    def base_after(rs):
+        prep = rs._cursor.prepared
+        scans = [s.table for s in prep.executor._collect_scans(prep.plan)]
+        require(scans == ["lineitem"], f"P_Q1 routed to {scans}")
+        return {"scans": scans}
+
+    def exact(name):
+        def check(rs):
+            rows = oracles[name](rs)
+            require(same_bits(rs.storage_columns(), resident[name]),
+                    f"{name}: differs from the default Session's rows")
+            return rows
+        return check
+
+    stmts = [
+        ("P_Q6", queries_text[6], sliced("P_Q6")),
+        ("P_Q6_1995", q6_text(queries_text, 1995), sliced("P_Q6_1995")),
+        ("P_Q14", queries_text[14], q14_after),
+        ("P_NARROW", P_RANGE.format(lo=P_NARROW[0], hi=P_NARROW[1]),
+         sliced("P_NARROW")),
+        ("P_WIDE", P_RANGE.format(lo=P_WIDE[0], hi=P_WIDE[1]), wide_after),
+        ("P_Q1", queries_text[1], base_after),
+    ]
+    kernels.reset_launches()
+    recs = [run_statement(psess, kernels, name, text, exact(name), warm,
+                          li.nrows, after=after)
+            for name, text, after in stmts]
+    launches = dict(kernels.LAUNCHES)
+    require(launches["K17_slice_scan"] > 0,
+            "K17 was never launched on the projection path")
+    rebound = next(r for r in recs if r["statement"] == "P_Q6_1995")
+    require(rebound["fast_path_hit"],
+            "P_Q6_1995 did not reuse Q6's plan through the text tier")
+    cap = capture_args(psess, queries_text[6], {
+        "K17_slice_scan": (ex, "slice_scan",
+                           lambda key, n, lo, hi, c, pay, sel: c)})
+    del psess
+    drop_projections(tables, "lineitem")
+    require(pname not in tables, "drop_projections left the projection")
+    return recs, launches, cap
+
+
+def stream_phase(tables, Session, uk, kernels, queries_text, oracles,
+                 resident, warm, budget: int):
+    """The streamed path: Q1, Q6, Q3 and Q14 under `budget` and a memory
+    governor of the same size, then Q1 in each A/B leg, then one more Q3
+    run whose largest K18 call is kept. Returns (records, launches, A/B
+    legs, K18 arguments)."""
+    from oceanbase_tpu_torch.engine.chunked import ChunkedPreparedPlan
+    from oceanbase_tpu_torch.engine.memory_governor import MemoryGovernor
+
+    li = tables["lineitem"]
+    ssess = Session(tables, unique_keys=uk, device="cuda")
+    gov = MemoryGovernor(budget=budget)
+    ssess.executor.device_budget = budget
+    ssess.executor.governor = gov
+    runs = warm + 2
+
+    def after_of(name):
+        def after(rs):
+            prep = rs._cursor.prepared
+            require(isinstance(prep, ChunkedPreparedPlan),
+                    f"{name}: prepared {type(prep).__name__}, not streamed")
+            require(gov.ledger_balanced(),
+                    f"{name}: the governor's ledger is not balanced")
+            ss = prep.stream_stats
+            ph = ssess.last_phases
+            out = {"split": prep.kind, "chunk_rows": prep.chunk_rows,
+                   "chunks_per_run": ss.chunks / runs,
+                   "wire_bytes_per_run": ss.staged_bytes / runs,
+                   "decoded_bytes_per_run": ss.decoded_bytes / runs,
+                   "h2d_s_per_run": ss.h2d_s / runs,
+                   "compute_s_per_run": ss.compute_s / runs,
+                   "overlap_s_per_run": ss.overlap_s / runs,
+                   "last_run_phases": {k: v for k, v in ph.items()
+                                       if k.startswith("stream_")},
+                   "peak_staged_bytes": gov.peak_staged}
+            print(f"{name}: split {prep.kind}, {prep.chunk_rows} chunk rows, "
+                  f"{ss.chunks / runs:g} chunks per run, wire "
+                  f"{ss.staged_bytes / runs:.6g} B of "
+                  f"{ss.decoded_bytes / runs:.6g} B decoded per run, h2d "
+                  f"{ss.h2d_s / runs:.6f} s, compute "
+                  f"{ss.compute_s / runs:.6f} s, overlap "
+                  f"{ss.overlap_s / runs:.6f} s per run, staged peak "
+                  f"{gov.peak_staged} B", flush=True)
+            return out
+        return after
+
+    def exact(name):
+        def check(rs):
+            rows = oracles[name](rs)
+            require(same_bits(rs.storage_columns(), resident[name]),
+                    f"{name}: differs from the resident rows")
+            return rows
+        return check
+
+    stmts = [("ST_Q1", queries_text[1]), ("ST_Q6", queries_text[6]),
+             ("ST_Q3", queries_text[3]), ("ST_Q14", queries_text[14])]
+    kernels.reset_launches()
+    recs = [run_statement(ssess, kernels, name, text, exact(name), warm,
+                          li.nrows, after=after_of(name))
+            for name, text in stmts]
+    launches = dict(kernels.LAUNCHES)
+    require(launches["K18_decode_staged"] > 0,
+            "K18 was never launched on the streamed path")
+    legs = []
+    for depth in (0, 2):
+        for compress in (True, False):
+            ssess.executor.stream_prefetch_depth = depth
+            ssess.executor.stream_compress = compress
+            t0 = time.perf_counter()
+            rs = ssess.sql(queries_text[1])
+            got = rs.storage_columns()
+            wall = time.perf_counter() - t0
+            ph = ssess.last_phases
+            require(same_bits(got, resident["ST_Q1"]),
+                    f"Q1 leg depth {depth} compress {compress} differs")
+            require(gov.ledger_balanced(), "A/B leg left the ledger open")
+            if depth == 0:
+                require(ph["stream_overlap_s"] == 0.0,
+                        "no prefetch, yet h2d overlapped compute")
+            leg = {"depth": depth, "compress": compress, "wall_s": wall,
+                   **{k: ph[k] for k in ("stream_h2d_s", "stream_compute_s",
+                                         "stream_overlap_s")}}
+            legs.append(leg)
+            print(f"ST_Q1 leg prefetch depth {depth}, compress {compress}: "
+                  f"{wall:.6f} s wall, h2d {leg['stream_h2d_s']:.6f} s, "
+                  f"compute {leg['stream_compute_s']:.6f} s, overlap "
+                  f"{leg['stream_overlap_s']:.6f} s, rows identical",
+                  flush=True)
+    ssess.executor.stream_prefetch_depth = 2
+    ssess.executor.stream_compress = True
+    cap = capture_args(ssess, queries_text[3], {
+        "K18_decode_staged": (kernels, "decode_staged",
+                              lambda st, b, count, *rest: count)})
+    require(gov.ledger_balanced(), "the streamed phase left the ledger open")
+    return recs, launches, legs, cap
+
+
+def grace_phase(tables, Session, uk, kernels, oracles, resident, warm,
+                budget: int):
+    """The grace-hash path: the join and the keyed group-by under
+    `budget`; returns (records, launches)."""
+    from oceanbase_tpu_torch.engine.memory_governor import MemoryGovernor
+    from oceanbase_tpu_torch.engine.pipeline import GraceHashPreparedPlan
+
+    li = tables["lineitem"]
+    gsess = Session(tables, unique_keys=uk, device="cuda")
+    gov = MemoryGovernor(budget=budget)
+    gsess.executor.device_budget = budget
+    gsess.executor.governor = gov
+
+    def after_of(name, mode):
+        def after(rs):
+            prep = rs._cursor.prepared
+            require(isinstance(prep, GraceHashPreparedPlan)
+                    and prep.mode == mode,
+                    f"{name}: prepared {type(prep).__name__}, not grace "
+                    f"{mode}")
+            require(gov.ledger_balanced(), f"{name}: ledger not balanced")
+            print(f"{name}: grace {mode}, {prep.n_parts} partitions, "
+                  f"split {prep.kind}", flush=True)
+            return {"mode": mode, "partitions": prep.n_parts,
+                    "split": prep.kind}
+        return after
+
+    def exact(name):
+        def check(rs):
+            rows = oracles[name](rs)
+            require(same_bits(rs.storage_columns(), resident[name]),
+                    f"{name}: differs from the resident rows")
+            return rows
+        return check
+
+    kernels.reset_launches()
+    recs = [run_statement(gsess, kernels, name, text, exact(name), warm,
+                          li.nrows, after=after_of(name, mode))
+            for name, text, mode in (("G_JOIN", GRACE_JOIN, "join"),
+                                     ("G_GROUPBY", GRACE_GROUPBY,
+                                      "groupby"))]
+    return recs, dict(kernels.LAUNCHES)
+
+
+def prepare_checks(kernels, reps: int, k17: dict, k18: dict) -> list:
+    """K17 on Q6's projection run and K18 on one streamed Q3 chunk and on
+    a synthetic chunk, each against its plain version (every bit, floats
+    compared as their bit patterns), twice, timed beside its yardstick and
+    its bound."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.engine.pipeline import Uploader
+
+    out = []
+
+    def bits(ts):
+        res = []
+        for t in ts:
+            if t.dtype == torch.float64:
+                t = t.view(torch.int64)
+            elif t.dtype == torch.float32:
+                t = t.view(torch.int32)
+            res.append(t)
+        return res
+
+    def record(name, k_fn, p_fn, lib_fn, nbytes, ops):
+        got, want = bits(k_fn()), bits(p_fn())
+        require(len(got) == len(want), f"{name}: outputs differ in number")
+        for g, w in zip(got, want):
+            require(g.dtype == w.dtype and g.shape == w.shape
+                    and torch.equal(g, w),
+                    f"{name}: differs from the plain version")
+        for g, a in zip(got, bits(k_fn())):
+            require(torch.equal(g, a), f"{name}: two runs differ")
+        km = cuda_ms(k_fn, reps)
+        pm = cuda_ms(p_fn, max(1, reps // 2))
+        lm = cuda_ms(lib_fn, reps)
+        bm, by = bound_ms(nbytes, ops)
+        src, rep = KERNEL_META[name]
+        print(f"kernel {name}: match exact, two runs bit-identical, "
+              f"kernel_ms {km:.6f}, plain_ms {pm:.6f}, library_ms {lm}, "
+              f"bound_ms {bm:.6f} ({by})", flush=True)
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "max_abs_err": 0.0, "ms": km,
+                "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+                "library_ms": lm}
+
+    # K17 at Q6's projection shape: the sliced columns, validity and sel
+    key, n, lows, highs, cap, pay, sel = k17["K17_slice_scan"]
+
+    def k17_run(fn):
+        def run():
+            outs, osel, nrows, ovf = fn(key, n, lows, highs, cap, pay, sel)
+            return [*outs, osel, nrows, ovf]
+        return run
+
+    def k17_library():
+        # the yardstick reads the range's start on the host (narrow needs
+        # a host offset); the kernel never does
+        kcol = key[:n]
+        lo = max(int(torch.searchsorted(kcol, v.to(kcol.dtype).reshape(1),
+                                        right=s == "right")[0])
+                 for v, s in lows) if lows else 0
+        start = min(lo, int(sel.shape[0]) - cap)
+        return [c.narrow(0, start, cap).clone() for c in [*pay, sel]]
+
+    k17_bytes = 2 * cap * (sum(c.element_size() for c in pay) + 1)
+    out.append(record("K17_slice_scan", k17_run(kernels.slice_scan),
+                      k17_run(kernels.slice_scan_plain), k17_library,
+                      k17_bytes, cap * (len(pay) + 1)))
+
+    # K18 at one streamed Q3 chunk, and at a synthetic chunk of the same
+    # capacity with validity bits, exactly full runs and raw float64
+    staged, bases, count, meta, ccap, dtypes, dev = k18["K18_decode_staged"]
+    rng = np.random.default_rng(20240)
+    run_cap = 1 << max(1, (ccap // 2).bit_length() - 1)
+    per = ccap // run_cap
+    flt = rng.standard_normal(ccap)
+    flt[::7] = -0.0
+    flt[3::11] = np.nan
+    syn = {
+        "#v:x": rng.integers(0, 256, (ccap + 7) >> 3).astype(np.uint8),
+        "r": (rng.integers(0, 2**32 - 1, run_cap).astype(np.uint32),
+              np.full(run_cap, per, np.int32)),
+        "f": flt,
+        "d": rng.integers(0, 60_000, ccap).astype(np.uint16),
+    }
+    syn_tree = Uploader(dev).put(syn)[0]
+    torch.cuda.synchronize()
+    syn_bases = {"r": np.int64(-(2**40)), "f": np.float64(0.0),
+                 "d": np.int32(-5)}
+    syn_meta = (("#v:x", "bits"), ("d", "for"), ("f", "raw"), ("r", "rle"))
+    syn_dtypes = {"#v:x": torch.bool, "r": torch.int64, "f": torch.float64,
+                  "d": torch.int32}
+    cases = [(staged, bases, count, meta, dtypes),
+             (syn_tree, syn_bases, run_cap * per, syn_meta, syn_dtypes)]
+
+    def k18_run(fn):
+        def run():
+            res = []
+            for st, b, c, m, dt in cases:
+                cols, s = fn(st, b, c, m, ccap, dt, dev)
+                res.extend(cols[k] for k, _kind in m)
+                res.append(s)
+            return res
+        return run
+
+    def k18_library():
+        # .to(dtype) + base, repeat_interleave and shift-and-mask
+        res = []
+        idx = torch.arange(ccap, device=dev)
+        for st, b, c, m, dt in cases:
+            for k, kind in m:
+                if kind == "bits":
+                    res.append(((st[k][idx >> 3] >> (idx & 7)) & 1) != 0)
+                elif kind == "rle":
+                    vals, lens = st[k]
+                    v = kernels._widen_plain(vals).repeat_interleave(
+                        lens.to(torch.int64))
+                    res.append(v.to(dt[k]) + int(b[k]))
+                else:
+                    res.append(kernels._widen_plain(st[k]).to(dt[k])
+                               + b[k].item())
+        return res
+
+    def nbytes_of(tree):
+        total = 0
+        for v in tree.values():
+            for a in (v if isinstance(v, tuple) else (v,)):
+                total += a.numel() * a.element_size()
+        return total
+
+    wire = nbytes_of(staged) + nbytes_of(syn_tree)
+    decoded = sum(ccap * torch.empty((), dtype=dt[k]).element_size()
+                  for _st, _b, _c, m, dt in cases for k, _kind in m)
+    out.append(record("K18_decode_staged", k18_run(kernels.decode_staged),
+                      k18_run(kernels.decode_staged_plain), k18_library,
+                      wire + decoded + 2 * ccap,
+                      ccap * (len(meta) + len(syn_meta))))
     return out
 
 
@@ -1844,8 +2395,23 @@ def main() -> int:
     rebound = next(r for r in stmt_recs if r["statement"] == "S1_rebound")
     require(rebound["fast_path_hit"],
             "rebound S1 did not reuse the cached plan through the text tier")
-    for k, v in main_launches.items():
-        require(v > 0, f"kernel {k} was never launched on the main path")
+    for k in MAIN_KERNELS:
+        require(main_launches[k] > 0,
+                f"kernel {k} was never launched on the main path")
+    for k in ("K17_slice_scan", "K18_decode_staged"):
+        require(main_launches[k] == 0, f"{k} ran on the resident main path")
+    # the route guard: at the card's default budget every statement above
+    # prepared a resident plan
+    budget = sess.executor.device_budget
+    streamed = [r["statement"] for r in stmt_recs
+                if r["plan"] != "PreparedPlan"]
+    require(not streamed, f"statements left the resident route at the "
+            f"default budget {budget} B: {streamed}")
+    print(f"route guard: all {len(stmt_recs)} statements prepared a "
+          f"resident PreparedPlan at the card's default device budget "
+          f"{budget} B", flush=True)
+    for r in stmt_recs:
+        del r["result"]
 
     main_entries = dict(kernels.ENTRY_LAUNCHES)
     for k, v in main_entries.items():
@@ -1856,8 +2422,9 @@ def main() -> int:
     krecs = kernel_checks(sess, kernels, args.reps, captured)
     del captured
     frecs = float_checks(sess, kernels)
-    del sess, ds_sess
-    torch.cuda.empty_cache()
+    # the statement list holds both sessions (and their cached columns)
+    del sess, ds_sess, runs
+    release_device()
     t0 = time.perf_counter()
     tiny = datagen.generate(sf=SQLITE_SF, seed=args.seed)
     srecs = sqlite_checks(tiny, Session, sql_suite.UNIQUE_KEYS,
@@ -1878,9 +2445,111 @@ def main() -> int:
     crecs += card_vs_cpu(small_ds, Session, tpcds.UNIQUE_KEYS,
                          [(n, t) for n, (t, d) in ANALYTIC.items()
                           if d == "tpcds"] + ds_stmts)
+    del small_ds, tiny, tiny_ds
+    release_device()
+
+    # ---- the rest of Executor.prepare: each path its own counts --------
+    Q = sql_suite.QUERIES
+    uk = sql_suite.UNIQUE_KEYS
+    p_texts = {
+        "P_Q6": Q[6], "P_Q6_1995": q6_text(Q, 1995), "P_Q14": Q[14],
+        "P_NARROW": P_RANGE.format(lo=P_NARROW[0], hi=P_NARROW[1]),
+        "P_WIDE": P_RANGE.format(lo=P_WIDE[0], hi=P_WIDE[1]),
+        "P_Q1": Q[1],
+    }
+    st_texts = {"ST_Q1": Q[1], "ST_Q6": Q[6], "ST_Q3": Q[3], "ST_Q14": Q[14]}
+    g_texts = {"G_JOIN": GRACE_JOIN, "G_GROUPBY": GRACE_GROUPBY}
+    t0 = time.perf_counter()
+    rsess = Session(tables, unique_keys=uk, device="cuda")
+    resident = {name: rsess.sql(text).storage_columns()
+                for name, text in {**p_texts, **st_texts, **g_texts}.items()}
+    del rsess
+    release_device()
+    goracles = grace_oracles(tables)
+    print(f"resident rows and grace oracles of the prepare phases in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def q1_check(rs):
+        return check_q1(rs, li, queries)
+
+    def ref_check(name, ref):
+        return lambda rs: check_oracle(name, rs, ref)
+
+    oracles = {
+        "P_Q6": ref_check("P_Q6", {"revenue": queries.q6_numpy(li)}),
+        "P_Q6_1995": ref_check("P_Q6_1995", {"revenue": queries.q6_numpy(
+            li, "1995-01-01", "1996-01-01")}),
+        "P_Q14": ref_check("P_Q14", refs["Q14"]),
+        "P_NARROW": ref_check("P_NARROW", range_oracle(li, *P_NARROW)),
+        "P_WIDE": ref_check("P_WIDE", range_oracle(li, *P_WIDE)),
+        "P_Q1": q1_check, "ST_Q1": q1_check,
+        "ST_Q6": ref_check("ST_Q6", {"revenue": queries.q6_numpy(li)}),
+        "ST_Q3": ref_check("ST_Q3", refs["Q3"]),
+        "ST_Q14": ref_check("ST_Q14", refs["Q14"]),
+        "G_JOIN": ref_check("G_JOIN", goracles["G_JOIN"]),
+        "G_GROUPBY": ref_check("G_GROUPBY", goracles["G_GROUPBY"]),
+    }
+    t0 = time.perf_counter()
+    precs, p_launches, k17_args = projection_phase(
+        tables, Session, uk, kernels, Q, oracles, resident, args.warm)
+    release_device()
+    print(f"projection phase in {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    stream_budget = int(STREAM_BUDGET_SF10 * args.sf / 10)
+    strecs, st_launches, legs, k18_args = stream_phase(
+        tables, Session, uk, kernels, Q, oracles, resident, args.warm,
+        stream_budget)
+    release_device()
+    print(f"streamed phase (budget {stream_budget} B) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    grace_budget = int(GRACE_BUDGET_SF10 * args.sf / 10)
+    # the grace statements spend ~20 s a run on the host at SF 10: a cold
+    # and a traced run each keep the whole script inside half its limit
+    grecs, g_launches = grace_phase(tables, Session, uk, kernels, oracles,
+                                    resident, 0, grace_budget)
+    release_device()
+    print(f"grace phase (budget {grace_budget} B, no warm run) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for r in precs + strecs + grecs:
+        del r["result"]
+    krecs += prepare_checks(kernels, args.reps, k17_args, k18_args)
+    del k17_args, k18_args
+    release_device()
+
+    # card vs CPU at SF 0.1: the projection statements, and the streamed
+    # ones under a budget that streams lineitem at this scale
+    from oceanbase_tpu_torch.engine.chunked import ChunkedPreparedPlan
+    from oceanbase_tpu_torch.storage.sorted_projection import (
+        drop_projections,
+        make_sorted_projection,
+    )
+
+    make_sorted_projection(small, "lineitem", "l_shipdate", cols=SP_COLS)
+    crecs += card_vs_cpu(small, Session, uk, list(p_texts.items()))
+    drop_projections(small, "lineitem")
+    cmp_budget = int(STREAM_BUDGET_SF10 * CMP_SF / 10)
+
+    def streamed(name, rs):
+        require(isinstance(rs._cursor.prepared, ChunkedPreparedPlan),
+                f"card vs CPU {name}: did not stream at {cmp_budget} B")
+
+    crecs += card_vs_cpu(
+        small, Session, uk, list(st_texts.items()),
+        setup=lambda se: setattr(se.executor, "device_budget", cmp_budget),
+        route=streamed)
+
+    phase_launches = {"projection": p_launches, "streamed": st_launches,
+                      "grace": g_launches}
     for r in krecs:
-        r["launches"] = (main_launches[r["name"]] if r["name"] in main_launches
-                         else main_entries[r["name"]])
+        if r["name"] == "K17_slice_scan":
+            r["launches"] = p_launches[r["name"]]
+        elif r["name"] == "K18_decode_staged":
+            r["launches"] = st_launches[r["name"]]
+        else:
+            r["launches"] = (main_launches[r["name"]]
+                             if r["name"] in main_launches
+                             else main_entries[r["name"]])
     kernels_line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1895,6 +2564,13 @@ def main() -> int:
         json.dump({"gpu": card, "sf": args.sf, "build_s": build_s,
                    "lineitem_rows": li.nrows, "store_sales_rows": ss.nrows,
                    "statements": stmt_recs,
+                   "prepare_phases": {
+                       "projection": precs, "streamed": strecs,
+                       "stream_ab_legs": legs, "grace": grecs,
+                       "stream_budget": stream_budget,
+                       "grace_budget": grace_budget,
+                       "default_budget": budget,
+                       "launches": phase_launches},
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},

@@ -1,0 +1,428 @@
+"""Out-of-core execution: stream chunks of a too-big table through the plan
+and merge the partial results.
+
+Counterpart of `oceanbase_tpu/engine/chunked.py` for one device. The
+device program stays dense and static: the biggest input table streams
+through it in fixed-capacity row chunks (the host arrays are the spill
+tier), and the plan is split at its lowest blocking operator above the
+streamed scan:
+
+    original:  above_plan( Aggregate_A( stream_path(scan_T, residents...) ) )
+    streamed:  for each chunk c of T:   partial_c = Aggregate_A(... chunk ...)
+    merged:    above_plan( MergeAggregate( concat(partial_c) ) )
+
+sum/count/min/max partials merge exactly (count merges by sum; avg was
+already decomposed into sum/count by the resolver). Joins on the stream
+path keep the streamed side as the probe (left) input, so every chunk
+probes the same resident build sides. The chunk capacity is constant
+across chunks (the last chunk is padded). The chunk loop itself is
+engine/pipeline.run_stream: prefetched, wire-encoded chunks decoded on
+the device by kernel K18.
+
+Not ported: the PX chunk source's host-slice path (`_run_legacy` and its
+`_decode_chunk` decode), which waits for the mesh.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import replace as dc_replace
+
+from ..core.dtypes import DataType, Field, Schema
+from ..expr import ir as E
+from ..sql.logical import (
+    Aggregate,
+    Distinct,
+    Filter,
+    JoinOp,
+    LogicalOp,
+    Project,
+    Scan,
+    SetOp,
+    TopN,
+    output_schema,
+)
+from .executor import Executor, _children
+from .pipeline import StreamStats, assemble_partials_table, run_stream
+
+DEFAULT_DEVICE_BUDGET = int(
+    os.environ.get("OB_TPU_DEVICE_BUDGET", str(6 << 30))
+)
+DEFAULT_CHUNK_ROWS = int(os.environ.get("OB_TPU_CHUNK_ROWS", str(1 << 23)))
+
+_MERGE_FN = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
+class NotStreamable(Exception):
+    """The plan cannot be split for chunked execution (the caller falls
+    back to the whole-table upload)."""
+
+
+def scan_bytes(catalog, scan: Scan, needed_cols) -> int:
+    if scan.table == "$dual":
+        return 1
+    t = catalog[scan.table]
+    cols = needed_cols.get(scan.alias) or set(
+        [t.schema.fields[0].name]
+    )
+    per_row = 0
+    for c in cols:
+        if c in t.schema:
+            per_row += t.schema[c].storage_np.itemsize
+    return (t.nrows or 0) * max(per_row, 1)
+
+
+def plan_input_bytes(executor: Executor, plan: LogicalOp) -> int:
+    needed = executor._needed_columns(plan)
+    return sum(
+        scan_bytes(executor.catalog, s, needed)
+        for s in executor._collect_scans(plan)
+    )
+
+
+def _row_bytes(schema: Schema) -> int:
+    return max(sum(f.dtype.storage_np.itemsize for f in schema.fields), 1)
+
+
+def _find_stream_split(executor: Executor, plan: LogicalOp, budget: int):
+    """Choose the streamed scan and the chunk-accumulation split node.
+
+    Returns (stream_scan, split_node, kind). `split_node` is the node run
+    per chunk; its per-chunk outputs (the "partials") concatenate into the
+    $partials relation which the merge plan consumes. Kinds, tried
+    most-reducing first along the root->scan path (every node between the
+    split and the scan must stream rows: Filter / Project /
+    Join-with-stream-on-probe-side):
+
+      agg         lowest Aggregate with mergeable aggs -> re-aggregate
+      topn        lowest TopN -> per-chunk top (n+offset), final top-n
+      distinct    lowest Distinct -> per-chunk dedup, final dedup
+      passthrough the maximal streamable prefix itself (filters, projects,
+                  probe joins): partials are the surviving rows; the rest
+                  of the plan runs unchanged on $partials. Guarded by the
+                  estimate of surviving rows fitting the budget.
+      scan        the scan itself (its pushed filter reduces per chunk).
+    """
+    needed = executor._needed_columns(plan)
+    scans = executor._collect_scans(plan)
+    if not scans:
+        raise NotStreamable("no scans")
+    sizes = [(scan_bytes(executor.catalog, s, needed), s) for s in scans]
+    sizes.sort(key=lambda p: -p[0])
+    big, stream = sizes[0]
+    rest = sum(b for b, _ in sizes[1:])
+    if rest > budget:
+        raise NotStreamable("multiple over-budget inputs")
+    if sum(1 for s in scans if s.table == stream.table) > 1:
+        raise NotStreamable("streamed table scanned more than once")
+
+    # path from root to the streamed scan
+    path: list[LogicalOp] = []
+
+    def find(op) -> bool:
+        path.append(op)
+        if op is stream:
+            return True
+        for c in _children(op):
+            if find(c):
+                return True
+        path.pop()
+        return False
+
+    assert find(plan)
+
+    def path_streams(from_pos: int) -> bool:
+        """All nodes strictly below path[from_pos] down to the scan move
+        rows chunk-wise."""
+        for parent, child in zip(path[from_pos + 1:], path[from_pos + 2:]):
+            if isinstance(parent, (Filter, Project)):
+                continue
+            if isinstance(parent, JoinOp):
+                if child is not parent.left:
+                    return False
+                continue
+            if isinstance(parent, Scan):
+                continue
+            return False
+        return True
+
+    # lowest (nearest-scan) candidates per kind
+    def lowest(pred):
+        best = None
+        for i, node in enumerate(path):
+            if pred(node):
+                best = i
+        return best
+
+    i = lowest(lambda n: isinstance(n, Aggregate))
+    if i is not None and path_streams(i):
+        agg = path[i]
+        if all(
+            not d and fn in _MERGE_FN for _nm, fn, _a, d in agg.aggs
+        ):
+            return stream, agg, "agg"
+
+    i = lowest(lambda n: isinstance(n, TopN))
+    if i is not None and path_streams(i):
+        topn = path[i]
+        if all(isinstance(e, E.ColRef) for e, _d in topn.keys):
+            return stream, topn, "topn"
+
+    i = lowest(lambda n: isinstance(n, Distinct))
+    if i is not None and path_streams(i):
+        return stream, path[i], "distinct"
+
+    # passthrough: the TOPMOST node that itself streams and whose whole
+    # lower path streams (the maximal streamable prefix)
+    best = None
+    for i in range(len(path) - 1):
+        node = path[i]
+        ok_self = isinstance(node, (Filter, Project)) or (
+            isinstance(node, JoinOp) and path[i + 1] is node.left
+        )
+        if ok_self and path_streams(i):
+            best = i
+            break
+    if best is not None:
+        split = path[best]
+        est = executor._est_rows(split)
+        out_b = est * _row_bytes(output_schema(split))
+        if out_b <= budget:
+            return stream, split, "passthrough"
+        raise NotStreamable("passthrough partials exceed budget")
+    # last resort: stream the scan itself (its pushed filter reduces per
+    # chunk); everything above -- window, sort, set ops -- runs on
+    # $partials. Partial width counts only the columns the plan reads.
+    est = executor._est_rows(stream)
+    t = executor.catalog[stream.table]
+    cols = needed.get(stream.alias) or {t.schema.fields[0].name}
+    per_row = max(sum(
+        f.dtype.storage_np.itemsize
+        for f in t.schema.fields if f.name in cols
+    ), 1)
+    if est * per_row <= budget:
+        return stream, stream, "scan"
+    raise NotStreamable("no streamable split above the streamed scan")
+
+
+def _replace_node(plan: LogicalOp, target: LogicalOp, replacement: LogicalOp):
+    if plan is target:
+        return replacement
+    kids = _children(plan)
+    if not kids:
+        return plan
+    if isinstance(plan, (JoinOp, SetOp)):
+        return dc_replace(
+            plan,
+            left=_replace_node(plan.left, target, replacement),
+            right=_replace_node(plan.right, target, replacement),
+        )
+    return dc_replace(
+        plan, child=_replace_node(plan.child, target, replacement)
+    )
+
+
+def _partials_scan(out_s: Schema, alias: str = "$m") -> Scan:
+    """Scan($partials) with an extra `$live` int8 column: the relation is
+    padded to a stable power-of-two capacity so the merge program's input
+    shapes are reused across runs; pad rows are filtered by the pushed
+    `$live = 1` predicate."""
+    fields = [Field(f"{alias}.{f.name}", f.dtype) for f in out_s.fields]
+    fields.append(Field(f"{alias}.$live", DataType.int8()))
+    return Scan(
+        "$partials", alias, Schema(tuple(fields)),
+        pushed_filter=E.Compare("=", E.ColRef(f"{alias}.$live"), E.lit(1)),
+    )
+
+
+def _merge_plan(split: LogicalOp, kind: str, alias: str = "$m"):
+    """(chunk_plan, scan, merge_node): the program run per chunk and the
+    node that replaces `split` in the surrounding plan, reading $partials.
+
+    agg:         partial = Aggregate output rows; merge = re-aggregate
+                 (sum/count->sum, min->min, max->max)
+    topn:        partial = top (n+offset) rows per chunk; merge = the
+                 original TopN over the concatenated partials
+    distinct:    partial = per-chunk dedup; merge = final dedup
+    passthrough: partial = the surviving rows themselves; merge = a rename
+                 projection (the rest of the plan runs unchanged)
+    """
+    out_s = output_schema(split)
+    scan = _partials_scan(out_s, alias)
+    if kind == "agg":
+        group_keys = tuple(
+            (name, E.ColRef(f"{alias}.{name}"))
+            for name, _e in split.group_keys
+        )
+        aggs = tuple(
+            (name, _MERGE_FN[fn], E.ColRef(f"{alias}.{name}"), False)
+            for name, fn, _arg, _d in split.aggs
+        )
+        return split, scan, Aggregate(scan, group_keys, aggs)
+    # rename projection: "$m.x" -> "x" so the surrounding plan sees the
+    # split node's original output names
+    rename = Project(
+        scan,
+        tuple((f.name, E.ColRef(f"{alias}.{f.name}")) for f in out_s.fields),
+    )
+    if kind == "topn":
+        chunk = dc_replace(split, n=split.n + split.offset, offset=0)
+        return chunk, scan, dc_replace(split, child=rename)
+    if kind == "distinct":
+        return split, scan, Distinct(rename)
+    if kind == "passthrough":
+        return split, scan, rename
+    raise AssertionError(kind)
+
+
+class _OverlayCatalog:
+    """Base catalog plus extra tables (the $partials relation)."""
+
+    def __init__(self, base, extra: dict):
+        self.base = base
+        self.extra = extra
+
+    def __getitem__(self, name):
+        if name in self.extra:
+            return self.extra[name]
+        return self.base[name]
+
+
+class _ChunkSourceExecutor(Executor):
+    """Executor whose streamed table reads one fixed-capacity chunk: the
+    staged chunk of the current window, decoded by K18."""
+
+    chunking_enabled = False
+    # chunk windows break the whole-table storage-order premise of the
+    # clustered-FK segment aggregation (fk_ranges index full-table rows)
+    # and of the sorted-projection slice (bounds index full-table rows)
+    clustered_agg_enabled = False
+    scan_slice_enabled = False
+
+    def __init__(self, catalog, stream_table: str, chunk_rows: int, **kw):
+        super().__init__(catalog, **kw)
+        self.stream_table = stream_table
+        self.chunk_rows = chunk_rows
+        self._stager = None
+        self._staged_item = None
+
+    def set_stager(self, stager) -> None:
+        """Attach/detach the wire-encoding stager for a streaming run
+        (pipeline.run_stream brackets the chunk loop with this)."""
+        self._stager = stager
+        self._staged_item = None
+
+    def set_chunk_staged(self, item) -> None:
+        """Position the window on a chunk whose wire-encoded arrays are
+        on the device: the next read of the streamed table decodes them."""
+        self._staged_item = item
+        # drop only the streamed table's cached device batch
+        self.invalidate_table(self.stream_table)
+
+    def table_batch(self, name, cols):
+        # the streamed table must NOT ride the per-column device cache
+        # (each chunk is a different window); every read decodes the
+        # current chunk
+        if name != self.stream_table:
+            return super().table_batch(name, cols)
+        if self._staged_item is None or self._stager is None:
+            raise RuntimeError(
+                f"no staged chunk of {name}: the streamed table is read "
+                "only through engine/pipeline.run_stream")
+        return self._stager.decode_batch(self._staged_item, cols)
+
+    def _est_rows(self, op):
+        # the streamed scan sees chunk_rows per execution, not table rows
+        if isinstance(op, Scan) and op.table == self.stream_table:
+            est = float(self.chunk_rows)
+            if op.pushed_filter is not None:
+                t = self.catalog[op.table]
+                ts = self.stats.table_stats(op.table) if self.stats else None
+                if ts is not None and ts.nrows > 0:
+                    est *= ts.selectivity(op.pushed_filter, t)
+                else:
+                    est *= 0.25 ** min(
+                        len(self._conjuncts(op.pushed_filter)), 3
+                    )
+            return max(est, 1.0)
+        return super()._est_rows(op)
+
+
+class ChunkedPreparedPlan:
+    """Drop-in replacement for PreparedPlan when inputs exceed the device
+    budget: runs the chunk program per chunk, then the merge plan."""
+
+    def __init__(self, executor: Executor, plan: LogicalOp,
+                 stream: Scan, split: LogicalOp, kind: str,
+                 chunk_rows: int):
+        self.executor = executor
+        self.plan = plan
+        self.stream = stream
+        self.split = split
+        self.kind = kind
+        self.chunk_rows = chunk_rows
+        self.retries = 0
+        self.stream_stats = StreamStats()
+
+        if kind == "scan":
+            # chunk program = the scan narrowed to the raw columns the
+            # plan reads; the rename projection restores the scan's
+            # qualified output names for the surrounding plan
+            t = executor.catalog[stream.table]
+            needed = executor._needed_columns(plan).get(stream.alias) or {
+                t.schema.fields[0].name
+            }
+            chunk_plan = Project(
+                stream,
+                tuple(
+                    (c, E.ColRef(f"{stream.alias}.{c}"))
+                    for c in sorted(needed)
+                ),
+            )
+            out_s = output_schema(chunk_plan)
+            scan2 = _partials_scan(out_s)
+            merge_node = Project(
+                scan2,
+                tuple(
+                    (f"{stream.alias}.{f.name}", E.ColRef(f"$m.{f.name}"))
+                    for f in out_s.fields
+                ),
+            )
+            self.above_plan = _replace_node(plan, split, merge_node)
+            self.partial_schema = out_s
+        else:
+            chunk_plan, _scan, merge_node = _merge_plan(split, kind)
+            self.above_plan = _replace_node(plan, split, merge_node)
+            self.partial_schema = output_schema(split)
+
+        self.chunk_exec = executor.make_chunk_source(
+            stream.table, chunk_rows
+        )
+        self.chunk_prepared = self.chunk_exec.prepare(chunk_plan)
+
+        # persistent merge executor: $partials is swapped per run at a
+        # grow-only power-of-two capacity, so the merge program is built
+        # once and reused
+        self._overlay_extra: dict = {}
+        self.merge_exec = Executor(
+            _OverlayCatalog(executor.catalog, self._overlay_extra),
+            unique_keys=executor.unique_keys, stats=None,
+            device=executor.device,
+        )
+        self.merge_exec.chunking_enabled = False
+        self._partial_cap = 1024
+        self._merge_prepared = None
+        self._merge_cap = 0
+
+    def run(self, max_retries: int = 3, qparams: tuple = ()):
+        cols, valids, dicts = run_stream(
+            self, qparams=qparams, max_retries=max_retries)
+        partials, self._partial_cap = assemble_partials_table(
+            self.partial_schema, cols, valids, dicts, self._partial_cap)
+        self._overlay_extra["$partials"] = partials
+        self.merge_exec.invalidate_table("$partials")
+        if (self._merge_prepared is None
+                or self._merge_cap != self._partial_cap):
+            self._merge_prepared = self.merge_exec.prepare(self.above_plan)
+            self._merge_cap = self._partial_cap
+        return self._merge_prepared.run(max_retries, qparams=qparams)

@@ -11,18 +11,22 @@ INTERSECT, EXCEPT, with and without ALL), Window, Aggregate (the
 direct-addressed, the sort-based with its pack guard, the clustered-FK
 segment and the scalar paths; DISTINCT aggregates, approx_count_distinct
 and ROLLUP/CUBE/GROUPING SETS), Sort, Limit and TopN (with its exact
-top-k candidate prefilter), plus the root compaction. Not ported: the
-sorted-projection scan slice and the ANN top-n (they need the server's
-projections and vector indexes, which the port does not have yet), and
-the PX, chunked and grace-hash executors that subclass the reference's;
-a plan node or join kind this module does not know raises
+top-k candidate prefilter), plus the root compaction; and the two
+branches of `prepare` before the plan is built: the scan router that
+swaps a selective range scan onto a sorted projection of its table
+(read through the range slice, kernel K17), and the out-of-core routes
+for inputs beyond the device budget (engine/chunked.py streams the
+biggest table in chunks decoded by kernel K18; engine/pipeline.py's
+grace-hash route partitions both join sides to host spill files). Not
+ported: the ANN top-n (it needs vector indexes) and the PX executors; a
+plan node or join kind this module does not know raises
 NotImplementedError naming it (the Session raises so for WITH
 RECURSIVE).
 
 The JAX package traces a whole plan into one jitted program; here
 `compile` returns a plain Python closure that runs the same emission
 eagerly on the session's device, with the device functions on the path
-as hand-written kernels (K1-K16, `kernels.py`). The static-capacity
+as hand-written kernels (K1-K18, `kernels.py`). The static-capacity
 contract is unchanged: every intermediate keeps its producer's capacity
 under a live-row `sel` mask, capacity-bound operators report overflow
 counters in ONE stacked vector, and the host reads it once per attempt
@@ -66,6 +70,7 @@ from ..kernels import (
     mark_build,
     scalar_reduce,
     scatter_rows,
+    slice_scan,
     topk_candidates,
 )
 from ..ops.gather import gather_rows
@@ -175,6 +180,10 @@ class PhysicalParams:
     # top-k candidate prefilter sizes (TopN via the exact top-k of the
     # first key, under the tie-overflow guard)
     topn_cand: dict[int, int] = field(default_factory=dict)
+    # range-sliced sorted-projection scans: nid -> _SliceSpec, with the
+    # static slice capacity in scan_cap (overflow-bumped like join caps)
+    scan_slice: dict = field(default_factory=dict)
+    scan_cap: dict[int, int] = field(default_factory=dict)
 
     def bump(self, overflows: dict[int, int]):
         for nid in overflows:
@@ -183,6 +192,13 @@ class PhysicalParams:
                 continue
             if nid in self.join_cap:
                 self.join_cap[nid] *= 4
+            if nid in self.scan_cap:
+                # the slice capacity was seeded from ONE representative
+                # parameter value; a wider runtime range is the normal
+                # plan-cache reuse case, so the retry must always
+                # resolve: drop back to the unsliced full scan (a cap of
+                # at least the table's rows disables the slice)
+                self.scan_cap[nid] = 1 << 62
             if nid in self.topn_cand:
                 # ties on a low-cardinality first key can exceed ANY
                 # candidate budget: one overflow disables the prefilter
@@ -194,6 +210,18 @@ class ClusteredPremiseInvalidated(Exception):
     """A cached plan's clustered-FK premise no longer holds (the probe
     table's data changed and its fk column is no longer monotone);
     PreparedPlan recompiles, which re-detects and drops the spec."""
+
+
+@dataclass(frozen=True)
+class _SliceSpec:
+    """Range bounds of a sorted-projection scan: the scan reads only the
+    contiguous key range [max(lows), min(highs)) through kernel K17.
+    Bounds are (Literal, searchsorted side) pairs, so slotted literals
+    keep the plan reusable across parameter values."""
+
+    key: str                   # qualified sort-key column
+    lows: tuple = ()           # (E.Literal, 'left'|'right') lower bounds
+    highs: tuple = ()          # (E.Literal, 'left'|'right') upper bounds
 
 
 @dataclass(frozen=True)
@@ -250,13 +278,51 @@ def _not_ported(what: str):
 
 
 class Executor:
+    # executors that manage their own inputs (the merge and partition
+    # executors of the out-of-core routes) disable chunking
+    chunking_enabled = True
+    # clustered-FK segment aggregation and the top-k prefilter need
+    # whole-table inputs in storage order; chunk sources disable them
+    clustered_agg_enabled = True
+    # the sorted-projection slice needs whole-table device columns
+    # (chunks and partitions would misindex); the projection SWAP itself
+    # is layout-only and stays on everywhere
+    scan_slice_enabled = True
+
     def __init__(self, catalog, unique_keys=None,
-                 default_rows_estimate=1 << 16, stats=None, device=None):
+                 default_rows_estimate=1 << 16, stats=None, device=None,
+                 device_budget=None, chunk_rows=None):
+        import os
+
+        from .chunked import DEFAULT_CHUNK_ROWS, DEFAULT_DEVICE_BUDGET
+        from .memory_governor import detect_device_budget
+
         self.catalog = catalog
         self.unique_keys = unique_keys or {}
         self.default_rows_estimate = default_rows_estimate
         self.stats = stats
         self.device = _device(device)
+        # out-of-core: inputs beyond this many bytes stream through the
+        # plan in chunks (engine/chunked.py). The default is the card's
+        # own (detect_device_budget) on CUDA, and the library default on
+        # the CPU, where it routes as the JAX Executor does
+        if device_budget is None:
+            device_budget = (detect_device_budget(self.device)
+                             if self.device.type == "cuda"
+                             else DEFAULT_DEVICE_BUDGET)
+        self.device_budget = device_budget
+        self.chunk_rows = chunk_rows or DEFAULT_CHUNK_ROWS
+        # engine/memory_governor.MemoryGovernor, when wired: its effective
+        # budget clamps device_budget, and it holds the staged ledger of
+        # the streaming prefetcher
+        self.governor = None
+        # streaming knobs (engine/pipeline.py): prefetch depth 0 turns the
+        # prefetch thread off (the wire and the device alternate, the A/B
+        # baseline); stream_compress off ships raw / FOR chunks
+        self.stream_prefetch_depth = max(0, int(os.environ.get(
+            "OB_STREAM_PREFETCH", "2")))
+        self.stream_compress = os.environ.get(
+            "OB_STREAM_COMPRESS", "1") not in ("0", "false", "off")
         # per-column device cache: (table, column) -> (values, validity),
         # plus (table, "#sel") and the clustered-FK ranges; and the
         # assembled batch per column set
@@ -265,6 +331,9 @@ class Executor:
         # bumped by invalidate_table; derived device structures that span
         # TWO tables (fk_ranges) revalidate against both versions
         self._table_version: dict[str, int] = {}
+        # the last routed plan's sliced scans: id(Scan) -> (_SliceSpec,
+        # capacity), read by seed_params
+        self._pending_slices: dict = {}
 
     # ---- input preparation -------------------------------------------
     def _collect_scans(self, plan: LogicalOp) -> list[Scan]:
@@ -620,8 +689,13 @@ class Executor:
             int(2 * self._est_rows(plan)) + 1024
         )
         for nid, op in nodes.items():
+            if isinstance(op, Scan) and self.scan_slice_enabled:
+                ps = self._pending_slices.get(id(op))
+                if ps is not None and nid not in params.scan_slice:
+                    params.scan_slice[nid], params.scan_cap[nid] = ps
             if (
                 isinstance(op, TopN)
+                and self.clustered_agg_enabled  # whole-batch executors only
                 and op.n + op.offset <= 1024
                 and nid not in params.topn_cand
             ):
@@ -718,6 +792,11 @@ class Executor:
         if hit is None:
             return None
         table, col = hit
+        if "#sp:" in table:
+            # a routed projection scan may be SLICED (params.scan_slice):
+            # affine candidates index full-table rows and would misindex
+            # the sliced batch
+            return None
         try:
             arr = self.catalog[table].data[col]
         except (KeyError, AttributeError):
@@ -845,7 +924,11 @@ class Executor:
             cols = set(output_schema(node).names())
             return cols <= set(names)
         if isinstance(node, Scan):
-            uks = tuple(self.unique_keys.get(node.table, ()))
+            # a routed sorted projection keeps the base table's rows (and
+            # so its unique keys) under the '#sp:' name
+            base = node.table.split("#sp:", 1)[0]
+            uks = tuple(self.unique_keys.get(node.table, ())) + tuple(
+                self.unique_keys.get(base, ()))
             key_cols = {
                 n.split(".", 1)[1] for n in names
                 if n.startswith(node.alias + ".")
@@ -898,6 +981,11 @@ class Executor:
         if not isinstance(node, Scan):
             return None
         base = node
+        if "#sp:" in base.table:
+            # a routed projection scan may be SLICED (params.scan_slice):
+            # fk_ranges index full-table rows and would misindex the
+            # sliced batch
+            return None
         fk_name = ji.left_keys[0].name
         if "." not in fk_name:
             return None
@@ -1009,7 +1097,8 @@ class Executor:
         # from plan + catalog) and feed the precomputed ranges as inputs
         params.clustered_aggs.clear()
         for nid2, op2 in nodes.items():
-            if not isinstance(op2, Aggregate):
+            if not isinstance(op2, Aggregate) \
+                    or not self.clustered_agg_enabled:
                 continue
             spec = self._clustered_agg_spec(op2)
             if spec is not None:
@@ -1023,7 +1112,8 @@ class Executor:
                     ))
 
         overflow_nodes: list[int] = sorted(
-            set(params.join_cap) | set(params.topn_cand)
+            set(params.join_cap) | set(params.scan_cap)
+            | set(params.topn_cand)
             | {
                 PACK_GUARD_BASE + nid
                 for nid in params.pack_guard
@@ -1075,9 +1165,16 @@ class Executor:
                 schema=qschema,
                 dicts={f"{op.alias}.{n}": d for n, d in b.dicts.items()},
             )
+            ovf = {}
+            sl = params.scan_slice.get(nid)
+            if sl is not None and sl.key in qb.cols:
+                cap = params.scan_cap[nid]
+                n = self.catalog[op.table].nrows
+                if cap < n:
+                    qb, ovf[nid] = self._slice_sorted_scan(qb, sl, cap, n)
             if op.pushed_filter is not None:
                 qb = qb.with_sel(compile_predicate(op.pushed_filter, qb))
-            return qb, {}
+            return qb, ovf
 
         if isinstance(op, Filter):
             child, ovf = emit(op.child, inputs)
@@ -2221,10 +2318,211 @@ class Executor:
         )
         return out, ovf
 
+    # ---- sorted-projection scan routing ---------------------------------
+    _RANGE_KINDS = (TypeKind.DATE, TypeKind.INT8, TypeKind.INT16,
+                    TypeKind.INT32, TypeKind.INT64)
+
+    def _route_projections(self, plan: LogicalOp) -> LogicalOp:
+        """Swap eligible Scans to sorted projections of their table (the
+        index-selection step: a selective range predicate on a
+        projection's sort key and covered columns). The swap alone is
+        layout-only (same rows, another order) and correct under every
+        executor; the slice rides separately in params.scan_slice where
+        scan_slice_enabled."""
+        self._pending_slices = {}
+        needed = self._needed_columns(plan)
+
+        def rec(op):
+            # identity-preserving: untouched subtrees come back as they are
+            if isinstance(op, Scan):
+                out = self._projection_choice(op, needed.get(op.alias, set()))
+                return out if out is not None else op
+            if isinstance(op, (JoinOp, SetOp)):
+                left, right = rec(op.left), rec(op.right)
+                if left is op.left and right is op.right:
+                    return op
+                return replace(op, left=left, right=right)
+            if hasattr(op, "child"):
+                child = rec(op.child)
+                return op if child is op.child else replace(op, child=child)
+            return op
+
+        return rec(plan)
+
+    def _projection_choice(self, scan: Scan, needed_cols: set):
+        if scan.pushed_filter is None:
+            return None
+        try:
+            t = self.catalog[scan.table]
+        except KeyError:
+            return None
+        projs = getattr(t, "sorted_projections", None)
+        if not projs:
+            return None
+        from ..expr.compile import bind_value
+
+        conj = self._conjuncts(scan.pushed_filter)
+        best = None
+        for key_col, pname in projs.items():
+            if key_col in t.dicts:
+                continue  # dict codes are not value-ordered
+            try:
+                kt = t.schema[key_col]
+            except Exception:
+                continue
+            if kt.kind not in self._RANGE_KINDS:
+                continue  # decimal scales / floats: sides would mis-round
+            qual = f"{scan.alias}.{key_col}"
+            lows, highs = [], []
+            for c in conj:
+                for kind, lit in _key_bounds(c, qual):
+                    if not (lit.value is not None
+                            and lit.dtype.kind in self._RANGE_KINDS):
+                        continue
+                    if kind in ("ge", "gt"):
+                        lows.append(
+                            (lit, "left" if kind == "ge" else "right"))
+                    elif kind in ("lt", "le"):
+                        highs.append(
+                            (lit, "left" if kind == "lt" else "right"))
+                    else:  # eq
+                        lows.append((lit, "left"))
+                        highs.append((lit, "right"))
+            if not lows and not highs:
+                continue
+            try:
+                pt = self.catalog[pname]
+            except KeyError:
+                continue
+            pcols = {f.name for f in pt.schema.fields}
+            if not needed_cols <= pcols:
+                continue
+            arr = pt.data[key_col]
+            n = len(arr)
+            if n < 2:
+                continue
+            # representative bounds (parameterized literals keep their
+            # planning-time value) -> exact count for the static capacity;
+            # a different runtime value overflows and bumps the capacity
+            lo_i = max(
+                (int(np.searchsorted(arr, bind_value(l.value, l.dtype), s))
+                 for l, s in lows), default=0,
+            )
+            hi_i = min(
+                (int(np.searchsorted(arr, bind_value(h.value, h.dtype), s))
+                 for h, s in highs), default=n,
+            )
+            cnt = max(hi_i - lo_i, 0)
+            if cnt > 0.25 * n:
+                continue  # not selective enough to beat the masked scan
+            # tie-break equally selective candidates by covered width: a
+            # narrower projection uploads fewer columns for the same slice
+            width = len(pt.schema.fields)
+            if best is None or (cnt, width) < (best[0], best[3]):
+                best = (cnt, pname,
+                        _SliceSpec(qual, tuple(lows), tuple(highs)), width)
+        if best is None:
+            return None
+        cnt, pname, spec, _width = best
+        new_scan = replace(scan, table=pname)
+        cap = -(-int(cnt * 1.25 + 1024) // 1024) * 1024
+        self._pending_slices[id(new_scan)] = (spec, cap)
+        return new_scan
+
+    def _slice_sorted_scan(self, qb: ColumnBatch, sl: _SliceSpec, cap: int,
+                           n: int):
+        """Read only the qualifying key range of a sorted-projection scan
+        (kernel K17): the device binary search finds [lo, hi) from the
+        (possibly parameterized) bounds, `cap` rows from lo are copied out
+        of every column, and rows outside [lo, hi) mask off. Returns (the
+        sliced batch, overflow = max(hi - lo - cap, 0)): a runtime range
+        wider than the static capacity rides the overflow retry."""
+        from ..expr.compile import literal_scalar
+
+        dev = qb.device
+        names = list(qb.cols)
+        vnames = list(qb.valid)
+        outs, sel, nrows, over = slice_scan(
+            qb.cols[sl.key], n,
+            [(literal_scalar(lit, dev), side) for lit, side in sl.lows],
+            [(literal_scalar(lit, dev), side) for lit, side in sl.highs],
+            cap, [qb.cols[k] for k in names] + [qb.valid[k] for k in vnames],
+            qb.sel)
+        out = ColumnBatch(
+            cols=dict(zip(names, outs[:len(names)])),
+            valid=dict(zip(vnames, outs[len(names):])),
+            sel=sel,
+            nrows=nrows,
+            schema=qb.schema,
+            dicts=qb.dicts,
+        )
+        return out, over
+
     # ---- execution ------------------------------------------------------
+    def make_chunk_source(self, stream_table: str, chunk_rows: int):
+        """The chunk-program executor of out-of-core streaming."""
+        from .chunked import _ChunkSourceExecutor
+
+        return _ChunkSourceExecutor(
+            self.catalog, stream_table, chunk_rows,
+            unique_keys=self.unique_keys, stats=self.stats,
+            device=self.device,
+        )
+
+    def _clamped_chunk_rows(self, plan, stream, budget: int) -> int:
+        """Chunk rows sized from the DECODED on-device width of the
+        streamed columns: the pipeline holds up to depth+1 decoded chunks
+        in flight, so each must fit its slice of the budget (the staged
+        wire bytes are charged through the governor's staged ledger)."""
+        from .memory_governor import derive_chunk_rows
+        from .pipeline import decoded_row_bytes
+
+        needed = self._needed_columns(plan).get(stream.alias) or set()
+        row_b = decoded_row_bytes(
+            self.catalog, stream.table, sorted(needed))
+        slots = max(1, int(self.stream_prefetch_depth)) + 1
+        return derive_chunk_rows(
+            max(1, budget // slots), self.chunk_rows, row_bytes=row_b)
+
     def prepare(self, plan: LogicalOp):
-        """Build the plan's program once; the PreparedPlan is what the
-        plan cache stores."""
+        """Build the plan's program once; the returned plan is what the
+        plan cache stores. Scans with a selective range on a sorted
+        projection's key read the projection; inputs beyond the device
+        budget return a ChunkedPreparedPlan that streams the biggest
+        table through the program (engine/chunked.py), or a
+        GraceHashPreparedPlan when the build side is too big as well."""
+        plan = self._route_projections(plan)
+        if self.chunking_enabled:
+            from .chunked import (
+                ChunkedPreparedPlan,
+                NotStreamable,
+                _find_stream_split,
+                plan_input_bytes,
+            )
+
+            # the governor's effective budget (shrunk after an observed
+            # OOM) clamps the static threshold
+            budget = self.device_budget
+            if self.governor is not None:
+                budget = min(budget, self.governor.upload_budget())
+            if plan_input_bytes(self, plan) > budget:
+                try:
+                    stream, split, kind = _find_stream_split(
+                        self, plan, budget)
+                    chunk_rows = self._clamped_chunk_rows(
+                        plan, stream, budget)
+                    return ChunkedPreparedPlan(
+                        self, plan, stream, split, kind, chunk_rows)
+                except NotStreamable:
+                    # grace-hash partitioned spill: the BUILD side exceeds
+                    # the budget too
+                    from .pipeline import NotPartitionable, try_grace_hash
+
+                    try:
+                        return try_grace_hash(self, plan, budget)
+                    except NotPartitionable:
+                        # whole-table upload
+                        pass
         params = self.seed_params(plan)
         run, input_spec, overflow_nodes = self.compile(plan, params)
         return PreparedPlan(self, plan, params, run, input_spec,
@@ -2312,7 +2610,8 @@ class DeviceResult:
     """Lazy device-resident result cursor. The first host access fetches
     the overflow counters and the live row count (a capacity overflow
     re-runs the plan here, as PreparedPlan.run would); column data
-    transfers on demand."""
+    transfers on demand. `ovf_vec` None marks a batch whose plan already
+    checked its counters (the out-of-core plans run to the end)."""
 
     def __init__(self, prepared, qparams, out, ovf_vec, max_retries: int = 3):
         self.prepared = prepared
@@ -2327,6 +2626,10 @@ class DeviceResult:
 
     def _sync(self) -> None:
         if self._nrows is not None:
+            return
+        if self._ovf is None:
+            # an out-of-core plan's result: its runs checked every counter
+            self._nrows = int(self._out.nrows)
             return
         p = self.prepared
         for attempt in range(self._max_retries + 1):
@@ -2385,6 +2688,34 @@ class DeviceResult:
         self._sync()
         names = list(names) if names is not None else self._out.schema.names()
         return batch_rows_storage(self._out, names)
+
+
+def _key_bounds(c: E.Expr, qual: str) -> list:
+    """Classify one conjunct as bounds on column `qual`: a list of
+    ('gt'|'ge'|'lt'|'le'|'eq', Literal) pairs (empty = not a bound).
+    Handles both operand orders and a non-negated BETWEEN
+    (the reference's executor._range_bounds)."""
+    if isinstance(c, E.Between) and not c.negated:
+        if (
+            isinstance(c.arg, E.ColRef) and c.arg.name == qual
+            and isinstance(c.low, E.Literal)
+            and isinstance(c.high, E.Literal)
+        ):
+            return [("ge", c.low), ("le", c.high)]
+        return []
+    if not isinstance(c, E.Compare):
+        return []
+    flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
+    op, lhs, rhs = c.op, c.left, c.right
+    if isinstance(rhs, E.ColRef) and isinstance(lhs, E.Literal):
+        op, lhs, rhs = flip.get(op), rhs, lhs
+    if not (
+        isinstance(lhs, E.ColRef) and lhs.name == qual
+        and isinstance(rhs, E.Literal) and op in flip
+    ):
+        return []
+    kind = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge", "=": "eq"}[op]
+    return [(kind, rhs)]
 
 
 def _pair_keys_equal(lkeys, rkeys, pr, br) -> torch.Tensor:

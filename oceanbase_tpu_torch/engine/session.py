@@ -4,7 +4,10 @@ Counterpart of `oceanbase_tpu/engine/session.py` without the server hooks
 (metrics, tracer, plan monitor, profiler, result cache, timeline): text ->
 fast-parser key -> (text-tier hit: re-bind literals into the cached plan)
 or (parse -> resolve/plan -> parameterize -> logical-tier lookup or
-prepare) -> one device pass -> lazy result cursor.
+prepare) -> one device pass -> lazy result cursor. A statement whose
+inputs exceed the executor's device budget runs out of core (chunked or
+grace-hash) and reports its streaming walls in `last_phases`
+(stream_h2d_s, stream_compute_s, stream_overlap_s).
 
 The session owns its `torch.device`: None means the first CUDA device
 and raises when there is none; the CPU tests pass ``device="cpu"``.
@@ -211,11 +214,19 @@ class Session:
         """Bind + dispatch a cached/compiled entry behind a lazy cursor;
         the row count (two small reads) is the statement's sync point."""
         prepared = entry.prepared
+        # out-of-core plans carry streaming counters; the statement reads
+        # its own run's deltas
+        sstats = getattr(prepared, "stream_stats", None)
+        stream0 = sstats.snapshot() if sstats is not None else None
         t0 = time.perf_counter()
         try:
             qparams = bind(values, entry.dtypes, self.executor.device)
             t1 = time.perf_counter()
-            out, ovf_vec = prepared.run_device(qparams=qparams)
+            if hasattr(prepared, "run_device"):
+                out, ovf_vec = prepared.run_device(qparams=qparams)
+            else:
+                # chunked / grace-hash plans run to the end here
+                out, ovf_vec = prepared.run(qparams=qparams), None
             t2 = time.perf_counter()
             cursor = DeviceResult(prepared, qparams, out, ovf_vec)
             rs = LazyResultSet(entry.output_names, cursor,
@@ -230,6 +241,12 @@ class Session:
         phases.update(bind_s=t1 - t0, dispatch_s=t2 - t1, fetch_s=t3 - t2,
                       exec_s=t3 - t0, rows=nrows, cache_hit=was_hit,
                       fast_hit=fast)
+        if sstats is not None:
+            d = tuple(b - a for a, b in zip(stream0, sstats.snapshot()))
+            if d[0] or d[6]:  # chunks streamed or partitions spilled
+                phases["stream_h2d_s"] = d[3]
+                phases["stream_compute_s"] = d[4]
+                phases["stream_overlap_s"] = d[5]
         self.last_phases = phases
         return rs
 

@@ -21,6 +21,8 @@ K14 `hash_set_build`, `hash_set_probe`
 K15 `first_occurrence`, `scatter_rows`
                        first rows through an order (csrc/k15_distinct_first.cu)
 K16 `hll_registers`    HyperLogLog registers      (csrc/k16_hll.cu)
+K17 `slice_scan`       sorted-projection range slice (csrc/k17_slice_scan.cu)
+K18 `decode_staged`    streamed chunk wire decode (csrc/k18_decode_staged.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -64,6 +66,8 @@ KERNEL_NAMES = (
     "K14_hash_set",
     "K15_distinct_first",
     "K16_hll",
+    "K17_slice_scan",
+    "K18_decode_staged",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -105,6 +109,8 @@ SOURCES = (
     "k14_hash_set.cu",
     "k15_distinct_first.cu",
     "k16_hll.cu",
+    "k17_slice_scan.cu",
+    "k18_decode_staged.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -236,6 +242,11 @@ def _load():
         lib.ob_k15_first.argtypes = [I, P, P, P, P, L, P, I, P]
         lib.ob_k15_scatter.argtypes = [I, P, P, P, P, P, L, I, P]
         lib.ob_k16_registers.argtypes = [P, I, P, L, P, I, P]
+        lib.ob_k17_slice.argtypes = [P, I, L, L, L, I, P, P, P, I, P, P, P,
+                                     P, P, P, P, P, I, P]
+        lib.ob_k18_decode.argtypes = [I, P, P, P, P, P, P, P, P, P, L, L, P,
+                                      P]
+        lib.ob_k18_run_tile.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -248,7 +259,8 @@ def _load():
                    lib.ob_k11_mark_build, lib.ob_k13_tile_rows,
                    lib.ob_k13_scan, lib.ob_k13_flags, lib.ob_k13_search,
                    lib.ob_k14_build, lib.ob_k14_probe, lib.ob_k15_first,
-                   lib.ob_k15_scatter, lib.ob_k16_registers):
+                   lib.ob_k15_scatter, lib.ob_k16_registers,
+                   lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -2099,3 +2111,249 @@ def hll_registers(col: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         _check(rc, "K16_hll")
     LAUNCHES["K16_hll"] += 1
     return regs
+
+
+# ---------------------------------------------------------------------------
+# K17: the range slice of a sorted-projection scan
+# ---------------------------------------------------------------------------
+
+K17_MAX_COLS = 48
+K17_MAX_BOUNDS = 16
+_RANGE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def slice_scan_plain(key, n: int, lows, highs, cap: int, payload, sel):
+    """Plain version of K17 (executor._slice_sorted_scan): lo/hi from
+    searchsorted over key[:n] (each bound a 0-d tensor cast to the key's
+    type first), start = clip(lo, 0, capacity - cap), and the `cap` rows
+    from start of every payload column and of sel, sel cleared outside
+    [lo, hi). Returns (payload slices, sel, nrows, overflow), the last two
+    0-d int64 tensors."""
+    dev = sel.device
+    kcol = key[:n]
+    lo = torch.zeros((), dtype=torch.int64, device=dev)
+    hi = torch.full((), n, dtype=torch.int64, device=dev)
+    for v, side in lows:
+        pos = torch.searchsorted(kcol, v.to(kcol.dtype).reshape(1),
+                                 right=side == "right")
+        lo = torch.maximum(lo, pos[0].to(torch.int64))
+    for v, side in highs:
+        pos = torch.searchsorted(kcol, v.to(kcol.dtype).reshape(1),
+                                 right=side == "right")
+        hi = torch.minimum(hi, pos[0].to(torch.int64))
+    hi = torch.maximum(hi, lo)
+    cap2 = int(sel.shape[0])
+    start = torch.clamp(lo, 0, cap2 - cap)
+    gidx = start + torch.arange(cap, dtype=torch.int64, device=dev)
+    in_range = (gidx >= lo) & (gidx < hi)
+    outs = [c[gidx] for c in payload]
+    osel = sel[gidx] & in_range
+    return (outs, osel, torch.sum(osel, dtype=torch.int64),
+            torch.clamp((hi - lo) - cap, min=0))
+
+
+def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
+    """K17: the sliced payload columns, sel, nrows and overflow of a
+    sorted-projection scan, in one launch; the bounds are read on the
+    device. lows/highs: lists of (0-d tensor, 'left'|'right')."""
+    bvals = [v for v, _s in lows] + [v for v, _s in highs]
+    payload = list(payload)
+    if not _on_cuda(key, sel, *payload, *bvals):
+        return slice_scan_plain(key, n, lows, highs, cap, payload, sel)
+    cap2 = int(sel.shape[0])
+    _vector(key, cap2, "K17 key")
+    _vector(sel, cap2, "K17 sel")
+    if key.dtype not in _RANGE_DTYPES:
+        raise TypeError(f"K17 keys are integers, got {key.dtype}")
+    if sel.dtype != torch.bool:
+        raise TypeError("K17 sel must be bool")
+    if not 0 < cap < cap2 or n > cap2:
+        raise ValueError(f"K17 slices {cap} of {cap2} rows ({n} stored)")
+    if len(bvals) > K17_MAX_BOUNDS:
+        raise ValueError(f"K17 takes at most {K17_MAX_BOUNDS} bounds")
+    if len(payload) > K17_MAX_COLS:
+        raise ValueError(f"K17 takes at most {K17_MAX_COLS} columns")
+    for v in bvals:
+        if v.numel() != 1 or v.dtype not in _RANGE_DTYPES:
+            raise TypeError("K17 bounds are integer scalars")
+    for c in payload:
+        _vector(c, cap2, "K17 column")
+        if c.element_size() not in _WIDTHS:
+            raise TypeError(f"K17 column width {c.element_size()}")
+    dev = sel.device
+    outs = [torch.empty(cap, dtype=c.dtype, device=dev) for c in payload]
+    osel = torch.empty(cap, dtype=torch.bool, device=dev)
+    nrows = torch.zeros((), dtype=torch.int64, device=dev)
+    ovf = torch.empty((), dtype=torch.int64, device=dev)
+    order = sorted(range(len(payload)),
+                   key=lambda i: payload[i].element_size())
+    nc = len(order)
+    src = (ctypes.c_void_p * max(nc, 1))(
+        *[payload[i].data_ptr() for i in order])
+    dst = (ctypes.c_void_p * max(nc, 1))(*[outs[i].data_ptr() for i in order])
+    gstart = (ctypes.c_int * 5)()
+    gwidth = (ctypes.c_int * 4)(*_WIDTHS)
+    for g, w in enumerate(_WIDTHS):
+        gstart[g + 1] = gstart[g] + sum(
+            1 for i in order if payload[i].element_size() == w)
+    nb = len(bvals)
+    bval = (ctypes.c_void_p * max(nb, 1))(*[v.data_ptr() for v in bvals])
+    bdt = (ctypes.c_int * max(nb, 1))(*[DTYPE_CODE[v.dtype] for v in bvals])
+    sides = [s for _v, s in lows] + [s for _v, s in highs]
+    bflag = (ctypes.c_int * max(nb, 1))(*[
+        int(side == "right") | (2 if i >= len(lows) else 0)
+        for i, side in enumerate(sides)])
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k17_slice(
+            key.data_ptr(), DTYPE_CODE[key.dtype], n, cap, cap2, nb, bval,
+            bdt, bflag, nc, src, dst, gstart, gwidth, sel.data_ptr(),
+            osel.data_ptr(), nrows.data_ptr(), ovf.data_ptr(),
+            _blocks(dev, cap, 256 * 4), _stream(dev))
+        _check(rc, "K17_slice_scan")
+    LAUNCHES["K17_slice_scan"] += 1
+    return outs, osel, nrows, ovf
+
+
+# ---------------------------------------------------------------------------
+# K18: the device decode of a wire-encoded streamed chunk
+# ---------------------------------------------------------------------------
+
+K18_MAX_COLS = 32
+# wire-plan kinds (engine/pipeline.py) and their codes in the kernel
+K18_KIND = {"raw": 0, "for": 0, "rle": 1, "bits": 2}
+# element types of staged arrays: DTYPE_CODE plus the narrow unsigned ones
+K18_DTYPE = {**DTYPE_CODE, torch.uint16: 8, torch.uint32: 9}
+_UNSIGNED_VIEW = {torch.uint16: (torch.int16, 0xFFFF),
+                  torch.uint32: (torch.int32, 0xFFFFFFFF)}
+
+
+def _widen_plain(t: torch.Tensor) -> torch.Tensor:
+    """A staged array ready for .to(storage): uint16/uint32 (which torch
+    converts with few ops) zero-extend to int64 through a signed view."""
+    hit = _UNSIGNED_VIEW.get(t.dtype)
+    if hit is None:
+        return t
+    signed, mask = hit
+    return t.view(signed).to(torch.int64) & mask
+
+
+def _base_tensor(b, dtype: torch.dtype, dev) -> torch.Tensor:
+    return torch.tensor(b.item() if hasattr(b, "item") else b, dtype=dtype,
+                        device=dev)
+
+
+def decode_staged_plain(staged, bases, count: int, meta, cap: int,
+                        dtypes, device):
+    """Plain version of K18 (pipeline._decode_staged): {key: column} and
+    sel for one staged chunk. dtypes: key -> storage torch dtype (bool for
+    the `#v:` bitmaps)."""
+    out = {}
+    idx = torch.arange(cap, dtype=torch.int64, device=device)
+    for k, kind in meta:
+        if kind == "bits":
+            packed = staged[k].to(torch.int64)
+            out[k] = ((packed[idx >> 3] >> (idx & 7)) & 1) != 0
+        elif kind == "rle":
+            vals, lens = staged[k]
+            b = _base_tensor(bases[k], dtypes[k], device)
+            ends = torch.cumsum(lens.to(torch.int64), 0)
+            j = torch.searchsorted(ends, idx, right=True)
+            j = j.clamp(0, vals.shape[0] - 1)
+            out[k] = _widen_plain(vals)[j].to(dtypes[k]) + b
+        else:  # raw / for: widen + add base (base is 0 for raw)
+            b = _base_tensor(bases[k], dtypes[k], device)
+            out[k] = _widen_plain(staged[k]).to(dtypes[k]) + b
+    return out, idx < count
+
+
+_k18_tile = None
+
+
+def _base_bits(b, dtype: torch.dtype) -> int:
+    v = b.item() if hasattr(b, "item") else b
+    if dtype.is_floating_point:
+        return struct.unpack("<q", struct.pack("<d", float(v)))[0]
+    return _i64(int(v))
+
+
+def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
+                  device):
+    """K18: every column of a staged chunk's wire plan decoded, and sel,
+    in one launch. Returns ({key: column}, sel)."""
+    global _k18_tile
+    dev = torch.device(device)
+    arrays = []
+    for k, kind in meta:
+        arrays.extend(staged[k] if kind == "rle" else (staged[k],))
+    if not (_on_cuda(*arrays) if arrays else dev.type == "cuda"):
+        return decode_staged_plain(staged, bases, count, meta, cap, dtypes,
+                                   device)
+    if any(a.device != dev for a in arrays):
+        raise ValueError(f"K18 staged arrays are not on {dev}")
+    if len(meta) > K18_MAX_COLS:
+        raise ValueError(f"K18 takes at most {K18_MAX_COLS} columns")
+    if cap < 1:
+        raise ValueError("K18 decodes a chunk of at least one row")
+    lib = _load()
+    if _k18_tile is None:
+        _k18_tile = int(lib.ob_k18_run_tile())
+    nc = len(meta)
+    kinds, sdt, ddt, src, lens, dst, base, rcap, state = (
+        [] for _ in range(9))
+    out = {}
+    scratch = []
+    for k, kind in meta:
+        if kind not in K18_KIND:
+            raise ValueError(f"K18 wire kind {kind!r}")
+        dt = dtypes[k]
+        col = torch.empty(cap, dtype=dt, device=dev)
+        out[k] = col
+        kinds.append(K18_KIND[kind])
+        ddt.append(DTYPE_CODE[dt])
+        dst.append(col.data_ptr())
+        if kind == "rle":
+            vals, ln = staged[k]
+            rc_ = int(vals.shape[0])
+            _vector(ln, rc_, "K18 run lengths")
+            if ln.dtype != torch.int32 or not vals.is_contiguous():
+                raise TypeError("K18 run lengths are int32, values dense")
+            words = torch.zeros(-(-rc_ // _k18_tile) + 1, dtype=torch.int64,
+                                device=dev)
+            scratch.append(words)
+            sdt.append(K18_DTYPE[vals.dtype])
+            src.append(vals.data_ptr())
+            lens.append(ln.data_ptr())
+            base.append(_base_bits(bases[k], dt))
+            rcap.append(rc_)
+            state.append(words.data_ptr())
+            continue
+        a = staged[k]
+        want = (cap + 7) >> 3 if kind == "bits" else cap
+        if a.dim() != 1 or a.shape[0] != want or not a.is_contiguous():
+            raise ValueError(f"K18 {k}: expected [{want}] contiguous")
+        if kind == "bits" and a.dtype != torch.uint8:
+            raise TypeError("K18 validity bitmaps are uint8")
+        if dt.is_floating_point and a.dtype != dt:
+            raise TypeError("K18 float columns ship raw")
+        sdt.append(K18_DTYPE[a.dtype])
+        src.append(a.data_ptr())
+        lens.append(None)
+        base.append(0 if kind == "bits" else _base_bits(bases[k], dt))
+        rcap.append(0)
+        state.append(None)
+    sel = torch.empty(cap, dtype=torch.bool, device=dev)
+
+    def arr(ctype, vals):
+        return (ctype * max(nc, 1))(*vals)
+
+    P = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        rc = lib.ob_k18_decode(
+            nc, arr(ctypes.c_int, kinds), arr(ctypes.c_int, sdt),
+            arr(ctypes.c_int, ddt), arr(P, src), arr(P, lens), arr(P, dst),
+            arr(ctypes.c_longlong, base), arr(ctypes.c_longlong, rcap),
+            arr(P, state), cap, int(count), sel.data_ptr(), _stream(dev))
+        _check(rc, "K18_decode_staged")
+    LAUNCHES["K18_decode_staged"] += 1
+    return out, sel

@@ -17,12 +17,14 @@ def _day(s: str) -> int:
     return int(np.datetime64(s, "D").astype(np.int64))
 
 
-def q6_numpy(lineitem) -> int:
-    """Q6 revenue as an int64 sum at scale 4 (price x discount)."""
+def q6_numpy(lineitem, start: str = "1994-01-01",
+             end: str = "1995-01-01") -> int:
+    """Q6 revenue as an int64 sum at scale 4 (price x discount), over the
+    ship dates [start, end)."""
     d = lineitem.data
     m = (
-        (d["l_shipdate"] >= _day("1994-01-01"))
-        & (d["l_shipdate"] < _day("1995-01-01"))
+        (d["l_shipdate"] >= _day(start))
+        & (d["l_shipdate"] < _day(end))
         & (d["l_discount"] >= 5)
         & (d["l_discount"] <= 7)
         & (d["l_quantity"] < 2400)
