@@ -6,11 +6,12 @@ TPC-H at SF 10 (seed 19920101), and drives the port's main path through
 `Session(..., device="cuda").sql(...)`: Q1, Q6, the sorted selective scan
 S1 and S1 again with a rebound date literal, the join statements Q14, Q3,
 Q10, Q7, Q8 and Q19, a tie-heavy ORDER BY ... LIMIT (T1, whose top-k
-prefilter overflows and re-runs through the full sort), and the other 14
+prefilter overflows and re-runs through the full sort), a FROM-list cross
+join of one week of orders with every region (X1), and the other 14
 TPC-H queries (merge joins, expansion joins, semi/anti/left joins,
 DISTINCT), each once cold and `--warm` times warm, then once more under
 torch.profiler for its device busy time. The results with an int64 numpy
-oracle (Q1, Q6, S1, Q14, Q3, Q10, Q7, Q8, Q19, T1, Q4, Q11, Q12, Q13,
+oracle (Q1, Q6, S1, Q14, Q3, Q10, Q7, Q8, Q19, T1, X1, Q4, Q11, Q12, Q13,
 Q20) must equal it exactly (a ratio to rel 1e-12), the others must be
 non-empty and finite (Q11 runs with TPC-H's FRACTION for the scale,
 0.0001 / SF), and every kernel on a statement's path must have launched during
@@ -30,7 +31,31 @@ bound. Then all 22 queries and the analytic statements run on the card
 at SF 0.01 against sqlite (ROLLUP/CUBE against the union of plain
 group-bys, INTERSECT/EXCEPT ALL against bag counts, approx_count_distinct
 against the plain estimate), and every statement runs on the card and on
-the CPU at SF 0.1, where the two results must hold the same bits.
+the CPU at SF 0.1, where the two results must hold the same bits; so do
+three cross joins, two JSON constructor statements and two recursive
+CTEs.
+
+The vector phase follows, with its own counts (before the rest of
+prepare: after the streamed phase's prefetch threads, torch.profiler
+records only part of a traced run's device events): the reference's ANN bench
+deployment (tools/ann_bench.py: 1,000,000 x 128 float32 embeddings in 256
+blobs, seed 4, grp = id % 10), each statement cold, warm over distinct
+query vectors on one plan, and traced. V_BRUTE (no index) must equal
+numpy's exact top-10; V_BUILD builds the IVF index (1024 lists) through
+K19 (assignment) and K20 (list sums); V_L2 and V_F50 (`where grp < 5`,
+the filter fused into the probe) take the IVF route (nprobe 32, K21 the
+nearest lists, K22 the re-rank and top-k) on one cached plan at
+recall@10 >= 0.9; V_DIST's distance column is held to float64; V_STARVE
+(the reference tests' 20,000 x 32 table, `where blob = <a far blob>`)
+starves the probe, escalates nprobe to every list and must then equal
+the exact filtered top-10. Ids compare by the margin rule: two rows may
+swap where their exact distances differ by less than 1e-5 x (|x|^2 +
+|q|^2), the scale of float32 rounding in a dot product summed in another
+order. K19-K22 are held to their plain versions on the phase's arguments
+and on a synthetic case (8192 lists, ties, a long list, dead rows; K20
+bit for bit against the CPU) and timed; at 20,000 x 32 the card's
+statements equal the CPU's on the CPU-built index carried across, and
+the card's own build equals the CPU's perm and lengths.
 
 The rest of Executor.prepare follows, each path with its launch counts
 set to 0 just before it and read just after. The projection phase builds
@@ -47,7 +72,7 @@ grace phase runs a lineitem-orders join and a keyed group-by with a
 count distinct under 128 MiB (scaled likewise), partitioned to host
 spill files, once cold and once traced. All are exact against int64
 oracles and the default Session's rows, balance the governor's ledger,
-and every one of the 45 statements above prepared a resident plan at the
+and every one of the 46 statements above prepared a resident plan at the
 card's default budget. K17 and K18 are held against their plain versions
 on the arguments of Q6's projection run, of one streamed Q3 chunk and of
 a synthetic chunk (validity bits, runs that exactly fill their capacity,
@@ -86,6 +111,33 @@ S1_DAYS = ("1995-06-17", "1996-02-29")
 
 T1 = """select l_orderkey, l_linenumber, l_quantity from lineitem
 order by l_quantity desc limit 5"""
+
+# a FROM-list cross join: one week of orders against every region
+X1_WEEK = ("1995-03-01", "1995-03-08")
+X1 = f"""select r_name, count(*) as n, sum(o_totalprice) as s
+from orders, region
+where o_orderdate >= date '{X1_WEEK[0]}' and o_orderdate < date '{X1_WEEK[1]}'
+group by r_name order by r_name"""
+# the rest of the Session's surface, held card = CPU at SF 0.1
+SURFACE = (
+    ("X_FROM_LIST", "select count(*) as n from nation, region"),
+    ("X_CROSS", "select count(*) as n from nation cross join region"),
+    ("X_RESIDUAL", "select count(*) as n from region r1, region r2 "
+     "where r1.r_regionkey + 1 = r2.r_regionkey"),
+    ("J_ARRAY", "select json_array(n_nationkey, 'x') as a from nation "
+     "where n_nationkey = 1"),
+    ("J_OBJECT", "select json_object('k', n_nationkey, 'name', n_name) as o "
+     "from nation where n_nationkey < 3 order by n_nationkey"),
+    ("R_COUNTER", "with recursive cnt as (select 1 as n union all "
+     "select n + 1 as n from cnt where n < 50) select n from cnt order by n"),
+    ("R_JOIN", """with recursive chain as (
+      select o_orderkey as k, o_custkey as c from orders where o_orderkey = 4
+      union
+      select o.o_orderkey as k, o.o_custkey as c
+      from chain, orders as o where o.o_orderkey = chain.k * 2
+         and o.o_orderkey <= 512
+    ) select k, c from chain order by k"""),
+)
 
 # The analytic statements. Each wraps an operator whose result would be
 # millions of rows in an outer aggregate, so it measures the operator and
@@ -273,6 +325,18 @@ KERNEL_META = {
     "K18_decode_staged": (
         "oceanbase_tpu_torch/csrc/k18_decode_staged.cu",
         "oceanbase_tpu/engine/pipeline.py:187"),
+    "K19_kmeans_assign": (
+        "oceanbase_tpu_torch/csrc/k19_kmeans_assign.cu",
+        "oceanbase_tpu/storage/vector_index.py:57"),
+    "K20_kmeans_update": (
+        "oceanbase_tpu_torch/csrc/k20_kmeans_update.cu",
+        "oceanbase_tpu/storage/vector_index.py:64"),
+    "K21_ivf_lists": (
+        "oceanbase_tpu_torch/csrc/k21_ivf_lists.cu",
+        "oceanbase_tpu/engine/executor.py:1572"),
+    "K22_ivf_probe": (
+        "oceanbase_tpu_torch/csrc/k22_ivf_probe.cu",
+        "oceanbase_tpu/engine/executor.py:1574"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -290,12 +354,16 @@ KERNEL_META = {
         "oceanbase_tpu/engine/executor.py:2606"),
 }
 
-# the entries of the {"kernels": ...} line: K1-K18 and the second entries
+# the entries of the {"kernels": ...} line: K1-K22 and the second entries
 KERNEL_LINE = [k for k in KERNEL_META if k != "dedup_batch"]
+# the kernels of the vector phase's own path
+VECTOR_KERNELS = ("K19_kmeans_assign", "K20_kmeans_update", "K21_ivf_lists",
+                  "K22_ivf_probe")
 # the kernels of each path (the rest of prepare's paths launch K17, K18)
 MAIN_KERNELS = [k for k in KERNEL_LINE
                 if "." not in k and k not in ("K17_slice_scan",
-                                              "K18_decode_staged")]
+                                              "K18_decode_staged",
+                                              *VECTOR_KERNELS)]
 
 # the reference bench's sorted projection: lineitem by l_shipdate,
 # covering every column of the headline queries (bench.py SP_COLS)
@@ -340,6 +408,8 @@ PATH_KERNELS = {
     "Q8": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce"),
     "Q19": ("K5_affine_join", "K1_scalar_aggregate"),
     "T1": ("K7_topk_candidates", "K3_radix_sort", "K4_gather_rows"),
+    "X1": ("K10_expand_join", "K3_radix_sort", "K4_gather_rows",
+           "K2_groupby_direct"),
     "Q2": ("K9_merge_join", "K5_affine_join", "K3_radix_sort",
            "K4_gather_rows", "K8_segmented_reduce", "K7_topk_candidates"),
     "Q4": ("K10_expand_join", "K3_radix_sort", "K4_gather_rows",
@@ -419,6 +489,11 @@ PATH_KERNELS = {
                "K4_gather_rows"),
     "G_GROUPBY": ("K3_radix_sort", "K4_gather_rows", "K8_segmented_reduce",
                   "K15_distinct_first"),
+    # the vector phase: brute force sorts the float distances; the IVF
+    # route probes (K21), re-ranks (K22) and gathers the winners (K4)
+    "V_BRUTE": ("K3_radix_sort", "K4_gather_rows"),
+    **{v: ("K21_ivf_lists", "K22_ivf_probe", "K4_gather_rows")
+       for v in ("V_L2", "V_F50", "V_DIST", "V_STARVE")},
 }
 
 # second entry points and operators each statement's path must run:
@@ -594,6 +669,27 @@ def check_sane(name, rs) -> int:
     return n
 
 
+def x1_oracle(tables) -> dict:
+    """X1: each region pairs with every order of the week: per region (in
+    name order) the week's order count and its o_totalprice sum (scaled
+    int64)."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.expr.compile import _parse_date
+
+    o = tables["orders"]
+    day = np.asarray(o.data["o_orderdate"])
+    week = (day >= _parse_date(X1_WEEK[0])) & (day < _parse_date(X1_WEEK[1]))
+    price = np.asarray(o.data["o_totalprice"], dtype=np.int64)[week]
+    r = tables["region"]
+    codes = np.asarray(r.data["r_name"])
+    names = np.asarray(r.dicts["r_name"].decode(codes), dtype=object)
+    codes = codes[np.argsort(names, kind="stable")]
+    return {"r_name": codes,
+            "n": np.full(len(codes), int(week.sum()), dtype=np.int64),
+            "s": np.full(len(codes), int(price.sum()), dtype=np.int64)}
+
+
 def check_q19(rs, tables, queries) -> int:
     got = rs.storage_columns()["revenue"]
     want = queries.q19_numpy(tables)
@@ -645,7 +741,20 @@ def device_busy_ms(fn) -> tuple[float, float, list, list]:
     return busy_us / 1e3, wall, gaps[:3], top
 
 
+VECTOR_CHECKS = {
+    "V_BRUTE": "ids equal numpy's exact top-10 (margin rule)",
+    "V_L2": "recall@10 >= 0.9 over 10 queries; 10 rows in distance order",
+    "V_F50": "recall@10 >= 0.9 over 10 queries; 10 filtered rows in "
+             "distance order",
+    "V_DIST": "distances within 2e-5 x (|x|^2 + |q|^2) of float64",
+    "V_STARVE": "escalated to every list; ids equal the exact filtered "
+                "top-10 (margin rule)",
+}
+
+
 def checked_by(name: str) -> str:
+    if name in VECTOR_CHECKS:
+        return VECTOR_CHECKS[name]
     if name in SANE_ONLY:
         return "non-empty and finite (no oracle at this scale)"
     if name == "A1":
@@ -721,28 +830,33 @@ def check_a1(rs, sess, kernels) -> int:
 def run_statement(sess, kernels, name, text, check, warm, fact_rows,
                   fact="lineitem", after=None):
     """Run `text` cold, `warm` times warm and once traced; `check` holds
-    the result to its oracle, `after(rs)` (when given) checks the route
-    and the state after the runs."""
+    the result of the last untraced run to its oracle, `after(rs)` (when
+    given) checks the route and the state after the runs. `text` may be a
+    list of warm + 2 texts, one per run (distinct query vectors)."""
     import torch
 
+    texts = [text] * (warm + 2) if isinstance(text, str) else list(text)
+    require(len(texts) == warm + 2, f"{name}: {len(texts)} texts for "
+            f"{warm + 2} runs")
     before = dict(kernels.LAUNCHES)
     before_e = dict(kernels.ENTRY_LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rs = sess.sql(text)
+    rs = sess.sql(texts[0])
     n = rs.nrows
     torch.cuda.synchronize()
     cold = (time.perf_counter() - t0) * 1e3
     times = []
-    for _ in range(warm):
+    for i in range(warm):
         t0 = time.perf_counter()
-        rs = sess.sql(text)
+        rs = sess.sql(texts[1 + i])
         n = rs.nrows
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     rows = check(rs)
     require(rows == n, f"{name}: row count {n} != checked rows {rows}")
-    busy, traced, gaps, top = device_busy_ms(lambda: sess.sql(text).nrows)
+    busy, traced, gaps, top = device_busy_ms(
+        lambda: sess.sql(texts[-1]).nrows)
     extra = after(rs) if after is not None else {}
     require(busy <= traced, f"{name}: device busy {busy} ms exceeds the "
             f"traced wall {traced} ms")
@@ -1788,13 +1902,20 @@ def card_vs_cpu(tables, Session, unique_keys, stmts, setup=None,
         if setup is not None:
             setup(se)
     out, bad = [], []
+    def columns(rs):
+        # host-assembled results (JSON text, recursive CTEs) carry their
+        # columns as built; the others their storage-domain columns
+        if hasattr(rs, "storage_columns"):
+            return rs.storage_columns()
+        return {n: np.asarray(rs.columns[n]) for n in rs.names}
+
     for name, text in stmts:
         crs, prs = card.sql(text), cpu.sql(text)
         if route is not None:
             route(name, crs)
             route(name, prs)
-        got = crs.storage_columns()
-        want = prs.storage_columns()
+        got = columns(crs)
+        want = columns(prs)
         require(list(got) == list(want), f"card vs CPU {name}: columns differ")
         diffs = []
         for col, g in got.items():
@@ -2277,6 +2398,650 @@ def prepare_checks(kernels, reps: int, k17: dict, k18: dict) -> list:
     return out
 
 
+# ---- the vector phase ----------------------------------------------------
+# The reference's ANN benchmark deployment (tools/ann_bench.py:80-100):
+# 1M x 128 float32 embeddings (the shape of ANN-Benchmarks' SIFT-128 base
+# set), 256 gaussian blobs (centers x 4, unit noise), numpy seed 4, grp =
+# id % 10; IVF lists 1024, nprobe 32, k 10; 50 query vectors (a random row
+# + 0.05 noise).
+ANN_N, ANN_D, ANN_BLOBS, ANN_SEED, ANN_NQ = 1_000_000, 128, 256, 4, 50
+ANN_LISTS, ANN_NPROBE, ANN_K = 1024, 32, 10
+# the reference tests' shape (tests/test_vector_index.py::_vec_table), for
+# the card against the CPU and the starved probe
+SMALL_N, SMALL_D, SMALL_BLOBS, SMALL_SEED = 20000, 32, 40, 0
+SMALL_LISTS, SMALL_NPROBE = 64, 8
+# Two distances closer than this x (|x|^2 + |q|^2) may swap places: float32
+# dot products summed in another order differ by about 1e-6 of that scale.
+VEC_MARGIN = 1e-5
+# A distance column holds |x|^2 - 2 x.q + |q|^2 in float32, which cancels
+# terms of size |x|^2 + |q|^2: it is held to numpy's float64 value within
+# this x (|x|^2 + |q|^2).
+VEC_DIST_TOL = 2e-5
+# the kernels' synthetic case: lists (above one block's share), rows, dims
+VEC_SYNTHETIC = (8192, 60_000, 64)
+
+
+def ann_data(n, d, blobs, seed, nq):
+    """(x, blob of each row, centers, queries), drawn in the bench's order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(blobs, d)).astype(np.float32) * 4
+    a = rng.integers(0, blobs, n)
+    x = centers[a] + rng.normal(size=(n, d)).astype(np.float32)
+    queries = x[rng.integers(0, n, nq)] + rng.normal(
+        size=(nq, d)).astype(np.float32) * 0.05
+    return x, a, centers, queries
+
+
+def vec_catalog(x, extra):
+    """{"docs": id int64, the extra int64 columns, emb vector(d)}."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.core.dtypes import (
+        DataType,
+        Field,
+        Schema,
+        TypeKind,
+    )
+    from oceanbase_tpu_torch.core.table import Table
+
+    n, d = x.shape
+    data = {"id": np.arange(n, dtype=np.int64), **extra, "emb": x}
+    schema = Schema(tuple(Field(c, DataType(TypeKind.INT64))
+                          for c in ("id", *extra))
+                    + (Field("emb", DataType.vector(d)),))
+    return {"docs": Table("docs", schema, data)}
+
+
+def vec_text(q, where="", dist=False, k=ANN_K) -> str:
+    lit = "[" + ",".join(f"{v:.6f}" for v in q) + "]"
+    if dist:
+        return (f"select id, vec_l2(emb, '{lit}') as d from docs {where}"
+                f"order by d limit {k}")
+    return (f"select id from docs {where}order by vec_l2(emb, '{lit}') "
+            f"limit {k}")
+
+
+class ExactL2:
+    """numpy's exact nearest neighbours: float64 |x - q|^2, ties to the
+    lower id (a stable argsort). Candidates come from the float64
+    expansion |x|^2 - 2 x.q + |q|^2 (error ~1e-13 of the scale), and the
+    64 best are re-ranked exactly."""
+
+    def __init__(self, x):
+        import numpy as np
+
+        self.x = x
+        self.x64 = x.astype(np.float64)
+        self.xn = (self.x64 * self.x64).sum(axis=1)
+
+    def dist(self, ids, q):
+        q64 = q.astype(self.x64.dtype)
+        return ((self.x64[ids] - q64[None, :]) ** 2).sum(axis=1)
+
+    def top(self, q, k=ANN_K, mask=None):
+        import numpy as np
+
+        q64 = q.astype(np.float64)
+        approx = self.xn - 2.0 * (self.x64 @ q64)
+        ids = np.arange(len(self.x))
+        if mask is not None:
+            approx, ids = approx[mask], ids[mask]
+        m = min(len(ids), 64)
+        cand = ids[np.argpartition(approx, m - 1)[:m]]
+        d = self.dist(cand, q)
+        order = np.lexsort((cand, d))
+        return cand[order[:k]], d[order[:k]]
+
+    def scale(self, ids, q):
+        """|x|^2 + |q|^2 of the rows `ids`: the size of the terms a float32
+        distance cancels."""
+        q64 = q.astype(self.x64.dtype)
+        return self.xn[ids] + float(q64 @ q64)
+
+
+def margin_equal(exact, got, want, q, what) -> int:
+    """`got` ids equal `want` ids rank by rank, except where the exact
+    distances of the two differ by less than VEC_MARGIN x (|x|^2 +
+    |q|^2), a swap float32 rounding may cause. Returns the swaps."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    require(len(got) == len(want), f"{what}: {len(got)} rows, the "
+            f"reference has {len(want)}")
+    swaps = 0
+    for r in np.flatnonzero(got != want):
+        dg = exact.dist(got[r:r + 1], q)[0]
+        dw = exact.dist(want[r:r + 1], q)[0]
+        tol = VEC_MARGIN * max(exact.scale(got[r:r + 1], q)[0],
+                               exact.scale(want[r:r + 1], q)[0])
+        require(abs(dg - dw) <= tol, f"{what}: rank {r} holds id {got[r]} "
+                f"(distance {dg!r}) where the reference has {want[r]} "
+                f"({dw!r}), beyond the margin {tol!r}")
+        swaps += 1
+    return swaps
+
+
+def vec_ids(rs):
+    import numpy as np
+
+    return np.asarray(rs.storage_columns()["id"], dtype=np.int64)
+
+
+def vector_phase(Session, kernels, warm, reps):
+    """The IVF vector path on the bench deployment; the launch counts
+    from 0 just before and read just after. Returns (statement records,
+    build record, launches, kernel arguments, the V_STARVE table's
+    vectors)."""
+    import numpy as np
+    import torch
+
+    import oceanbase_tpu_torch.engine.executor as ex
+    from oceanbase_tpu_torch.storage.vector_index import (
+        register_vector_index,
+    )
+
+    t0 = time.perf_counter()
+    x, _blob, _c, queries = ann_data(ANN_N, ANN_D, ANN_BLOBS, ANN_SEED,
+                                     ANN_NQ)
+    grp = np.arange(ANN_N, dtype=np.int64) % 10
+    cat = vec_catalog(x, {"grp": grp})
+    exact = ExactL2(x)
+    f50 = grp < 5
+    print(f"vector data {ANN_N} x {ANN_D} ({ANN_BLOBS} blobs, seed "
+          f"{ANN_SEED}) in {time.perf_counter() - t0:.3f} s (host)",
+          flush=True)
+    runs = warm + 2
+    # query vectors: 0-9 hold the recall truth (as the bench), the rest
+    # give each statement distinct vectors for its runs
+    spare = iter(range(10, ANN_NQ))
+    qsets = {name: [next(spare) for _ in range(runs)]
+             for name in ("V_BRUTE", "V_L2", "V_F50", "V_DIST")}
+
+    def exact_check(name):
+        qi = qsets[name][warm]  # the last untraced run
+
+        def check(rs):
+            want, _d = exact.top(queries[qi])
+            got = vec_ids(rs)
+            swaps = margin_equal(exact, got, want, queries[qi],
+                                 f"{name} query {qi}")
+            print(f"{name}: ids equal numpy's exact top-{ANN_K} "
+                  f"({swaps} margin swaps)", flush=True)
+            return len(got)
+        return check
+
+    def ann_check(name, mask=None):
+        """An approximate answer: k distinct rows that pass the filter,
+        in ascending exact distance (the margin rule); recall is held
+        over 10 queries apart."""
+        qi = qsets[name][warm]
+
+        def check(rs):
+            q = queries[qi]
+            got = vec_ids(rs)
+            require(len(got) == ANN_K and len(set(got.tolist())) == ANN_K,
+                    f"{name}: {len(got)} rows, expected {ANN_K} distinct")
+            if mask is not None:
+                require(bool(mask[got].all()), f"{name}: a row fails the "
+                        "filter")
+            dg = exact.dist(got, q)
+            tol = VEC_MARGIN * exact.scale(got, q)
+            require(bool(np.all(np.diff(dg) >= -np.maximum(tol[1:],
+                                                           tol[:-1]))),
+                    f"{name}: rows out of distance order")
+            return len(got)
+        return check
+
+    def recall(sess, name, where, mask):
+        hits = 0
+        for qi in range(10):
+            got = vec_ids(sess.sql(vec_text(queries[qi], where)))
+            want, _d = exact.top(queries[qi], mask=mask)
+            hits += len(set(got.tolist()) & set(want.tolist()))
+        r = hits / (10 * ANN_K)
+        print(f"{name}: recall@{ANN_K} {r} over 10 queries", flush=True)
+        require(r >= 0.9, f"{name}: recall@{ANN_K} {r} below 0.9")
+        return r
+
+    kernels.reset_launches()
+    recs = []
+    bsess = Session(cat, device="cuda")
+
+    def brute_after(rs):
+        prep = rs._cursor.prepared
+        require(not prep.params.vector_topns, "V_BRUTE took the IVF route")
+        return {"route": "brute"}
+
+    recs.append(run_statement(
+        bsess, kernels, "V_BRUTE",
+        [vec_text(queries[i]) for i in qsets["V_BRUTE"]],
+        exact_check("V_BRUTE"), warm, ANN_N, "docs", after=brute_after))
+    del bsess
+    release_device()
+
+    register_vector_index(cat, "docs", "emb", lists=ANN_LISTS,
+                          nprobe=ANN_NPROBE)
+    sess = Session(cat, device="cuda")
+    k0 = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = sess.executor.ivf_host("docs", "emb")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bl = {k: kernels.LAUNCHES[k] - k0[k] for k in kernels.LAUNCHES}
+    build = {"build_s": build_s, "iterations": idx.iterations,
+             "max_list": idx.max_list, "lists": len(idx.lengths),
+             "mean_list": float(np.mean(idx.lengths)),
+             "launches": {k: v for k, v in bl.items() if v}}
+    print(f"V_BUILD: lists {len(idx.lengths)} over {ANN_N} rows in "
+          f"{build_s:.3f} s, {idx.iterations} iterations, max_list "
+          f"{idx.max_list} (mean {build['mean_list']:.1f}), launches "
+          f"{build['launches']}", flush=True)
+    require(bl["K19_kmeans_assign"] == idx.iterations + 1
+            and bl["K20_kmeans_update"] == idx.iterations,
+            f"V_BUILD: K19 {bl['K19_kmeans_assign']} and K20 "
+            f"{bl['K20_kmeans_update']} launches for {idx.iterations} "
+            "iterations")
+
+    def ivf_after(name, nprobe_at_least=ANN_NPROBE):
+        def after(rs):
+            prep = rs._cursor.prepared
+            vts = prep.params.vector_topns
+            require(bool(vts), f"{name}: the IVF route did not engage")
+            (v,) = vts.values()
+            require(v.nprobe >= nprobe_at_least, f"{name}: nprobe "
+                    f"{v.nprobe}")
+            entries = {id(sess.cached_entry(vec_text(
+                queries[i], where_of[name], name == "V_DIST"))[0])
+                for i in qsets[name]}
+            require(len(entries) == 1, f"{name}: {len(entries)} cached "
+                    "entries for its query vectors, expected one")
+            return {"nprobe": v.nprobe, "lists": v.lists,
+                    "max_list": v.max_list, "est_sel": v.est_sel,
+                    "ivf_cost": v.ivf_cost, "brute_cost": v.brute_cost}
+        return after
+
+    where_of = {"V_L2": "", "V_F50": "where grp < 5 ", "V_DIST": ""}
+    for name, mask in (("V_L2", None), ("V_F50", f50)):
+        recs.append(run_statement(
+            sess, kernels, name,
+            [vec_text(queries[i], where_of[name]) for i in qsets[name]],
+            ann_check(name, mask), warm, ANN_N, "docs",
+            after=ivf_after(name)))
+        recs[-1]["recall_at_10"] = recall(sess, name, where_of[name], mask)
+
+    def dist_check(rs):
+        qi = qsets["V_DIST"][warm]
+        q = queries[qi]
+        ann_check("V_DIST")(rs)
+        got = rs.storage_columns()
+        ids = np.asarray(got["id"], dtype=np.int64)
+        err = np.abs(np.asarray(got["d"], np.float64) - exact.dist(ids, q))
+        tol = VEC_DIST_TOL * exact.scale(ids, q)
+        require(bool(np.all(err <= tol)), f"V_DIST: distance error "
+                f"{err.max()!r} beyond {VEC_DIST_TOL} x (|x|^2 + |q|^2)")
+        print(f"V_DIST: distances within {VEC_DIST_TOL} x (|x|^2 + |q|^2) "
+              f"of float64 (largest error {err.max():.6g}, "
+              f"{(err / tol).max():.4f} of the limit)", flush=True)
+        return len(ids)
+
+    recs.append(run_statement(
+        sess, kernels, "V_DIST",
+        [vec_text(queries[i], dist=True) for i in qsets["V_DIST"]],
+        dist_check, warm, ANN_N, "docs", after=ivf_after("V_DIST")))
+    for r in recs[1:]:
+        for k in ("K21_ivf_lists", "K22_ivf_probe"):
+            require(r["launches"][k] == runs, f"{r['statement']}: {k} "
+                    f"launched {r['launches'][k]} times in {runs} runs")
+
+    srecs, small_x = starve_statement(Session, kernels, warm)
+    recs += srecs
+    launches = dict(kernels.LAUNCHES)
+    for k in VECTOR_KERNELS:
+        require(launches[k] > 0, f"{k} was never launched on the vector "
+                "path")
+    # the arguments of this phase's build and of one V_F50 run
+    xd = torch.from_numpy(x).cuda()
+    cent = torch.from_numpy(idx.centroids).cuda()
+    assign = kernels.kmeans_assign(xd, cent)
+    cap = capture_args(sess, vec_text(queries[0], where_of["V_F50"]), {
+        "K21_ivf_lists": (ex, "ivf_lists", lambda c, q, p: p),
+        "K22_ivf_probe": (ex, "ivf_probe",
+                          lambda x_, s_, pe, of, le, pr, *r: pr.numel())})
+    args = {"K19_kmeans_assign": (xd, cent),
+            "K20_kmeans_update": (xd, assign, len(idx.lengths)),
+            **cap}
+    del sess
+    return recs, build, launches, args, small_x
+
+
+def starve_statement(Session, kernels, warm):
+    """V_STARVE: the reference tests' 20,000 x 32 table with each row's
+    blob, an index of 64 lists probed 2 at a time, a query near blob 0 and
+    `where blob = <the farthest blob>`: the estimate (1/40) seeds nprobe
+    16, the probed lists hold fewer than k live rows, the counter fires
+    and the retry widens nprobe to all 64 lists; the exhaustive probe must
+    equal the exact filtered top-k."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.storage.vector_index import (
+        register_vector_index,
+    )
+
+    x, blob, centers, _q = ann_data(SMALL_N, SMALL_D, SMALL_BLOBS,
+                                    SMALL_SEED, 1)
+    grp = np.arange(SMALL_N, dtype=np.int64) % 10
+    cat = vec_catalog(x, {"grp": grp, "blob": blob.astype(np.int64)})
+    register_vector_index(cat, "docs", "emb", lists=SMALL_LISTS, nprobe=2)
+    far = int(np.argmax(((centers - centers[0]) ** 2).sum(axis=1)))
+    rng = np.random.default_rng(SMALL_SEED + 1)
+    qs = [centers[0] + rng.normal(size=SMALL_D).astype(np.float32) * 0.05
+          for _ in range(warm + 2)]
+    where = f"where blob = {far} "
+    exact = ExactL2(x)
+    sess = Session(cat, device="cuda")
+
+    def check(rs):
+        q = qs[warm]
+        want, _d = exact.top(q, mask=blob == far)
+        got = vec_ids(rs)
+        margin_equal(exact, got, want, q, "V_STARVE")
+        return len(got)
+
+    def after(rs):
+        prep = rs._cursor.prepared
+        p = prep.params
+        (v,) = p.vector_topns.values()
+        require(p.ann_escalations >= 1, "V_STARVE: no over-probe escalation")
+        require(v.nprobe == v.lists == SMALL_LISTS, f"V_STARVE: nprobe "
+                f"{v.nprobe} of {v.lists} lists after the escalation")
+        print(f"V_STARVE: registered nprobe {v.base_nprobe}, estimated "
+              f"selectivity {v.est_sel:.4f}, {p.ann_escalations} "
+              f"escalation(s) to nprobe {v.nprobe} = lists, "
+              f"{prep.retries} retries", flush=True)
+        return {"escalations": p.ann_escalations, "nprobe": v.nprobe,
+                "est_sel": v.est_sel, "retries": prep.retries,
+                "ann_stats": sess.executor.ann_stats[("docs", "emb")]}
+
+    rec = run_statement(sess, kernels, "V_STARVE",
+                        [vec_text(q, where) for q in qs], check, warm,
+                        SMALL_N, "docs", after=after)
+    return [rec], x
+
+
+def vector_kernel_checks(kernels, reps, args) -> list:
+    """K19-K22 on the vector phase's arguments and on a synthetic case
+    (L = 8192 lists with tied centroids, one list far longer than the
+    rest, dead rows), each against its plain version: K20 bit for bit
+    against the plain version on the CPU; K19, K21 and K22 equal except
+    where the plain version's neighbouring distances lie within
+    VEC_MARGIN x (|x|^2 + |c or q|^2), and exactly on the synthetic case's
+    integer-valued data (every dot product exact in float32). Two runs
+    give the same bits. Timed beside the plain version, the one-call
+    PyTorch yardstick and the bound. The plain versions and yardsticks
+    run with torch.backends.cuda.matmul.allow_tf32 = False."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    rng = np.random.default_rng(8192)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same_twice(name, run):
+        a, b = run(), run()
+        for x, y in zip(a, b):
+            require(torch.equal(bits(x), bits(y)),
+                    f"{name}: two runs differ in their bits")
+
+    def record(name, err, k_run, p_run, lib_run, nbytes, ops, note):
+        same_twice(name, k_run)
+        km = cuda_ms(k_run, reps)
+        pm = cuda_ms(p_run, max(1, reps // 2))
+        lm = cuda_ms(lib_run, reps)
+        bm, by = bound_ms(nbytes, ops)
+        src, rep = KERNEL_META[name]
+        print(f"kernel {name}: {note}, two runs bit-identical, kernel_ms "
+              f"{km:.6f}, plain_ms {pm:.6f}, library_ms {lm:.6f}, bound_ms "
+              f"{bm:.6f} ({by})", flush=True)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "max_abs_err": err, "ms": km,
+                    "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+                    "library_ms": lm})
+
+    def ints(shape, lo=-3, hi=4):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape).astype(
+            np.float32)).cuda()
+
+    # the synthetic case: 8192 lists, tied centroids, one long list, and
+    # dead rows
+    syn_l, syn_n, syn_d = VEC_SYNTHETIC
+    sx = ints((syn_n, syn_d))
+    sc = ints((syn_l, syn_d))
+    sc[4096:4160] = sc[17]
+    sa = torch.from_numpy(np.where(rng.random(syn_n) < 0.3, 5, rng.integers(
+        0, syn_l, syn_n))).cuda()
+    ssel = torch.from_numpy(rng.random(syn_n) < 0.7).cuda()
+    sq = ints((syn_d,))
+
+    # K19 at the build's final centroids over the 1M rows
+    x, c = args["K19_kmeans_assign"]
+    got = kernels.kmeans_assign(x, c)
+    d2 = -2.0 * (x @ c.T) + torch.sum(c * c, dim=1)[None, :]
+    want = torch.argmin(d2, dim=1)
+    two = torch.topk(d2, 2, dim=1, largest=False).values
+    tol = VEC_MARGIN * (torch.sum(x * x, dim=1) + torch.sum(c * c, dim=1)[want])
+    diff = got != want
+    strict = diff & ((two[:, 1] - two[:, 0]) > tol)
+    gap = d2.gather(1, got[:, None])[:, 0] - two[:, 0]
+    require(not bool(strict.any()), f"K19: {int(strict.sum())} rows choose "
+            "another centroid where the plain version's two nearest differ "
+            "beyond the margin")
+    require(bool((gap <= tol).all()), "K19: a chosen distance exceeds the "
+            "minimum beyond the margin")
+    err19 = float(gap.max())
+    del d2, two
+    require(torch.equal(kernels.kmeans_assign(sx, sc),
+                        kernels.kmeans_assign_plain(sx, sc)),
+            "K19: differs from the plain version on the synthetic case")
+    n, d = int(x.shape[0]), int(x.shape[1])
+    nl = int(c.shape[0])
+    record("K19_kmeans_assign", err19, lambda: [kernels.kmeans_assign(x, c)],
+           lambda: [kernels.kmeans_assign_plain(x, c)],
+           lambda: torch.argmin(-2.0 * (x @ c.T) + torch.sum(
+               c * c, dim=1)[None, :], dim=1),
+           4 * n * d + 4 * nl * d + 8 * n, 2.0 * n * nl * d,
+           f"{int(diff.sum())} of {n} rows on near-ties (margin rule), "
+           "synthetic exact")
+
+    # K20 at the build's arguments, bit for bit against the CPU
+    x, a, nl = args["K20_kmeans_update"]
+    gs, gc = kernels.kmeans_update(x, a, nl)
+    ps, pc = kernels.kmeans_update_plain(x.cpu(), a.cpu(), nl)
+    require(torch.equal(bits(gs.cpu()), bits(ps)) and torch.equal(
+        gc.cpu(), pc), "K20: differs from the plain version on the CPU "
+        "(row-order float32 sums)")
+    ss, scn = kernels.kmeans_update(sx, sa, syn_l)
+    ps2, pc2 = kernels.kmeans_update_plain(sx.cpu(), sa.cpu(), syn_l)
+    require(torch.equal(bits(ss.cpu()), bits(ps2)) and torch.equal(
+        scn.cpu(), pc2), "K20: differs from the plain version on the "
+        "synthetic case")
+    longest = int(torch.bincount(a, minlength=nl).max())
+    record("K20_kmeans_update", 0.0,
+           lambda: list(kernels.kmeans_update(x, a, nl)),
+           lambda: list(kernels.kmeans_update_plain(x, a, nl)),
+           lambda: torch.zeros((nl, d), device=x.device).index_add_(
+               0, a, x),
+           4 * n * d + 8 * n + 4 * nl * d + 4 * nl, float(n * d),
+           f"bit for bit against the CPU (largest list {longest} rows, "
+           f"mean {n / nl:.1f})")
+
+    # K21 at one V_F50 run's arguments
+    cent, q, nprobe = args["K21_ivf_lists"]
+    got = kernels.ivf_lists(cent, q, nprobe)
+    want = kernels.ivf_lists_plain(cent, q, nprobe)
+    cd = torch.sum(cent * cent, dim=1) - 2.0 * (cent @ q)
+    scale = torch.sum(cent * cent, dim=1) + torch.dot(q, q)
+    err21 = 0.0
+    for r in torch.nonzero(got != want).flatten().tolist():
+        g, w = int(got[r]), int(want[r])
+        e = abs(float(cd[g]) - float(cd[w]))
+        require(e <= VEC_MARGIN * float(max(scale[g], scale[w])),
+                f"K21: rank {r} holds list {g} where the plain version has "
+                f"{w}, beyond the margin")
+        err21 = max(err21, e)
+    for p in (100, syn_l):
+        require(torch.equal(kernels.ivf_lists(sc, sq, p),
+                            kernels.ivf_lists_plain(sc, sq, p)),
+                f"K21: differs from the plain version on the synthetic case "
+                f"(nprobe {p})")
+    nl = int(cent.shape[0])
+    record("K21_ivf_lists", err21, lambda: [kernels.ivf_lists(cent, q,
+                                                               nprobe)],
+           lambda: [kernels.ivf_lists_plain(cent, q, nprobe)],
+           lambda: torch.topk(-(torch.sum(cent * cent, dim=1)
+                                - 2.0 * (cent @ q)), nprobe),
+           4 * nl * d + 4 * d + 4 * nprobe, 4.0 * nl * d,
+           f"{int((got != want).sum())} of {nprobe} ranks on near-ties "
+           "(margin rule), synthetic exact at nprobe 100 and 8192")
+
+    # K22 at one V_F50 run's arguments
+    (x, sel, perm, offs, lens, probes, q, max_list, nrows, k) = args[
+        "K22_ivf_probe"]
+    got = kernels.ivf_probe(x, sel, perm, offs, lens, probes, q, max_list,
+                            nrows, k)
+    want = kernels.ivf_probe_plain(x, sel, perm, offs, lens, probes, q,
+                                   max_list, nrows, k)
+    require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+            "K22: sel or the starvation count differs from the plain "
+            "version")
+    rows_g, rows_w = got[0].long(), want[0].long()
+    dg = torch.sum(x[rows_g] * x[rows_g], 1) - 2.0 * (x[rows_g] @ q)
+    dw = torch.sum(x[rows_w] * x[rows_w], 1) - 2.0 * (x[rows_w] @ q)
+    sc22 = torch.sum(x[rows_w] * x[rows_w], 1) + torch.dot(q, q)
+    bad = (rows_g != rows_w) & ((dg - dw).abs() > VEC_MARGIN * sc22)
+    require(not bool(bad.any()), "K22: a winner differs from the plain "
+            "version's beyond the margin")
+    err22 = float((dg - dw).abs().max()) if len(dg) else 0.0
+    cand_rows, wv = kernels._probe_windows(perm, offs, lens, probes,
+                                           max_list, nrows)
+    live = wv & sel[cand_rows.long()]
+    nlive = int(live.sum())
+    # the synthetic probe: 300 of 8192 lists, the long list among them,
+    # dead rows, a k above the live rows of some windows
+    sperm = torch.sort(sa, stable=True).indices.to(torch.int32)
+    slen = torch.bincount(sa, minlength=syn_l).to(torch.int32)
+    soff = (torch.cumsum(slen, 0) - slen).to(torch.int32)
+    sprobe = kernels.ivf_lists(sc, sq, 300)
+    sprobe[0] = 5
+    for kk in (10, 2048):
+        sargs = (sx, ssel, sperm, soff, slen, sprobe, sq,
+                 int(slen.max()), syn_n, kk)
+        g, w = kernels.ivf_probe(*sargs), kernels.ivf_probe_plain(*sargs)
+        require(all(torch.equal(a_, b_) for a_, b_ in zip(g, w)),
+                f"K22: differs from the plain version on the synthetic "
+                f"case (k {kk})")
+
+    def k22_library():
+        xv = x.index_select(0, cand_rows.long())
+        dist = torch.sum(xv * xv, dim=1) - 2.0 * (xv @ q)
+        dist = torch.where(live, dist, torch.full_like(dist, float("inf")))
+        return torch.topk(-dist, min(k, int(dist.shape[0])))
+
+    cand = int(cand_rows.numel())
+    record("K22_ivf_probe", err22,
+           lambda: list(kernels.ivf_probe(x, sel, perm, offs, lens, probes,
+                                          q, max_list, nrows, k)),
+           lambda: list(kernels.ivf_probe_plain(x, sel, perm, offs, lens,
+                                                probes, q, max_list, nrows,
+                                                k)),
+           k22_library,
+           cand * (4 + 1) + nlive * 4 * d + 12 * int(probes.numel())
+           + 4 * d + 5 * k + 8, 4.0 * nlive * d,
+           f"{cand} candidates ({nlive} live), "
+           f"{int((rows_g != rows_w).sum())} of {len(rows_g)} ranks on "
+           "near-ties (margin rule), sel and the counter exact, synthetic "
+           "exact at k 10 and 2048")
+    return out
+
+
+def vector_card_vs_cpu(Session, kernels, x) -> dict:
+    """At the reference tests' shape (20,000 x 32, 40 blobs, lists 64,
+    nprobe 8): the CPU's index carried onto the card (ivf_from_arrays +
+    install_ivf), the V_L2 and V_F50 statements equal on both (the margin
+    rule against exact distances), and the card's own build equal to the
+    CPU's perm and lengths."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.storage.vector_index import (
+        ivf_from_arrays,
+        register_vector_index,
+    )
+
+    grp = np.arange(SMALL_N, dtype=np.int64) % 10
+    exact = ExactL2(x)
+
+    def fresh():
+        cat = vec_catalog(x, {"grp": grp})
+        register_vector_index(cat, "docs", "emb", lists=SMALL_LISTS,
+                              nprobe=SMALL_NPROBE)
+        return cat
+
+    cpu = Session(fresh(), device="cpu")
+    cidx = cpu.executor.ivf_host("docs", "emb")
+    card = Session(fresh(), device="cuda")
+    card.executor.install_ivf("docs", "emb", ivf_from_arrays(
+        cidx.centroids, cidx.perm, cidx.offsets, cidx.lengths))
+    rng = np.random.default_rng(SMALL_SEED + 2)
+    swaps = stmts = ivf = 0
+    for _ in range(5):
+        q = x[rng.integers(0, SMALL_N)] + rng.normal(
+            size=SMALL_D).astype(np.float32) * 0.05
+        for where in ("", "where grp < 5 "):
+            text = vec_text(q, where)
+            crs, prs = card.sql(text), cpu.sql(text)
+            routes = [bool(rs._cursor.prepared.params.vector_topns)
+                      for rs in (crs, prs)]
+            require(routes[0] == routes[1], f"card vs CPU vectors: routes "
+                    f"{routes} ({where or 'all'})")
+            ivf += routes[0]
+            swaps += margin_equal(exact, vec_ids(crs), vec_ids(prs), q,
+                                  f"card vs CPU vectors ({where or 'all'})")
+            stmts += 1
+    require(not card.executor.ann_builds, "the card built its own index "
+            "instead of serving the carried one")
+    own = Session(fresh(), device="cuda")
+    k0 = dict(kernels.LAUNCHES)
+    oidx = own.executor.ivf_host("docs", "emb")
+    same_perm = np.array_equal(oidx.perm, cidx.perm)
+    same_len = np.array_equal(oidx.lengths, cidx.lengths)
+    if not (same_perm and same_len):
+        moved = int(np.sum(oidx.perm != cidx.perm))
+        print(f"card vs CPU build: perm differs at {moved} places, lengths "
+              f"{'equal' if same_len else 'differ'}; iterations card "
+              f"{oidx.iterations} cpu {cidx.iterations}", flush=True)
+    require(same_perm and same_len, "card vs CPU build: the card's perm "
+            "and lengths differ from the CPU's (an argmin near-tie)")
+    same_cent = np.array_equal(oidx.centroids.view(np.int32),
+                               cidx.centroids.view(np.int32))
+    require(ivf > 0, "card vs CPU vectors: no statement took the IVF route")
+    print(f"card vs CPU vectors: {stmts} statements (V_L2, V_F50 texts; "
+          f"{ivf} on the IVF route) equal on a carried index ({swaps} "
+          f"margin swaps); the card's own "
+          f"build equals the CPU's perm and lengths ({oidx.iterations} "
+          f"iterations, K19 {kernels.LAUNCHES['K19_kmeans_assign'] - k0['K19_kmeans_assign']} "
+          f"launches), centroid bits {'equal' if same_cent else 'differ'}",
+          flush=True)
+    return {"statements": stmts, "ivf_route": ivf, "swaps": swaps,
+            "build_perm_equal": True,
+            "build_lengths_equal": True, "centroid_bits_equal": same_cent,
+            "iterations": oidx.iterations}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
@@ -2293,6 +3058,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # float32 products in full float32 (PyTorch's default, stated): the
+    # plain versions and yardsticks of the vector kernels must not round
+    # through TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, ROOT)
     from oceanbase_tpu_torch import kernels
     from oceanbase_tpu_torch.engine.session import Session
@@ -2337,6 +3106,7 @@ def main() -> int:
         "Q13": queries.q13_numpy(tables),
         "Q20": queries.q20_numpy(tables),
         "Q11": queries.q11_numpy(tables, q11_fraction(args.sf)),
+        "X1": x1_oracle(tables),
         **analytic_oracles(tables),
     }
     print(f"join and analytic oracles in {time.perf_counter() - t0:.3f} s",
@@ -2361,6 +3131,7 @@ def main() -> int:
         ("Q19", sql_suite.QUERIES[19],
          lambda rs: check_q19(rs, tables, queries)),
         ("T1", T1, oracle("T1")),
+        ("X1", X1, oracle("X1")),
     ]
     for q in NEW_QUERIES:
         name = f"Q{q}"
@@ -2441,11 +3212,30 @@ def main() -> int:
     crecs = card_vs_cpu(small, Session, sql_suite.UNIQUE_KEYS,
                         [(name, text) for name, text, _check in stmts]
                         + [(n, t) for n, (t, d) in ANALYTIC.items()
-                           if d == "tpch"])
+                           if d == "tpch"] + list(SURFACE))
     crecs += card_vs_cpu(small_ds, Session, tpcds.UNIQUE_KEYS,
                          [(n, t) for n, (t, d) in ANALYTIC.items()
                           if d == "tpcds"] + ds_stmts)
     del small_ds, tiny, tiny_ds
+    release_device()
+
+    # ---- the vector phase: its own counts ------------------------------
+    # It runs before the streamed phase: once that phase's prefetch
+    # threads have run, torch.profiler records only part of the device
+    # events of later traced runs (seen on the H100), and the vector
+    # statements' busy times would read low.
+    t0 = time.perf_counter()
+    vrecs, vbuild, v_launches, v_args, small_x = vector_phase(
+        Session, kernels, args.warm, args.reps)
+    for r in vrecs:
+        del r["result"]
+    release_device()
+    print(f"vector phase in {time.perf_counter() - t0:.3f} s", flush=True)
+    krecs += vector_kernel_checks(kernels, args.reps, v_args)
+    del v_args
+    release_device()
+    vcmp = vector_card_vs_cpu(Session, kernels, small_x)
+    del small_x
     release_device()
 
     # ---- the rest of Executor.prepare: each path its own counts --------
@@ -2517,6 +3307,7 @@ def main() -> int:
     del k17_args, k18_args
     release_device()
 
+
     # card vs CPU at SF 0.1: the projection statements, and the streamed
     # ones under a budget that streams lineitem at this scale
     from oceanbase_tpu_torch.engine.chunked import ChunkedPreparedPlan
@@ -2540,12 +3331,14 @@ def main() -> int:
         route=streamed)
 
     phase_launches = {"projection": p_launches, "streamed": st_launches,
-                      "grace": g_launches}
+                      "grace": g_launches, "vector": v_launches}
     for r in krecs:
         if r["name"] == "K17_slice_scan":
             r["launches"] = p_launches[r["name"]]
         elif r["name"] == "K18_decode_staged":
             r["launches"] = st_launches[r["name"]]
+        elif r["name"] in VECTOR_KERNELS:
+            r["launches"] = v_launches[r["name"]]
         else:
             r["launches"] = (main_launches[r["name"]]
                              if r["name"] in main_launches
@@ -2571,6 +3364,8 @@ def main() -> int:
                        "grace_budget": grace_budget,
                        "default_budget": budget,
                        "launches": phase_launches},
+                   "vector_phase": {"statements": vrecs, "build": vbuild,
+                                    "card_vs_cpu": vcmp},
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .dictionary import Dictionary
-from .dtypes import Schema, TypeKind
+from .dtypes import Field, Schema, TypeKind
 
 _TORCH_OF = {
     np.dtype(np.bool_): torch.bool,
@@ -146,6 +146,26 @@ def batch_rows_storage(batch, names) -> dict:
     sel = to_numpy(batch.sel)
     return {n: np.ascontiguousarray(to_numpy(batch.cols[n])[sel])
             for n in names}
+
+
+def batch_valid_storage(batch, names) -> dict:
+    """Live-row validity masks (only for columns that have one): the NULL
+    half of an exact materialization; without it NULLs would come back
+    as their storage sentinel values."""
+    sel = to_numpy(batch.sel)
+    return {
+        n: np.ascontiguousarray(to_numpy(batch.valid[n])[sel])
+        for n in names if n in batch.valid
+    }
+
+
+def renamed_storage_schema(schema_src, names) -> Schema:
+    """Schema of a materialized result: output names zipped positionally
+    onto the planned output schema's field types."""
+    return Schema(tuple(
+        Field(n, schema_src[sn])
+        for n, sn in zip(names, schema_src.names())
+    ))
 
 
 def batch_to_host(batch: ColumnBatch, decode_strings: bool = True) -> dict:

@@ -164,3 +164,16 @@ __device__ __forceinline__ unsigned int ob_fold32(const void* p, int dt,
   int v = (int)ob_ldg_i64(p, dt, i);
   return (unsigned int)(v ^ (v >> 31));
 }
+
+// Order-preserving unsigned image of a float32 (the sign bit flipped for
+// non-negatives, every bit for negatives), so that unsigned order is
+// numeric order. -0.0 maps to +0.0's image (they compare equal) and every
+// NaN to the positive quiet NaN's, above +inf: torch.sort's order.
+#define OB_F32_INF_IMAGE 0xFF800000u
+
+__device__ __forceinline__ unsigned int ob_f32_image(float v) {
+  if (v != v) return 0xFFC00000u;
+  if (v == 0.0f) v = 0.0f;
+  unsigned int b = __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}

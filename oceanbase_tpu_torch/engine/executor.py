@@ -17,16 +17,17 @@ swaps a selective range scan onto a sorted projection of its table
 (read through the range slice, kernel K17), and the out-of-core routes
 for inputs beyond the device budget (engine/chunked.py streams the
 biggest table in chunks decoded by kernel K18; engine/pipeline.py's
-grace-hash route partitions both join sides to host spill files). Not
-ported: the ANN top-n (it needs vector indexes) and the PX executors; a
-plan node or join kind this module does not know raises
-NotImplementedError naming it (the Session raises so for WITH
-RECURSIVE).
+grace-hash route partitions both join sides to host spill files); and
+the ANN top-n over an IVF vector index (`_emit_vector_topn`: the
+nearest lists by kernel K21, the fused filtered re-rank by kernel K22,
+over-probe escalation through the overflow channel). Not ported: the PX
+executors; a plan node this module does not know raises
+NotImplementedError naming it.
 
 The JAX package traces a whole plan into one jitted program; here
 `compile` returns a plain Python closure that runs the same emission
 eagerly on the session's device, with the device functions on the path
-as hand-written kernels (K1-K18, `kernels.py`). The static-capacity
+as hand-written kernels (K1-K22, `kernels.py`). The static-capacity
 contract is unchanged: every intermediate keeps its producer's capacity
 under a live-row `sel` mask, capacity-bound operators report overflow
 counters in ONE stacked vector, and the host reads it once per attempt
@@ -35,6 +36,7 @@ and re-runs at larger capacities (PhysicalParams.bump).
 
 from __future__ import annotations
 
+import time
 import weakref
 from dataclasses import dataclass, field, replace
 
@@ -58,6 +60,7 @@ from ..expr.compile import (
     compile_predicate,
     derive_dict_column,
     evaluate,
+    evaluate_vector_literal,
     infer_type,
 )
 from ..kernels import (
@@ -67,6 +70,8 @@ from ..kernels import (
     bound_search,
     clustered_segments,
     gather_columns,
+    ivf_lists,
+    ivf_probe,
     mark_build,
     scalar_reduce,
     scatter_rows,
@@ -128,6 +133,12 @@ ROOT_COMPACT = -1
 # from plan node ids)
 PACK_GUARD_BASE = 5_000_000
 
+# synthetic overflow-node id space for ANN over-probe escalation: a
+# candidate-starvation counter (live re-rank candidates < k) rides the
+# overflow channel at ANN_PROBE_BASE + nid and widens the node's nprobe
+# instead of a capacity
+ANN_PROBE_BASE = 9_000_000
+
 
 def gather_payload(cols: dict, valid: dict, idx, sel=None):
     """Gather a whole batch payload (values, validity, optionally sel) by
@@ -184,9 +195,28 @@ class PhysicalParams:
     # static slice capacity in scan_cap (overflow-bumped like join caps)
     scan_slice: dict = field(default_factory=dict)
     scan_cap: dict[int, int] = field(default_factory=dict)
+    # ANN: TopN-over-vec_l2 nodes served by an IVF index (nid -> spec)
+    vector_topns: dict = field(default_factory=dict)
+    # ANN over-probe state: nid -> effective nprobe (survives the
+    # per-compile vector_topns re-detection so an escalation sticks),
+    # nid -> total list count (the escalation ceiling: probing every list
+    # IS the exact answer, so the retry always resolves there)
+    ann_nprobe: dict[int, int] = field(default_factory=dict)
+    ann_lists: dict[int, int] = field(default_factory=dict)
+    ann_escalations: int = 0  # lifetime over-probe bumps
 
     def bump(self, overflows: dict[int, int]):
         for nid in overflows:
+            if nid >= ANN_PROBE_BASE:
+                # candidate starvation (the filter decimated the probed
+                # lists): widen nprobe x8 toward the full list count
+                vid = nid - ANN_PROBE_BASE
+                cur = self.ann_nprobe.get(vid)
+                if cur is not None:
+                    self.ann_nprobe[vid] = min(
+                        cur * 8, self.ann_lists.get(vid, cur * 8))
+                    self.ann_escalations += 1
+                continue
             if nid >= PACK_GUARD_BASE:
                 self.groupby_nopack.add(nid - PACK_GUARD_BASE)
                 continue
@@ -208,8 +238,9 @@ class PhysicalParams:
 
 class ClusteredPremiseInvalidated(Exception):
     """A cached plan's clustered-FK premise no longer holds (the probe
-    table's data changed and its fk column is no longer monotone);
-    PreparedPlan recompiles, which re-detects and drops the spec."""
+    table's data changed and its fk column is no longer monotone), or a
+    vector index rebuild changed the list window the plan was built for;
+    PreparedPlan recompiles, which re-detects the spec."""
 
 
 @dataclass(frozen=True)
@@ -222,6 +253,34 @@ class _SliceSpec:
     key: str                   # qualified sort-key column
     lows: tuple = ()           # (E.Literal, 'left'|'right') lower bounds
     highs: tuple = ()          # (E.Literal, 'left'|'right') upper bounds
+
+
+@dataclass(frozen=True)
+class VectorTopNSpec:
+    """ORDER BY vec_l2(col, q) LIMIT k over an IVF-indexed scan: the
+    nearest lists (K21), their contiguous row windows re-ranked exactly
+    and the top k (K22). Filter predicates between the TopN and the Scan
+    ride into the probe as selection masks; a starvation counter on the
+    overflow channel widens nprobe when the filter decimates the probed
+    lists."""
+
+    table: str
+    column: str        # unqualified vector column
+    qual_col: str      # alias-qualified name in the scan batch
+    input_alias: str
+    nprobe: int        # probed lists (over-probe escalated)
+    max_list: int      # per-list read window
+    nrows: int         # live rows of the table at compile
+    k: int
+    key: object        # the vec_l2 Func (resolved through the Project)
+    scan: object       # the Scan node to emit
+    proj: object       # Project between TopN and Scan (or None)
+    filters: tuple = ()    # Filter predicates fused into the probe
+    lists: int = 0         # total IVF list count (escalation ceiling)
+    base_nprobe: int = 0   # registered nprobe before over-probe seeding
+    est_sel: float = 1.0   # estimated filter selectivity at compile
+    ivf_cost: float = 0.0  # route cost, IVF side
+    brute_cost: float = 0.0  # route cost of the brute-force matmul
 
 
 @dataclass(frozen=True)
@@ -334,6 +393,11 @@ class Executor:
         # the last routed plan's sliced scans: id(Scan) -> (_SliceSpec,
         # capacity), read by seed_params
         self._pending_slices: dict = {}
+        # vector indexes: (table, column) -> the last build's record, and
+        # the Session's per-statement counters [queries, probed lists,
+        # over-probe escalations]
+        self.ann_builds: dict = {}
+        self.ann_stats: dict = {}
 
     # ---- input preparation -------------------------------------------
     def _collect_scans(self, plan: LogicalOp) -> list[Scan]:
@@ -439,10 +503,92 @@ class Executor:
 
     def input_batch(self, alias: str, table: str, cols: tuple):
         """One program input from its input_spec entry: a table
-        ColumnBatch, or the clustered-FK join ranges ('#fkr:' aliases)."""
+        ColumnBatch, or a derived structure ('#fkr:' = clustered-FK join
+        ranges, '#ivf:' = IVF vector-index arrays)."""
         if alias.startswith("#fkr:"):
             return self.fk_ranges(*cols)
+        if alias.startswith("#ivf:"):
+            tname, col, max_list = cols
+            return self.ivf_device(tname, col, max_list)
         return self.table_batch(table, cols)
+
+    def ivf_host(self, table: str, col: str):
+        """Built IvfIndex for (table, col), staleness-checked two ways: the
+        table VERSION (DML through invalidate_table bumps it) and the
+        column array's IDENTITY (weakref): an array swapped without an
+        invalidation never serves a stale index. Invalidation means a lazy
+        rebuild on the next use, on this executor's device."""
+        from ..storage.vector_index import build_ivf
+
+        t = self.catalog[table]
+        spec = getattr(t, "vector_indexes", {}).get(col)
+        if spec is None:
+            return None
+        arr = t.data[col]
+        v = self._table_version.get(table, 0)
+        key = (table, ("#ivfh", col))
+        hit = self._batch_cache.get(key)
+        if hit is not None and hit[0] == v and hit[2]() is arr:
+            return hit[1]
+        t0 = time.perf_counter()
+        idx = build_ivf(np.asarray(arr), lists=spec.lists, device=self.device)
+        self._batch_cache[key] = (v, idx, weakref.ref(arr))
+        self.ann_builds[(table, col)] = {
+            "build_version": v,
+            "build_unix": time.time(),
+            "build_s": time.perf_counter() - t0,
+            "rows": int(len(arr)),
+            "iterations": idx.iterations,
+        }
+        return idx
+
+    def install_ivf(self, table: str, col: str, idx) -> None:
+        """Serve `idx` (an IvfIndex built elsewhere, e.g. by
+        storage/vector_index.ivf_from_arrays) as the index of (table, col)
+        at the table's current version, as if ivf_host had built it."""
+        t = self.catalog[table]
+        if col not in getattr(t, "vector_indexes", {}):
+            raise KeyError(f"no vector index registered on {table}.{col}")
+        v = self._table_version.get(table, 0)
+        self._batch_cache[(table, ("#ivfh", col))] = (
+            v, idx, weakref.ref(t.data[col]))
+
+    def ivf_device(self, table: str, col: str, expect_max_list: int):
+        """(centroids, perm, offsets, lengths) device tensors; raises the
+        premise-invalidated recompile signal when a rebuild changed the
+        list window the compiled plan assumed. Keyed on the host index
+        OBJECT too: an identity-detected rebuild re-uploads although the
+        version never moved."""
+        idx = self.ivf_host(table, col)
+        if idx is None or idx.max_list != expect_max_list:
+            raise ClusteredPremiseInvalidated(
+                f"vector index on {table}.{col} changed shape"
+            )
+        v = self._table_version.get(table, 0)
+        key = (table, ("#ivfd", col))
+        hit = self._batch_cache.get(key)
+        if hit is not None and hit[0] == v and hit[2] is idx:
+            return hit[1]
+        dev = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in (idx.centroids, idx.perm, idx.offsets, idx.lengths)
+        )
+        self._batch_cache[key] = (v, dev, idx)
+        return dev
+
+    def ann_residency(self) -> dict:
+        """(table, column) -> device bytes of the uploaded IVF arrays."""
+        out: dict = {}
+        for k, hit in list(self._batch_cache.items()):
+            if (isinstance(k, tuple) and len(k) == 2
+                    and isinstance(k[1], tuple) and k[1]
+                    and k[1][0] == "#ivfd"):
+                out[(k[0], k[1][1])] = sum(
+                    a.numel() * a.element_size() for a in hit[1])
+        return out
+
+    def ann_device_bytes(self) -> int:
+        return sum(self.ann_residency().values())
 
     # host-side monotonicity cache (id + weakref: a bare id can be reused
     # by a new array after the old one is collected)
@@ -1093,12 +1239,32 @@ class Executor:
                 )
             input_spec.append((s.alias, s.table, tuple(sorted(cols))))
 
-        # clustered-FK aggregates: re-detect every compile (deterministic
-        # from plan + catalog) and feed the precomputed ranges as inputs
+        # clustered-FK aggregates + ANN top-n: re-detect every compile
+        # (deterministic from plan + catalog) and feed the precomputed
+        # derived structures as inputs
         params.clustered_aggs.clear()
+        params.vector_topns.clear()
         for nid2, op2 in nodes.items():
-            if not isinstance(op2, Aggregate) \
-                    or not self.clustered_agg_enabled:
+            if not self.clustered_agg_enabled:
+                continue
+            if isinstance(op2, TopN):
+                vspec = self._vector_topn_spec(op2)
+                if vspec is not None:
+                    # an earlier bump() widened this node's nprobe: the
+                    # recompile keeps it, or the retry loops forever
+                    esc = params.ann_nprobe.get(nid2)
+                    if esc is not None and esc > vspec.nprobe:
+                        vspec = replace(vspec, nprobe=min(esc, vspec.lists))
+                    params.ann_nprobe[nid2] = vspec.nprobe
+                    params.ann_lists[nid2] = vspec.lists
+                    params.vector_topns[nid2] = vspec
+                    if all(a != vspec.input_alias for a, _t, _c in input_spec):
+                        input_spec.append((
+                            vspec.input_alias,
+                            vspec.table,
+                            (vspec.table, vspec.column, vspec.max_list),
+                        ))
+            if not isinstance(op2, Aggregate):
                 continue
             spec = self._clustered_agg_spec(op2)
             if spec is not None:
@@ -1118,6 +1284,11 @@ class Executor:
                 PACK_GUARD_BASE + nid
                 for nid in params.pack_guard
                 if nid not in params.groupby_nopack
+            }
+            | {
+                ANN_PROBE_BASE + nid
+                for nid, vs in params.vector_topns.items()
+                if vs.nprobe < vs.lists
             }
         )
 
@@ -1220,6 +1391,9 @@ class Executor:
             return child.with_sel(keep), ovf
 
         if isinstance(op, TopN):
+            vspec = params.vector_topns.get(nid)
+            if vspec is not None and vspec.input_alias in inputs:
+                return self._emit_vector_topn(nid, vspec, inputs, emit)
             child, ovf = emit(op.child, inputs)
             cand = params.topn_cand.get(nid)
             if cand is not None and cand < child.capacity:
@@ -1309,6 +1483,137 @@ class Executor:
             schema=child.schema, dicts=child.dicts,
         )
 
+    # ---- ANN vector top-n ---------------------------------------------
+    def _vector_topn_spec(self, op: TopN):
+        """Match ORDER BY vec_l2(col, q) [ASC] LIMIT k over a Scan of a
+        table with an IVF index on `col`, through an optional Project (the
+        hoisted $ordN) and any Filter chain or pushed scan filter. Index
+        presence is the opt-in to approximate results; whether the route
+        wins is costed against the brute-force matmul on the flops basis
+        (centroid pass + probed re-rank against the full-table distance,
+        in rows of d-dim work; the reference's measured-rate basis needs
+        the plan profiler's store, which the port does not have yet). A
+        filtered route seeds over-probe from the estimated
+        selectivity and escalates at run time through the overflow
+        channel."""
+        if op.offset != 0 or len(op.keys) != 1:
+            return None
+        e, desc = op.keys[0]
+        if desc:
+            return None
+        node = op.child
+        proj = None
+        if isinstance(node, Project):
+            # the planner hoists ORDER BY exprs into the projection as
+            # $ordN; resolve the key ColRef back to its expression
+            proj = node
+            if isinstance(e, E.ColRef):
+                e = dict(node.exprs).get(e.name, e)
+            node = node.child
+        if not isinstance(e, E.Func) or e.name != "vec_l2":
+            return None
+        filters = []
+        filt_top = node
+        while isinstance(node, Filter):
+            filters.append(node.pred)
+            node = node.child
+        if not isinstance(node, Scan):
+            return None
+        colref = e.args[0]
+        if not isinstance(colref, E.ColRef) or "." not in colref.name:
+            return None
+        alias, col = colref.name.split(".", 1)
+        if alias != node.alias:
+            return None
+        try:
+            t = self.catalog[node.table]
+        except KeyError:
+            return None
+        spec = getattr(t, "vector_indexes", {}).get(col)
+        if spec is None:
+            return None
+        idx = self.ivf_host(node.table, col)
+        if idx is None or idx.max_list == 0:
+            return None
+        lists = len(idx.lengths)
+        base_nprobe = max(1, min(spec.nprobe, lists))
+        nprobe = base_nprobe
+        filtered = bool(filters) or node.pushed_filter is not None
+        est_sel = 1.0
+        if filtered:
+            # the over-probe seed: probing nprobe / est_sel lists keeps the
+            # EXPECTED live candidate count at the unfiltered level
+            try:
+                est_sel = float(self._est_rows(filt_top)) / max(
+                    float(t.nrows), 1.0)
+            except Exception:  # noqa: BLE001 - stats must not kill the route
+                est_sel = 1.0
+            est_sel = min(1.0, max(est_sel, 1e-6))
+            boost = min(8, max(1, int(np.ceil(1.0 / max(est_sel, 0.125)))))
+            nprobe = min(lists, nprobe * boost)
+        d = int(np.asarray(idx.centroids).shape[1]) if lists else 1
+        cand_rows = lists + nprobe * idx.max_list
+        brute_rows = max(int(t.nrows), 1)
+        ivf_cost = float(cand_rows * d)
+        brute_cost = float(brute_rows * d)
+        if ivf_cost >= brute_cost:
+            # the index loses (a tiny table, nprobe near every list):
+            # brute force runs exactly through the generic TopN
+            return None
+        return VectorTopNSpec(
+            table=node.table,
+            column=col,
+            qual_col=colref.name,
+            input_alias=f"#ivf:{node.table}.{col}",
+            nprobe=nprobe,
+            max_list=idx.max_list,
+            nrows=t.nrows,
+            k=op.n,
+            key=e,
+            scan=node,
+            proj=proj,
+            filters=tuple(filters),
+            lists=lists,
+            base_nprobe=base_nprobe,
+            est_sel=est_sel,
+            ivf_cost=ivf_cost,
+            brute_cost=brute_cost,
+        )
+
+    def _emit_vector_topn(self, nid, spec: VectorTopNSpec, inputs, emit):
+        """The IVF probe: the Scan (not the Project above it, whose
+        distance column would cost the full matmul the index avoids), the
+        fused filter masks, the nprobe nearest lists (K21), the exact
+        re-rank of their row windows and the top k (K22), the k winners'
+        payload (K4), and the Project re-applied over them."""
+        child, ovf = emit(spec.scan, inputs)
+        for pred in spec.filters:
+            child = child.with_sel(compile_predicate(pred, child))
+        cent, perm, offs, lens = inputs[spec.input_alias]
+        q = evaluate_vector_literal(spec.key.args[1], child.device)
+        probes = ivf_lists(cent, q, spec.nprobe)
+        rows, sel, starved = ivf_probe(
+            child.cols[spec.qual_col], child.sel, perm, offs, lens, probes,
+            q, spec.max_list, spec.nrows, spec.k)
+        if spec.nprobe < spec.lists:
+            # fewer than k live candidates: bump() widens nprobe and the
+            # retry recompiles. At nprobe == lists the probe is exhaustive
+            # (exact), so no counter is emitted and the ladder ends.
+            ovf = dict(ovf)
+            ovf[ANN_PROBE_BASE + nid] = starved
+        cols, valid, _ = gather_payload(child.cols, child.valid, rows)
+        out = ColumnBatch(
+            cols=cols,
+            valid=valid,
+            sel=sel,
+            nrows=torch.sum(sel, dtype=torch.int64),
+            schema=child.schema,
+            dicts=child.dicts,
+        )
+        if spec.proj is not None:
+            out = self._project_batch(spec.proj, out)
+        return out, ovf
+
     # ---- join emission -------------------------------------------------
     @staticmethod
     def _key_columns(exprs, batch: ColumnBatch) -> list[torch.Tensor]:
@@ -1352,8 +1657,8 @@ class Executor:
             return self._emit_left(op, nid, inputs, emit, params)
         if op.kind == "full":
             return self._emit_full(op, nid, inputs, emit, params)
-        if op.kind != "inner":
-            raise _not_ported(f"{op.kind} join")
+        # every other kind (inner, cross) runs the inner body; a key-less
+        # join gets constant keys below
         left, lovf = emit(op.left, inputs)
         right, rovf = emit(op.right, inputs)
         ovf = {**lovf, **rovf}

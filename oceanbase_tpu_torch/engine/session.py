@@ -7,7 +7,14 @@ or (parse -> resolve/plan -> parameterize -> logical-tier lookup or
 prepare) -> one device pass -> lazy result cursor. A statement whose
 inputs exceed the executor's device budget runs out of core (chunked or
 grace-hash) and reports its streaming walls in `last_phases`
-(stream_h2d_s, stream_compute_s, stream_overlap_s).
+(stream_h2d_s, stream_compute_s, stream_overlap_s). WITH RECURSIVE runs
+as a host fixpoint (engine/recursive.py); JSON_OBJECT/JSON_ARRAY select
+items split into hidden argument columns and are formatted on the host
+(sql/json_host.py); `materialize` returns a SELECT as a storage-domain
+Table; `cached_entry` hands the prepared plan of a statement already run
+back with its bound parameters. A statement served by the IVF route adds
+to the executor's `ann_stats` per (table, column): queries, probed lists
+and over-probe escalations.
 
 The session owns its `torch.device`: None means the first CUDA device
 and raises when there is none; the CPU tests pass ``device="cpu"``.
@@ -15,13 +22,23 @@ and raises when there is none; the CPU tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from dataclasses import dataclass
+from dataclasses import replace as _replace
 
 from .. import device as _device
-from ..sql import ast as A
+from ..core.column import (
+    batch_rows_storage,
+    batch_to_host,
+    batch_valid_storage,
+    host_rows,
+    renamed_storage_schema,
+)
+from ..core.dtypes import Field, Schema
+from ..core.table import Table
 from ..sql import parser as P
+from ..sql.json_host import apply_host_json, split_host_json
+from ..sql.logical import ResolveError, output_schema
 from ..sql.plan_cache import (
     CacheEntry,
     FastEntry,
@@ -33,6 +50,7 @@ from ..sql.plan_cache import (
 )
 from ..sql.planner import Planner
 from .executor import DeviceResult, Executor
+from .recursive import recursive_cte_of, run_recursive
 
 
 @dataclass
@@ -81,6 +99,11 @@ class LazyResultSet:
             self._columns_cache = {n: host[n] for n in self.names}
         return self._columns_cache
 
+    def column(self, name: str):
+        """One column's host values: transfers only this column (and the
+        shared sel mask once)."""
+        return self._cursor.fetch_columns((name,))[name]
+
     def rows(self, limit: int | None = None) -> list[tuple]:
         if limit is not None:
             host = self._cursor.fetch_head(limit)
@@ -120,6 +143,39 @@ class Session:
         self.plan_cache = PlanCache()
         # phase breakdown of the LAST statement (seconds)
         self.last_phases: dict = {}
+
+    def materialize(self, text: str, name: str) -> Table:
+        """Run a SELECT and return its result as a storage-domain Table
+        (exact round trip: decimals stay scaled ints, dates day numbers,
+        NULLs keep their validity masks), the engine half of
+        materialized views."""
+        ast = P.parse(text)
+        if recursive_cte_of(ast) is not None:
+            batch, out_names = run_recursive(self, ast)
+            names = list(out_names)
+            schema_src = batch.schema
+        else:
+            planned = self.planner.plan(ast)
+            schema_src = output_schema(planned.plan)
+            batch = self.executor.execute(planned.plan)
+            names = list(planned.output_names)
+        valid = batch_valid_storage(batch, names)
+        schema = renamed_storage_schema(schema_src, names)
+        if valid:
+            # a validity mask forces the field nullable, or the next read
+            # of the table would drop the mask
+            schema = Schema(tuple(
+                Field(f.name, _replace(f.dtype, nullable=True))
+                if f.name in valid else f
+                for f in schema.fields
+            ))
+        return Table(
+            name,
+            schema,
+            batch_rows_storage(batch, names),
+            {n: batch.dicts[n] for n in names if n in batch.dicts},
+            valid,
+        )
 
     def sql(self, text: str):
         # fast-parser front end: one tokenize pass normalizes the
@@ -162,6 +218,20 @@ class Session:
             return None
         return _FastHit(text_key, fe, vals, entry)
 
+    def cached_entry(self, text: str):
+        """(CacheEntry, bound qparams) of a statement already run through
+        sql(), in the form sql() bound them: re-running
+        `entry.prepared` with them re-plans nothing. (None, None) on a
+        cache miss."""
+        norm_key, _ = P.normalize_for_cache(text)
+        planned = self.planner.plan(P.parse(text))
+        pz = parameterize(planned.plan)
+        key = self._key_parts(norm_key, pz)[0]
+        entry = self.plan_cache.get(key)
+        if entry is None:
+            return None, None
+        return entry, bind(pz.values, entry.dtypes, self.executor.device)
+
     def _key_parts(self, norm_key: str, pz) -> tuple[tuple, tuple, str]:
         """(logical cache key, referenced table names, plan fingerprint)."""
         tables = tuple(sorted(
@@ -175,10 +245,20 @@ class Session:
                 fastparse_s: float = 0.0):
         """Plan + execute a parsed SELECT under the plan cache; a success
         registers the text in the fast tier when `fast_reg` is given."""
-        if _self_referencing_cte(ast):
-            raise NotImplementedError(
-                "WITH RECURSIVE (engine/recursive.py) is not ported to the "
-                "torch engine yet")
+        if recursive_cte_of(ast) is not None:
+            out_batch, names = run_recursive(self, ast)
+            host = batch_to_host(out_batch)
+            return ResultSet(tuple(names), {n: host[n] for n in names})
+        # JSON_OBJECT/JSON_ARRAY select items: the device computes the
+        # argument columns, the host formats the JSON text at result
+        # assembly; the spec joins the cache key, so statements that
+        # differ only in constructor literals never share an entry
+        try:
+            ast, jspecs, jhidden = split_host_json(ast)
+        except ValueError as err:
+            raise ResolveError(str(err)) from None
+        if jspecs:
+            norm_key = f"{norm_key}|jh:{jspecs!r}"
         t0 = time.perf_counter()
         planned = self.planner.plan(ast)
         pz = parameterize(planned.plan)
@@ -192,13 +272,16 @@ class Session:
             prepared = self.executor.prepare(pz.plan)
             compile_s = time.perf_counter() - t0
             entry = CacheEntry(prepared, planned.output_names, pz.dtypes)
+            entry.json_specs, entry.json_hidden = jspecs, jhidden
             self.plan_cache.put(key, entry)
         rs = self._execute_entry(
             entry, pz.values, was_hit=was_hit, fast=False,
             phases={"fastparse_s": fastparse_s, "plan_s": plan_s,
                     "compile_s": compile_s},
         )
-        if fast_reg is not None:
+        # the text tier keys on the literal-free text, which cannot tell
+        # constructor literals apart: JSON-split statements never register
+        if fast_reg is not None and not jspecs:
             fkey, params, kinds = fast_reg
             self.plan_cache.fast_put(fkey, FastEntry(
                 norm_key=norm_key, sig=pz.sig, baked=pz.baked,
@@ -212,8 +295,13 @@ class Session:
     def _execute_entry(self, entry, values, *, was_hit, fast, phases,
                        text_key=None):
         """Bind + dispatch a cached/compiled entry behind a lazy cursor;
-        the row count (two small reads) is the statement's sync point."""
+        the row count (two small reads) is the statement's sync point.
+        A JSON-split statement fetches every column eagerly (the host
+        formatting reads them all) and returns a ResultSet."""
         prepared = entry.prepared
+        jn = getattr(entry, "json_specs", ())
+        params = getattr(prepared, "params", None)
+        ann0 = getattr(params, "ann_escalations", 0)
         # out-of-core plans carry streaming counters; the statement reads
         # its own run's deltas
         sstats = getattr(prepared, "stream_stats", None)
@@ -222,15 +310,30 @@ class Session:
         try:
             qparams = bind(values, entry.dtypes, self.executor.device)
             t1 = time.perf_counter()
-            if hasattr(prepared, "run_device"):
-                out, ovf_vec = prepared.run_device(qparams=qparams)
+            if jn:
+                if hasattr(prepared, "run_host"):
+                    hcols, hvalid, hsel, oschema, odicts = prepared.run_host(
+                        qparams=qparams)
+                    host = host_rows(oschema, odicts, hcols, hvalid, hsel)
+                else:
+                    host = batch_to_host(prepared.run(qparams=qparams))
+                t2 = time.perf_counter()
+                names, cols = apply_host_json(
+                    jn, entry.json_hidden, entry.output_names,
+                    {n: host[n] for n in entry.output_names})
+                rs = ResultSet(names, cols, plan_cache_hit=was_hit,
+                               fast_path_hit=fast)
             else:
-                # chunked / grace-hash plans run to the end here
-                out, ovf_vec = prepared.run(qparams=qparams), None
-            t2 = time.perf_counter()
-            cursor = DeviceResult(prepared, qparams, out, ovf_vec)
-            rs = LazyResultSet(entry.output_names, cursor,
-                               plan_cache_hit=was_hit, fast_path_hit=fast)
+                if hasattr(prepared, "run_device"):
+                    out, ovf_vec = prepared.run_device(qparams=qparams)
+                else:
+                    # chunked / grace-hash plans run to the end here
+                    out, ovf_vec = prepared.run(qparams=qparams), None
+                t2 = time.perf_counter()
+                cursor = DeviceResult(prepared, qparams, out, ovf_vec)
+                rs = LazyResultSet(entry.output_names, cursor,
+                                   plan_cache_hit=was_hit,
+                                   fast_path_hit=fast)
             nrows = rs.nrows
         except Exception:
             if text_key is not None:
@@ -241,6 +344,17 @@ class Session:
         phases.update(bind_s=t1 - t0, dispatch_s=t2 - t1, fetch_s=t3 - t2,
                       exec_s=t3 - t0, rows=nrows, cache_hit=was_hit,
                       fast_hit=fast)
+        vts = getattr(params, "vector_topns", None)
+        if vts:
+            # per (table, column): queries, probed lists, escalations (the
+            # reference's per-statement ANN record)
+            esc = getattr(params, "ann_escalations", 0) - ann0
+            stats = self.executor.ann_stats
+            for v in vts.values():
+                st = stats.setdefault((v.table, v.column), [0, 0, 0])
+                st[0] += 1
+                st[1] += v.nprobe
+                st[2] += max(esc, 0)
         if sstats is not None:
             d = tuple(b - a for a, b in zip(stream0, sstats.snapshot()))
             if d[0] or d[6]:  # chunks streamed or partitions spilled
@@ -250,24 +364,3 @@ class Session:
         self.last_phases = phases
         return rs
 
-
-def _self_referencing_cte(ast) -> bool:
-    """True when a CTE declared RECURSIVE names itself in its body (the
-    reference runs such statements as a host-driven fixpoint,
-    engine/recursive.py); a plain WITH naming its own name reads the
-    catalog table, as standard scoping says."""
-    declared = set(getattr(ast, "recursive_ctes", ()) or ())
-    return any(name in declared and name in _table_refs(body, set())
-               for name, body in getattr(ast, "ctes", ()) or ())
-
-
-def _table_refs(node, out: set) -> set:
-    if isinstance(node, A.TableRef):
-        out.add(node.name)
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        for f in dataclasses.fields(node):
-            _table_refs(getattr(node, f.name), out)
-    elif isinstance(node, (tuple, list)):
-        for x in node:
-            _table_refs(x, out)
-    return out

@@ -23,6 +23,10 @@ K15 `first_occurrence`, `scatter_rows`
 K16 `hll_registers`    HyperLogLog registers      (csrc/k16_hll.cu)
 K17 `slice_scan`       sorted-projection range slice (csrc/k17_slice_scan.cu)
 K18 `decode_staged`    streamed chunk wire decode (csrc/k18_decode_staged.cu)
+K19 `kmeans_assign`    nearest centroid per row   (csrc/k19_kmeans_assign.cu)
+K20 `kmeans_update`    per-list row-order sums    (csrc/k20_kmeans_update.cu)
+K21 `ivf_lists`        the nprobe nearest lists   (csrc/k21_ivf_lists.cu)
+K22 `ivf_probe`        filtered re-rank + top-k   (csrc/k22_ivf_probe.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -33,7 +37,12 @@ its entry in `LAUNCHES`. A wrapper given CPU tensors runs the plain
 version beside it instead; a CUDA tensor always goes to the kernel.
 Integer results and orders equal the plain versions bit for bit; float
 sums accumulate in double and in another order than the plain versions,
-so they agree to rounding (the same bits on every run of a kernel).
+so they agree to rounding (the same bits on every run of a kernel). The
+vector kernels stay in float32 as the reference does: K20 sums each list
+in row order and so equals the CPU's sequential sums bit for bit; K19,
+K21 and K22 take their dot products in another order than a matmul, so
+their choices equal the plain versions' except where two distances lie
+within float32 rounding of each other.
 """
 
 from __future__ import annotations
@@ -68,6 +77,10 @@ KERNEL_NAMES = (
     "K16_hll",
     "K17_slice_scan",
     "K18_decode_staged",
+    "K19_kmeans_assign",
+    "K20_kmeans_update",
+    "K21_ivf_lists",
+    "K22_ivf_probe",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -111,6 +124,10 @@ SOURCES = (
     "k16_hll.cu",
     "k17_slice_scan.cu",
     "k18_decode_staged.cu",
+    "k19_kmeans_assign.cu",
+    "k20_kmeans_update.cu",
+    "k21_ivf_lists.cu",
+    "k22_ivf_probe.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -247,6 +264,12 @@ def _load():
         lib.ob_k18_decode.argtypes = [I, P, P, P, P, P, P, P, P, P, L, L, P,
                                       P]
         lib.ob_k18_run_tile.argtypes = []
+        lib.ob_k19_assign.argtypes = [P, P, P, L, I, I, P, P]
+        lib.ob_k20_update.argtypes = [P, P, I, P, L, I, I, P, P, P]
+        lib.ob_k21_lists.argtypes = [P, P, I, I, I, P, P, P]
+        lib.ob_k22_probe.argtypes = [P, P, P, P, P, P, P, I, I, L, I, I, I,
+                                     P, P, P, P, P, P]
+        lib.ob_k22_tile.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -260,7 +283,9 @@ def _load():
                    lib.ob_k13_scan, lib.ob_k13_flags, lib.ob_k13_search,
                    lib.ob_k14_build, lib.ob_k14_probe, lib.ob_k15_first,
                    lib.ob_k15_scatter, lib.ob_k16_registers,
-                   lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile):
+                   lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile,
+                   lib.ob_k19_assign, lib.ob_k20_update, lib.ob_k21_lists,
+                   lib.ob_k22_probe, lib.ob_k22_tile):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -2357,3 +2382,234 @@ def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
         _check(rc, "K18_decode_staged")
     LAUNCHES["K18_decode_staged"] += 1
     return out, sel
+
+
+# ---------------------------------------------------------------------------
+# K19-K22: the IVF vector index (k-means build, filtered probe)
+# ---------------------------------------------------------------------------
+#
+# float32 throughout, as the reference. On the card the plain versions'
+# matmuls run in full float32 only while
+# torch.backends.cuda.matmul.allow_tf32 is False (PyTorch's default);
+# TF32 keeps about three digits and changes which centroid is nearest.
+
+
+def _matrix(t: torch.Tensor, what: str, cols: int | None = None) -> None:
+    if t.dim() != 2 or (cols is not None and t.shape[1] != cols):
+        raise ValueError(f"{what}: expected a 2-D tensor"
+                         + (f" of width {cols}" if cols is not None else "")
+                         + f", got {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def kmeans_assign_plain(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Plain version of K19 (storage/vector_index.py:57 _kmeans_assign):
+    argmin over l of -2 x.c_l + |c_l|^2, the lowest index on ties."""
+    d2 = -2.0 * (x @ c.T) + torch.sum(c * c, dim=1)[None, :]
+    return torch.argmin(d2, dim=1)
+
+
+def kmeans_assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """K19: int64 [n] index of each row's nearest centroid (c: (L, d)),
+    by -2 x.c + |c|^2, the lowest index on ties; the (n, L) distance
+    matrix is never written."""
+    if not _on_cuda(x, c):
+        return kmeans_assign_plain(x, c)
+    _matrix(x, "K19 x")
+    d = int(x.shape[1])
+    _matrix(c, "K19 centroids", d)
+    n, nl = int(x.shape[0]), int(c.shape[0])
+    if nl < 1 or d < 1:
+        raise ValueError("K19 needs at least one centroid and one dimension")
+    if n >= 2**31 or nl >= 2**31:
+        raise ValueError("K19 takes at most 2^31 - 1 rows and centroids")
+    lib = _load()
+    dev = x.device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    cnorm = torch.empty(nl, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = lib.ob_k19_assign(x.data_ptr(), c.data_ptr(), cnorm.data_ptr(),
+                               n, nl, d, out.data_ptr(), _stream(dev))
+        _check(rc, "K19_kmeans_assign")
+    LAUNCHES["K19_kmeans_assign"] += 1
+    return out
+
+
+def kmeans_update_plain(x: torch.Tensor, a: torch.Tensor, nl: int):
+    """Plain version of K20 (storage/vector_index.py:64 _kmeans_update):
+    per-list float32 sums (L, d) and counts (L,) of the rows by their
+    assignment, as segment sums (index_add_; on the CPU each list sums in
+    row order)."""
+    n, d = int(x.shape[0]), int(x.shape[1])
+    sums = torch.zeros((nl, d), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros(nl, dtype=torch.float32, device=x.device)
+    sums.index_add_(0, a, x)
+    cnt.index_add_(0, a, torch.ones(n, dtype=torch.float32, device=x.device))
+    return sums, cnt
+
+
+def kmeans_update(x: torch.Tensor, a: torch.Tensor, nl: int):
+    """K20: (sums (L, d) float32, counts (L,) float32) of the rows of x by
+    assignment a (int32 or int64, in [0, L)). The rows are ordered by
+    assignment (K3, stable: row order within a list), then each list sums
+    its rows in row order in float32 -- no atomics, so the result has the
+    bits of a sequential sum on every run."""
+    if not _on_cuda(x, a):
+        return kmeans_update_plain(x, a, nl)
+    _matrix(x, "K20 x")
+    n, d = int(x.shape[0]), int(x.shape[1])
+    _vector(a, n, "K20 assignment")
+    if a.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"K20 assignment must be int32 or int64, got {a.dtype}")
+    if nl < 1 or n >= 2**31:
+        raise ValueError("K20 needs 1 <= lists and at most 2^31 - 1 rows")
+    lib = _load()
+    dev = x.device
+    order = sort_order([a], [False], torch.ones(n, dtype=torch.bool,
+                                                device=dev))
+    sums = torch.empty((nl, d), dtype=torch.float32, device=dev)
+    cnt = torch.empty(nl, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k20_update(x.data_ptr(), a.data_ptr(), DTYPE_CODE[a.dtype],
+                               order.data_ptr(), n, d, nl, sums.data_ptr(),
+                               cnt.data_ptr(), _stream(dev))
+        _check(rc, "K20_kmeans_update")
+    LAUNCHES["K20_kmeans_update"] += 1
+    return sums, cnt
+
+
+def ivf_lists_plain(cent: torch.Tensor, q: torch.Tensor,
+                    nprobe: int) -> torch.Tensor:
+    """Plain version of K21 (engine/executor.py:1572-1573): cdist = |c|^2 -
+    2 c.q, then lax.top_k(-cdist, nprobe)'s order: nearest first, the
+    lower list index on ties."""
+    cdist = torch.sum(cent * cent, dim=1) - 2.0 * (cent @ q)
+    return torch.sort(cdist, stable=True).indices[:nprobe].to(torch.int32)
+
+
+def ivf_lists(cent: torch.Tensor, q: torch.Tensor,
+              nprobe: int) -> torch.Tensor:
+    """K21: int32 [nprobe] indices of the nprobe centroids nearest to q
+    (cent: (L, d), q: (d,)), nearest first, the lower index on ties."""
+    if not _on_cuda(cent, q):
+        return ivf_lists_plain(cent, q, nprobe)
+    _matrix(cent, "K21 centroids")
+    nl, d = int(cent.shape[0]), int(cent.shape[1])
+    _vector(q, d, "K21 query")
+    if q.dtype != torch.float32:
+        raise TypeError("K21 query must be float32")
+    if not 1 <= nprobe <= nl:
+        raise ValueError(f"K21 needs 1 <= nprobe <= lists, got {nprobe}, {nl}")
+    if nl >= 2**31:
+        raise ValueError("K21 takes at most 2^31 - 1 lists")
+    lib = _load()
+    dev = cent.device
+    keys = torch.empty(nl, dtype=torch.int64, device=dev)
+    out = torch.empty(nprobe, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k21_lists(cent.data_ptr(), q.data_ptr(), nl, d, nprobe,
+                              keys.data_ptr(), out.data_ptr(), _stream(dev))
+        _check(rc, "K21_ivf_lists")
+    LAUNCHES["K21_ivf_lists"] += 1
+    return out
+
+
+def _probe_windows(perm, offs, lens, probes, max_list: int, n: int):
+    """The candidate rows of the probed lists' windows and their window
+    validity, flattened in probe order (position p * max_list + j)."""
+    dev = perm.device
+    starts = offs[probes.long()].to(torch.int64)
+    ll = lens[probes.long()].to(torch.int64)
+    j = torch.arange(max_list, dtype=torch.int64, device=dev)
+    win = starts[:, None] + j[None, :]
+    wvalid = j[None, :] < ll[:, None]
+    rows = perm[torch.clamp(win, 0, max(n - 1, 0))].reshape(-1)
+    return rows, wvalid.reshape(-1)
+
+
+def ivf_probe_plain(x, sel, perm, offs, lens, probes, q, max_list: int,
+                    n: int, k: int):
+    """Plain version of K22 (engine/executor.py:1574-1601): the probed
+    windows' rows, dist = |x|^2 - 2 x.q (inf where the window or the
+    filter kills the row), lax.top_k(-dist, k)'s order (smaller distance
+    first, the lower candidate position on ties); returns (int32 rows of
+    the winners, their sel = dist < inf, the starvation count
+    max(k - live candidates, 0) as a 0-d int64)."""
+    rows, wv = _probe_windows(perm, offs, lens, probes, max_list, n)
+    xv = x[rows.long()]
+    dist = torch.sum(xv * xv, dim=1) - 2.0 * (xv @ q)
+    live = wv & sel[rows.long()]
+    dist = torch.where(live, dist, torch.full_like(dist, float("inf")))
+    kk = min(k, int(rows.shape[0]))
+    top = torch.sort(dist, stable=True).indices[:kk]
+    starved = torch.clamp(kk - torch.sum(live, dtype=torch.int64), min=0)
+    return rows[top].to(torch.int32), dist[top] < float("inf"), starved
+
+
+K22_MAX_K = 2048
+_k22_tile = None
+
+
+def ivf_probe(x, sel, perm, offs, lens, probes, q, max_list: int, n: int,
+              k: int):
+    """K22: the IVF probe's gather, exact re-rank and top-k in one tile
+    pass and one merge launch. x: (cap, d) float32 vectors, sel: bool
+    [cap] live rows after the fused filter, perm/offs/lens: the index's
+    int32 arrays, probes: int32 [nprobe] (K21). Returns (int32 [k'] rows,
+    bool [k'] sel, 0-d int64 starvation count), k' = min(k, nprobe *
+    max_list), in lax.top_k's order."""
+    global _k22_tile
+    if not _on_cuda(x, sel, perm, offs, lens, probes, q):
+        return ivf_probe_plain(x, sel, perm, offs, lens, probes, q,
+                               max_list, n, k)
+    _matrix(x, "K22 vectors")
+    cap, d = int(x.shape[0]), int(x.shape[1])
+    _vector(sel, cap, "K22 sel")
+    _vector(q, d, "K22 query")
+    nl = int(offs.shape[0])
+    _vector(offs, nl, "K22 offsets")
+    _vector(lens, nl, "K22 lengths")
+    _vector(perm, int(perm.shape[0]), "K22 perm")
+    nprobe = int(probes.shape[0])
+    _vector(probes, nprobe, "K22 probes")
+    if sel.dtype != torch.bool or q.dtype != torch.float32:
+        raise TypeError("K22 sel must be bool and the query float32")
+    for t, what in ((perm, "perm"), (offs, "offsets"), (lens, "lengths"),
+                    (probes, "probes")):
+        if t.dtype != torch.int32:
+            raise TypeError(f"K22 {what} must be int32")
+    cand = nprobe * int(max_list)
+    if cand < 1 or cand >= 2**32:
+        raise ValueError(f"K22 takes 1 to 2^32 - 1 candidates, got {cand}")
+    if not 1 <= n <= min(cap, int(perm.shape[0])):
+        raise ValueError(f"K22 rows {n} outside the table's arrays")
+    kk = min(int(k), cand)
+    if not 1 <= kk <= K22_MAX_K:
+        raise ValueError(f"K22 selects 1 to {K22_MAX_K} rows, got {kk}")
+    lib = _load()
+    if _k22_tile is None:
+        _k22_tile = int(lib.ob_k22_tile())
+    dev = x.device
+    nblocks = max(1, min(-(-cand // _k22_tile),
+                         2 * torch.cuda.get_device_properties(
+                             dev).multi_processor_count))
+    partial = torch.empty(nblocks * kk, dtype=torch.int64, device=dev)
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = torch.empty(kk, dtype=torch.int32, device=dev)
+    osel = torch.empty(kk, dtype=torch.bool, device=dev)
+    starved = torch.empty((), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k22_probe(
+            x.data_ptr(), sel.data_ptr(), perm.data_ptr(), offs.data_ptr(),
+            lens.data_ptr(), probes.data_ptr(), q.data_ptr(), nprobe,
+            int(max_list), int(n), d, kk, nblocks, partial.data_ptr(),
+            live.data_ptr(), rows.data_ptr(), osel.data_ptr(),
+            starved.data_ptr(), _stream(dev))
+        _check(rc, "K22_ivf_probe")
+    LAUNCHES["K22_ivf_probe"] += 1
+    return rows, osel, starved
