@@ -57,6 +57,26 @@ bit for bit against the CPU) and timed; at 20,000 x 32 the card's
 statements equal the CPU's on the CPU-built index carried across, and
 the card's own build equals the CPU's perm and lengths.
 
+The server phase follows, with its own counts: a Database(n_nodes=1,
+n_ls=1) of the port on the card with the TPC-H tables preloaded, its
+MySQL wire front on localhost and a minimal protocol-41 client. Q1, Q6,
+Q3 and Q14 run through the engine Session (held to the int64 oracles),
+then through DbSession.sql with the result cache off (cold, warm
+fast-tier hits on the narrowed result frame, one traced run), from the
+result cache (no device work on a hit) and over the wire, every time
+with the engine's rows bit for bit. A year of shipments (~9.1M live
+rows at SF 10) is fetched LIMIT 10 and LIMIT 1000 through K23; a
+point-range read narrows its frame through K23; a LEFT JOIN onto 40
+columns (83 columns and validity planes) goes through K23 in its
+narrowed frame and its head fetch; a served table is loaded by
+multi-row INSERTs, updated and deleted against a numpy model, with the
+result cache invalidated by the writes; the degraded rungs (and the
+card's refusal of the host rung) and the profiled-run fallback must
+stay untaken. K23 is held to its plain version bit for bit on the
+phase's arguments and on synthetic edge cases, and timed. Small results
+of the main path and the vector statements are timed with the narrowed
+frame off, on, and on with K23 forced (the narrowed frame's A/B).
+
 The rest of Executor.prepare follows, each path with its launch counts
 set to 0 just before it and read just after. The projection phase builds
 `lineitem#sp:l_shipdate` (the reference bench's covered columns) and runs
@@ -337,6 +357,9 @@ KERNEL_META = {
     "K22_ivf_probe": (
         "oceanbase_tpu_torch/csrc/k22_ivf_probe.cu",
         "oceanbase_tpu/engine/executor.py:1574"),
+    "K23_first_live": (
+        "oceanbase_tpu_torch/csrc/k23_first_live.cu",
+        "oceanbase_tpu/engine/executor.py:3867"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -354,7 +377,7 @@ KERNEL_META = {
         "oceanbase_tpu/engine/executor.py:2606"),
 }
 
-# the entries of the {"kernels": ...} line: K1-K22 and the second entries
+# the entries of the {"kernels": ...} line: K1-K23 and the second entries
 KERNEL_LINE = [k for k in KERNEL_META if k != "dedup_batch"]
 # the kernels of the vector phase's own path
 VECTOR_KERNELS = ("K19_kmeans_assign", "K20_kmeans_update", "K21_ivf_lists",
@@ -699,29 +722,39 @@ def check_q19(rs, tables, queries) -> int:
     return 1
 
 
-def device_busy_ms(fn) -> tuple[float, float, list, list]:
-    """(device ms, wall ms, longest idle gaps, device ms by kernel) of one
-    fn() call under torch.profiler. Device time is the union of the
+def device_busy_ms(fn) -> tuple[float, float, list, list, int]:
+    """(device ms, wall ms, longest idle gaps, device ms by kernel, traced
+    attempts) of one fn() call under torch.profiler. Device time is the union of the
     intervals of the trace's CUDA events (kernels, copies, sets), so
     overlapping records count once and host-side records not at all; the
     wall is the host clock around the same traced call. The gaps are the
     three longest stretches between device intervals, with the events on
     either side; the kernels are the six names with the most device time,
-    summed over the same CUDA events."""
+    summed over the same CUDA events. A trace with no device event is
+    taken again (at most 3 attempts); the records keep the count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    require(bool(spans), "the traced run recorded no device activity")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+        # torch.profiler has dropped a whole trace's device events on
+        # this card (PERF.md §7): the run is traced again, and says so
+        print(f"traced attempt {attempt}: torch.profiler recorded no "
+              "device event", flush=True)
+    require(bool(spans), "the traced run recorded no device activity in "
+            "3 attempts")
     busy_us, gaps = 0.0, []
     cur_s, cur_e, cur_name = spans[0]
     for s, e, name in spans[1:]:
@@ -738,7 +771,7 @@ def device_busy_ms(fn) -> tuple[float, float, list, list]:
         short = name.split("(")[0].split("<")[0].replace("void ", "")
         by_name[short] = by_name.get(short, 0.0) + (en - st) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return busy_us / 1e3, wall, gaps[:3], top
+    return busy_us / 1e3, wall, gaps[:3], top, attempt
 
 
 VECTOR_CHECKS = {
@@ -855,7 +888,7 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
         times.append((time.perf_counter() - t0) * 1e3)
     rows = check(rs)
     require(rows == n, f"{name}: row count {n} != checked rows {rows}")
-    busy, traced, gaps, top = device_busy_ms(
+    busy, traced, gaps, top, attempts = device_busy_ms(
         lambda: sess.sql(texts[-1]).nrows)
     extra = after(rs) if after is not None else {}
     require(busy <= traced, f"{name}: device busy {busy} ms exceeds the "
@@ -882,6 +915,7 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
         "peak_memory_bytes": peak,
         "fast_path_hit": bool(rs.fast_path_hit),
         "device_busy_ms": busy, "traced_wall_ms": traced,
+        "traced_attempts": attempts,
         "device_idle_share": 1 - busy / traced,
         "longest_idle_gaps": [{"ms": g, "after": a, "before": b}
                               for g, a, b in gaps],
@@ -899,6 +933,54 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
           f"{rec['device_idle_share']:.4f}, longest gap "
           f"{gaps[0][0] if gaps else 0.0:.3f} ms); most device time: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in top[:4]), flush=True)
+    return rec
+
+
+# the narrowed frame's A/B: rounds per leg (after one round that warms
+# each leg), interleaved so that drift falls on every leg alike
+NARROW_AB_ROUNDS = 9
+# small results of the main path: aggregates, a TopN, and filters whose
+# root compaction is wider than the narrowed frame
+NARROW_AB_MAIN = ("Q1", "Q6", "Q3", "Q2", "Q11", "Q22")
+
+
+def narrow_ab(sess, name, text, rounds=NARROW_AB_ROUNDS) -> dict:
+    """Warm latency of one statement to its host rows (`rows()`), on one
+    Session, in three legs interleaved round by round: the narrowed frame
+    off (the plain cursor and its small-result copy), on (a frame no
+    wider than the narrowed one goes as it is), and on with K23 over
+    every frame (the compaction that a fitting frame skips). Medians in
+    ms; every leg's rows must be the same."""
+    import torch
+
+    import oceanbase_tpu_torch.engine.executor as ex
+
+    fits = ex._frame_fits
+    legs = {"off": (lambda: False, fits), "on": (None, fits),
+            "on_k23": (None, lambda out, ncap: False)}
+    times = {leg: [] for leg in legs}
+    rows = {}
+    try:
+        for i in range(rounds + 1):
+            for leg, (enabled, fit) in legs.items():
+                sess.narrow_enabled_fn, ex._frame_fits = enabled, fit
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = sess.sql(text).rows()
+                ms = (time.perf_counter() - t0) * 1e3
+                if i:
+                    times[leg].append(ms)
+                rows.setdefault(leg, got)
+                require(got == rows["off"], f"narrow A/B {name}: leg {leg} "
+                        "rows differ from the plain cursor's")
+    finally:
+        sess.narrow_enabled_fn, ex._frame_fits = None, fits
+    rec = {"statement": name, "rounds": rounds,
+           **{f"{leg}_ms": statistics.median(v) for leg, v in times.items()},
+           "ms": times}
+    print(f"narrow A/B {name}: warm to rows, median of {rounds}: off "
+          f"{rec['off_ms']:.3f} ms, on {rec['on_ms']:.3f} ms, on with K23 "
+          f"forced {rec['on_k23_ms']:.3f} ms", flush=True)
     return rec
 
 
@@ -2398,6 +2480,683 @@ def prepare_checks(kernels, reps: int, k17: dict, k18: dict) -> list:
     return out
 
 
+# ---- the server phase ----------------------------------------------------
+# The system's users connect to the MySQL-compatible server: a
+# Database(n_nodes=1, n_ls=1) of the port with the TPC-H tables preloaded
+# as read-only tables (as tools/ann_smoke.py:85-92 preloads its docs),
+# its wire front on localhost, and a DML table it serves.
+SERVER_STMTS = (1, 6, 3, 14)
+# the head fetch: one year of shipments, ~9.1M of lineitem's 60M rows at
+# SF 10, taken LIMIT 10 and LIMIT 1000 from the lazy cursor
+HEAD_TEXT = """select l_orderkey, l_linenumber, l_extendedprice from lineitem
+where l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01'"""
+HEAD_LIMITS = (10, 1000)
+# a point-range read: a filter root's compaction (>= 1024 rows) is wider
+# than the narrowed frame (256), so its warm runs compact through K23
+LOOKUP_TEXT = ("select l_orderkey, l_linenumber, l_quantity from lineitem "
+               "where l_orderkey < 40")
+# a result wider than one K23 write pass (48 columns and validity
+# planes): SELECT * of a LEFT JOIN onto 40 bigint columns, every fifth
+# key unmatched (NULLs): 42 columns + 41 validity planes
+WIDE_COLS, WIDE_KEYS = 40, 600
+WIDE_TEXT = ("select * from keys_t left join wide_t on keys_t.k = wide_t.id "
+             "where keys_t.k {}")
+# result-cache repeats per statement: the first admits, the rest hit
+RC_REPEATS = 3
+# the served DML table: 100,000 rows by 1,000-row INSERTs (~12 s of host
+# time at ~8k rows/s), 16 groups
+DML_ROWS, DML_BATCH, DML_GROUPS, DML_SEED = 100_000, 1_000, 16, 7
+DML_TAGS = ("alpha", "beta", "gamma", "delta")
+
+
+class WireClient:
+    """A minimal MySQL protocol-41 client (handshake v10, native password
+    login, COM_QUERY text result sets), as tests/test_mysql_front.py
+    carries one."""
+
+    def __init__(self, port: int, user: str = "root", password: str = ""):
+        import socket
+        import struct
+
+        from oceanbase_tpu_torch.server.mysql_front import (
+            native_password_scramble,
+        )
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+        self.seq = 0
+        greeting = self._read()
+        require(greeting[0] == 10, "wire: not a protocol-10 greeting")
+        nul = greeting.index(b"\x00", 1)
+        p = nul + 1 + 4
+        salt = greeting[p:p + 8]
+        p += 8 + 1 + 2 + 1 + 2 + 2 + 1 + 10
+        salt += greeting[p:greeting.index(b"\x00", p)]
+        auth = native_password_scramble(password, salt[:20])
+        self._send(struct.pack("<IIB23x", 0x0200 | 0x8000, 1 << 24, 33)
+                   + user.encode() + b"\x00" + bytes([len(auth)]) + auth)
+        require(self._read()[0] == 0x00, "wire: login refused")
+
+    def _read(self) -> bytes:
+        head = self._read_n(4)
+        self.seq = (head[3] + 1) & 0xFF
+        return self._read_n(int.from_bytes(head[:3], "little"))
+
+    def _read_n(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            c = self.sock.recv(n - len(buf))
+            require(bool(c), "wire: connection closed")
+            buf += c
+        return buf
+
+    def _send(self, payload: bytes) -> None:
+        self.sock.sendall(len(payload).to_bytes(3, "little")
+                          + bytes([self.seq]) + payload)
+        self.seq = (self.seq + 1) & 0xFF
+
+    @staticmethod
+    def _lenenc(buf: bytes, pos: int):
+        f = buf[pos]
+        if f < 251:
+            return f, pos + 1
+        width = {0xFC: 2, 0xFD: 3}.get(f, 8)
+        return (int.from_bytes(buf[pos + 1:pos + 1 + width], "little"),
+                pos + 1 + width)
+
+    def query(self, sql: str):
+        """(names, rows of str/None) of a result set, or the OK count."""
+        self.seq = 0
+        self._send(b"\x03" + sql.encode())
+        first = self._read()
+        require(first[0] != 0xFF, f"wire: {first[9:].decode()}")
+        if first[0] == 0x00:
+            return self._lenenc(first, 1)[0]
+        ncols, _ = self._lenenc(first, 0)
+        names = []
+        for _ in range(ncols):
+            col, pos, vals = self._read(), 0, []
+            for _f in range(6):
+                ln, pos = self._lenenc(col, pos)
+                vals.append(col[pos:pos + ln])
+                pos += ln
+            names.append(vals[4].decode())
+        require(self._read()[0] == 0xFE, "wire: no EOF after the columns")
+        rows = []
+        while True:
+            pkt = self._read()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                return names, rows
+            pos, row = 0, []
+            for _ in range(ncols):
+                if pkt[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                else:
+                    ln, pos = self._lenenc(pkt, pos)
+                    row.append(pkt[pos:pos + ln].decode())
+                    pos += ln
+            rows.append(tuple(row))
+
+    def close(self) -> None:
+        self.seq = 0
+        try:
+            self._send(b"\x01")
+        except OSError:
+            pass
+        self.sock.close()
+
+
+def wire_text(v):
+    """A result value as the wire front's text protocol writes it
+    (server/mysql_front.py `_cell`): floats by repr, so the text carries
+    every bit."""
+    import numpy as np
+
+    if v is None or (isinstance(v, (float, np.floating)) and v != v):
+        return None
+    if isinstance(v, (float, np.floating)):
+        return repr(float(v))
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    return str(v)
+
+
+def row_bits(rows) -> list:
+    """Rows with every float as its float64 bit pattern: equal lists are
+    bit-identical results."""
+    import numpy as np
+
+    def cell(v):
+        if isinstance(v, (float, np.floating)):
+            return ("f", np.float64(v).view(np.int64).item())
+        if isinstance(v, (int, np.integer)):
+            return ("i", int(v))
+        return ("s", v)
+
+    return [tuple(cell(v) for v in r) for r in rows]
+
+
+def timed(fn, n: int) -> list:
+    """Host milliseconds of n calls of fn() (each ends in a device sync)."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def server_statement(db, fe, esess, kernels, q, text, check, warm) -> dict:
+    """One TPC-H statement through the engine Session (the reference rows,
+    held to the int64 oracle), through DbSession.sql with the result cache
+    off (cold, warm fast-tier hits, one traced run), from the result
+    cache, and over the wire."""
+    import torch
+
+    name = f"Q{q}"
+    erows = []
+
+    def eng():
+        rs = esess.sql(text)
+        erows[:] = [rs]
+        return rs.nrows
+
+    e_ms = timed(eng, warm + 1)
+    n = check(erows[0])
+    ref = erows[0].rows()
+    require(len(ref) == n, f"server {name}: engine rows")
+    # DbSession.sql, result cache off: the fast tier and the narrowed
+    # frame on every warm run
+    s = db.session()
+    s.sql("set ob_enable_result_cache = 0")
+    st = db.plan_cache.stats
+    f0 = st.fast_hits
+    got = []
+
+    def dbs():
+        rs = s.sql(text)
+        got.append(rs)
+        return rs.nrows
+
+    cold = timed(dbs, 1)[0]
+    warm_ms = timed(dbs, warm)
+    fast = st.fast_hits - f0
+    require(fast >= warm, f"server {name}: {fast} fast hits in {warm} warm "
+            "runs")
+    require(all(r.fast_path_hit for r in got[1:]),
+            f"server {name}: a warm run missed the fast tier")
+    for rs in got:
+        require(row_bits(rs.rows()) == row_bits(ref),
+                f"server {name}: DbSession rows differ from the engine's")
+    # the first re-execution of a digest is profiled (per-operator stages,
+    # not narrowed); the later warm runs narrow
+    narrowed = bool(getattr(got[-1]._cursor, "narrowed", False))
+    if q == 3:
+        require(narrowed, "server Q3: the warm result frame was not narrowed")
+    busy, traced, gaps, top, attempts = device_busy_ms(
+        lambda: s.sql(text).nrows)
+    med = statistics.median(warm_ms)
+    # the result cache: a session with it on; the first repeat admits the
+    # narrowed frame, the rest hit with no device work at all
+    rc = db.result_cache
+    s2 = db.session()
+    h0 = rc.stats()["hits"]
+    rc_hits, rc_ms = 0, []
+    for _ in range(RC_REPEATS):
+        before = sum(kernels.LAUNCHES.values())
+        hits = rc.stats()["hits"]
+        t0 = time.perf_counter()
+        rs = s2.sql(text)
+        rows = rs.rows()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(row_bits(rows) == row_bits(ref),
+                f"server {name}: result-cache rows differ")
+        if rc.stats()["hits"] > hits:
+            rc_hits += 1
+            rc_ms.append(ms)
+            require(sum(kernels.LAUNCHES.values()) == before,
+                    f"server {name}: a result-cache hit launched a kernel")
+            require(db.engine.last_phases.get("result_cache", False)
+                    and db.engine.last_phases["dispatch_s"] == 0.0,
+                    f"server {name}: a result-cache hit dispatched")
+    require(rc_hits > 0 and rc.stats()["hits"] - h0 == rc_hits,
+            f"server {name}: no result-cache hit in {RC_REPEATS} repeats")
+    # over the wire, result cache off: the same rows, as text
+    c = WireClient(fe.port)
+    c.query("set ob_enable_result_cache = 0")
+    wrows = []
+
+    def wire():
+        wrows[:] = [c.query(text)]
+
+    w_ms = timed(wire, warm + 1)
+    c.close()
+    names, wr = wrows[0]
+    require(names == list(erows[0].names) and wr == [
+        tuple(wire_text(v) for v in r) for r in ref],
+        f"server {name}: wire rows differ from the engine's")
+    rec = {
+        "statement": name, "rows": n,
+        "engine_warm_median_ms": statistics.median(e_ms[1:]),
+        "db_cold_ms": cold, "db_warm_median_ms": med, "db_warm_ms": warm_ms,
+        "server_overhead_ms": med - statistics.median(e_ms[1:]),
+        "wire_cold_ms": w_ms[0], "wire_warm_median_ms":
+            statistics.median(w_ms[1:]),
+        "fast_hits": fast, "result_cache_hits": rc_hits,
+        "result_cache_hit_ms": rc_ms, "narrowed": narrowed,
+        "device_busy_ms": busy, "traced_wall_ms": traced,
+        "traced_attempts": attempts,
+        "device_idle_share": 1 - busy / med,
+        "traced_idle_share": 1 - busy / traced,
+        "device_ms_by_kernel": [{"name": k, "ms": v} for k, v in top],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print(f"server {name}: engine warm {rec['engine_warm_median_ms']:.3f} "
+          f"ms, DbSession cold {cold:.3f} ms warm {med:.3f} ms, wire warm "
+          f"{rec['wire_warm_median_ms']:.3f} ms, {n} rows bit-identical "
+          f"(DbSession, result cache, wire), fast hits {fast}, result-cache "
+          f"hits {rc_hits} ({', '.join(f'{m:.3f}' for m in rc_ms)} ms), "
+          f"narrowed {narrowed}, device busy {busy:.3f} ms (idle share "
+          f"{rec['device_idle_share']:.4f}); most device time: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in top[:3]), flush=True)
+    return rec
+
+
+def head_fetch(db, kernels, lineitem, sf) -> dict:
+    """rows(limit) of a result of ~9M live rows (at SF 10) through K23,
+    against the table's rows in row order."""
+    import numpy as np
+
+    s = db.session()
+    t0 = time.perf_counter()
+    rs = s.sql(HEAD_TEXT)
+    n = rs.nrows
+    ms = (time.perf_counter() - t0) * 1e3
+    require(n >= 1_000_000 * sf / 10, f"head fetch: only {n} live rows")
+    cur = rs._cursor
+    cap = int(cur._out.sel.shape[0])
+    d = lineitem.data
+    lo = int(np.datetime64("1994-01-01", "D").astype(np.int64))
+    hi = int(np.datetime64("1995-01-01", "D").astype(np.int64))
+    rows = np.flatnonzero((d["l_shipdate"] >= lo) & (d["l_shipdate"] < hi))
+    require(len(rows) == n, f"head fetch: {n} rows, the table has "
+            f"{len(rows)}")
+    fetches = []
+    for lim in HEAD_LIMITS:
+        before = kernels.LAUNCHES["K23_first_live"]
+        t0 = time.perf_counter()
+        got = rs.rows(limit=lim)
+        f_ms = (time.perf_counter() - t0) * 1e3
+        require(kernels.LAUNCHES["K23_first_live"] == before + 1,
+                f"head fetch LIMIT {lim} did not launch K23 once")
+        r = rows[:lim]
+        want = list(zip(d["l_orderkey"][r].tolist(),
+                        d["l_linenumber"][r].tolist(),
+                        (d["l_extendedprice"][r].astype(np.float64)
+                         / 100).tolist()))
+        require(row_bits(got) == row_bits(want),
+                f"head fetch LIMIT {lim} differs from the table's rows")
+        fetches.append({"limit": lim, "ms": f_ms})
+    print(f"server head fetch: {n} live rows of a {cap}-row frame in "
+          f"{ms:.3f} ms; " + ", ".join(f"LIMIT {f['limit']} in "
+                                       f"{f['ms']:.3f} ms" for f in fetches)
+          + " through K23, equal to the table's rows", flush=True)
+    return {"live_rows": n, "frame_rows": cap, "statement_ms": ms,
+            "fetches": fetches}
+
+
+def lookup_leg(db, esess, kernels, lineitem, warm) -> dict:
+    """LOOKUP_TEXT through DbSession.sql with the result cache off: cold,
+    then warm runs whose narrowed frame K23 compacts; rows bit-identical
+    to the engine Session's, keys the table's in row order."""
+    import numpy as np
+
+    ref = esess.sql(LOOKUP_TEXT).rows()
+    d = lineitem.data
+    r = np.flatnonzero(d["l_orderkey"] < 40)
+    require([(int(a), int(b)) for a, b, _q in ref]
+            == list(zip(d["l_orderkey"][r].tolist(),
+                        d["l_linenumber"][r].tolist())),
+            "server lookup: the engine's keys differ from the table's")
+    s = db.session()
+    s.sql("set ob_enable_result_cache = 0")
+    got = []
+
+    def run():
+        rs = s.sql(LOOKUP_TEXT)
+        got.append(rs)
+        return rs.nrows
+
+    before = kernels.LAUNCHES["K23_first_live"]
+    ms = timed(run, warm + 1)
+    launches = kernels.LAUNCHES["K23_first_live"] - before
+    for rs in got:
+        require(row_bits(rs.rows()) == row_bits(ref),
+                "server lookup: DbSession rows differ from the engine's")
+    require(getattr(got[-1]._cursor, "narrowed", False),
+            "server lookup: the warm result frame was not narrowed")
+    require(launches > 0, "server lookup: the narrowed frame did not "
+            "launch K23")
+    rec = {"statement": "SV_LOOKUP", "rows": len(ref), "cold_ms": ms[0],
+           "warm_median_ms": statistics.median(ms[1:]),
+           "k23_launches": launches}
+    print(f"server lookup: {len(ref)} rows, cold {ms[0]:.3f} ms, warm "
+          f"median {rec['warm_median_ms']:.3f} ms, narrowed through K23 "
+          f"({launches} launches), rows bit-identical to the engine's",
+          flush=True)
+    return rec
+
+
+def wide_leg(db, planes) -> dict:
+    """WIDE_TEXT: its narrowed frame (the key range < 100) and the head
+    fetch of its plain cursor (keys >= 10, LIMIT 300), each through K23
+    over 83 columns and validity planes (`planes` collects the count of
+    every K23 call), against the inserted values."""
+    import numpy as np
+
+    s = db.session()
+    s.sql("set ob_enable_result_cache = 0")
+    s.sql("create table keys_t (k bigint primary key)")
+    s.sql("create table wide_t (id bigint primary key, "
+          + ", ".join(f"c{i} bigint" for i in range(WIDE_COLS)) + ")")
+    s.sql("insert into keys_t values "
+          + ", ".join(f"({r})" for r in range(WIDE_KEYS)))
+    rng = np.random.default_rng(41)
+    vals = rng.integers(-1000, 1000, (WIDE_KEYS, WIDE_COLS))
+    present = [r for r in range(WIDE_KEYS) if r % 5]
+    for lo in range(0, len(present), 160):
+        s.sql("insert into wide_t values " + ", ".join(
+            f"({r}, " + ", ".join(str(int(x)) for x in vals[r]) + ")"
+            for r in present[lo:lo + 160]))
+
+    def model(r):
+        return (r,) + ((None,) * (1 + WIDE_COLS) if r % 5 == 0
+                       else (r, *(int(x) for x in vals[r])))
+
+    def held(rows, keys):
+        got = [tuple(None if x is None else int(x) for x in row)
+               for row in rows]
+        require(sorted(row[0] for row in got) == sorted(keys)
+                and all(row == model(row[0]) for row in got),
+                "server wide: rows differ from the inserted values")
+
+    planes.clear()
+    for _ in range(3):  # cold, the profiled repeat, narrowed
+        rs = s.sql(WIDE_TEXT.format("< 100"))
+        held(rs.rows(), range(100))
+    narrowed = max(planes, default=0)
+    require(narrowed > 48, f"server wide: the narrowed frame's K23 calls "
+            f"gathered {narrowed} planes")
+    db.config.set("ob_enable_result_narrow", False)
+    try:
+        rs = s.sql(WIDE_TEXT.format(">= 10"))
+        planes.clear()
+        head = rs.rows(limit=300)
+    finally:
+        db.config.set("ob_enable_result_narrow", True)
+    require(planes and min(planes) > 48, f"server wide: the head fetch's "
+            f"K23 calls gathered {planes} planes")
+    got_keys = [int(row[0]) for row in head]
+    require(len(set(got_keys)) == 300 and min(got_keys) >= 10,
+            "server wide: the head fetch's keys")
+    held(head, got_keys)
+    print(f"server wide: {narrowed} columns and validity planes through "
+          f"K23 in the narrowed frame and the head fetch (LIMIT 300), "
+          f"equal to the inserted values", flush=True)
+    return {"planes": narrowed, "head_rows": len(head)}
+
+
+def dml_leg(db) -> dict:
+    """A served table: multi-row INSERT, UPDATE, DELETE and SELECT back
+    against a numpy model, and the result cache's invalidation by DML
+    (hit, write, miss, re-admit)."""
+    import numpy as np
+
+    s = db.session()
+    s.sql("create table dml_t (id bigint primary key, g bigint not null, "
+          "v bigint not null, tag varchar(16) not null)")
+    rng = np.random.default_rng(DML_SEED)
+    ids = np.arange(DML_ROWS, dtype=np.int64)
+    g = rng.integers(0, DML_GROUPS, DML_ROWS)
+    v = rng.integers(-10**6, 10**6, DML_ROWS)
+    tag = rng.integers(0, len(DML_TAGS), DML_ROWS)
+    live = np.ones(DML_ROWS, dtype=bool)
+    t0 = time.perf_counter()
+    for i in range(0, DML_ROWS, DML_BATCH):
+        j = range(i, min(DML_ROWS, i + DML_BATCH))
+        n = s.sql("insert into dml_t values " + ", ".join(
+            f"({k}, {g[k]}, {v[k]}, '{DML_TAGS[tag[k]]}')" for k in j)
+        ).affected
+        require(n == len(j), f"DML: insert affected {n} of {len(j)}")
+    insert_s = time.perf_counter() - t0
+
+    def by_group():
+        want = [(k, int(((g == k) & live).sum()), int(v[(g == k) & live].sum()))
+                for k in range(DML_GROUPS) if ((g == k) & live).any()]
+        got = [tuple(int(x) for x in r) for r in s.sql(
+            "select g, count(*) as n, sum(v) as s from dml_t group by g "
+            "order by g").rows()]
+        require(got == want, "DML: the group sums differ from the model")
+
+    def head_rows():
+        want = [(int(k), int(v[k]), DML_TAGS[tag[k]])
+                for k in np.flatnonzero(live[:80])]
+        got = [(int(a), int(b), c) for a, b, c in s.sql(
+            "select id, v, tag from dml_t where id < 80 order by id").rows()]
+        require(got == want, "DML: the first rows differ from the model")
+
+    by_group()
+    head_rows()
+    # the result cache over the served table: admit, hit, write, miss,
+    # re-admit
+    rc = db.result_cache
+    q = "select count(*) as n, sum(v) as s from dml_t where g = 3"
+
+    def cached():
+        m = (g == 3) & live
+        got = [tuple(int(x) for x in r) for r in s.sql(q).rows()]
+        require(got == [(int(m.sum()), int(v[m].sum()))],
+                "DML: the cached statement differs from the model")
+
+    for _ in range(3):
+        cached()
+    h0, inv0 = rc.stats()["hits"], rc.stats()["invalidations"]
+    require(h0 > 0, "DML: the cached statement never hit")
+    t0 = time.perf_counter()
+    m = g == 3
+    n = s.sql("update dml_t set v = v + 7 where g = 3").affected
+    update_s = time.perf_counter() - t0
+    require(n == int((m & live).sum()), f"DML: update affected {n}")
+    v[m] += 7
+    cached()
+    require(rc.stats()["hits"] == h0, "DML: a stale frame served after the "
+            "update")
+    require(rc.stats()["invalidations"] > inv0,
+            "DML: the update did not invalidate the cached frame")
+    cached()
+    require(rc.stats()["hits"] == h0 + 1, "DML: the recomputed frame was "
+            "not re-admitted")
+    t0 = time.perf_counter()
+    m = g == 5
+    n = s.sql("delete from dml_t where g = 5").affected
+    delete_s = time.perf_counter() - t0
+    require(n == int((m & live).sum()), f"DML: delete affected {n}")
+    live &= ~m
+    by_group()
+    head_rows()
+    rec = {"rows": DML_ROWS, "batch": DML_BATCH, "insert_s": insert_s,
+           "insert_rows_per_s": DML_ROWS / insert_s, "update_s": update_s,
+           "delete_s": delete_s, "result_cache": rc.stats()}
+    print(f"server DML leg: {DML_ROWS} rows inserted in {insert_s:.3f} s "
+          f"({rec['insert_rows_per_s']:.6g} rows/s), update "
+          f"{update_s:.3f} s, delete {delete_s:.3f} s; every SELECT equals "
+          "the numpy model; DML invalidated the cached frame (hit, write, "
+          "miss, re-admit)", flush=True)
+    return rec
+
+
+def server_phase(tables, uk, kernels, queries_text, checks, warm, sf):
+    """The server entry point on the card: its own launch counts. Returns
+    (records, launches, the K23 arguments captured from the head fetch,
+    the lookup's narrowed frame and the wide leg)."""
+    import oceanbase_tpu_torch.engine.executor as ex
+    from oceanbase_tpu_torch.engine.session import Session
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.server.mysql_front import MySqlFrontend
+
+    db = Database(n_nodes=1, n_ls=1, extra_catalog=tables)
+    require(db.device.type == "cuda", f"the Database runs on {db.device}")
+    # preloaded tables carry no DDL primary keys: register their unique
+    # keys so the physical fast paths are eligible
+    db._unique_keys.update(uk)
+    db.engine.executor.unique_keys = db._unique_keys
+    db.engine.planner.unique_keys = db._unique_keys
+    fe = MySqlFrontend(db).start()
+    esess = Session(tables, unique_keys=uk, device="cuda")
+    # K23's arguments: the largest call of each leg (the head fetch over
+    # lineitem, the lookup's narrowed frame, the wide leg's head fetch),
+    # and the planes of every call
+    captured, tag, planes = {}, ["head"], []
+    orig = ex.first_live
+
+    def recording(sel, k, cols):
+        cols = list(cols)
+        planes.append(len(cols))
+        key = tag[0]
+        if key not in captured or int(k) > int(captured[key][1]):
+            captured[key] = (sel, int(k), cols)
+        return orig(sel, k, cols)
+
+    kernels.reset_launches()
+    recs = []
+    try:
+        for q in SERVER_STMTS:
+            recs.append(server_statement(db, fe, esess, kernels, q,
+                                         queries_text[q], checks[q], warm))
+        ex.first_live = recording
+        head = head_fetch(db, kernels, tables["lineitem"], sf)
+        tag[0] = "narrow"
+        lookup = lookup_leg(db, esess, kernels, tables["lineitem"], warm)
+        tag[0] = "wide"
+        wide = wide_leg(db, planes)
+        ex.first_live = orig
+        dml = dml_leg(db)
+        launches = dict(kernels.LAUNCHES)
+        degraded = {k: db.metrics.counter(k) for k in (
+            "stmt degraded chunked", "stmt degraded host",
+            "stmt degraded host refused")}
+        require(not any(degraded.values()),
+                f"server: a degraded rung was taken: {degraded}")
+        require(db.engine.profile_fallbacks == 0,
+                "server: a profiled run fell back to the plain dispatch")
+        profiles = db.plan_profiler.store.profiles
+        require(profiles > 0, "server: no statement was profiled")
+        require(launches["K23_first_live"] > 0, "server: K23 never launched")
+    finally:
+        ex.first_live = orig
+        fe.stop()
+        db.close()
+    require({"head", "narrow", "wide"} <= set(captured),
+            f"server: K23 arguments captured for {sorted(captured)}")
+    return ({"statements": recs, "head_fetch": head, "lookup": lookup,
+             "wide": wide, "dml": dml,
+             "degraded": degraded, "profile_fallbacks": 0,
+             "operator_profiles": profiles}, launches, captured)
+
+
+def k23_checks(kernels, reps: int, captured: dict) -> list:
+    """K23 against its plain version bit for bit on the server phase's
+    arguments (the head fetch over lineitem at widths 16 and 1024, the
+    lookup's narrowed frame, the wide leg's 83 planes) and on synthetic
+    edge cases (no live row, every row live with k == cap, a live row
+    only at the last index, k > nlive and k > cap, every column type, a
+    VECTOR column, 72 columns), twice; timed on the head
+    fetch's 1024-row width beside its plain version, the yardstick
+    `torch.nonzero(sel)[:k]` + `index_select` (which syncs the host) and
+    its bound: sel read once, k rows of every column read and written."""
+    import numpy as np
+    import torch
+
+    dev = captured["head"][0].device
+    sel, k, cols = captured["head"]
+    nsel, nk, ncols = captured["narrow"]
+    cases = [("head", sel, k, cols), ("head16", sel, 16, cols),
+             ("narrow", nsel, nk, ncols), ("wide", *captured["wide"])]
+    rng = np.random.default_rng(23)
+    cap = (1 << 20) + 5
+    syn_cols = [torch.from_numpy(rng.integers(-2**62, 2**62, cap)).to(dev)]
+    for dt in (torch.int32, torch.int16, torch.int8, torch.uint8,
+               torch.float64, torch.float32, torch.bool):
+        syn_cols.append(torch.from_numpy(
+            rng.integers(0, 200, cap)).to(dev).to(dt))
+    syn_cols.append(torch.from_numpy(
+        rng.standard_normal((cap, 8)).astype(np.float32)).to(dev))
+    last = torch.zeros(cap, dtype=torch.bool, device=dev)
+    last[-1] = True
+    rnd = torch.from_numpy(rng.random(cap) < 0.01).to(dev)
+    cases += [
+        ("all_dead", torch.zeros(cap, dtype=torch.bool, device=dev), 64,
+         syn_cols),
+        ("all_live_k_cap", torch.ones(cap, dtype=torch.bool, device=dev),
+         cap, syn_cols),
+        ("last_only", last, 16, syn_cols),
+        ("k_above_nlive", rnd, 1 << 14, syn_cols),
+        ("k_above_cap", rnd, cap + 1000, syn_cols[:3]),
+        ("wide_72", rnd[:1 << 16], 1 << 12,
+         [c[:1 << 16] for c in syn_cols] * 8),
+    ]
+
+    def bits(t):
+        if t.dtype == torch.float64:
+            return t.view(torch.int64)
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        return t
+
+    for name, cs, ck, ccols in cases:
+        got = kernels.first_live(cs, ck, ccols)
+        want = kernels.first_live_plain(cs, ck, ccols)
+        again = kernels.first_live(cs, ck, ccols)
+        for a, b, c in zip([got[0], got[1], *got[2]],
+                           [want[0], want[1], *want[2]],
+                           [again[0], again[1], *again[2]]):
+            require(a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(bits(a), bits(b)),
+                    f"K23 {name}: differs from the plain version")
+            require(torch.equal(bits(a), bits(c)), f"K23 {name}: two runs "
+                    "differ")
+    del syn_cols, cases
+
+    def library():
+        idx = torch.nonzero(sel).flatten()[:k]
+        return [c.index_select(0, idx) for c in cols]
+
+    km = cuda_ms(lambda: kernels.first_live(sel, k, cols), reps)
+    pm = cuda_ms(lambda: kernels.first_live_plain(sel, k, cols),
+                 max(1, reps // 2))
+    lm = cuda_ms(library, reps)
+    row = sum(c.element_size() * (c.shape[1] if c.dim() == 2 else 1)
+              for c in cols)
+    cap_h = int(sel.shape[0])
+    bm, by = bound_ms(cap_h + k * 8 + 2 * k * row, cap_h)
+    src, rep = KERNEL_META["K23_first_live"]
+    print(f"kernel K23_first_live: match exact on the head fetch (cap "
+          f"{cap_h}, k {k} and 16), the lookup's frame (cap "
+          f"{int(nsel.shape[0])}, k {nk}), the wide leg "
+          f"({len(captured['wide'][2])} planes) and 6 synthetic cases, two "
+          f"runs bit-identical, "
+          f"kernel_ms {km:.6f}, plain_ms {pm:.6f}, library_ms {lm:.6f}, "
+          f"bound_ms {bm:.6f} ({by})", flush=True)
+    return [{"name": "K23_first_live", "route": "cuda", "source": src,
+             "replaces": rep, "max_abs_err": 0.0, "ms": km, "plain_ms": pm,
+             "bound_ms": bm, "bound_by": by, "library_ms": lm,
+             "shape": {"cap": cap_h, "k": k, "columns": len(cols),
+                       "row_bytes": row}}]
+
+
 # ---- the vector phase ----------------------------------------------------
 # The reference's ANN benchmark deployment (tools/ann_bench.py:80-100):
 # 1M x 128 float32 embeddings (the shape of ANN-Benchmarks' SIFT-128 base
@@ -2533,7 +3292,7 @@ def vector_phase(Session, kernels, warm, reps):
     """The IVF vector path on the bench deployment; the launch counts
     from 0 just before and read just after. Returns (statement records,
     build record, launches, kernel arguments, the V_STARVE table's
-    vectors)."""
+    vectors, the narrowed frame's A/B records)."""
     import numpy as np
     import torch
 
@@ -2618,6 +3377,7 @@ def vector_phase(Session, kernels, warm, reps):
         bsess, kernels, "V_BRUTE",
         [vec_text(queries[i]) for i in qsets["V_BRUTE"]],
         exact_check("V_BRUTE"), warm, ANN_N, "docs", after=brute_after))
+    ab = [narrow_ab(bsess, "V_BRUTE", vec_text(queries[qsets["V_BRUTE"][0]]))]
     del bsess
     release_device()
 
@@ -2702,6 +3462,9 @@ def vector_phase(Session, kernels, warm, reps):
     for k in VECTOR_KERNELS:
         require(launches[k] > 0, f"{k} was never launched on the vector "
                 "path")
+    ab += [narrow_ab(sess, name, vec_text(queries[qsets[name][0]],
+                                          where_of[name], name == "V_DIST"))
+           for name in ("V_L2", "V_F50", "V_DIST")]
     # the arguments of this phase's build and of one V_F50 run
     xd = torch.from_numpy(x).cuda()
     cent = torch.from_numpy(idx.centroids).cuda()
@@ -2714,7 +3477,7 @@ def vector_phase(Session, kernels, warm, reps):
             "K20_kmeans_update": (xd, assign, len(idx.lengths)),
             **cap}
     del sess
-    return recs, build, launches, args, small_x
+    return recs, build, launches, args, small_x, ab
 
 
 def starve_statement(Session, kernels, warm):
@@ -3187,6 +3950,10 @@ def main() -> int:
     main_entries = dict(kernels.ENTRY_LAUNCHES)
     for k, v in main_entries.items():
         require(v > 0, f"{k} was never run on the main path")
+    # the narrowed frame on and off on small results (after the counts)
+    ab_text = {name: text for name, text, _check in stmts}
+    narrow_recs = [narrow_ab(sess, name, ab_text[name])
+                   for name in NARROW_AB_MAIN]
 
     captured = capture_join_kernels(sess, kernels, sql_suite.QUERIES)
     captured.update(capture_analytic_kernels(sess, kernels))
@@ -3225,7 +3992,7 @@ def main() -> int:
     # events of later traced runs (seen on the H100), and the vector
     # statements' busy times would read low.
     t0 = time.perf_counter()
-    vrecs, vbuild, v_launches, v_args, small_x = vector_phase(
+    vrecs, vbuild, v_launches, v_args, small_x, v_ab = vector_phase(
         Session, kernels, args.warm, args.reps)
     for r in vrecs:
         del r["result"]
@@ -3236,6 +4003,25 @@ def main() -> int:
     release_device()
     vcmp = vector_card_vs_cpu(Session, kernels, small_x)
     del small_x
+    release_device()
+
+    # ---- the server phase: its own counts ------------------------------
+    # Also before the streamed phase, for the profiler's sake (above).
+    t0 = time.perf_counter()
+    server_checks = {
+        1: lambda rs: check_q1(rs, li, queries),
+        6: lambda rs: check_q6(rs, li, queries),
+        3: oracle("Q3"),
+        14: oracle("Q14"),
+    }
+    srv, sv_launches, k23_args = server_phase(
+        tables, sql_suite.UNIQUE_KEYS, kernels, sql_suite.QUERIES,
+        server_checks, args.warm, args.sf)
+    release_device()
+    srv["seconds"] = time.perf_counter() - t0
+    print(f"server phase in {srv['seconds']:.3f} s", flush=True)
+    krecs += k23_checks(kernels, args.reps, k23_args)
+    del k23_args
     release_device()
 
     # ---- the rest of Executor.prepare: each path its own counts --------
@@ -3331,7 +4117,8 @@ def main() -> int:
         route=streamed)
 
     phase_launches = {"projection": p_launches, "streamed": st_launches,
-                      "grace": g_launches, "vector": v_launches}
+                      "grace": g_launches, "vector": v_launches,
+                      "server": sv_launches}
     for r in krecs:
         if r["name"] == "K17_slice_scan":
             r["launches"] = p_launches[r["name"]]
@@ -3339,6 +4126,10 @@ def main() -> int:
             r["launches"] = st_launches[r["name"]]
         elif r["name"] in VECTOR_KERNELS:
             r["launches"] = v_launches[r["name"]]
+        elif r["name"] == "K23_first_live":
+            # this slice's path: the server phase (the main path's
+            # narrowed frames launch it too, main_launches)
+            r["launches"] = sv_launches[r["name"]]
         else:
             r["launches"] = (main_launches[r["name"]]
                              if r["name"] in main_launches
@@ -3366,6 +4157,8 @@ def main() -> int:
                        "launches": phase_launches},
                    "vector_phase": {"statements": vrecs, "build": vbuild,
                                     "card_vs_cpu": vcmp},
+                   "narrow_ab": narrow_recs + v_ab,
+                   "server_phase": srv,
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},

@@ -20,14 +20,18 @@ biggest table in chunks decoded by kernel K18; engine/pipeline.py's
 grace-hash route partitions both join sides to host spill files); and
 the ANN top-n over an IVF vector index (`_emit_vector_topn`: the
 nearest lists by kernel K21, the fused filtered re-rank by kernel K22,
-over-probe escalation through the overflow channel). Not ported: the PX
-executors; a plan node this module does not know raises
+over-probe escalation through the overflow channel). A statement's
+result leaves through a lazy cursor (DeviceResult: the head of a large
+result by kernel K23) or, when the plan narrows, as one small frame of
+its first live rows (kernel K23 again; a frame no wider than the narrowed
+one goes as it is), copied to the host in one transfer. Not ported: the PX executors and the batched program of the
+statement batcher; a plan node this module does not know raises
 NotImplementedError naming it.
 
 The JAX package traces a whole plan into one jitted program; here
 `compile` returns a plain Python closure that runs the same emission
 eagerly on the session's device, with the device functions on the path
-as hand-written kernels (K1-K22, `kernels.py`). The static-capacity
+as hand-written kernels (K1-K23, `kernels.py`). The static-capacity
 contract is unchanged: every intermediate keeps its producer's capacity
 under a live-row `sel` mask, capacity-bound operators report overflow
 counters in ONE stacked vector, and the host reads it once per attempt
@@ -69,6 +73,7 @@ from ..kernels import (
     affine_probe,
     bound_search,
     clustered_segments,
+    first_live,
     gather_columns,
     ivf_lists,
     ivf_probe,
@@ -281,6 +286,7 @@ class VectorTopNSpec:
     est_sel: float = 1.0   # estimated filter selectivity at compile
     ivf_cost: float = 0.0  # route cost, IVF side
     brute_cost: float = 0.0  # route cost of the brute-force matmul
+    cost_basis: str = "flops"  # "measured" when calibration records won
 
 
 @dataclass(frozen=True)
@@ -330,6 +336,24 @@ def _dict_domain(batch: ColumnBatch, e: E.Expr) -> int | None:
         if t.kind is TypeKind.INT8:
             return 256
     return None
+
+
+def _device_nbytes(obj) -> int:
+    """Sum nbytes over the device tensors inside an executor input: a
+    ColumnBatch, or a derived structure's tuple (fk_ranges, ivf arrays)."""
+    if isinstance(obj, torch.Tensor):
+        return int(obj.nbytes)
+    if isinstance(obj, ColumnBatch):
+        return (
+            _device_nbytes(obj.cols)
+            + _device_nbytes(obj.valid)
+            + _device_nbytes(obj.sel)
+        )
+    if isinstance(obj, dict):
+        return sum(_device_nbytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_device_nbytes(v) for v in obj)
+    return int(getattr(obj, "nbytes", 0) or 0)
 
 
 def _not_ported(what: str):
@@ -398,6 +422,25 @@ class Executor:
         # over-probe escalations]
         self.ann_builds: dict = {}
         self.ann_stats: dict = {}
+        # lifetime host->device upload bytes (QueryProfile reads the delta
+        # around one execution; warm statements upload nothing)
+        self.h2d_bytes = 0
+        # hook: share/timeline.ServingTimeline (cold uploads land as
+        # transfer interference; the server wires it)
+        self.timeline = None
+        # lifetime counts of compile() runs (cold builds + overflow
+        # rebuilds), of narrowed result-frame programs built (one per
+        # plan and pow2 frame width) and of batched programs (none: the
+        # batched program is not ported, PreparedPlan.batchable is False)
+        self.compiles = 0
+        self.narrow_compiles = 0
+        self.batched_compiles = 0
+        # hook: engine/plan_profile.OperatorProfileStore; its measured
+        # route rates cost the IVF route against brute force
+        self.profile_store = None
+        # set on the degraded host executor of the server's device-OOM
+        # ladder (it cannot run out of device memory)
+        self.host_fallback = False
 
     # ---- input preparation -------------------------------------------
     def _collect_scans(self, plan: LogicalOp) -> list[Scan]:
@@ -461,6 +504,83 @@ class Executor:
         rec(plan)
         return needed
 
+    def _access_columns(self, plan: LogicalOp) -> dict[str, set]:
+        """alias -> set of (column, role) pairs for the workload access
+        stats: the columns the plan uses as filter predicates, join keys,
+        group keys or sort keys (server/workload.ROLE_* indices). The
+        same walk as _needed_columns, keeping the role."""
+        from ..server.workload import (
+            ROLE_FILTER,
+            ROLE_GROUP,
+            ROLE_JOIN,
+            ROLE_SORT,
+        )
+
+        acc: dict[str, set] = {}
+        # output name -> defining expr across every Project: the planner
+        # rewrites sort/group keys into projected columns ($ordN), so an
+        # unqualified ColRef chases its definition to base columns
+        defs: dict[str, E.Expr] = {}
+
+        def collect_defs(op):
+            if isinstance(op, Project):
+                for name, e in op.exprs:
+                    defs.setdefault(name, e)
+            for c in _children(op):
+                collect_defs(c)
+
+        collect_defs(plan)
+
+        def note(e: E.Expr, role: int, depth: int = 0):
+            for q in E.referenced_columns(e):
+                if "." in q:
+                    a, c = q.split(".", 1)
+                    acc.setdefault(a, set()).add((c, role))
+                elif depth < 4 and q in defs:
+                    note(defs[q], role, depth + 1)
+
+        def rec(op):
+            if isinstance(op, Scan) and op.pushed_filter is not None:
+                note(op.pushed_filter, ROLE_FILTER)
+            if isinstance(op, Filter):
+                note(op.pred, ROLE_FILTER)
+            if isinstance(op, JoinOp):
+                for e in op.left_keys + op.right_keys:
+                    note(e, ROLE_JOIN)
+            if isinstance(op, Aggregate):
+                for _, e in op.group_keys:
+                    note(e, ROLE_GROUP)
+            if isinstance(op, (Sort, TopN)):
+                for e, _ in op.keys:
+                    note(e, ROLE_SORT)
+            for c in _children(op):
+                rec(c)
+
+        rec(plan)
+        return acc
+
+    def _access_profile(self, scans0: list, routed_plan: LogicalOp,
+                        roles: dict[str, set]) -> tuple:
+        """Static access profile of a prepared plan, one entry per scan:
+        (base table, rows at prepare time, has sorted projections, routed
+        to one, ((column, role), ...)). scans0 are the scans before
+        routing; routing keeps the plan's shape, so the routed scans pair
+        by position (a projection hit shows as a changed table). Virtual
+        tables and planner-internal relations are left out."""
+        scans1 = self._collect_scans(routed_plan)
+        out = []
+        cat = self.catalog
+        for s0, s1 in zip(scans0, scans1):
+            if s0.table.startswith(("__all_virtual", "$")):
+                continue
+            t = cat[s0.table] if s0.table in cat else None
+            rows = t.nrows if t is not None else 0
+            has_proj = bool(getattr(t, "sorted_projections", None))
+            cols = tuple(sorted(roles.get(s0.alias, ())))
+            out.append((s0.table, rows, has_proj, s1.table != s0.table,
+                        cols))
+        return tuple(out)
+
     def invalidate_table(self, name: str) -> None:
         """Drop cached device batches of one table (its data changed)."""
         self._table_version[name] = self._table_version.get(name, 0) + 1
@@ -468,6 +588,18 @@ class Executor:
             del self._batch_cache[key]
         for key in [k for k in self._assembled if k[0] == name]:
             del self._assembled[key]
+
+    def input_device_bytes(self, input_spec) -> int:
+        """Device-resident bytes of a prepared plan's inputs (the
+        QueryProfile's device_bytes). Called after execution, so every
+        input is already in the device cache and nothing uploads."""
+        total = 0
+        for alias, table, cols in input_spec:
+            try:
+                total += _device_nbytes(self.input_batch(alias, table, cols))
+            except Exception:  # noqa: BLE001 - accounting never fails a query
+                continue
+        return total
 
     def fk_ranges(self, probe_table: str, fk_col: str,
                   build_table: str, pk_col: str):
@@ -633,6 +765,11 @@ class Executor:
                 schema=Schema((Field("$one", DataType.int8()),)),
                 dicts={},
             )
+        is_private = getattr(self.catalog, "is_private", None)
+        if is_private is not None and is_private(name):
+            # a transaction's private view: it never enters (or reads) the
+            # shared device cache, so no other session sees its rows
+            return self._build_batch(name, cols)
         memo = self._assembled.get((name, cols))
         if memo is not None:
             return memo
@@ -660,6 +797,8 @@ class Executor:
                     vdev = upload(v, cap, dev, fill=False)
                 hit = (dev_col, vdev)
                 self._batch_cache[key] = hit
+                self._note_upload(int(dev_col.nbytes) + (
+                    int(vdev.nbytes) if vdev is not None else 0))
             dcols[f.name] = hit[0]
             if hit[1] is not None:
                 dvalid[f.name] = hit[1]
@@ -668,6 +807,7 @@ class Executor:
         if sel is None:
             sel = upload(np.ones(n, dtype=np.bool_), cap, dev, fill=False)
             self._batch_cache[skey] = sel
+            self._note_upload(int(sel.nbytes))
         batch = ColumnBatch(
             cols=dcols,
             valid=dvalid,
@@ -678,6 +818,29 @@ class Executor:
         )
         self._assembled[(name, cols)] = batch
         return batch
+
+    def _note_upload(self, nbytes: int) -> None:
+        self.h2d_bytes += nbytes
+        tl = self.timeline
+        if tl is not None and tl.enabled:
+            # a cold-column upload takes device time from the serving
+            # stream: transfer interference
+            tl.record_transfer(nbytes)
+
+    def _build_batch(self, name: str, cols: tuple[str, ...]) -> ColumnBatch:
+        from ..core.column import make_batch
+
+        t = self.catalog[name]
+        sub_schema = Schema(
+            tuple(f for f in t.schema.fields if f.name in cols)
+        )
+        return make_batch(
+            {c: t.data[c] for c in sub_schema.names()},
+            sub_schema,
+            {c: d for c, d in t.dicts.items() if c in cols},
+            valid={c: v for c, v in t.valid.items() if c in cols},
+            device=self.device,
+        )
 
     # ---- physical parameter seeding ----------------------------------
     def _est_rows(self, op) -> float:
@@ -1225,6 +1388,7 @@ class Executor:
         """The plan as a Python closure run(inputs, qparams) -> (out batch,
         stacked overflow vector), plus its input spec and the node ids of
         the overflow vector's entries."""
+        self.compiles += 1
         nodes = _number_nodes(plan)
         id_of = {id(op): nid for nid, op in nodes.items()}
         needed = self._needed_columns(plan)
@@ -1491,8 +1655,8 @@ class Executor:
         presence is the opt-in to approximate results; whether the route
         wins is costed against the brute-force matmul on the flops basis
         (centroid pass + probed re-rank against the full-table distance,
-        in rows of d-dim work; the reference's measured-rate basis needs
-        the plan profiler's store, which the port does not have yet). A
+        in rows of d-dim work), or on the measured per-row rates of the
+        plan profiler's store once both routes have been profiled. A
         filtered route seeds over-probe from the estimated
         selectivity and escalates at run time through the overflow
         channel."""
@@ -1556,6 +1720,18 @@ class Executor:
         brute_rows = max(int(t.nrows), 1)
         ivf_cost = float(cand_rows * d)
         brute_cost = float(brute_rows * d)
+        cost_basis = "flops"
+        rates = None
+        store = self.profile_store
+        if store is not None:
+            try:
+                rates = store.ann_route_rates()
+            except Exception:  # noqa: BLE001 - stats must not kill the route
+                rates = None
+        if rates is not None:
+            ivf_cost = float(cand_rows) * rates[0]
+            brute_cost = float(brute_rows) * rates[1]
+            cost_basis = "measured"
         if ivf_cost >= brute_cost:
             # the index loses (a tiny table, nprobe near every list):
             # brute force runs exactly through the generic TopN
@@ -1578,6 +1754,7 @@ class Executor:
             est_sel=est_sel,
             ivf_cost=ivf_cost,
             brute_cost=brute_cost,
+            cost_basis=cost_basis,
         )
 
     def _emit_vector_topn(self, nid, spec: VectorTopNSpec, inputs, emit):
@@ -2795,8 +2972,14 @@ class Executor:
         projection's key read the projection; inputs beyond the device
         budget return a ChunkedPreparedPlan that streams the biggest
         table through the program (engine/chunked.py), or a
-        GraceHashPreparedPlan when the build side is too big as well."""
+        GraceHashPreparedPlan when the build side is too big as well.
+        The plan carries its workload access profile and, when built
+        whole, the optimizer's row estimate per node."""
+        scans0 = self._collect_scans(plan)
+        roles = self._access_columns(plan)
         plan = self._route_projections(plan)
+        # workload access heat: computed once here, folded per execution
+        access = self._access_profile(scans0, plan, roles)
         if self.chunking_enabled:
             from .chunked import (
                 ChunkedPreparedPlan,
@@ -2816,25 +2999,100 @@ class Executor:
                         self, plan, budget)
                     chunk_rows = self._clamped_chunk_rows(
                         plan, stream, budget)
-                    return ChunkedPreparedPlan(
+                    cp = ChunkedPreparedPlan(
                         self, plan, stream, split, kind, chunk_rows)
+                    cp.access_profile = access
+                    return cp
                 except NotStreamable:
                     # grace-hash partitioned spill: the BUILD side exceeds
                     # the budget too
                     from .pipeline import NotPartitionable, try_grace_hash
 
                     try:
-                        return try_grace_hash(self, plan, budget)
+                        gp = try_grace_hash(self, plan, budget)
+                        gp.access_profile = access
+                        return gp
                     except NotPartitionable:
                         # whole-table upload
                         pass
         params = self.seed_params(plan)
         run, input_spec, overflow_nodes = self.compile(plan, params)
-        return PreparedPlan(self, plan, params, run, input_spec,
-                            overflow_nodes)
+        prepared = PreparedPlan(self, plan, params, run, input_spec,
+                                overflow_nodes)
+        prepared.access_profile = access
+        # the estimate half of the operator profiler's (estimate, actual)
+        # pairs (engine/plan_profile.py), pinned when the plan is built
+        from ..sql.planner import capture_node_estimates
+
+        prepared.node_estimates = capture_node_estimates(self, plan)
+        return prepared
 
     def execute(self, plan: LogicalOp, max_retries: int = 3):
         return self.prepare(plan).run(max_retries)
+
+
+def _narrow_seed(plan, default_rows: int) -> int:
+    """Row-count seed of the narrowed result frame: how many live rows
+    the client can receive from this plan root. LIMIT/TopN roots bound it
+    exactly (n + offset: the limit keeps the offset rows live and the
+    cursor slices); a group-less aggregate yields one row; anything else
+    takes the caller's default (grown on a frame overflow like any other
+    static capacity)."""
+    node = plan
+    while isinstance(node, Project):
+        node = node.child
+    if isinstance(node, (Limit, TopN)):
+        return max(1, int(node.n) + int(getattr(node, "offset", 0) or 0))
+    if isinstance(node, Aggregate) and not node.group_keys and (
+        getattr(node, "grouping_sets", None) is None
+    ):
+        return 1
+    return max(1, int(default_rows))
+
+
+_NP_DTYPES: dict = {}
+
+
+def _np_dtype(dt: torch.dtype) -> np.dtype:
+    got = _NP_DTYPES.get(dt)
+    if got is None:
+        got = _NP_DTYPES[dt] = torch.empty(0, dtype=dt).numpy().dtype
+    return got
+
+
+def _to_host_many(tensors) -> list:
+    """Host numpy copies of several tensors in one device-to-host copy:
+    on CUDA their bytes are packed on the device (one cat) and split on
+    the host, so a frame's completion is one transfer and one sync."""
+    ts = list(tensors)
+    if not ts or ts[0].device.type != "cuda":
+        return [to_numpy(t) for t in ts]
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in ts]
+    buf = torch.cat(flat).cpu().numpy()
+    out, off = [], 0
+    for t in ts:
+        nb = t.numel() * t.element_size()
+        out.append(buf[off:off + nb].copy().view(_np_dtype(t.dtype))
+                   .reshape(tuple(t.shape)))
+        off += nb
+    return out
+
+
+def _frame_fits(out: ColumnBatch, ncap: int) -> bool:
+    """Whether a result frame is no wider than the narrowed frame of ncap
+    rows, so it is sent as it is."""
+    return int(out.sel.shape[-1]) <= ncap
+
+
+def _first_live_frame(out: ColumnBatch, k: int):
+    """K23 over a result frame: (nlive, cols, valid) of its first k live
+    rows in row order, row 0 in the lanes past the live ones."""
+    cn, vn = list(out.cols), list(out.valid)
+    _idx, nlive, g = first_live(
+        out.sel, k,
+        [out.cols[n].contiguous() for n in cn]
+        + [out.valid[n].contiguous() for n in vn])
+    return nlive, dict(zip(cn, g[:len(cn)])), dict(zip(vn, g[len(cn):]))
 
 
 class PreparedPlan:
@@ -2850,11 +3108,23 @@ class PreparedPlan:
         self.input_spec = input_spec
         self.overflow_nodes = overflow_nodes
         self.retries = 0  # lifetime overflow-recompile count
+        # narrowed result frames: pow2 frame width -> program (dropped by
+        # recompile), the current width (0 = unseeded), and the opt-out
+        # of a plan whose result is too wide to narrow
+        self._narrow: dict[int, object] = {}
+        self._narrow_cap = 0
+        self._narrow_off = False
+        # optimizer row estimate per node id (prepare fills it)
+        self.node_estimates: dict[int, int] = {}
+        self.access_profile = ()
 
     def recompile(self) -> None:
+        """Rebuild after a capacity change; the narrowed programs close
+        over the old capacities and drop with it."""
         self.program, self.input_spec, self.overflow_nodes = (
             self.executor.compile(self.plan, self.params)
         )
+        self._narrow.clear()
 
     def _inputs(self):
         try:
@@ -2883,7 +3153,10 @@ class PreparedPlan:
         }
 
     def run(self, max_retries: int = 3, qparams=()):
+        from ..share.interrupt import checkpoint
+
         for attempt in range(max_retries + 1):
+            checkpoint()  # between overflow retries (and before the first)
             out, ovf_vec = self.call(qparams)
             overflows = self._overflows(to_numpy(ovf_vec))  # ONE copy
             if not overflows:
@@ -2908,39 +3181,174 @@ class PreparedPlan:
     def run_device(self, qparams=()):
         """Dispatch without the overflow check: (out batch, overflow
         vector); the check moves to the first fetch (DeviceResult)."""
+        from ..share.interrupt import checkpoint
+
+        checkpoint()
         return self.call(qparams)
+
+    # ---- the narrowed result frame -------------------------------------
+    def narrow_frame(self, default_rows: int, max_rows: int) -> int:
+        """Pow2 width of the narrowed result frame, or 0 when this plan
+        opted out (its result is wider than the ceiling, or an earlier
+        narrowed run overflowed past it). Seeded from the plan root
+        (LIMIT/aggregate bounds) and clamped to the root compaction's
+        capacity: narrowing past what compact_batch emits moves no fewer
+        bytes."""
+        if self._narrow_off:
+            return 0
+        ncap = self._narrow_cap
+        if ncap == 0:
+            ncap = next_pow2(_narrow_seed(self.plan, default_rows))
+            root = self.params.join_cap.get(ROOT_COMPACT)
+            if root:
+                ncap = min(ncap, next_pow2(int(root)))
+            self._narrow_cap = ncap
+        if ncap > max_rows:
+            self._narrow_off = True
+            return 0
+        return ncap
+
+    def _build_narrow(self, ncap: int):
+        """The plan's program followed by the result-frame compaction
+        (K23: the first ncap live rows in row order, every column and
+        validity plane gathered in one pass), so the frame equals the
+        plain path's host-side sel masking row for row. nkeep, the lanes
+        and the frame overflow derive from nlive on the device. A frame
+        of at most ncap rows (a TopN, LIMIT or aggregate root is often
+        one) cannot overflow and compacting it moves no fewer bytes: it
+        is the narrowed frame as it is, with its own sel."""
+
+        def run_narrow(inputs, qparams):
+            out, ovf_vec = self.program(inputs, qparams)
+            if _frame_fits(out, ncap):
+                return out, ovf_vec, torch.zeros(
+                    (), dtype=torch.int64, device=out.sel.device)
+            nlive, cols, valid = _first_live_frame(out, ncap)
+            nkeep = torch.clamp(nlive, max=ncap)
+            lanes = torch.arange(ncap, dtype=torch.int64,
+                                 device=out.sel.device) < nkeep
+            nb = ColumnBatch(cols=cols, valid=valid, sel=lanes,
+                             nrows=nkeep, schema=out.schema, dicts=out.dicts)
+            return nb, ovf_vec, torch.clamp(nlive - ncap, min=0)
+
+        return run_narrow
+
+    def run_device_narrow(self, qparams, ncap: int):
+        """Narrowed dispatch without a host sync: (frame batch, the
+        plan's overflow vector, the frame overflow), all on the device;
+        the statement's one host round trip is NarrowDeviceResult's
+        completion copy."""
+        from ..share.interrupt import checkpoint
+
+        checkpoint()
+        fn = self._narrow.get(ncap)
+        if fn is None:
+            fn = self._narrow[ncap] = self._build_narrow(ncap)
+            self.executor.narrow_compiles += 1
+        return fn(self._inputs(), qparams)
+
+    # ---- cross-session micro-batching ----------------------------------
+    @property
+    def batchable(self) -> bool:
+        """Whether the statement batcher may fold this plan's concurrent
+        fast hits into one batched dispatch. The batched program (a packed
+        [B, width] parameter block through one dispatch) is not ported,
+        so every hit dispatches solo, with the same rows."""
+        return False
+
+    def run_batched_host(self, qblock, max_retries: int = 3):
+        raise NotImplementedError(
+            "PreparedPlan.run_batched_host (the batched program over a "
+            "packed parameter block) is not ported to the torch engine yet")
 
 
 class DeviceResult:
     """Lazy device-resident result cursor. The first host access fetches
     the overflow counters and the live row count (a capacity overflow
     re-runs the plan here, as PreparedPlan.run would); column data
-    transfers on demand. `ovf_vec` None marks a batch whose plan already
-    checked its counters (the out-of-core plans run to the end)."""
+    transfers on demand: per touched column, or the first k rows through
+    K23. `ovf_vec` None marks a batch whose plan already checked its
+    counters (the out-of-core plans run to the end)."""
 
-    def __init__(self, prepared, qparams, out, ovf_vec, max_retries: int = 3):
+    def __init__(self, prepared, qparams, out, ovf_vec, max_retries: int = 3,
+                 profile=None, phases=None):
         self.prepared = prepared
         self._qparams = qparams
         self._out = out
         self._ovf = ovf_vec
         self._max_retries = max_retries
+        # observability sinks, updated in place as transfers happen:
+        # server/diag.QueryProfile (fetch_s / d2h_bytes) and the session's
+        # last_phases dict of this statement
+        self.profile = profile
+        self.phases = phases
         self._nrows: int | None = None
         self._hcols: dict = {}
         self._hvalid: dict = {}
         self._hsel = None
 
+    def _observe(self, seconds: float, nbytes: int,
+                 kind: str = "sync") -> None:
+        if self.profile is not None:
+            self.profile.fetch_s += seconds
+            self.profile.d2h_bytes += nbytes
+        if self.phases is not None:
+            self.phases["fetch_s"] = self.phases.get("fetch_s", 0.0) + seconds
+            if kind == "d2h":
+                # column transfers, split from the dispatch sync so the
+                # host-tax ledger can tell "d2h" from "device wait"
+                self.phases["d2h_s"] = (
+                    self.phases.get("d2h_s", 0.0) + seconds)
+
     def _sync(self) -> None:
+        """Overflow check + row count, the deferred tail of the dispatch:
+        the same bump/recompile/re-run loop as PreparedPlan.run. A small
+        result (known from the per-plan footprint memo) brings its column
+        data along in the same copy."""
         if self._nrows is not None:
             return
+        from ..share.interrupt import checkpoint
+
         if self._ovf is None:
             # an out-of-core plan's result: its runs checked every counter
+            t0 = time.perf_counter()
             self._nrows = int(self._out.nrows)
+            self._observe(time.perf_counter() - t0, 8)
             return
         p = self.prepared
+        rmemo = getattr(p, "_result_bytes_memo", None)
+        small = (rmemo is not None and rmemo[0] == getattr(p, "retries", 0)
+                 and rmemo[1] <= 65536 and not self._hcols
+                 and self._hsel is None)
         for attempt in range(self._max_retries + 1):
-            overflows = p._overflows(to_numpy(self._ovf))
+            t0 = time.perf_counter()
+            if small:
+                cn, vn = list(self._out.cols), list(self._out.valid)
+                got = _to_host_many(
+                    [self._ovf, self._out.sel]
+                    + [self._out.cols[n] for n in cn]
+                    + [self._out.valid[n] for n in vn])
+                hovf, hsel = got[0], got[1]
+                harrs = dict(zip(cn, got[2:2 + len(cn)]))
+                hvals = dict(zip(vn, got[2 + len(cn):]))
+                hn = int(hsel.sum())
+            else:
+                hovf, hn = _to_host_many([self._ovf, self._out.nrows])
+                hn = int(hn)
+            self._observe(time.perf_counter() - t0,
+                          int(getattr(hovf, "nbytes", 0)) + 8)
+            overflows = p._overflows(hovf)
             if not overflows:
-                self._nrows = int(self._out.nrows)
+                self._nrows = int(hn)
+                if small:
+                    # commit only a clean run: an overflowed attempt's
+                    # arrays are garbage
+                    self._hcols.update(harrs)
+                    self._hvalid.update(hvals)
+                    self._hsel = hsel
+                    self._observe(0.0, sum(
+                        int(a.nbytes) for d in (harrs, hvals)
+                        for a in d.values()) + int(hsel.nbytes))
                 return
             if attempt == self._max_retries:
                 raise RuntimeError(
@@ -2949,6 +3357,7 @@ class DeviceResult:
             p.retries += 1
             p.params.bump(overflows)
             p.recompile()
+            checkpoint()
             self._out, self._ovf = p.call(self._qparams)
 
     @property
@@ -2965,17 +3374,28 @@ class DeviceResult:
         return self._out.dicts
 
     def _fetch(self, names) -> None:
-        for n in names:
-            if n not in self._hcols:
-                self._hcols[n] = to_numpy(self._out.cols[n])
-                if n in self._out.valid:
-                    self._hvalid[n] = to_numpy(self._out.valid[n])
-        if self._hsel is None:
-            self._hsel = to_numpy(self._out.sel)
+        need = [n for n in names if n not in self._hcols]
+        if not need and self._hsel is not None:
+            return
+        vn = [n for n in need if n in self._out.valid]
+        ts = ([self._out.cols[n] for n in need]
+              + [self._out.valid[n] for n in vn])
+        sel_fetched = self._hsel is None
+        if sel_fetched:
+            ts.append(self._out.sel)
+        t0 = time.perf_counter()
+        got = _to_host_many(ts)
+        self._observe(time.perf_counter() - t0,
+                      sum(int(a.nbytes) for a in got), kind="d2h")
+        self._hcols.update(zip(need, got[:len(need)]))
+        self._hvalid.update(zip(vn, got[len(need):len(need) + len(vn)]))
+        if sel_fetched:
+            self._hsel = got[-1]
 
     def fetch_columns(self, names=None) -> dict:
         """Host rows (sel-compacted, dict-decoded) for the requested
-        columns — all of them when names is None."""
+        columns, all of them when names is None. Each column transfers
+        at most once; repeats serve from the host cache."""
         self._sync()
         fields = [f for f in self._out.schema.fields
                   if names is None or f.name in names]
@@ -2984,8 +3404,32 @@ class DeviceResult:
                          self._hvalid, self._hsel)
 
     def fetch_head(self, limit: int) -> dict:
-        host = self.fetch_columns()
-        return {n: v[:limit] for n, v in host.items()}
+        """The first `limit` live rows through K23: about limit rows per
+        column cross to the host instead of the frame's capacity. The
+        width buckets to a power of two, so a client sweeping LIMIT
+        values (pagination) uses log2(cap) widths, not one per limit.
+        Serves from the host cache after a full fetch."""
+        self._sync()
+        k = min(int(limit), self._nrows)
+        if self._hsel is not None and not (
+            set(self._out.schema.names()) - set(self._hcols)
+        ):
+            host = host_rows(self._out.schema, self._out.dicts, self._hcols,
+                             self._hvalid, self._hsel)
+            return {n: v[:k] for n, v in host.items()}
+        cap = int(self._out.sel.shape[-1])
+        kb = min(next_pow2(max(k, 1)), cap)
+        _nlive, cols, valid = _first_live_frame(self._out, kb)
+        cn, vn = list(cols), list(valid)
+        t0 = time.perf_counter()
+        got = _to_host_many([cols[n] for n in cn] + [valid[n] for n in vn])
+        self._observe(time.perf_counter() - t0,
+                      sum(int(a.nbytes) for a in got), kind="d2h")
+        host = host_rows(self._out.schema, self._out.dicts,
+                         dict(zip(cn, got[:len(cn)])),
+                         dict(zip(vn, got[len(cn):])),
+                         np.ones(kb, dtype=np.bool_))
+        return {n: v[:k] for n, v in host.items()}
 
     def fetch_storage(self, names=None) -> dict:
         """Live rows in the STORAGE domain (scaled-int decimals, day
@@ -2993,6 +3437,87 @@ class DeviceResult:
         self._sync()
         names = list(names) if names is not None else self._out.schema.names()
         return batch_rows_storage(self._out, names)
+
+
+class NarrowDeviceResult(DeviceResult):
+    """DeviceResult over a narrowed dispatch: `out` is the final ncap-row
+    result frame, so the completion sync copies the whole client-visible
+    payload in one round trip, with no separate column transfer. A frame
+    overflow grows the pow2 width and re-runs; past the ceiling the plan
+    gives up narrowing and this cursor falls back to the plain lazy
+    contract."""
+
+    narrowed = True
+
+    def __init__(self, prepared, qparams, out, ovf_vec, novf, ncap: int,
+                 narrow_max: int, max_retries: int = 3, profile=None,
+                 phases=None):
+        super().__init__(prepared, qparams, out, ovf_vec,
+                         max_retries=max_retries, profile=profile,
+                         phases=phases)
+        self._novf = novf
+        self._ncap = int(ncap)
+        self._narrow_max = int(narrow_max)
+        self._fallback = False
+
+    def _sync(self) -> None:
+        if self._nrows is not None:
+            return
+        if self._fallback:
+            return super()._sync()
+        from ..share.interrupt import checkpoint
+
+        p = self.prepared
+        for attempt in range(self._max_retries + 1):
+            t0 = time.perf_counter()
+            # the frame IS the result: the overflow counters and every
+            # ncap-row leaf in one copy
+            cn, vn = list(self._out.cols), list(self._out.valid)
+            got = _to_host_many(
+                [self._ovf, self._novf, self._out.sel]
+                + [self._out.cols[n] for n in cn]
+                + [self._out.valid[n] for n in vn])
+            hovf, hnovf, hsel = got[0], int(got[1]), got[2]
+            harrs = dict(zip(cn, got[3:3 + len(cn)]))
+            hvals = dict(zip(vn, got[3 + len(cn):]))
+            self._observe(time.perf_counter() - t0,
+                          int(getattr(hovf, "nbytes", 0)) + 8)
+            overflows = p._overflows(hovf)
+            if not overflows and hnovf == 0:
+                self._nrows = int(hsel.sum())
+                # commit only a clean run (overflowed frames are garbage)
+                self._hcols.update(harrs)
+                self._hvalid.update(hvals)
+                self._hsel = hsel
+                self._observe(0.0, sum(
+                    int(a.nbytes) for d in (harrs, hvals)
+                    for a in d.values()) + int(hsel.nbytes))
+                return
+            if attempt == self._max_retries:
+                raise RuntimeError(
+                    f"capacity overflow after {self._max_retries} "
+                    f"retries: {overflows or {'narrow': hnovf}}")
+            if overflows:
+                p.retries += 1
+                p.params.bump(overflows)
+                p.recompile()
+            if hnovf > 0:
+                grown = next_pow2(self._ncap + hnovf)
+                p._narrow_cap = max(p._narrow_cap, grown)
+                if grown > self._narrow_max:
+                    # too wide to narrow: the plan remembers (the next
+                    # warm hit skips narrowing) and THIS statement
+                    # finishes on the plain path
+                    p._narrow_off = True
+                    self._fallback = True
+                    checkpoint()
+                    self._out, self._ovf = p.call(self._qparams)
+                    return super()._sync()
+                self._ncap = grown
+            checkpoint()
+            self._out, self._ovf, self._novf = p.run_device_narrow(
+                self._qparams, self._ncap)
+        raise AssertionError
 
 
 def _key_bounds(c: E.Expr, qual: str) -> list:

@@ -151,6 +151,12 @@ class MemoryGovernor:
         self.reserved = 0
         self.peak_reserved = 0
         self._tenants: dict[str, _Tenant] = {}
+        # sharded-residency reporters (mesh executors): each returns the
+        # PER-DEVICE bytes its partitioned tables pin — total/n_shards,
+        # because row sharding leaves each device one slice of every
+        # resident table. The budget is per-device HBM, so this is the
+        # unit that competes with reservations for the same pool.
+        self._sharded_fns: list[Callable[[], int]] = []
         self._waiters = 0
         self._cond = threading.Condition()
         # staged ledger: host-pinned wire-encoded chunk buffers held by
@@ -165,11 +171,20 @@ class MemoryGovernor:
         self.grants = 0
         self.rejects = 0
         self.oom_notes = 0
+        # bounded ring of recent reservation-wait seconds for the p99
+        # surfaced in __all_virtual_memory_governor and the sentinel
+        self._wait_ring: list[float] = []
+        self._wait_cap = 512
         import time as _t
 
         self._clock = clock if clock is not None else _t.monotonic
 
     # ------------------------------------------------------------ config
+    def set_budget(self, budget: int) -> None:
+        with self._cond:
+            self.budget = int(budget)
+            self._cond.notify_all()
+
     def register_tenant(self, name: str, memory_limit: Optional[int],
                         resident_fn: Optional[Callable[[], int]] = None
                         ) -> None:
@@ -185,9 +200,27 @@ class MemoryGovernor:
                 if resident_fn is not None:
                     t.resident_fn = resident_fn
 
+    def register_sharded_residency(self, fn: Callable[[], int]) -> None:
+        """Register a mesh executor's partitioned-residency reporter
+        (ShardedResidency.per_device_bytes). Idempotent per callable."""
+        with self._cond:
+            if fn not in self._sharded_fns:
+                self._sharded_fns.append(fn)
+
     # ----------------------------------------------------------- budget
     def effective_budget(self) -> int:
         return max(1, int(self.budget * self._shrink))
+
+    def sharded_resident_bytes(self) -> int:
+        """Per-device bytes pinned by partitioned (mesh-sharded) tables
+        across all registered mesh executors."""
+        total = 0
+        for fn in list(self._sharded_fns):
+            try:
+                total += int(fn())
+            except Exception:
+                pass
+        return total
 
     def upload_budget(self) -> int:
         """What a single statement may plan to hold on device: the
@@ -196,7 +229,8 @@ class MemoryGovernor:
 
     def remaining(self) -> int:
         with self._cond:
-            return max(0, self.effective_budget() - self.reserved)
+            return max(0, self.effective_budget() - self.reserved
+                       - self.sharded_resident_bytes())
 
     def note_oom(self) -> None:
         """A device OOM proved the estimates optimistic: shrink the
@@ -257,7 +291,17 @@ class MemoryGovernor:
                     # a share-capped tenant's lone statement is likewise
                     # clamped so it can always eventually be admitted
                     want = min(want, max(1, t.limit))
-                fits = (self.reserved + want <= self.effective_budget()
+                # sharded residency shrinks the pool new reservations
+                # compete for — but never below `want`: a lone statement
+                # must stay admissible even when partitioned tables pin
+                # most of the device (they are evictable, exactly like
+                # the per-tenant lone-statement rule), else admission
+                # deadlocks with no one left to trigger eviction.
+                pool = self.effective_budget()
+                sharded = self.sharded_resident_bytes()
+                if sharded:
+                    pool = max(pool - sharded, want)
+                fits = (self.reserved + want <= pool
                         and self._tenant_fits(t, want))
                 if fits:
                     break
@@ -309,6 +353,10 @@ class MemoryGovernor:
             self._cond.notify_all()
 
     def _note_wait(self, s: float) -> None:
+        # caller holds _cond
+        self._wait_ring.append(s)
+        if len(self._wait_ring) > self._wait_cap:
+            del self._wait_ring[: len(self._wait_ring) - self._wait_cap]
         # host-tax: admission waits park the statement's own thread here,
         # so the hint lands on its ledger without any plumbing
         led = _gap.current()
@@ -316,6 +364,22 @@ class MemoryGovernor:
             led.add("governor reserve", s)
 
     # ------------------------------------------------------- observation
+    def wait_p99_s(self) -> float:
+        with self._cond:
+            ring = sorted(self._wait_ring)
+        if not ring:
+            return 0.0
+        return ring[min(len(ring) - 1, int(len(ring) * 0.99))]
+
+    def under_pressure(self) -> bool:
+        """Cheap predicate for admission-side consumers (the statement
+        batcher clamps batch size while the ledger is mostly spoken
+        for, or waiters are queued)."""
+        with self._cond:
+            eff = self.effective_budget()
+            return (self._waiters > 0
+                    or self.reserved * 4 >= eff * 3
+                    or self._shrink < 1.0)
 
     def ledger_balanced(self) -> bool:
         with self._cond:
@@ -336,7 +400,9 @@ class MemoryGovernor:
                 "grants": self.grants,
                 "rejects": self.rejects,
                 "oom_notes": self.oom_notes,
+                "sharded_resident": self.sharded_resident_bytes(),
                 "shrink": round(self._shrink, 4),
+                "wait_p99_s": self.wait_p99_s() if self._wait_ring else 0.0,
                 "tenants": {
                     name: {"limit": t.limit, "reserved": t.reserved}
                     for name, t in self._tenants.items()

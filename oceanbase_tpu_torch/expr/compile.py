@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import functools
 import re
+import threading
 
 import numpy as np
 import torch
@@ -62,23 +63,30 @@ MAX_DECIMAL_SCALE = 6
 # ---------------------------------------------------------------------------
 
 # Bound 0-d device tensors for slotted Literals, active only while an
-# executor runs a parameterized plan (the parameter frame).
-_ACTIVE_PARAMS: tuple | None = None
+# executor runs a parameterized plan (the parameter frame). Per thread:
+# the server runs concurrent statements on their connections' threads,
+# and each plan runs eagerly under its own frame.
+_FRAME = threading.local()
 
 
 def set_params(params: tuple | None):
-    """Install the active parameter tuple; returns the previous one."""
-    global _ACTIVE_PARAMS
-    prev = _ACTIVE_PARAMS
-    _ACTIVE_PARAMS = params
+    """Install the active parameter tuple of this thread; returns the
+    previous one."""
+    prev = getattr(_FRAME, "params", None)
+    _FRAME.params = params
     return prev
+
+
+def _active_params() -> tuple | None:
+    return getattr(_FRAME, "params", None)
 
 
 def literal_scalar(e, device):
     """Storage-domain value of a Literal as a 0-d tensor on `device`
     (slotted literals read the active parameter tuple)."""
-    if e.slot is not None and _ACTIVE_PARAMS is not None:
-        return _ACTIVE_PARAMS[e.slot]
+    params = _active_params()
+    if e.slot is not None and params is not None:
+        return params[e.slot]
     return _scalar(bind_value(e.value, e.dtype), device)
 
 
@@ -322,10 +330,11 @@ def evaluate(e: Expr, batch: ColumnBatch):
                             device=batch.device),
                 torch.zeros(cap, dtype=torch.bool, device=batch.device),
             )
-        if e.slot is not None and _ACTIVE_PARAMS is not None:
+        params = _active_params()
+        if e.slot is not None and params is not None:
             # parameterized plan: the bound 0-d tensor is already in the
             # literal's physical storage domain (bind_value)
-            return _ACTIVE_PARAMS[e.slot], None
+            return params[e.slot], None
         if t.kind is TypeKind.VARCHAR:
             raise NotImplementedError(
                 "bare string literal outside a dictionary comparison"

@@ -27,6 +27,7 @@ K19 `kmeans_assign`    nearest centroid per row   (csrc/k19_kmeans_assign.cu)
 K20 `kmeans_update`    per-list row-order sums    (csrc/k20_kmeans_update.cu)
 K21 `ivf_lists`        the nprobe nearest lists   (csrc/k21_ivf_lists.cu)
 K22 `ivf_probe`        filtered re-rank + top-k   (csrc/k22_ivf_probe.cu)
+K23 `first_live`       first k live rows + gather (csrc/k23_first_live.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -81,6 +82,7 @@ KERNEL_NAMES = (
     "K20_kmeans_update",
     "K21_ivf_lists",
     "K22_ivf_probe",
+    "K23_first_live",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -128,6 +130,7 @@ SOURCES = (
     "k20_kmeans_update.cu",
     "k21_ivf_lists.cu",
     "k22_ivf_probe.cu",
+    "k23_first_live.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -270,6 +273,9 @@ def _load():
         lib.ob_k22_probe.argtypes = [P, P, P, P, P, P, P, I, I, L, I, I, I,
                                      P, P, P, P, P, P]
         lib.ob_k22_tile.argtypes = []
+        lib.ob_k23_first_live.argtypes = [P, L, L, P, P, P, P, I, P, P, P,
+                                          P, P]
+        lib.ob_k23_tile_rows.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -285,7 +291,8 @@ def _load():
                    lib.ob_k15_scatter, lib.ob_k16_registers,
                    lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile,
                    lib.ob_k19_assign, lib.ob_k20_update, lib.ob_k21_lists,
-                   lib.ob_k22_probe, lib.ob_k22_tile):
+                   lib.ob_k22_probe, lib.ob_k22_tile,
+                   lib.ob_k23_first_live, lib.ob_k23_tile_rows):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -2613,3 +2620,78 @@ def ivf_probe(x, sel, perm, offs, lens, probes, q, max_list: int, n: int,
         _check(rc, "K22_ivf_probe")
     LAUNCHES["K22_ivf_probe"] += 1
     return rows, osel, starved
+
+
+# ---------------------------------------------------------------------------
+# K23: first-k live-row compaction (the head fetch and the narrowed frame)
+# ---------------------------------------------------------------------------
+
+_k23_tile = None
+
+
+def first_live_plain(sel, k: int, cols):
+    """Plain version of K23 (engine/executor.py:3867-3876
+    `_head_gather_impl`, and the compaction of `_build_narrow`'s
+    run_narrow): idx = the first k live rows of sel in ascending order,
+    padded with row 0 (`jnp.nonzero(sel, size=k, fill_value=0)`); every
+    column (1-D, or 2-D rows) gathered by idx. Returns (int64 [k] idx,
+    0-d int64 nlive, [c[idx] for c in cols])."""
+    live = torch.nonzero(sel).flatten()
+    n = min(int(live.shape[0]), int(k))
+    idx = torch.zeros(int(k), dtype=torch.int64, device=sel.device)
+    idx[:n] = live[:n]
+    nlive = torch.sum(sel, dtype=torch.int64)
+    return idx, nlive, [c.index_select(0, idx) for c in cols]
+
+
+def first_live(sel, k: int, cols):
+    """K23: the first k live rows of sel (row 0 past the live ones) and
+    every column gathered by them, in one pass over sel and no host
+    sync. sel: bool [cap], cap >= 1; k >= 1 (k may exceed cap); cols:
+    contiguous columns of cap rows (1-D, or 2-D with one row per sel
+    entry). Returns (int64 [k] idx, 0-d int64 nlive, gathered columns)
+    bit for bit as `first_live_plain`."""
+    global _k23_tile
+    cols = list(cols)
+    if not _on_cuda(sel, *cols):
+        return first_live_plain(sel, k, cols)
+    cap = int(sel.shape[0])
+    _vector(sel, cap, "K23 sel")
+    if sel.dtype != torch.bool:
+        raise TypeError("K23 sel must be bool")
+    k = int(k)
+    if cap < 1 or k < 1:
+        raise ValueError(f"K23 needs cap >= 1 and k >= 1, got {cap}, {k}")
+    for c in cols:
+        if c.dim() not in (1, 2) or int(c.shape[0]) != cap:
+            raise ValueError(
+                f"K23 column: expected {cap} rows, got {tuple(c.shape)}")
+        if not c.is_contiguous():
+            raise ValueError("K23 column: tensor must be contiguous")
+        if c.element_size() not in _WIDTHS:
+            raise TypeError(f"K23 column width {c.element_size()}")
+    dev = sel.device
+    lib = _load()
+    if _k23_tile is None:
+        _k23_tile = int(lib.ob_k23_tile_rows())
+    ntiles = -(-cap // _k23_tile)
+    idx = torch.empty(k, dtype=torch.int64, device=dev)
+    nlive = torch.empty((), dtype=torch.int64, device=dev)
+    counts = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    prefix = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    outs = [torch.empty((k, *c.shape[1:]), dtype=c.dtype, device=dev)
+            for c in cols]
+    nc = len(cols)
+    src = (ctypes.c_void_p * max(nc, 1))(*[c.data_ptr() for c in cols])
+    dst = (ctypes.c_void_p * max(nc, 1))(*[o.data_ptr() for o in outs])
+    esize = (ctypes.c_int * max(nc, 1))(*[c.element_size() for c in cols])
+    nper = (ctypes.c_int * max(nc, 1))(
+        *[int(c.shape[1]) if c.dim() == 2 else 1 for c in cols])
+    with torch.cuda.device(dev):
+        rc = lib.ob_k23_first_live(
+            sel.data_ptr(), cap, k, idx.data_ptr(), nlive.data_ptr(),
+            counts.data_ptr(), prefix.data_ptr(), nc, src, dst, esize, nper,
+            _stream(dev))
+        _check(rc, "K23_first_live")
+    LAUNCHES["K23_first_live"] += 1
+    return idx, nlive, outs

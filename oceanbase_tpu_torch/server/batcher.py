@@ -1,0 +1,730 @@
+"""Cross-session continuous-batching statement scheduler.
+
+Counterpart of `oceanbase_tpu/server/batcher.py`: the DispatchGate, the
+StatementBatcher with its per-(text_key, entry) groups, the weighted
+per-tenant admission and the queue, copied as they are. Concurrent hits
+on cached statements coalesce behind an in-flight dispatch, and every
+finished dispatch hands its gate token to the next queued group;
+admission across tenant queues is a weighted smooth-deficit round-robin
+seeded from TenantUnit.weight, and every gated statement holds one of
+`ob_tenant_admission_slots` running permits.
+
+In the torch engine no prepared plan is `batchable` yet (the batched
+program over a packed [B, width] parameter block is not ported), so
+every statement bypasses the lane packing and runs the solo fast path,
+with the same rows; `_combo_run` raises NotImplementedError by name.
+
+Token contract: every execute() call that returns None leaves EXACTLY ONE
+gate busy token held for the caller's solo fast-path run; the caller
+brackets that run with solo_done() (DbSession._fast_select does), which
+hands the token to the next queued group.
+
+Privilege re-checks stay PER SESSION in DbSession._fast_select, before
+the batcher is ever consulted.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from collections import deque
+
+import numpy as np
+
+from ..ops.hashing import next_pow2
+from ..share import gap_ledger as _gl
+
+
+class BatcherShutdown(RuntimeError):
+    """Parked on forming groups when shutdown() fails them to solo."""
+
+
+# sentinel error for "group degenerated to one lane — run it solo"
+_SOLO = RuntimeError("solo")
+
+
+def _combo_run(pa, pb, qa: np.ndarray, qb: np.ndarray):
+    """ONE device dispatch for two different plans' batched cohorts (the
+    JAX package inlines both vmapped programs into one jitted program).
+    Not ported with the batched program: it is reached only for plans
+    whose `batchable` is True, and no port plan is."""
+    raise NotImplementedError(
+        "server.batcher._combo_run (one dispatch for two plans' batched "
+        "cohorts) is not ported to the torch engine yet")
+
+
+class _Batch:
+    """One forming / in-flight group of same-entry fast-path hits."""
+
+    __slots__ = ("key", "entry", "tenant", "rows", "dead", "max_size",
+                 "batch_id", "closed", "queued", "admitted", "dispatching",
+                 "adopted", "full", "done", "results", "error",
+                 "dispatch_s", "d2h_bytes", "nlanes")
+
+    def __init__(self, key, entry, tenant: str, batch_id: int,
+                 max_size: int):
+        self.key = key
+        self.entry = entry  # sql.plan_cache.CacheEntry (pins the plan)
+        self.tenant = tenant
+        self.rows: list[np.ndarray] = []  # packed qparam vector per lane
+        self.dead: set[int] = set()  # lanes whose follower gave up
+        self.max_size = max_size  # the LEADER's clamp governs the batch
+        self.batch_id = batch_id
+        self.closed = False  # no more joiners (filled/dispatching)
+        self.queued = False  # sitting in its tenant's gate queue
+        self.admitted = False  # gate handed this group a busy token
+        self.dispatching = False  # lanes frozen; device execution begun
+        self.adopted = False  # riding another leader's fused pair dispatch
+        self.full = threading.Event()  # admission/fill/shutdown wake
+        self.done = threading.Event()  # results scattered (or error set)
+        self.results: list | None = None  # ResultSet per ORIGINAL lane
+        self.error: Exception | None = None
+        self.dispatch_s = 0.0
+        self.d2h_bytes = 0
+        self.nlanes = 0  # alive lanes actually dispatched
+
+
+class DispatchGate:
+    """Cluster-wide continuous-batching gate: the in-flight dispatch
+    count plus per-tenant queues of forming groups with weighted
+    smooth-deficit round-robin admission. ONE gate per cluster, shared
+    by every tenant's StatementBatcher the way cluster._timeline is
+    shared — cross-tenant fairness only exists inside one ledger.
+
+    Everything below register() is called with self.lock HELD: the
+    tenant batchers adopt this lock as their own so group formation and
+    queue movement are one atomic domain."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.busy = 0  # in-flight dispatches (batched + tracked solo)
+        self._queues: dict[str, deque] = {}
+        self._weights: dict[str, float] = {}
+        self._credits: dict[str, float] = {}
+        self.queued_groups = 0
+        self.depth_hwm = 0
+        self.admissions = 0
+        # test seam: when a list, every admission appends its tenant
+        self.admit_log: list | None = None
+        # weighted admission slots (ob_tenant_admission_slots): dispatch
+        # ORDER alone cannot protect a quiet tenant when the contention
+        # is upstream of the device (CPU time across hundreds of session
+        # threads), so gated statements also hold one of `slots` running
+        # permits, allocated by weight share. Single-tenant clusters
+        # bypass the whole mechanism.
+        self.slots = 8
+        self._running: dict[str, int] = {}
+        self._adm_waiting: dict[str, int] = {}
+        self._adm_cv = threading.Condition(self.lock)
+
+    def register(self, tenant: str, weight: float = 1.0) -> None:
+        with self.lock:
+            self._ensure(tenant, weight)
+            self._weights[tenant] = max(float(weight), 1e-3)
+
+    # ---------------------------------------- weighted admission slots
+    def _share(self, tenant: str) -> int:
+        # floor, not ceil: a flooding tenant must not ROUND UP into
+        # capacity its weight doesn't buy; min 1 guarantees progress
+        total_w = sum(self._weights.values())
+        return max(1, int(self.slots * self._weights[tenant] // total_w))
+
+    def _can_run(self, tenant: str) -> bool:
+        if sum(self._running.values()) >= self.slots:
+            return False
+        if self._running[tenant] < self._share(tenant):
+            return True
+        # over its share: borrow free headroom only while every OTHER
+        # tenant is fully idle — an ACTIVE tenant keeps its reserved
+        # share even when it is not using all of it yet
+        return all(self._running[o] == 0 and self._adm_waiting[o] == 0
+                   for o in self._weights if o != tenant)
+
+    def acquire_slot(self, tenant: str, valve_s: float = 5.0) -> float:
+        """Take one running permit for a gated statement; returns the
+        seconds waited (0.0 = admitted immediately). The wait releases
+        the gate lock (Condition), so a throttled flood parks GIL-free.
+        `valve_s` bounds the wait — after it the statement runs anyway
+        (admission is QoS, not correctness; a missed release must not
+        wedge serving)."""
+        with self._adm_cv:
+            self._ensure(tenant)
+            if len(self._weights) < 2 or self._can_run(tenant):
+                self._running[tenant] += 1
+                return 0.0
+            t0 = time.perf_counter()
+            deadline = t0 + valve_s
+            self._adm_waiting[tenant] += 1
+            try:
+                while not self._can_run(tenant):
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    self._adm_cv.wait(remaining)
+            finally:
+                self._adm_waiting[tenant] -= 1
+            self._running[tenant] += 1
+            return time.perf_counter() - t0
+
+    def release_slot(self, tenant: str) -> None:
+        with self._adm_cv:
+            n = self._running.get(tenant, 0)
+            self._running[tenant] = n - 1 if n > 0 else 0
+            # wake only when some waiter is actually eligible — with a
+            # pinned flood, MOST releases (the quiet tenant's) change
+            # nothing for the waiters, and waking a herd of throttled
+            # threads just to re-sleep burns the very CPU the throttle
+            # protects. (A waiter that would miss a wake from a config
+            # bump self-heals on its bounded wait.)
+            if any(w > 0 and self._can_run(t)
+                   for t, w in self._adm_waiting.items()):
+                self._adm_cv.notify_all()
+
+    # ---------------------------------------------- lock-held interface
+    def _ensure(self, tenant: str, weight: float = 1.0) -> None:
+        if tenant not in self._weights:
+            self._weights[tenant] = max(float(weight), 1e-3)
+            self._queues[tenant] = deque()
+            self._credits[tenant] = 0.0
+            self._running[tenant] = 0
+            self._adm_waiting[tenant] = 0
+
+    def queue_len(self, tenant: str) -> int:
+        q = self._queues.get(tenant)
+        return len(q) if q is not None else 0
+
+    def enqueue(self, b: _Batch) -> None:
+        self._ensure(b.tenant)
+        self._queues[b.tenant].append(b)
+        b.queued = True
+        self.queued_groups += 1
+        if self.queued_groups > self.depth_hwm:
+            self.depth_hwm = self.queued_groups
+
+    def remove(self, b: _Batch) -> None:
+        if not b.queued:
+            return
+        b.queued = False
+        q = self._queues.get(b.tenant)
+        if q is None:
+            return
+        try:
+            q.remove(b)
+        except ValueError:
+            return
+        self.queued_groups -= 1
+
+    def admit_next(self) -> _Batch | None:
+        """Weighted smooth-deficit pick across the non-empty tenant
+        queues; transfers the caller's busy token to the admitted group
+        and wakes its leader. None when nothing waits."""
+        waiting = [t for t, q in self._queues.items() if q]
+        if not waiting:
+            return None
+        for t in waiting:
+            self._credits[t] += self._weights[t]
+        pick = max(waiting, key=lambda t: (self._credits[t], t))
+        total = sum(self._weights[t] for t in waiting)
+        self._credits[pick] -= total
+        # bound credit drift for tenants that drift in and out of the
+        # waiting set — a long absence must not bank unbounded priority
+        for t in waiting:
+            c = self._credits[t]
+            if c > total:
+                self._credits[t] = total
+            elif c < -total:
+                self._credits[t] = -total
+        b = self._queues[pick].popleft()
+        b.queued = False
+        self.queued_groups -= 1
+        b.admitted = True
+        self.admissions += 1
+        if self.admit_log is not None:
+            self.admit_log.append(pick)
+        b.full.set()
+        return b
+
+    def release(self) -> None:
+        """One in-flight dispatch finished: hand its token to the next
+        queued group, else go idle."""
+        if self.admit_next() is None:
+            self.busy -= 1
+
+
+class StatementBatcher:
+    """Collects concurrent fast-path hits into batched device
+    dispatches behind a shared DispatchGate. One instance per Database
+    (tenant); gates/queues are cluster-shared; safe for any number of
+    session threads."""
+
+    def __init__(self, metrics=None, gate: DispatchGate | None = None,
+                 tenant: str = "sys"):
+        self.gate = gate if gate is not None else DispatchGate()
+        # group formation and queue movement share ONE lock domain
+        self._lock = self.gate.lock
+        self._forming: dict[tuple, _Batch] = {}
+        self._ids = itertools.count(1)
+        self.metrics = metrics
+        self.tenant = tenant
+        self.gate.register(tenant)
+        # hook: share/timeline.ServingTimeline — each cohort's ONE device
+        # dispatch plus its lane-occupancy land on the serving timeline
+        self.timeline = None
+        # A/B switch (latency_bench --sessions: batching on vs off)
+        self.enabled = True
+        # bucket-shape coalescing (ob_enable_batch_coalesce): a leader
+        # about to dispatch adopts ONE queued group of a DIFFERENT plan
+        # whose alive cohort pads to the same pow2 bucket — two cohorts,
+        # one fused device program, one D2H
+        self.coalesce_enabled = True
+        # config-derived degradation bounds (ob_batch_follower_timeout /
+        # ob_batch_queue_depth); Database re-seeds these on hot reload
+        self.follower_timeout_s = 10.0
+        self.queue_depth = 32
+        # hook: engine/memory_governor.MemoryGovernor — while the device
+        # ledger is under pressure, wide batches (one dispatch holding
+        # many lanes' working sets at once) are exactly the wrong shape;
+        # execute() clamps the cohort width until pressure clears
+        self.governor = None
+
+    # ------------------------------------------------------------ public
+    def execute(self, hit, max_size: int, wait_us: int):
+        """Run one fast-path hit through the continuous-batching gate.
+
+        Returns the lane's ResultSet — with `rs.batch_info = (batch_id,
+        batch_size, wait_us, dispatch_s, d2h_share)` attached for the
+        audit/profile plumbing — or None when the statement should
+        degrade to the plain solo fast path (idle gate, ineligible
+        plan, follower timeout, dispatch error, shutdown). EVERY None
+        return leaves one gate busy token held for that solo run: the
+        caller must bracket it with solo_done()."""
+        m = self.metrics
+        gate = self.gate
+        entry = hit.entry
+        prepared = entry.prepared
+        gov = self.governor
+        if gov is not None and max_size > 2 and gov.under_pressure():
+            # device memory pressure: narrow the cohort so one batched
+            # dispatch can't concentrate the working sets the governor
+            # is busy queueing individual statements over
+            max_size = 2
+            if m is not None and m.enabled:
+                m.add("stmt batch memory clamp")
+        if not self.enabled or max_size <= 1:
+            return self._solo_token()
+        if not getattr(prepared, "batchable", False):
+            if m is not None and m.enabled:
+                m.bulk(adds=(("stmt batch bypass", 1),
+                             ("stmt batch bypass: not batchable", 1)))
+            return self._solo_token()
+        qrow = prepared.bind(hit.values, entry.dtypes)
+        if not isinstance(qrow, np.ndarray):
+            # legacy tuple ABI (should not happen when batchable): bypass
+            if m is not None and m.enabled:
+                m.bulk(adds=(("stmt batch bypass", 1),
+                             ("stmt batch bypass: unpacked params", 1)))
+            return self._solo_token()
+
+        key = (hit.text_key, id(entry))
+        t0 = time.perf_counter()
+        with self._lock:
+            b = self._forming.get(key)
+            if b is not None and not b.closed:
+                lane = len(b.rows)
+                b.rows.append(qrow)
+                leader = False
+                if len(b.rows) >= b.max_size:
+                    # this joiner filled the batch: dispatch NOW — pull
+                    # the group off the queue and wake its leader
+                    b.closed = True
+                    self._forming.pop(key, None)
+                    gate.remove(b)
+                    b.full.set()
+            elif gate.busy == 0 and gate.queued_groups == 0:
+                # idle device, empty queue: the solo fast path dispatches
+                # IMMEDIATELY — no fixed leader wait. Taking the busy
+                # token is what makes the scheduler continuous: arrivals
+                # during this solo flight coalesce behind it.
+                gate.busy += 1
+                if m is not None and m.enabled:
+                    m.add("stmt batch solo")
+                return None
+            elif gate.queue_len(self.tenant) >= self.queue_depth:
+                # per-tenant queue bound: shed to solo instead of
+                # growing the backlog without bound
+                gate.busy += 1
+                if m is not None and m.enabled:
+                    m.bulk(adds=(("stmt batch bypass", 1),
+                                 ("stmt batch bypass: queue full", 1)))
+                return None
+            else:
+                b = _Batch(key, entry, self.tenant, next(self._ids),
+                           max_size)
+                b.rows.append(qrow)
+                lane = 0
+                self._forming[key] = b
+                gate.enqueue(b)
+                leader = True
+
+        if leader:
+            if not self._lead(b, wait_us, m):
+                return None
+        elif not self._follow(b, lane, wait_us, m):
+            return None
+        rs = b.results[lane]
+        rs.batch_info = (
+            b.batch_id,
+            b.nlanes,
+            int((time.perf_counter() - t0
+                 - (b.dispatch_s if leader else 0.0)) * 1e6),
+            b.dispatch_s,
+            b.d2h_bytes // max(b.nlanes, 1),
+        )
+        return rs
+
+    def admit(self) -> None:
+        """Weighted tenant admission for one gated statement: take a
+        running permit from the shared gate (DbSession._fast_select
+        brackets the whole gated execution with admit()/admit_done()).
+        A tenant within its weight share never waits; a flooding tenant
+        over its share parks here — on the "tenant admission" wait
+        event — while other tenants are active."""
+        waited = self.gate.acquire_slot(self.tenant)
+        if waited > 0.0:
+            m = self.metrics
+            if m is not None and m.enabled:
+                m.add("stmt admission throttled")
+                m.wait("tenant admission", waited)
+            led = _gl.current()
+            if led is not None:
+                # host-tax: the statement's thread parked here
+                led.add("tenant permit", waited)
+
+    def admit_done(self) -> None:
+        self.gate.release_slot(self.tenant)
+
+    def solo_done(self) -> None:
+        """Release the busy token a None-returning execute() left held,
+        AFTER the caller's solo fast path finished — handing it to the
+        next queued group (one admission per completed dispatch is what
+        keeps the queue draining)."""
+        with self._lock:
+            self.gate.release()
+
+    def shutdown(self) -> None:
+        """Refuse new batches and fail every forming group to the solo
+        path (Database.close): queued leaders and waiting followers
+        wake immediately and re-execute solo."""
+        with self._lock:
+            self.enabled = False
+            for b in list(self._forming.values()):
+                b.error = BatcherShutdown("batcher shutdown")
+                self.gate.remove(b)
+                b.full.set()
+                b.done.set()
+            self._forming.clear()
+
+    # ----------------------------------------------------------- private
+    def _solo_token(self):
+        with self._lock:
+            self.gate.busy += 1
+        return None
+
+    def _lead(self, b: _Batch, wait_us: int, m) -> bool:
+        """Leader half: wait for gate admission (or fill / shutdown),
+        then dispatch the surviving lanes. True = results scattered;
+        False = degrade to solo with the busy token held."""
+        gate = self.gate
+        # The admission wait IS the backpressure surface — it lands on
+        # the "stmt batch window" wait event (same meaning: time a
+        # cohort waited before its dispatch). Bounded at 2x the follower
+        # bound so a wedged gate degrades followers first (they shrink
+        # the batch) and the leader eventually dispatches regardless.
+        bound = wait_us / 1e6 + 2.0 * self.follower_timeout_s
+        t0 = time.perf_counter()
+        b.full.wait(bound)
+        waited = time.perf_counter() - t0
+        if m is not None and m.enabled:
+            m.wait("stmt batch window", waited)
+        led = _gl.current()
+        if led is not None:
+            # host-tax hint on the LEADER's ledger: its group-commit
+            # window wait (the dispatch is added separately, once)
+            led.add("batch window", waited)
+        rider = None
+        with self._lock:
+            b.closed = True
+            if self._forming.get(b.key) is b:
+                del self._forming[b.key]
+            gate.remove(b)
+            adopted = b.adopted
+            if not b.admitted and not adopted:
+                # filled before admission, gate wedged, or shutdown:
+                # dispatch on a fresh token (a filled batch must not
+                # keep waiting on an unrelated dispatch)
+                gate.busy += 1
+            if b.error is not None:  # shutdown raced in
+                if adopted:
+                    gate.busy += 1  # an adopted group holds no token
+                b.done.set()
+                return False
+            if not adopted:
+                alive = [i for i in range(len(b.rows))
+                         if i not in b.dead]
+                b.dispatching = True
+                if self.coalesce_enabled and len(alive) >= 2:
+                    rider = self._adopt_rider(b, next_pow2(len(alive)))
+            depth = gate.queued_groups
+        if adopted:
+            # another leader's fused pair dispatch carries this cohort:
+            # wait for its scatter instead of dispatching (and holding a
+            # token) ourselves
+            return self._ride(b, m)
+        tl = self.timeline
+        if tl is not None and tl.enabled:
+            tl.record_gate(waited, queued=depth)
+        if len(alive) == 1:
+            # nobody (left) to share with: the solo fast path is
+            # strictly cheaper than a padded 2-lane batch (and compiles
+            # nothing new); keep the token for it
+            b.error = _SOLO
+            b.done.set()
+            if m is not None and m.enabled:
+                m.add("stmt batch solo")
+            return False
+        if rider is not None:
+            rb, ralive = rider
+            if not self._dispatch_pair(b, alive, rb, ralive, depth):
+                # the pair couldn't fuse: two separate dispatches on the
+                # one token (the rider's lanes are parked on rb.done and
+                # complete either way)
+                self._dispatch(rb, ralive, depth)
+                self._dispatch(b, alive, depth)
+        else:
+            self._dispatch(b, alive, depth)
+        if b.error is not None:
+            return False  # token kept for the leader's own solo re-run
+        with self._lock:
+            gate.release()
+        return True
+
+    def _ride(self, b: _Batch, m) -> bool:
+        """Adopted leader half: the adopting leader dispatches and
+        scatters for us. On its error — or a timeout with the adopter
+        wedged — take a fresh token (adopted groups hold none) and
+        degrade this lane to solo; followers degrade themselves off
+        b.error exactly as after a failed dispatch."""
+        ok = b.done.wait(2.0 * self.follower_timeout_s)
+        if ok and b.error is None:
+            if m is not None and m.enabled:
+                m.add("stmt batch coalesced rider")
+            return True
+        with self._lock:
+            self.gate.busy += 1
+        if m is not None and m.enabled:
+            m.add("stmt batch coalesced degrade")
+        return False
+
+    def _adopt_rider(self, b: _Batch, bucket: int):
+        """Called with the gate lock HELD by a leader about to dispatch
+        `b`: pick ONE queued group — any tenant, own queue first — whose
+        alive cohort pads to the same pow2 bucket, freeze it, and pull
+        it out of the queue as a rider on this dispatch. Returns
+        (rider_batch, rider_alive_lanes) or None. The rider's leader
+        wakes on full (sees adopted=True, skips its token take) and its
+        followers ride the dispatch out because dispatching is set."""
+        gate = self.gate
+        queues = [gate._queues.get(self.tenant)]
+        queues += [q for t, q in gate._queues.items()
+                   if t != self.tenant]
+        for q in queues:
+            if not q:
+                continue
+            for rb in q:
+                if rb is b or rb.error is not None or rb.dispatching:
+                    continue
+                if not getattr(rb.entry.prepared, "_traceable", False):
+                    continue
+                ralive = [i for i in range(len(rb.rows))
+                          if i not in rb.dead]
+                if len(ralive) < 2 or next_pow2(len(ralive)) != bucket:
+                    continue
+                rb.closed = True
+                rb.dispatching = True
+                rb.adopted = True
+                gate.remove(rb)
+                # same-tenant riders share this batcher's forming map;
+                # a cross-tenant rider's leader cleans its own up
+                if self._forming.get(rb.key) is rb:
+                    del self._forming[rb.key]
+                rb.full.set()
+                return rb, ralive
+        return None
+
+    def _follow(self, b: _Batch, lane: int, wait_us: int, m) -> bool:
+        """Follower half: wait for the leader's scatter. On timeout
+        BEFORE the dispatch froze the lanes, pull our lane out of the
+        batch under the lock — it is neither device-executed nor
+        counted — and re-execute solo on a fresh token."""
+        bound = wait_us / 1e6 + self.follower_timeout_s
+        tw = time.perf_counter()
+        try:
+            return self._follow_inner(b, lane, bound, m)
+        finally:
+            led = _gl.current()
+            if led is not None:
+                # host-tax hint: a FOLLOWER attributes its whole wait
+                # (window + the leader's dispatch it rode out) as batch
+                # window — the cohort's device busy is the leader's to
+                # count, exactly once
+                led.add("batch window", time.perf_counter() - tw)
+
+    def _follow_inner(self, b: _Batch, lane: int, bound: float, m) -> bool:
+        ok = b.done.wait(bound)
+        if not ok:
+            with self._lock:
+                if not b.dispatching and not b.done.is_set():
+                    b.dead.add(lane)
+                    self.gate.busy += 1
+                    if m is not None and m.enabled:
+                        m.add("stmt batch follower timeouts")
+                    return False
+            # the dispatch already froze the lanes when the timer fired:
+            # our row IS in the device batch — ride the dispatch out
+            ok = b.done.wait(self.follower_timeout_s)
+            if not ok:
+                # leader died mid-dispatch: re-execute solo
+                with self._lock:
+                    self.gate.busy += 1
+                if m is not None and m.enabled:
+                    m.add("stmt batch follower timeouts")
+                return False
+        if b.error is not None:
+            with self._lock:
+                self.gate.busy += 1
+            return False
+        return True
+
+    def _scatter(self, b: _Batch, alive: list[int], hcols, hvalid, hsel,
+                 schema, dicts) -> None:
+        """Slice the padded device block down to the alive cohort and
+        scatter per-lane ResultSets back to their ORIGINAL lane slots
+        (one vectorized gather for the whole batch, not nb per-lane
+        gathers). Shared by the single-plan and fused-pair dispatches."""
+        from ..core.column import host_rows_batched
+        from ..engine.session import ResultSet
+
+        b.d2h_bytes = sum(
+            int(getattr(a, "nbytes", 0))
+            for d in (hcols, hvalid) for a in d.values()
+        ) + int(getattr(hsel, "nbytes", 0))
+        names = b.entry.output_names
+        nb = len(alive)
+        b.nlanes = nb
+        lanes = host_rows_batched(
+            schema, dicts,
+            {n: a[:nb] for n, a in hcols.items()},
+            {n: a[:nb] for n, a in hvalid.items()},
+            hsel[:nb],
+        )
+        results: list = [None] * len(b.rows)
+        for j, i in enumerate(alive):
+            lane = lanes[j]
+            results[i] = ResultSet(
+                names, {n: lane[n] for n in names},
+                plan_cache_hit=True, fast_path_hit=True)
+        b.results = results
+
+    def _dispatch_pair(self, b: _Batch, alive: list[int], rb: _Batch,
+                       ralive: list[int], depth: int) -> bool:
+        """Bucket-shape coalescing: ONE fused device program carrying
+        TWO different plans' cohorts (same pow2 bucket) — both vmapped
+        executables inlined into a single jit, one dispatch, one
+        device_get for every lane of both. True = both groups scattered
+        and done. False = the pair couldn't fuse; NOTHING is half-done
+        on that path (no done events, no results) — the caller falls
+        back to two separate dispatches."""
+        m = self.metrics
+        t0 = time.perf_counter()
+        try:
+            qa = np.stack([b.rows[i] for i in alive])
+            qb = np.stack([rb.rows[i] for i in ralive])
+            res = _combo_run(b.entry.prepared, rb.entry.prepared, qa, qb)
+            if res is None:
+                return False
+            dispatch_s = time.perf_counter() - t0
+            led = _gl.current()
+            if led is not None:
+                # ONE device execution on the ADOPTING leader's ledger;
+                # the rider's lanes hint only their window wait — same
+                # exactly-once discipline as the single-plan dispatch
+                led.add("device dispatch", dispatch_s)
+                led.device(dispatch_s)
+            b.dispatch_s = rb.dispatch_s = dispatch_s
+            (ha, hva, hsa, sca, dca), (hb, hvb, hsb, scb, dcb) = res
+            self._scatter(b, alive, ha, hva, hsa, sca, dca)
+            self._scatter(rb, ralive, hb, hvb, hsb, scb, dcb)
+        except Exception:  # noqa: BLE001 — fall back to two dispatches
+            return False
+        na, nr = len(alive), len(ralive)
+        if m is not None and m.enabled:
+            m.bulk(adds=(
+                ("stmt batched dispatches", 1),
+                ("stmt batched statements", na + nr),
+                (f"stmt batch size {next_pow2(na)}", 1),
+                ("stmt batch coalesced dispatches", 1),
+                ("stmt batch coalesced lanes", na + nr),
+            ))
+            m.gauge_max("stmt sched queue depth hwm", depth)
+        tl = self.timeline
+        if tl is not None and tl.enabled:
+            # one fused dispatch carrying both cohorts' lanes
+            tl.record_batch(dispatch_s, na + nr, queued=depth)
+        b.done.set()
+        rb.done.set()
+        return True
+
+    def _dispatch(self, b: _Batch, alive: list[int], depth: int) -> None:
+        """Leader half: stack the ALIVE lanes, ONE batched device
+        execution, scatter per-lane ResultSets back to their original
+        lane slots. Any failure parks the error and sends every lane
+        back to the solo path."""
+        m = self.metrics
+        t0 = time.perf_counter()
+        try:
+            qblock = np.stack([b.rows[i] for i in alive])
+            prepared = b.entry.prepared
+            hcols, hvalid, hsel, schema, dicts = (
+                prepared.run_batched_host(qblock))
+            b.dispatch_s = time.perf_counter() - t0
+            led = _gl.current()
+            if led is not None:
+                # _dispatch runs on the leader's thread: the cohort's ONE
+                # batched device execution lands on the LEADER's ledger
+                # (followers hint only their window wait) — the double-
+                # count regression test anchors here
+                led.add("device dispatch", b.dispatch_s)
+                led.device(b.dispatch_s)
+            self._scatter(b, alive, hcols, hvalid, hsel, schema, dicts)
+            nb = b.nlanes
+            if m is not None and m.enabled:
+                # batch-size histogram as per-pow2-bucket counters (the
+                # latency Histogram's bounds are seconds, not lanes)
+                m.bulk(adds=(
+                    ("stmt batched dispatches", 1),
+                    ("stmt batched statements", nb),
+                    (f"stmt batch size {next_pow2(nb)}", 1),
+                ))
+                m.gauge_max("stmt sched queue depth hwm", depth)
+            tl = self.timeline
+            if tl is not None and tl.enabled:
+                # the cohort's single dispatch (lanes here never reach
+                # the engine's solo record_exec — no double counting)
+                tl.record_batch(b.dispatch_s, nb, queued=depth)
+        except Exception as e:  # noqa: BLE001 — lanes degrade to solo
+            b.error = e
+            if m is not None and m.enabled:
+                m.add("stmt batch dispatch errors")
+        finally:
+            b.done.set()

@@ -1,3 +1,24 @@
-"""Shared infrastructure the port needs: table statistics (stats.py), the
-statement interrupt checkpoint (interrupt.py) and the host-tax ledger the
-streaming pipeline and the memory governor report to (gap_ledger.py)."""
+"""Shared cluster infrastructure (reference: src/share).
+
+config.py          typed parameter registry + hot reload (DEF_* analog)
+schema_service.py  multi-version schema cache (ObMultiVersionSchemaService)
+location.py        LS -> leader-node cache w/ refresh (ObLocationService)
+metrics.py         sysstat/wait-event/histogram registry (ob_stat_event)
+"""
+
+from .config import Config, Param, default_params
+from .location import LocationService
+from .metrics import Histogram, MetricsRegistry, WaitEvent
+from .schema_service import SchemaGuard, SchemaService
+
+__all__ = [
+    "Config",
+    "Param",
+    "default_params",
+    "LocationService",
+    "SchemaService",
+    "SchemaGuard",
+    "MetricsRegistry",
+    "WaitEvent",
+    "Histogram",
+]

@@ -1,41 +1,653 @@
-"""The statement host-tax ledger, as far as the port's engines report to it.
+"""Host-tax gap ledger: conservation-complete e2e wall attribution.
 
-Counterpart of the recording half of `oceanbase_tpu/share/gap_ledger.py`:
-a GapLedger installed for the running statement's thread collects named
-host phases (seconds) and device-busy seconds. The streaming pipeline adds
-its non-overlapped host-to-device wall ("h2d") and its chunk compute, and
-the memory governor its admission waits ("governor reserve").
+Counterpart of `oceanbase_tpu/share/gap_ledger.py`. A statement's device
+can sit nearly idle end to end while sql_audit phase columns, the
+ServingTimeline and QueryProfile each cover fragments of the statement
+wall and none of them sums to 100% or names the residual. This module is
+the measurement layer of the host tax: a per-statement ledger where
+every second of e2e wall lands
+in exactly one named phase, with an explicit ``unattributed`` residual
+(e2e - sum(phases)) that is surfaced and gated rather than silently
+absorbed into neighbouring phases.
+
+Three pieces:
+
+* :class:`GapLedger` — one per statement.  Phases are recorded either
+  directly (``add``) or as *hints* inside a measured window
+  (``window_start``/``window_end``): inner layers (batcher, governor,
+  engine carve) self-report what they know, and ``window_end`` clamps
+  the hints proportionally if they exceed the measured wall of the
+  window.  That clamp is the conservation guarantee — per-window
+  sum(hints) <= window wall, hence globally sum(phases) <= e2e, hence
+  ``unattributed = e2e - sum(phases) >= 0`` always holds exactly.
+  Device-busy spans (``device``) interleave with the host phases to
+  give per-statement ``chip_idle_pct``.
+
+* :class:`HostTaxRegistry` — bounded per-digest aggregate (count,
+  e2e, device, per-phase sums, unattributed) behind
+  ``__all_virtual_host_tax``, plus a small per-window ring for the
+  window-level chip-idle view in awr_report.
+
+* :class:`StackSampler` — a low-overhead in-process profiler over
+  stdlib ``sys._current_frames``: off by default (no thread), armed by
+  config or automatically for statements over the slow-query
+  watermark; collapsed semicolon-joined stacks in a bounded counter
+  ride the FlightRecorder bundle.
+
+Inner layers reach the statement's ledger through a thread-local
+(``current()``) set by ``server/database.py`` for the duration of the
+statement — the batcher and governor run their waits on the statement's
+own thread, so no API plumbing is needed to get hints home.
 """
-
 from __future__ import annotations
 
+import sys
 import threading
-from typing import Dict, Optional
+import time
+import traceback
+from typing import Callable, Dict, List, Optional, Tuple
+
+# Canonical phase order for rendering (waterfalls, awr, README walk-
+# through).  Phases not listed render after these in name order.
+PHASE_ORDER = (
+    "wire read",
+    "admission queue",
+    "setup",
+    "fast lookup",
+    "parse bind",
+    "tenant permit",
+    "batch window",
+    "governor reserve",
+    "plan compile",
+    "param pack",
+    "h2d",
+    "device dispatch",
+    "device wait",
+    "d2h",
+    "result fold",
+    "engine host",
+    "retry backoff",
+    "completion fold",
+    "wire write",
+)
+
+
+def phase_sort_key(name: str) -> Tuple[int, str]:
+    try:
+        return (PHASE_ORDER.index(name), name)
+    except ValueError:
+        return (len(PHASE_ORDER), name)
 
 
 class GapLedger:
-    __slots__ = ("phases", "device_s")
+    """Conservation accounting for one statement's e2e wall."""
 
-    def __init__(self):
+    __slots__ = ("clock", "t0", "phases", "device_s", "_pending",
+                 "_win_t0", "_cursor", "e2e_s", "unattributed_s", "closed")
+
+    def __init__(self, clock: Callable[[], float] = time.perf_counter):
+        self.clock = clock
+        self.t0 = 0.0
         self.phases: Dict[str, float] = {}
         self.device_s = 0.0
+        self._pending: Optional[List[Tuple[str, float]]] = None
+        self._win_t0 = 0.0
+        self._cursor = 0.0
+        self.e2e_s = 0.0
+        self.unattributed_s = 0.0
+        self.closed = False
 
+    # -- lifecycle ----------------------------------------------------
+    def begin(self, t0: Optional[float] = None) -> "GapLedger":
+        """(Re)arm for one statement.  Fully resets state: the serving
+        session reuses ONE ledger object per session instead of
+        allocating ledger + dicts per statement (the fast path is
+        ~200us end to end; allocator/GC churn there is measurable)."""
+        self.t0 = self.clock() if t0 is None else t0
+        self._cursor = self.t0
+        if self.phases:
+            self.phases.clear()
+        self.device_s = 0.0
+        self._pending = None
+        self.e2e_s = 0.0
+        self.unattributed_s = 0.0
+        self.closed = False
+        return self
+
+    def close(self, t_end: Optional[float] = None) -> "GapLedger":
+        if self._pending is not None:  # unbalanced window: flush clamped
+            self.window_end()
+        self.e2e_s = max(0.0, (self.clock() if t_end is None else t_end)
+                         - self.t0)
+        attributed = sum(self.phases.values())
+        # The residual is the whole point: never fold it into a phase.
+        self.unattributed_s = max(0.0, self.e2e_s - attributed)
+        self.closed = True
+        return self
+
+    # -- phase recording ----------------------------------------------
     def add(self, phase: str, seconds: float) -> None:
-        if seconds > 0.0:
+        """Attribute ``seconds`` to ``phase``.
+
+        Inside a window the value is buffered as a hint and clamped at
+        ``window_end`` so hinted phases can never exceed the measured
+        window wall; outside a window it applies directly (the caller
+        measured the span itself).
+        """
+        if seconds <= 0.0:
+            return
+        if self._pending is not None:
+            self._pending.append((phase, seconds))
+        else:
             self.phases[phase] = self.phases.get(phase, 0.0) + seconds
+            # the caller measured a span that just ended: advance the
+            # serial cursor so a following cut() doesn't re-cover it
+            self._cursor = self.clock()
+
+    def cut(self, phase: str) -> None:
+        """Attribute ALL wall since the last cut/add/window (or begin)
+        to ``phase`` and advance the cursor.
+
+        The serial serving path uses contiguous cuts instead of paired
+        perf_counter reads: every nanosecond of inter-span glue (context
+        managers, dict bookkeeping, call/return frames) lands in the
+        adjacent named phase instead of leaking into ``unattributed`` —
+        which matters on a warm fast-path point read where the whole
+        statement is ~200us and glue alone would blow the residual gate.
+        Not meaningful inside a window (hints there are clamped spans,
+        not a serial timeline); calls while a window is open are ignored.
+        """
+        if self._pending is not None:
+            return
+        now = self.clock()
+        dt = now - self._cursor
+        self._cursor = now
+        if dt > 0.0:
+            self.phases[phase] = self.phases.get(phase, 0.0) + dt
 
     def device(self, seconds: float) -> None:
         """Record device-busy wall overlapping this statement."""
         if seconds > 0.0:
             self.device_s += seconds
 
+    # -- measured windows ---------------------------------------------
+    def window_start(self) -> None:
+        self._pending = []
+        self._win_t0 = self.clock()
 
+    def window_end(self, default_phase: Optional[str] = None) -> float:
+        """Close the window; distribute buffered hints over its wall.
+
+        If sum(hints) exceeds the measured window wall (overlapping
+        inner spans, clock skew) every hint is scaled down
+        proportionally so the window never over-attributes.  Remaining
+        window wall goes to ``default_phase`` when given (the named
+        measured remainder, e.g. "engine host"), else stays for the
+        global ``unattributed`` residual to pick up.  Returns the
+        window wall.
+        """
+        pending, self._pending = self._pending, None
+        now = self.clock()
+        self._cursor = now  # the serial timeline resumes at window end
+        wall = max(0.0, now - self._win_t0)
+        hinted = sum(s for _p, s in (pending or ()))
+        scale = 1.0
+        if hinted > wall:
+            scale = (wall / hinted) if hinted > 0.0 else 0.0
+            hinted = wall
+        for p, s in pending or ():
+            if s > 0.0:
+                self.phases[p] = self.phases.get(p, 0.0) + s * scale
+        if default_phase is not None and wall > hinted:
+            self.phases[default_phase] = (
+                self.phases.get(default_phase, 0.0) + (wall - hinted))
+        return wall
+
+    def window_end_carved(self, engine_phases: dict,
+                          default_phase: Optional[str] = None,
+                          include_fastparse: bool = False,
+                          served_stream_hints: bool = True) -> float:
+        """Fused carve + window_end for the serving hot path: pushes the
+        engine's measured subphases (``Session.last_phases``) into the
+        open window as hints and closes it, in ONE call instead of
+        carve + N add() + device() + window_end (the per-statement call
+        count is the ledger's main serving cost)."""
+        hints, dev = carve_engine_phases(
+            engine_phases, include_fastparse=include_fastparse,
+            served_stream_hints=served_stream_hints)
+        if dev > 0.0:
+            self.device_s += dev
+        p = self._pending
+        if p is not None:
+            p.extend(hints.items())
+        else:  # defensive: no window open, apply directly
+            ph = self.phases
+            for k, v in hints.items():
+                ph[k] = ph.get(k, 0.0) + v
+        return self.window_end(default_phase)
+
+    # -- views ---------------------------------------------------------
+    @property
+    def chip_idle_pct(self) -> float:
+        if self.e2e_s <= 0.0:
+            return 0.0
+        return max(0.0, min(1.0, 1.0 - self.device_s / self.e2e_s)) * 100.0
+
+    def to_dict(self) -> dict:
+        return {
+            "e2e_s": round(self.e2e_s, 9),
+            "device_s": round(self.device_s, 9),
+            "chip_idle_pct": round(self.chip_idle_pct, 3),
+            "unattributed_s": round(self.unattributed_s, 9),
+            "unattributed_pct": round(
+                100.0 * self.unattributed_s / self.e2e_s, 3)
+            if self.e2e_s > 0 else 0.0,
+            "phases": {
+                k: round(v, 9) for k, v in sorted(
+                    self.phases.items(), key=lambda kv: phase_sort_key(kv[0]))
+            },
+        }
+
+    @classmethod
+    def from_phases(cls, e2e_s: float, phases: dict,
+                    device_s: float = 0.0) -> "GapLedger":
+        """Build a conservation-complete ledger from an engine-level
+        ``Session.last_phases`` dict (bench.py drives the engine Session
+        directly, without the serving stack around it)."""
+        led = cls(clock=lambda: 0.0)
+        led.t0 = 0.0
+        hints, dev = carve_engine_phases(phases)
+        led.phases.update(hints)
+        # Engine-internal wall not covered by the timed subphases is the
+        # honest "engine host" remainder, bounded by exec_s (exec_s does
+        # not include fastparse/bind, which run before exec_t0).
+        exec_s = float(phases.get("exec_s", 0.0) or 0.0)
+        covered = sum(led.phases.values()) \
+            - led.phases.get("fast lookup", 0.0) \
+            - led.phases.get("param pack", 0.0) \
+            - led.phases.get("plan compile", 0.0)
+        if exec_s > covered:
+            led.phases["engine host"] = exec_s - covered
+        # Clamp: never attribute more than the e2e wall we were given.
+        total = sum(led.phases.values())
+        if e2e_s > 0.0 and total > e2e_s:
+            scale = e2e_s / total
+            for k in led.phases:
+                led.phases[k] *= scale
+        led.device_s = device_s if device_s > 0.0 else dev
+        led.e2e_s = max(0.0, e2e_s)
+        led.unattributed_s = max(0.0, led.e2e_s - sum(led.phases.values()))
+        led.closed = True
+        return led
+
+
+def carve_engine_phases(phases: dict,
+                        include_fastparse: bool = True,
+                        served_stream_hints: bool = False
+                        ) -> Tuple[Dict[str, float], float]:
+    """Map an engine ``Session.last_phases`` dict onto ledger phase
+    names.  Returns ``(hints, device_busy_s)``.
+
+    Nesting rules: the per-chunk stream H2D wall sits INSIDE dispatch_s
+    (the streamed plan executes under run()), so its non-overlapped part
+    is carved OUT of "device dispatch" — never counted twice.  On the
+    serving path the pipeline already hinted that H2D wall (and the
+    chunk compute as device busy) onto the live ledger; pass
+    ``served_stream_hints=True`` so the carve still subtracts it from
+    dispatch but does not emit its own "h2d"/compute.  Device busy is
+    approximated by the walls the host provably spent waiting on or
+    driving the chip: dispatch (enqueue + compute on sync backends) +
+    the fetch sync, or stream compute for chunked plans.
+    """
+    # straight-line, closure-free: this runs once per served statement
+    hints: Dict[str, float] = {}
+    g = phases.get
+    v = (g("plan_s", 0.0) or 0.0) + (g("compile_s", 0.0) or 0.0)
+    if v > 0.0:
+        hints["plan compile"] = v
+    if include_fastparse:
+        v = g("fastparse_s", 0.0) or 0.0
+        if v > 0.0:
+            hints["fast lookup"] = v
+    v = g("bind_s", 0.0) or 0.0
+    if v > 0.0:
+        hints["param pack"] = v
+    dispatch = g("dispatch_s", 0.0) or 0.0
+    fetch = g("fetch_s", 0.0) or 0.0
+    # column-data transfers accumulate into BOTH fetch_s and d2h_s
+    # (executor.DeviceResult._observe): carve the transfer wall out of
+    # the sync wall so "d2h" and "device wait" never overlap
+    d2h = g("d2h_s", 0.0) or 0.0
+    if d2h > fetch:
+        d2h = fetch
+    wait = fetch - d2h
+    sh2d = g("stream_h2d_s", 0.0) or 0.0
+    scompute = g("stream_compute_s", 0.0) or 0.0
+    if sh2d > 0.0 or scompute > 0.0:
+        soverlap = g("stream_overlap_s", 0.0) or 0.0
+        h2d_wall = min(max(0.0, sh2d - soverlap), dispatch)
+        if not served_stream_hints and h2d_wall > 0.0:
+            hints["h2d"] = h2d_wall
+        if dispatch > h2d_wall:
+            hints["device dispatch"] = dispatch - h2d_wall
+        device_s = wait if served_stream_hints else scompute + wait
+    else:
+        if dispatch > 0.0:
+            hints["device dispatch"] = dispatch
+        device_s = dispatch + wait
+    if d2h > 0.0:
+        hints["d2h"] = d2h
+    if wait > 0.0:
+        hints["device wait"] = wait
+    return hints, device_s
+
+
+# -- thread-local current ledger --------------------------------------
+# database.py installs the statement's ledger here for the statement's
+# lifetime; batcher/governor/engine hints ride it from the same thread.
 _tls = threading.local()
 
 
 def set_current(led: Optional[GapLedger]) -> None:
-    _tls.ledger = led
+    _tls.led = led
 
 
 def current() -> Optional[GapLedger]:
-    return getattr(_tls, "ledger", None)
+    return getattr(_tls, "led", None)
+
+
+class LedgerSnapshot:
+    """Frozen copy of a closed ledger's fold-relevant surface.
+
+    The serving session REUSES one GapLedger per statement (begin()
+    re-arms it in place), so completion work deferred behind the wire
+    write (server/completion.py) must never hold the live object — it
+    would read the NEXT statement's numbers. HostTaxRegistry.fold reads
+    exactly these four attributes, so a snapshot substitutes."""
+
+    __slots__ = ("e2e_s", "device_s", "unattributed_s", "phases")
+
+    def __init__(self, led: GapLedger):
+        self.e2e_s = led.e2e_s
+        self.device_s = led.device_s
+        self.unattributed_s = led.unattributed_s
+        self.phases = dict(led.phases)
+
+    @property
+    def chip_idle_pct(self) -> float:
+        if self.e2e_s <= 0.0:
+            return 0.0
+        return max(0.0, min(1.0, 1.0 - self.device_s / self.e2e_s)) * 100.0
+
+
+class HostTaxRegistry:
+    """Bounded digest-keyed host-tax aggregate + per-window idle ring."""
+
+    # The registry clock only stamps window buckets (durations come from
+    # the folded ledgers), so it is WALL time: awr_report matches ring
+    # entries against snapshot timestamps, which are time.time-domain.
+    def __init__(self, max_digests: int = 256, window_s: float = 1.0,
+                 window_capacity: int = 120,
+                 clock: Callable[[], float] = time.time):
+        self.enabled = True
+        self.max_digests = max(8, int(max_digests))
+        self.window_s = max(1e-3, float(window_s))
+        self.window_capacity = max(8, int(window_capacity))
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._agg: Dict[int, dict] = {}
+        self._evicted = 0
+        # Closed per-window buckets: list of dicts (ts, stmts, e2e_s,
+        # device_s, phases); _cur is the open bucket.
+        self._win: List[dict] = []
+        self._cur: Optional[dict] = None
+
+    def _bucket(self, now: float) -> dict:
+        key = int(now / self.window_s)
+        cur = self._cur
+        if cur is None or cur["key"] != key:
+            if cur is not None:
+                self._win.append(cur)
+                if len(self._win) > self.window_capacity:
+                    del self._win[:len(self._win) - self.window_capacity]
+            cur = {"key": key, "ts": key * self.window_s, "stmts": 0,
+                   "e2e_s": 0.0, "device_s": 0.0, "unattributed_s": 0.0,
+                   "phases": {}}
+            self._cur = cur
+        return cur
+
+    def fold(self, digest: int, led: GapLedger) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            a = self._agg.get(digest)
+            if a is None:
+                if len(self._agg) >= self.max_digests:
+                    self._evicted += 1
+                    # Evict the smallest-wall digest: keep the heavy
+                    # hitters that explain where the wall actually goes.
+                    victim = min(self._agg, key=lambda d:
+                                 self._agg[d]["e2e_s"])
+                    del self._agg[victim]
+                a = {"count": 0, "e2e_s": 0.0, "device_s": 0.0,
+                     "unattributed_s": 0.0, "phases": {}}
+                self._agg[digest] = a
+            b = self._bucket(self.clock())
+            a["count"] += 1
+            b["stmts"] += 1
+            a["e2e_s"] += led.e2e_s
+            b["e2e_s"] += led.e2e_s
+            a["device_s"] += led.device_s
+            b["device_s"] += led.device_s
+            a["unattributed_s"] += led.unattributed_s
+            b["unattributed_s"] += led.unattributed_s
+            ph, bp = a["phases"], b["phases"]
+            for k, v in led.phases.items():
+                ph[k] = ph.get(k, 0.0) + v
+                bp[k] = bp.get(k, 0.0) + v
+
+    def fold_extra(self, digest: int, phase: str, seconds: float) -> None:
+        """Attribute post-close wall (e.g. wire write measured after the
+        statement ledger closed) to a digest.  Adds to both the phase
+        AND the digest e2e so digest-level conservation still holds."""
+        if not self.enabled or seconds <= 0.0:
+            return
+        with self._lock:
+            a = self._agg.get(digest)
+            if a is None:
+                return  # only annotate digests we already track
+            a["e2e_s"] += seconds
+            a["phases"][phase] = a["phases"].get(phase, 0.0) + seconds
+
+    def snapshot(self) -> dict:
+        """Cumulative per-digest totals + recent window ring.  Workload
+        snapshots embed this; awr_report diffs two snapshots."""
+        with self._lock:
+            digests = {}
+            for d, a in self._agg.items():
+                digests[d] = {
+                    "count": a["count"],
+                    "e2e_s": a["e2e_s"],
+                    "device_s": a["device_s"],
+                    "unattributed_s": a["unattributed_s"],
+                    "phases": dict(a["phases"]),
+                }
+            wins = [dict(w, phases=dict(w["phases"]))
+                    for w in self._win[-16:]]
+            cur = self._cur
+            if cur is not None:
+                wins.append(dict(cur, phases=dict(cur["phases"])))
+            return {"digests": digests, "evicted": self._evicted,
+                    "window_s": self.window_s, "windows": wins}
+
+    def window_chip_idle_pct(self) -> float:
+        """Chip idle over the most recent closed-or-open window."""
+        with self._lock:
+            w = self._cur if self._cur and self._cur["stmts"] else (
+                self._win[-1] if self._win else None)
+            if not w or w["e2e_s"] <= 0.0:
+                return 0.0
+            return max(0.0, min(1.0,
+                                1.0 - w["device_s"] / w["e2e_s"])) * 100.0
+
+    def rows(self) -> List[dict]:
+        """Per-digest rows for __all_virtual_host_tax."""
+        snap = self.snapshot()
+        out = []
+        for d, a in sorted(snap["digests"].items(),
+                           key=lambda kv: -kv[1]["e2e_s"]):
+            e2e = a["e2e_s"]
+            idle = (max(0.0, min(1.0, 1.0 - a["device_s"] / e2e)) * 100.0
+                    if e2e > 0 else 0.0)
+            out.append({
+                "digest": d,
+                "count": a["count"],
+                "e2e_s": e2e,
+                "device_s": a["device_s"],
+                "chip_idle_pct": idle,
+                "unattributed_s": a["unattributed_s"],
+                "unattributed_pct": (100.0 * a["unattributed_s"] / e2e
+                                     if e2e > 0 else 0.0),
+                "phases": a["phases"],
+            })
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._agg.clear()
+            self._win.clear()
+            self._cur = None
+            self._evicted = 0
+
+
+class StackSampler:
+    """Bounded in-process wall-clock stack sampler (sys._current_frames).
+
+    Off by default: no thread exists until the first ``arm``.  Arming
+    sets/extends a deadline; a daemon thread samples every thread's
+    stack at ``interval_s`` until the deadline passes, then exits.  The
+    serving layer auto-arms it when a statement crosses the slow-query
+    watermark, so the *next* occurrence of a slow statement is caught
+    with stacks in hand.  Collapsed stacks ("file:func;..." root-first)
+    are counted in a bounded dict; overflow increments ``dropped``.
+    """
+
+    MAX_STACKS = 512
+    MAX_DEPTH = 48
+
+    def __init__(self, interval_s: float = 0.005,
+                 clock: Callable[[], float] = time.monotonic):
+        self.interval_s = max(1e-4, float(interval_s))
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._deadline = 0.0
+        self._continuous = False
+        self._thread: Optional[threading.Thread] = None
+        self._counts: Dict[str, int] = {}
+        self._samples = 0
+        self._dropped = 0
+
+    @property
+    def armed(self) -> bool:
+        with self._lock:
+            return self._thread is not None and (
+                self._continuous or self.clock() < self._deadline)
+
+    def arm(self, duration_s: float) -> None:
+        if duration_s <= 0.0:
+            return
+        with self._lock:
+            self._deadline = max(self._deadline,
+                                 self.clock() + duration_s)
+            if self._thread is None:
+                t = threading.Thread(target=self._run,
+                                     name="gap-stack-sampler", daemon=True)
+                self._thread = t
+                t.start()
+
+    def disarm(self) -> None:
+        with self._lock:
+            self._deadline = 0.0
+            self._continuous = False
+
+    def set_continuous(self, on: bool) -> None:
+        """Config-armed mode (enable_stack_sampler=True): keep sampling
+        until toggled off, independent of the auto-arm deadline."""
+        with self._lock:
+            self._continuous = bool(on)
+            if on and self._thread is None:
+                t = threading.Thread(target=self._run,
+                                     name="gap-stack-sampler", daemon=True)
+                self._thread = t
+                t.start()
+
+    def _run(self) -> None:
+        me = threading.get_ident()
+        while True:
+            with self._lock:
+                if not self._continuous and self.clock() >= self._deadline:
+                    self._thread = None
+                    return
+            self._sample(me)
+            time.sleep(self.interval_s)
+
+    def _sample(self, skip_ident: int) -> None:
+        try:
+            frames = sys._current_frames()
+        except Exception:
+            return
+        collapsed = []
+        for ident, frame in frames.items():
+            if ident == skip_ident:
+                continue
+            parts = []
+            depth = 0
+            f = frame
+            while f is not None and depth < self.MAX_DEPTH:
+                co = f.f_code
+                parts.append("%s:%s" % (co.co_filename.rsplit("/", 1)[-1],
+                                        co.co_name))
+                f = f.f_back
+                depth += 1
+            if parts:
+                parts.reverse()  # root-first, flamegraph convention
+                collapsed.append(";".join(parts))
+        del frames
+        with self._lock:
+            self._samples += len(collapsed)
+            for st in collapsed:
+                if st in self._counts:
+                    self._counts[st] += 1
+                elif len(self._counts) < self.MAX_STACKS:
+                    self._counts[st] = 1
+                else:
+                    self._dropped += 1
+
+    def collapsed_top(self, n: int = 25) -> List[Tuple[str, int]]:
+        with self._lock:
+            items = sorted(self._counts.items(), key=lambda kv: -kv[1])
+        return items[:n]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "samples": self._samples,
+                "dropped": self._dropped,
+                "distinct": len(self._counts),
+                "armed": self._thread is not None,
+                "stacks": sorted(self._counts.items(),
+                                 key=lambda kv: -kv[1])[:50],
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+            self._samples = 0
+            self._dropped = 0
+
+
+def current_stack_collapsed(limit: int = 32) -> str:
+    """Collapse the calling thread's own stack (diagnostics helper)."""
+    parts = ["%s:%s" % (fr.filename.rsplit("/", 1)[-1], fr.name)
+             for fr in traceback.extract_stack(limit=limit)]
+    return ";".join(parts)

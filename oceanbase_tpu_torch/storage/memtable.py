@@ -1,0 +1,244 @@
+"""MVCC memtable: the mutable head of the LSM.
+
+Reference surface: storage/memtable — ObMemtable::set/scan
+(ob_memtable.cpp:540) over an ObKeyBtree of ObMvccRow version chains
+(mvcc/ob_mvcc_engine.h), with row latches + a lock-wait manager, frozen and
+dumped by compaction. The rebuild keeps the same semantics on the host
+control path (per the north star, mutation stays on CPU):
+
+  * rowkey -> version chain, newest first; each node is
+    (commit_version, op, values) once committed;
+  * writes stage under a transaction id and become visible atomically at
+    commit with the transaction's commit version (tx layer drives this);
+  * write-write conflicts: a staged (uncommitted) node blocks other txs on
+    the same key; a committed node newer than the writer's read snapshot
+    aborts it (lost-update prevention);
+  * snapshot reads return the newest committed node with version <= snapshot;
+  * freeze() makes the memtable immutable; dump() flattens it to sorted
+    arrays for a mini sstable (compaction.py).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..core.dtypes import Schema
+from .sstable import OP_DELETE, OP_PUT
+
+
+class WriteConflict(Exception):
+    """Write-write conflict: retry or abort the transaction."""
+
+
+@dataclass
+class _Version:
+    version: int  # commit version; 0 while uncommitted
+    op: int  # OP_PUT / OP_DELETE
+    values: tuple
+    tx_id: int  # owning tx while uncommitted, else 0
+
+
+@dataclass
+class Memtable:
+    schema: Schema
+    key_cols: list[str]
+    frozen: bool = False
+    _rows: dict[tuple, list[_Version]] = field(default_factory=dict)
+    _lock: threading.RLock = field(default_factory=threading.RLock)
+    _min_version: int = 2**63 - 1
+    _max_version: int = 0
+    # incremental byte accounting (O(1) freezer checks): ~48B node overhead
+    # + 16B per cell, maintained on stage/replay/abort
+    _bytes: int = 0
+    _staged: int = 0  # undecided staged node count (O(1) has_uncommitted)
+
+    @property
+    def _node_cost(self) -> int:
+        return 48 + 16 * len(self.schema)
+
+    # Checkpoint serialization (storage/slog_ckpt analog): locks are
+    # runtime-only state, recreated on load.
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d.pop("_lock", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._lock = threading.RLock()
+
+    # ---------------------------------------------------------- writes
+    def stage(self, tx_id: int, read_snapshot: int, key: tuple, op: int,
+              values: tuple | None) -> None:
+        """Stage a write for tx_id. Raises WriteConflict on contention."""
+        if self.frozen:
+            raise RuntimeError("memtable is frozen")
+        with self._lock:
+            chain = self._rows.setdefault(key, [])
+            if chain:
+                head = chain[0]
+                if head.tx_id and head.tx_id != tx_id:
+                    raise WriteConflict(f"key {key} locked by tx {head.tx_id}")
+                if head.tx_id == 0 and head.version > read_snapshot:
+                    raise WriteConflict(
+                        f"key {key} modified at {head.version} > snapshot {read_snapshot}"
+                    )
+            if chain and chain[0].tx_id == tx_id:
+                # same tx overwrites its own staged node
+                chain[0] = _Version(0, op, values or (), tx_id)
+            else:
+                chain.insert(0, _Version(0, op, values or (), tx_id))
+                self._bytes += self._node_cost
+                self._staged += 1
+
+    @property
+    def has_uncommitted(self) -> bool:
+        """True while any staged (un-committed/un-aborted) row remains —
+        a frozen memtable must not dump to sstable until every tx that
+        wrote it decided (the reference blocks mini merge on active tx
+        ref counts)."""
+        return self._staged > 0
+
+    @property
+    def bytes_estimate(self) -> int:
+        """Approximate resident bytes (tenant-freezer accounting),
+        maintained incrementally so freezer checks are O(1)."""
+        return max(self._bytes, 0)
+
+    def commit(self, tx_id: int, commit_version: int) -> None:
+        """Publish all nodes staged by tx_id at commit_version."""
+        with self._lock:
+            touched = False
+            for chain in self._rows.values():
+                if chain and chain[0].tx_id == tx_id:
+                    chain[0].version = commit_version
+                    chain[0].tx_id = 0
+                    self._staged -= 1
+                    touched = True
+            if touched:
+                self._min_version = min(self._min_version, commit_version)
+                self._max_version = max(self._max_version, commit_version)
+
+    def replay(self, key: tuple, op: int, values: tuple | None, version: int) -> None:
+        """Follower replay: insert an already-committed node directly.
+
+        Apply order is serialized by the log (one applier per log stream,
+        the analog of ObTxReplayExecutor), so no conflict checks — just keep
+        the chain ordered newest-first.
+        """
+        with self._lock:
+            chain = self._rows.setdefault(key, [])
+            node = _Version(version, op, values or (), 0)
+            i = 0
+            while i < len(chain) and (chain[i].tx_id != 0 or chain[i].version > version):
+                i += 1
+            if i < len(chain) and chain[i].tx_id == 0 and chain[i].version == version:
+                # same tx wrote the key twice: later mutation wins, exactly
+                # one node per (key, version) — matches the leader's staged
+                # chain where stage() overwrote in place
+                chain[i] = node
+            else:
+                chain.insert(i, node)
+                self._bytes += self._node_cost
+            self._min_version = min(self._min_version, version)
+            self._max_version = max(self._max_version, version)
+
+    def abort(self, tx_id: int) -> None:
+        with self._lock:
+            dead = []
+            for key, chain in self._rows.items():
+                if chain and chain[0].tx_id == tx_id:
+                    chain.pop(0)
+                    self._bytes -= self._node_cost
+                    self._staged -= 1
+                    if not chain:
+                        dead.append(key)
+            for key in dead:
+                del self._rows[key]
+
+    # ----------------------------------------------------------- reads
+    def get(self, key: tuple, snapshot: int, tx_id: int = 0):
+        """Newest visible node: own staged writes, else committed <= snapshot.
+
+        Returns (op, values) or None if the key has no visible version.
+        """
+        with self._lock:
+            chain = self._rows.get(key)
+            if not chain:
+                return None
+            for node in chain:
+                if node.tx_id == tx_id and tx_id != 0:
+                    return (node.op, node.values)
+                if node.tx_id == 0 and node.version <= snapshot:
+                    return (node.op, node.values)
+            return None
+
+    def snapshot_rows(self, snapshot: int, tx_id: int = 0) -> dict[tuple, tuple[int, tuple]]:
+        """All visible rows at `snapshot` -> {key: (op, values)} (incl. deletes)."""
+        out = {}
+        with self._lock:
+            for key, chain in self._rows.items():
+                for node in chain:
+                    if (node.tx_id == tx_id and tx_id != 0) or (
+                        node.tx_id == 0 and 0 < node.version <= snapshot
+                    ):
+                        out[key] = (node.op, node.values)
+                        break
+        return out
+
+    # ---------------------------------------------------- freeze / dump
+    def freeze(self) -> None:
+        with self._lock:
+            self.frozen = True
+
+    @property
+    def nkeys(self) -> int:
+        return len(self._rows)
+
+    @property
+    def version_range(self) -> tuple[int, int]:
+        if self._max_version == 0:
+            return (0, 0)
+        return (self._min_version, self._max_version)
+
+    def dump(self) -> tuple[dict[str, np.ndarray], np.ndarray, np.ndarray]:
+        """Flatten committed multi-version rows to sorted column arrays.
+
+        Returns (data, versions, ops) sorted by (rowkey asc, version desc) —
+        the sstable row order. Uncommitted nodes are skipped (a frozen
+        memtable may still hold staged nodes of live txs; the tx layer keeps
+        the memtable alive until they resolve, mirroring the reference's
+        freeze protocol).
+        """
+        names = self.schema.names()
+        keys, rows = [], []
+        with self._lock:
+            for key, chain in self._rows.items():
+                for node in chain:
+                    if node.tx_id == 0 and node.version > 0:
+                        keys.append(key)
+                        rows.append(node)
+        if not rows:
+            empty = {n: np.zeros(0, dtype=self.schema[n].storage_np) for n in names}
+            return empty, np.zeros(0, np.int64), np.zeros(0, np.int8)
+        keys_arr = np.array(keys, dtype=np.int64).reshape(len(rows), -1)
+        vers = np.array([r.version for r in rows], dtype=np.int64)
+        order = np.lexsort((-vers,) + tuple(keys_arr[:, j] for j in range(keys_arr.shape[1] - 1, -1, -1)))
+        ops = np.array([rows[i].op for i in order], dtype=np.int8)
+        vers = vers[order]
+        data: dict[str, np.ndarray] = {}
+        key_idx = {k: self.key_cols.index(k) for k in self.key_cols}
+        for ci, n in enumerate(names):
+            dt = self.schema[n].storage_np
+            if n in key_idx:
+                data[n] = keys_arr[order, key_idx[n]].astype(dt)
+            else:
+                vals = []
+                for i in order:
+                    node = rows[i]
+                    vals.append(node.values[ci] if node.op == OP_PUT else 0)
+                data[n] = np.asarray(vals, dtype=dt)
+        return data, vers, ops

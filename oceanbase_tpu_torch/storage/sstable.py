@@ -1,0 +1,345 @@
+"""Immutable columnar SSTables.
+
+Reference surface: storage/blocksstable — LSM sstables of macro/micro blocks
+with a block index tree (index_block/), per-block zone maps used by filter
+pushdown, and a bloom-filter cache; minor sstables carry multi-version rows
+and delete tombstones, major sstables one flattened version per key
+(storage/compaction). The rebuild stores:
+
+  * rows sorted by rowkey, chunked into micro blocks (microblock.py);
+  * two hidden columns: __version (commit version of the row) and __op
+    (0 = PUT, 1 = DELETE tombstone) — the multi-version/tombstone model;
+  * a footer-addressed block index: per block {offset, len, nrows, end key}
+    plus per-column zone maps (min/max) for block pruning;
+  * a bloom filter over hashed rowkeys for point-get negatives.
+
+Everything is a single bytes blob / file; readers decode pruned blocks into
+numpy columns which the engine ships to the device once.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import struct
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.dtypes import Schema
+from . import encoding as enc
+from .microblock import DEFAULT_BLOCK_ROWS, BlockReader, write_block
+
+MAGIC = 0x0B55_7AB1
+VERSION = 1
+VERSION_COL = "__version"
+OP_COL = "__op"
+OP_PUT = 0
+OP_DELETE = 1
+
+_FOOTER = struct.Struct("<IHHIQQQQqqI")
+# magic, version, nkeys, ncols, nblocks, index_off, bloom_off, bloom_len,
+# base_version, end_version, crc
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def hash_keys(keys: np.ndarray) -> np.ndarray:
+    """Hash [n, nkeys] int64 rowkeys to uint64 (bloom + routing)."""
+    h = np.zeros(len(keys), dtype=np.uint64)
+    golden = np.uint64(0x9E3779B97F4A7C15)
+    for j in range(keys.shape[1]):
+        h = _mix64(h ^ (keys[:, j].astype(np.uint64) + golden))
+    return h
+
+
+class Bloom:
+    """Split-block-free simple bloom: k=4 probes from one 64-bit hash."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits  # uint8 array, length power of two
+        self.mask = np.uint64(len(bits) * 8 - 1)
+
+    @staticmethod
+    def build(hashes: np.ndarray, bits_per_key: int = 10) -> "Bloom":
+        nbits = 1 << max(6, int(np.ceil(np.log2(max(1, len(hashes)) * bits_per_key))))
+        bits = np.zeros(nbits // 8, dtype=np.uint8)
+        bloom = Bloom(bits)
+        for probe in bloom._probes(hashes):
+            np.bitwise_or.at(bits, probe >> 3, np.uint8(1) << (probe & 7).astype(np.uint8))
+        return bloom
+
+    def _probes(self, h: np.ndarray):
+        h = h.astype(np.uint64)
+        h2 = _mix64(h)
+        for k in range(4):
+            yield ((h + np.uint64(k) * h2) & self.mask).astype(np.int64)
+
+    def may_contain(self, hashes: np.ndarray) -> np.ndarray:
+        out = np.ones(len(hashes), dtype=bool)
+        for probe in self._probes(hashes):
+            bit = (self.bits[probe >> 3] >> (probe & 7).astype(np.uint8)) & 1
+            out &= bit.astype(bool)
+        return out
+
+
+@dataclass
+class SSTableMeta:
+    nrows: int
+    nblocks: int
+    base_version: int  # oldest commit version contained (exclusive floor)
+    end_version: int  # newest commit version contained
+
+
+def write_sstable(
+    schema: Schema,
+    key_cols: list[str],
+    data: dict[str, np.ndarray],
+    versions: np.ndarray,
+    ops: np.ndarray,
+    valids: dict[str, np.ndarray] | None = None,
+    base_version: int = 0,
+    end_version: int = 0,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    enc_hints: dict | None = None,
+) -> bytes:
+    """Build an sstable blob. Rows MUST be sorted by (rowkey, -version).
+    `enc_hints` maps column name -> advisor encoding preference
+    ("for"/"rle"/"const"/"raw"), applied per block where lossless."""
+    names = schema.names()
+    cols = [np.ascontiguousarray(data[n]) for n in names]
+    cols.append(versions.astype(np.int64))
+    cols.append(ops.astype(np.int8))
+    valids = valids or {}
+    vlist: list[np.ndarray | None] = [valids.get(n) for n in names] + [None, None]
+    # per-column hint list aligned to cols (version/op streams un-hinted)
+    hlist = ([enc_hints.get(n) for n in names] + [None, None]
+             if enc_hints else None)
+    n = len(versions)
+    key_idx = [schema.index(k) for k in key_cols]
+
+    blocks: list[bytes] = []
+    index_rows = []
+    zmins, zmaxs = [], []
+    off = 0
+    for start in range(0, max(n, 1), block_rows):
+        end = min(start + block_rows, n)
+        if end <= start:
+            bcols = [c[:0] for c in cols]
+            bval = [None] * len(cols)
+        else:
+            bcols = [c[start:end] for c in cols]
+            bval = [v[start:end] if v is not None else None for v in vlist]
+        blob, zones = write_block(bcols, bval, hints=hlist)
+        blocks.append(blob)
+        # Zone bounds are stored as float64; ints above 2^53 round to nearest,
+        # which could wrongly EXCLUDE a boundary value. Round outward so zone
+        # maps stay conservative (pruning may keep extra blocks, never drops).
+        zlo = [
+            np.nextafter(z.vmin, -np.inf) if float(z.vmin) > z.vmin else float(z.vmin)
+            for z in zones
+        ]
+        zhi = [
+            np.nextafter(z.vmax, np.inf) if float(z.vmax) < z.vmax else float(z.vmax)
+            for z in zones
+        ]
+        end_key = (
+            [int(cols[i][end - 1]) for i in key_idx] if end > start else [0] * len(key_idx)
+        )
+        index_rows.append((off, len(blob), end - start, end_key))
+        zmins.append(zlo)
+        zmaxs.append(zhi)
+        off += len(blob)
+        if n == 0:
+            break
+
+    nb = len(blocks)
+    ncols = len(cols)
+    offsets = np.array([r[0] for r in index_rows], dtype=np.uint64)
+    lens = np.array([r[1] for r in index_rows], dtype=np.uint32)
+    nrows_arr = np.array([r[2] for r in index_rows], dtype=np.uint32)
+    endkeys = np.array([r[3] for r in index_rows], dtype=np.int64).reshape(nb, len(key_idx))
+    zmin_arr = np.array(zmins, dtype=np.float64).reshape(nb, ncols)
+    zmax_arr = np.array(zmaxs, dtype=np.float64).reshape(nb, ncols)
+
+    if n:
+        keys2d = np.stack([data[k].astype(np.int64) for k in key_cols], axis=1)
+        bloom = Bloom.build(hash_keys(keys2d))
+    else:
+        bloom = Bloom.build(np.zeros(0, dtype=np.uint64))
+
+    out = bytearray()
+    for b in blocks:
+        out += b
+    index_off = len(out)
+    for arr in (offsets, lens, nrows_arr, endkeys, zmin_arr, zmax_arr):
+        out += arr.tobytes()
+    bloom_off = len(out)
+    out += bloom.bits.tobytes()
+    footer_wo_crc = _FOOTER.pack(
+        MAGIC, VERSION, len(key_idx), ncols, nb, index_off, bloom_off,
+        len(bloom.bits), base_version, end_version, 0,
+    )[:-4]
+    crc = enc.crc32(bytes(out) + footer_wo_crc)
+    out += footer_wo_crc + struct.pack("<I", crc)
+    return bytes(out)
+
+
+class SSTable:
+    """Reader over an sstable blob (mmap-able file or bytes).
+
+    `cache` (share/cache.KVCache) memoizes decoded block columns — the
+    block-cache analog: repeated snapshot scans skip codec work."""
+
+    _uids = itertools.count(1)
+
+    def __init__(self, buf, schema: Schema, key_cols: list[str], cache=None):
+        self.uid = next(SSTable._uids)
+        self.cache = cache
+        self.buf = memoryview(buf)
+        self.schema = schema
+        self.key_cols = list(key_cols)
+        fsz = _FOOTER.size
+        (magic, version, nkeys, ncols, nb, index_off, bloom_off, bloom_len,
+         base_version, end_version, crc) = _FOOTER.unpack_from(self.buf, len(self.buf) - fsz)
+        if magic != MAGIC:
+            raise ValueError(f"bad sstable magic 0x{magic:08X}")
+        if version != VERSION:
+            raise ValueError(f"unsupported sstable version {version}")
+        if nkeys != len(key_cols):
+            raise ValueError(f"sstable has {nkeys} key cols, expected {len(key_cols)}")
+        self.ncols = ncols
+        self.nblocks = nb
+        self.base_version = base_version
+        self.end_version = end_version
+        pos = index_off
+        self.offsets = np.frombuffer(self.buf, np.uint64, nb, pos); pos += nb * 8
+        self.lens = np.frombuffer(self.buf, np.uint32, nb, pos); pos += nb * 4
+        self.block_nrows = np.frombuffer(self.buf, np.uint32, nb, pos); pos += nb * 4
+        self.endkeys = np.frombuffer(self.buf, np.int64, nb * nkeys, pos).reshape(nb, nkeys)
+        pos += nb * nkeys * 8
+        self.zmin = np.frombuffer(self.buf, np.float64, nb * ncols, pos).reshape(nb, ncols)
+        pos += nb * ncols * 8
+        self.zmax = np.frombuffer(self.buf, np.float64, nb * ncols, pos).reshape(nb, ncols)
+        self.bloom = Bloom(np.frombuffer(self.buf, np.uint8, bloom_len, bloom_off))
+        self._col_index = {n: i for i, n in enumerate(schema.names())}
+        self._col_index[VERSION_COL] = ncols - 2
+        self._col_index[OP_COL] = ncols - 1
+        self._col_dtype = {n: schema[n].storage_np for n in schema.names()}
+        self._col_dtype[VERSION_COL] = np.dtype(np.int64)
+        self._col_dtype[OP_COL] = np.dtype(np.int8)
+
+    # Checkpoint serialization (storage/slog_ckpt analog): persist the raw
+    # blob only — memoryviews/np views/cache are rebuilt by __init__; the
+    # block cache is runtime-only and reattached by the owner (fresh uid
+    # keys mean no stale cache hits).
+    def __getstate__(self):
+        return {
+            "buf": bytes(self.buf),
+            "schema": self.schema,
+            "key_cols": self.key_cols,
+        }
+
+    def __setstate__(self, d):
+        self.__init__(d["buf"], d["schema"], d["key_cols"], cache=None)
+
+    @staticmethod
+    def open_file(path: str, schema: Schema, key_cols: list[str]) -> "SSTable":
+        return load_sstable(path, schema, key_cols)
+
+    def verify(self) -> bool:
+        """At-rest framing check: recompute the footer crc over the whole
+        blob (write_sstable stamps it; __init__ deliberately skips the
+        full-blob pass on the hot path — the scrubber calls this)."""
+        return sstable_crc_ok(self.buf)
+
+    @property
+    def nrows(self) -> int:
+        return int(self.block_nrows.sum())
+
+    def prune_blocks(self, ranges: dict[str, tuple[float, float]] | None) -> np.ndarray:
+        """Block selection by zone maps: keep blocks overlapping every range."""
+        keep = np.ones(self.nblocks, dtype=bool)
+        if ranges:
+            for col, (lo, hi) in ranges.items():
+                i = self._col_index[col]
+                keep &= (self.zmax[:, i] >= lo) & (self.zmin[:, i] <= hi)
+        return np.flatnonzero(keep)
+
+    def read_blocks(
+        self, block_ids: np.ndarray, columns: list[str]
+    ) -> dict[str, np.ndarray]:
+        """Decode the requested columns of the given blocks, concatenated."""
+        parts: dict[str, list[np.ndarray]] = {c: [] for c in columns}
+        for b in block_ids:
+            reader = None
+            for c in columns:
+                if self.cache is not None:
+                    ck = (self.uid, int(b), c)
+                    hit = self.cache.get(ck)
+                    if hit is not None:
+                        parts[c].append(hit)
+                        continue
+                if reader is None:
+                    start = int(self.offsets[b])
+                    reader = BlockReader.open(
+                        self.buf[start : start + int(self.lens[b])]
+                    )
+                vals, _ = reader.column(self._col_index[c])
+                if self.cache is not None:
+                    self.cache.put((self.uid, int(b), c), vals)
+                parts[c].append(vals)
+        return {
+            c: (np.concatenate(v) if v else np.zeros(0, dtype=self._col_dtype[c]))
+            for c, v in parts.items()
+        }
+
+    def scan(
+        self,
+        columns: list[str] | None = None,
+        ranges: dict[str, tuple[float, float]] | None = None,
+        with_hidden: bool = True,
+    ) -> dict[str, np.ndarray]:
+        cols = list(columns) if columns is not None else self.schema.names()
+        if with_hidden:
+            cols = cols + [VERSION_COL, OP_COL]
+        return self.read_blocks(self.prune_blocks(ranges), cols)
+
+    def may_contain_keys(self, keys2d: np.ndarray) -> np.ndarray:
+        return self.bloom.may_contain(hash_keys(keys2d))
+
+
+def sstable_crc_ok(buf) -> bool:
+    """Verify the embedded footer crc: it covers every byte of the blob
+    except the trailing 4-byte crc field itself."""
+    b = bytes(buf)
+    if len(b) < _FOOTER.size:
+        return False
+    stored = struct.unpack_from("<I", b, len(b) - 4)[0]
+    return enc.crc32(b[:-4]) == stored
+
+
+def save_sstable(path: str, blob: bytes, fsync: bool = True) -> None:
+    """Persist one sstable blob under the shared integrity envelope
+    (at-rest framing: the envelope catches disk damage, the embedded
+    footer crc stays verifiable end-to-end inside the payload)."""
+    from .integrity import SSTABLE, write_atomic
+
+    write_atomic(path, blob, fsync=fsync, path_class=SSTABLE)
+
+
+def load_sstable(path: str, schema: Schema, key_cols: list[str],
+                 cache=None) -> "SSTable":
+    """Verified read of a save_sstable() file; raises CorruptBlock on
+    envelope damage or an embedded-crc mismatch."""
+    from .integrity import SSTABLE, CorruptBlock, read_verified
+
+    blob = read_verified(path, path_class=SSTABLE)
+    if not sstable_crc_ok(blob):
+        raise CorruptBlock(path, "sstable footer crc mismatch")
+    return SSTable(blob, schema, key_cols, cache=cache)

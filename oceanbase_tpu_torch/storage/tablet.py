@@ -1,0 +1,234 @@
+"""Tablet: the storage unit binding memtables and sstables for one shard.
+
+Reference surface: storage/tablet + ls — a tablet is the replication/storage
+unit of one table partition; ObLSTabletService::table_scan
+(ls/ob_ls_tablet_service.cpp:616) routes reads through the memtable +
+sstable fuse; the tenant freezer (tx_storage/ob_tenant_freezer.h) freezes
+memtables on memory pressure and the tablet scheduler compacts.
+
+The rebuild's Tablet owns:
+  * one active Memtable + a list of frozen ones awaiting dump;
+  * delta sstables (mini/minor, multi-version) and one base (major);
+  * scan(): MVCC fuse via scan_merge into numpy columns (then to_batch()
+    for device execution);
+  * freeze()/minor_compact()/major_compact(): the LSM maintenance ops,
+    callable directly or from the dag scheduler.
+
+Thread-safety: structural changes (freeze/compact swaps) take _meta_lock;
+row-level concurrency lives inside Memtable.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..core.dtypes import Schema
+from ..core.table import Table
+from .compaction import freeze_to_mini, major_compact, minor_compact
+from .memtable import Memtable
+from .scan_merge import scan_merge
+from .sstable import SSTable
+
+
+class SnapshotDiscarded(Exception):
+    """Read snapshot is older than the tablet's recycle point: the versions
+    needed to reconstruct it were dropped by major compaction (the analog of
+    the reference's OB_SNAPSHOT_DISCARDED)."""
+
+
+@dataclass
+class Tablet:
+    tablet_id: int
+    schema: Schema
+    key_cols: list[str]
+    active: Memtable = None  # type: ignore[assignment]
+    frozen: list[Memtable] = field(default_factory=list)
+    deltas: list[SSTable] = field(default_factory=list)  # oldest -> newest
+    base: SSTable | None = None
+    cache: object = None  # share/cache.KVCache for decoded blocks
+    # column -> advisor encoding preference ("for"/"rle"/"const"/"raw"),
+    # applied at every dump/compaction so the choice persists on disk;
+    # rides checkpoints through __getstate__ like the rest of the tablet
+    enc_hints: dict = field(default_factory=dict)
+    _meta_lock: threading.RLock = field(default_factory=threading.RLock)
+    # serializes whole maintenance operations (dump/minor/major) so two dag
+    # workers cannot dump the same frozen memtable or compact the same
+    # victims twice; _meta_lock still guards the structure swaps inside
+    _maint_lock: threading.RLock = field(default_factory=threading.RLock)
+
+    def __post_init__(self):
+        if self.active is None:
+            self.active = Memtable(self.schema, self.key_cols)
+
+    # Checkpoint serialization (storage/slog_ckpt analog): locks and the
+    # block cache are runtime-only, recreated/reattached on load.
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d.pop("_meta_lock", None)
+        d.pop("_maint_lock", None)
+        d["cache"] = None
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.__dict__.setdefault("enc_hints", {})  # pre-hint checkpoints
+        self._meta_lock = threading.RLock()
+        self._maint_lock = threading.RLock()
+
+    # ------------------------------------------------------------ write
+    def stage(self, tx_id: int, read_snapshot: int, key: tuple, op: int,
+              values: tuple | None) -> "Memtable":
+        """Stage a row write; returns the memtable written (for tx bookkeeping)."""
+        with self._meta_lock:
+            mt = self.active
+        mt.stage(tx_id, read_snapshot, key, op, values)
+        return mt
+
+    def commit_tx(self, tx_id: int, commit_version: int) -> None:
+        """Publish a tx's staged rows wherever they live — the ACTIVE
+        memtable or one FROZEN while the tx was open (a freeze must never
+        strand undecided rows)."""
+        with self._meta_lock:
+            mts = [self.active] + list(self.frozen)
+        for mt in mts:
+            mt.commit(tx_id, commit_version)
+
+    def abort_tx(self, tx_id: int) -> None:
+        with self._meta_lock:
+            mts = [self.active] + list(self.frozen)
+        for mt in mts:
+            mt.abort(tx_id)
+
+    # ------------------------------------------------------------- read
+    def scan(
+        self,
+        snapshot: int,
+        columns: list[str] | None = None,
+        ranges: dict[str, tuple[float, float]] | None = None,
+        tx_id: int = 0,
+    ) -> dict[str, np.ndarray]:
+        with self._meta_lock:
+            ssts = ([self.base] if self.base else []) + list(self.deltas)
+            mts = list(self.frozen) + [self.active]
+            recycle = self.base.end_version if self.base else 0
+        if snapshot < recycle:
+            raise SnapshotDiscarded(
+                f"snapshot {snapshot} < recycle point {recycle}"
+            )
+        return scan_merge(
+            self.schema, self.key_cols, ssts, mts, snapshot,
+            columns=columns, ranges=ranges, tx_id=tx_id,
+        )
+
+    def get(self, key: tuple, snapshot: int, tx_id: int = 0):
+        """Point lookup: memtables newest-first, then one fused sstable read.
+
+        A tombstone anywhere newer than a PUT must hide it, so sstables are
+        never consulted one at a time — bloom filters only deselect sstables
+        that provably hold NO row (including no tombstone) for the key, and
+        the survivors go through a single scan_merge which resolves versions
+        and tombstones globally.
+        """
+        from .sstable import OP_DELETE
+
+        with self._meta_lock:
+            mts = [self.active] + list(reversed(self.frozen))
+            ssts = ([self.base] if self.base else []) + list(self.deltas)
+        for mt in mts:
+            hit = mt.get(key, snapshot, tx_id)
+            if hit is not None:
+                return None if hit[0] == OP_DELETE else hit
+        keys2d = np.array([key], dtype=np.int64)
+        cands = [st for st in ssts if st.may_contain_keys(keys2d)[0]]
+        if not cands:
+            return None
+        names = self.schema.names()
+        key_ranges = {k: (float(key[j]), float(key[j])) for j, k in enumerate(self.key_cols)}
+        got = scan_merge(self.schema, self.key_cols, cands, [], snapshot,
+                         ranges=key_ranges)
+        kmask = np.ones(len(got[names[0]]), dtype=bool)
+        for j, k in enumerate(self.key_cols):
+            kmask &= got[k] == key[j]
+        rows = np.flatnonzero(kmask)
+        if len(rows):
+            r = rows[0]
+            return (0, tuple(got[n][r] for n in names))
+        return None
+
+    # ---------------------------------------------------- LSM maintenance
+    def freeze(self) -> Memtable | None:
+        """Swap in a fresh active memtable; returns the frozen one."""
+        with self._meta_lock:
+            if self.active.nkeys == 0:
+                return None
+            mt = self.active
+            mt.freeze()
+            self.frozen.append(mt)
+            self.active = Memtable(self.schema, self.key_cols)
+            return mt
+
+    def dump_mini(self) -> SSTable | None:
+        """Dump the oldest frozen memtable into a mini delta sstable."""
+        from ..share.errsim import debug_sync, errsim_point
+
+        errsim_point("EN_MINI_MERGE")
+        debug_sync("BEFORE_MINI_DUMP")
+        with self._maint_lock:
+            with self._meta_lock:
+                if not self.frozen:
+                    return None
+                mt = self.frozen[0]
+            blob = freeze_to_mini(mt, enc_hints=self.enc_hints or None)
+            st = SSTable(blob, self.schema, self.key_cols, cache=self.cache)
+            with self._meta_lock:
+                self.deltas.append(st)
+                self.frozen.remove(mt)
+            return st
+
+    def minor_compact(self, recycle_version: int = 0) -> SSTable | None:
+        with self._maint_lock:
+            with self._meta_lock:
+                victims = list(self.deltas)
+            if len(victims) < 2:
+                return None
+            blob = minor_compact(self.schema, self.key_cols, victims,
+                                 recycle_version,
+                                 enc_hints=self.enc_hints or None)
+            st = SSTable(blob, self.schema, self.key_cols, cache=self.cache)
+            with self._meta_lock:
+                kept = [d for d in self.deltas if d not in victims]
+                self.deltas = [st] + kept
+            return st
+
+    def major_compact(self, snapshot: int) -> SSTable:
+        """Flatten base + all dumped deltas at `snapshot` into a new base."""
+        with self._maint_lock:
+            with self._meta_lock:
+                srcs = ([self.base] if self.base else []) + list(self.deltas)
+            blob = major_compact(self.schema, self.key_cols, srcs, snapshot,
+                                 enc_hints=self.enc_hints or None)
+            st = SSTable(blob, self.schema, self.key_cols, cache=self.cache)
+            with self._meta_lock:
+                self.deltas = [d for d in self.deltas if d not in srcs]
+                self.base = st
+            return st
+
+    # ----------------------------------------------------------- bridge
+    def to_table(self, snapshot: int, name: str | None = None,
+                 dicts: dict | None = None) -> Table:
+        """Materialize a snapshot as a core Table (device marshalling point)."""
+        data = self.scan(snapshot)
+        return Table(name or f"tablet_{self.tablet_id}", self.schema, data,
+                     dicts or {})
+
+    @property
+    def nrows_estimate(self) -> int:
+        with self._meta_lock:
+            n = self.active.nkeys + sum(m.nkeys for m in self.frozen)
+            n += sum(d.nrows for d in self.deltas)
+            if self.base:
+                n += self.base.nrows
+            return n
