@@ -27,8 +27,18 @@ analytic kernels are captured from one more run of Q17, Q21, Q13, Q9,
 Q16, W1-W3, U2, D1, A1 and F1) and held against its plain PyTorch version
 (exact agreement, and the same bits on two runs), and timed beside the
 plain version, a one-call PyTorch yardstick and its memory-bandwidth
-bound. Then all 22 queries and the analytic statements run on the card
-at SF 0.01 against sqlite (ROLLUP/CUBE against the union of plain
+bound. Every expression tree the statements evaluate runs on K24 (the
+fused expression kernel): each statement's trees on K24 and on the
+torch route are counted, and no tree of the main path may take the
+torch route. K24 is held bit for bit to its plain version on the card
+and to the torch route's evaluate / compile_predicate on every program
+of Q1, Q6, Q14, Q19, Q7, DS3 and W4, and on synthetic edge cases (NULL
+planes, NaN and -0.0, negative decimals and days, int32 edges, an empty
+sel, a capacity no multiple of the block, programs at and past one
+launch's limits, float literals 0.0 and -0.0 in equal trees), and timed
+on Q6's predicate; a tree the tracer cannot record must raise on the
+card, never run on the torch route. Then all 22 queries and
+the analytic statements run on the card at SF 0.01 against sqlite (ROLLUP/CUBE against the union of plain
 group-bys, INTERSECT/EXCEPT ALL against bag counts, approx_count_distinct
 against the plain estimate), and every statement runs on the card and on
 the CPU at SF 0.1, where the two results must hold the same bits; so do
@@ -99,6 +109,21 @@ a synthetic chunk (validity bits, runs that exactly fill their capacity,
 -0.0 and NaN), and the projection and streamed statements run on the
 card and on the CPU at SF 0.1 with identical bits.
 
+The batched phase comes last (after its client threads have run
+statements on the card, torch.profiler records no device event of a
+later traced run): a Database of its own with the TPC-H tables and its
+wire front; 8 client threads in 16 barrier-synced rounds of point reads
+over orders (`select o_totalprice, o_orderdate ... where o_orderkey =
+k`, keys drawn from the table by --seed) through DbSession.sql and over
+the wire, the statement batcher on and then off, and a coalescing leg
+that interleaves a lineitem point read. Rows are bit-identical on and
+off and equal a numpy oracle; the on-legs batch (statements per
+dispatch > 1) with at most 4 bucket programs for the plan; `_combo_run`
+carries both plans' cohorts in one call, lane by lane equal to the
+oracle; K24 is held to its plain version and the torch route on the
+lanes' programs (parameters read from the lane's row of the block).
+Statements/s and p50/p99 per leg.
+
 Run from the repository root on a machine with one CUDA device:
 
     python3 chip_smoke.py            # SF 10, 5 warm runs per statement
@@ -119,6 +144,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -360,6 +386,9 @@ KERNEL_META = {
     "K23_first_live": (
         "oceanbase_tpu_torch/csrc/k23_first_live.cu",
         "oceanbase_tpu/engine/executor.py:3867"),
+    "K24_fused_expr": (
+        "oceanbase_tpu_torch/csrc/k24_fused_expr.cu",
+        "oceanbase_tpu/expr/compile.py:260"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -418,18 +447,20 @@ NEW_QUERIES = (2, 4, 5, 9, 11, 12, 13, 15, 16, 17, 18, 20, 21, 22)
 
 # kernels each statement's path must launch
 PATH_KERNELS = {
-    "Q1": ("K2_groupby_direct", "K3_radix_sort", "K4_gather_rows"),
-    "Q6": ("K1_scalar_aggregate",),
+    "Q1": ("K2_groupby_direct", "K3_radix_sort", "K4_gather_rows",
+           "K24_fused_expr"),
+    "Q6": ("K1_scalar_aggregate", "K24_fused_expr"),
     "S1": ("K3_radix_sort", "K4_gather_rows"),
     "S1_rebound": ("K3_radix_sort", "K4_gather_rows"),
-    "Q14": ("K5_affine_join", "K1_scalar_aggregate"),
+    "Q14": ("K5_affine_join", "K1_scalar_aggregate", "K24_fused_expr"),
     "Q3": ("K5_affine_join", "K6_clustered_agg", "K7_topk_candidates",
            "K3_radix_sort", "K4_gather_rows"),
     "Q10": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce",
             "K7_topk_candidates"),
-    "Q7": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce"),
+    "Q7": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce",
+           "K24_fused_expr"),
     "Q8": ("K5_affine_join", "K3_radix_sort", "K8_segmented_reduce"),
-    "Q19": ("K5_affine_join", "K1_scalar_aggregate"),
+    "Q19": ("K5_affine_join", "K1_scalar_aggregate", "K24_fused_expr"),
     "T1": ("K7_topk_candidates", "K3_radix_sort", "K4_gather_rows"),
     "X1": ("K10_expand_join", "K3_radix_sort", "K4_gather_rows",
            "K2_groupby_direct"),
@@ -469,7 +500,8 @@ PATH_KERNELS = {
     "W3": ("K3_radix_sort", "K4_gather_rows", "K13_window_scan",
            "K15_distinct_first", "K1_scalar_aggregate"),
     "W4": ("K5_affine_join", "K3_radix_sort", "K4_gather_rows",
-           "K8_segmented_reduce", "K13_window_scan", "K15_distinct_first"),
+           "K8_segmented_reduce", "K13_window_scan", "K15_distinct_first",
+           "K24_fused_expr"),
     "U1": ("K14_hash_set", "K3_radix_sort", "K4_gather_rows",
            "K13_window_scan", "K1_scalar_aggregate"),
     "U2": ("K14_hash_set", "K3_radix_sort", "K4_gather_rows",
@@ -491,7 +523,8 @@ PATH_KERNELS = {
            "K4_gather_rows", "K1_scalar_aggregate"),
     # the star joins probe each unique dimension by its affine key
     **{f"DS{q}": ("K5_affine_join", "K3_radix_sort", "K4_gather_rows",
-                  "K8_segmented_reduce", "K7_topk_candidates")
+                  "K8_segmented_reduce", "K7_topk_candidates",
+                  "K24_fused_expr")
        for q in (3, 42, 52, 55)},
     # the projection phase: the sliced scans, and Q1 on the base table
     "P_Q6": ("K17_slice_scan", "K1_scalar_aggregate"),
@@ -871,8 +904,11 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
     texts = [text] * (warm + 2) if isinstance(text, str) else list(text)
     require(len(texts) == warm + 2, f"{name}: {len(texts)} texts for "
             f"{warm + 2} runs")
+    from oceanbase_tpu_torch.expr.program import EXPR_COUNTS
+
     before = dict(kernels.LAUNCHES)
     before_e = dict(kernels.ENTRY_LAUNCHES)
+    before_x = dict(EXPR_COUNTS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rs = sess.sql(texts[0])
@@ -897,6 +933,15 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
     launches = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
     entries = {k: kernels.ENTRY_LAUNCHES[k] - before_e[k]
                for k in kernels.ENTRY_LAUNCHES}
+    expr = {k: EXPR_COUNTS[k] - before_x[k] for k in EXPR_COUNTS}
+    if not name.startswith("V_"):
+        # the main path's trees all run on K24 (the vector statements'
+        # distances run on the torch route by design: printed, not held)
+        require(expr["expr torch route"] == 0, f"{name}: "
+                f"{expr['expr torch route']} trees ran on the torch route")
+    if expr["expr k24 trees"]:
+        require(launches["K24_fused_expr"] > 0,
+                f"{name}: trees were fused but K24 never launched")
     for k in PATH_KERNELS[name]:
         require(launches[k] > 0, f"{name}: kernel {k} was never launched")
     for k in PATH_ENTRIES.get(name, ()):
@@ -912,6 +957,8 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
         "result_rows": rows, "checked_by": checked_by(name),
         "launches": launches,
         "entries": {k: v for k, v in entries.items() if v},
+        "expr_k24_trees": expr["expr k24 trees"],
+        "expr_torch_route": expr["expr torch route"],
         "peak_memory_bytes": peak,
         "fast_path_hit": bool(rs.fast_path_hit),
         "device_busy_ms": busy, "traced_wall_ms": traced,
@@ -928,7 +975,9 @@ def run_statement(sess, kernels, name, text, check, warm, fact_rows,
           f"{rec['fact_rows_per_s']:.6g} {fact} rows/s, {rows} rows, "
           f"{rec['checked_by']}, peak memory {peak / 2**30:.3f} GiB, "
           f"launches { {k: v for k, v in launches.items() if v} }, "
-          f"entries {rec['entries']}, device busy {busy:.3f} ms of "
+          f"entries {rec['entries']}, expression trees on K24 "
+          f"{expr['expr k24 trees']}, on the torch route "
+          f"{expr['expr torch route']}, device busy {busy:.3f} ms of "
           f"{traced:.3f} ms traced (idle share "
           f"{rec['device_idle_share']:.4f}, longest gap "
           f"{gaps[0][0] if gaps else 0.0:.3f} ms); most device time: "
@@ -2681,8 +2730,15 @@ def server_statement(db, fe, esess, kernels, q, text, check, warm) -> dict:
         got.append(rs)
         return rs.nrows
 
+    from oceanbase_tpu_torch.expr.program import EXPR_COUNTS
+
+    x0 = dict(EXPR_COUNTS)
     cold = timed(dbs, 1)[0]
     warm_ms = timed(dbs, warm)
+    expr = {k: EXPR_COUNTS[k] - x0[k] for k in EXPR_COUNTS}
+    require(expr["expr torch route"] == 0 and expr["expr k24 trees"] > 0,
+            f"server {name}: expression trees on K24 / the torch route: "
+            f"{expr}")
     fast = st.fast_hits - f0
     require(fast >= warm, f"server {name}: {fast} fast hits in {warm} warm "
             "runs")
@@ -2746,6 +2802,8 @@ def server_statement(db, fe, esess, kernels, q, text, check, warm) -> dict:
         "wire_cold_ms": w_ms[0], "wire_warm_median_ms":
             statistics.median(w_ms[1:]),
         "fast_hits": fast, "result_cache_hits": rc_hits,
+        "expr_k24_trees": expr["expr k24 trees"],
+        "expr_torch_route": expr["expr torch route"],
         "result_cache_hit_ms": rc_ms, "narrowed": narrowed,
         "device_busy_ms": busy, "traced_wall_ms": traced,
         "traced_attempts": attempts,
@@ -3067,6 +3125,251 @@ def server_phase(tables, uk, kernels, queries_text, checks, warm, sf):
              "operator_profiles": profiles}, launches, captured)
 
 
+# the batched leg: 8 client threads in barrier-synced rounds of point
+# reads over orders (and, interleaved in the coalescing legs, over
+# lineitem), keys drawn from the table by --seed
+BATCH_THREADS = 8
+BATCH_ROUNDS = 16
+BATCH_WAIT_US = 20_000
+BATCH_A = ("select o_totalprice, o_orderdate from orders "
+           "where o_orderkey = {k}")
+BATCH_B = ("select l_extendedprice from lineitem "
+           "where l_orderkey = {k} and l_linenumber = 1")
+
+
+def batch_oracles(tables):
+    """numpy oracles of BATCH_A and BATCH_B: key -> the one row, decoded
+    as the Session decodes it (decimals as storage / 100 in float64,
+    dates as int32 days)."""
+    import numpy as np
+
+    o, li = tables["orders"].data, tables["lineitem"].data
+    ok = np.asarray(o["o_orderkey"])
+    oo = np.argsort(ok, kind="stable")
+    first = np.nonzero(np.asarray(li["l_linenumber"]) == 1)[0]
+    lk = np.asarray(li["l_orderkey"])[first]
+    lo = np.argsort(lk, kind="stable")
+
+    def a(k):
+        i = oo[np.searchsorted(ok, k, sorter=oo)]
+        require(ok[i] == k, f"batched oracle: order {k} missing")
+        return [(np.float64(o["o_totalprice"][i]) / 100,
+                 np.int32(o["o_orderdate"][i]))]
+
+    def b(k):
+        j = lo[np.searchsorted(lk, k, sorter=lo)]
+        require(lk[j] == k, f"batched oracle: line 1 of {k} missing")
+        return [(np.float64(li["l_extendedprice"][first[j]]) / 100,)]
+
+    return a, b
+
+
+def batched_leg(db, fe, kernels, tables, seed) -> dict:
+    """The batched program through the server: BATCH_THREADS threads in
+    barrier-synced rounds over DbSession.sql and over the wire, the
+    batcher on then off, then the coalescing legs (BATCH_A and BATCH_B
+    interleaved by thread). Every leg's rows equal the numpy oracle and
+    the on-leg's rows equal the off-leg's bit for bit; the on-legs batch
+    (statements per dispatch > 1) within the pow2 compile bound; K24 is
+    held to its plain version and the torch route on one batched round's
+    programs. Statements/s and p50/p99 per leg (host clock)."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.expr.compile import PackedParams
+
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(np.asarray(tables["orders"].data["o_orderkey"]),
+                      size=(BATCH_THREADS, BATCH_ROUNDS))
+    oracle_a, oracle_b = batch_oracles(tables)
+    s = db.session()
+    s.sql("set ob_enable_result_cache = 0")
+    for text in (BATCH_A, BATCH_B):  # admit both texts to the fast tier
+        for k in keys[0, :3]:
+            s.sql(text.format(k=int(k))).rows()
+    ex = db.engine.executor
+
+    def leg(name, mode, batching, texts, capture=None):
+        db.batcher.enabled = batching
+        n = BATCH_THREADS
+        rows = [[None] * BATCH_ROUNDS for _ in range(n)]
+        lat = [[] for _ in range(n)]
+        errors = []
+        barrier = threading.Barrier(n)
+        setup = (f"set ob_batch_max_size = {n}",
+                 f"set ob_batch_max_wait_us = {BATCH_WAIT_US}",
+                 "set ob_enable_result_cache = 0")
+        clients = []
+        for _ in range(n):
+            if mode == "wire":
+                c = WireClient(fe.port)
+                for q in setup:
+                    c.query(q)
+            else:
+                c = db.session()
+                for q in setup:
+                    c.sql(q)
+            clients.append(c)
+
+        def worker(i):
+            c = clients[i]
+            text = texts[i % len(texts)]
+            try:
+                for r in range(BATCH_ROUNDS):
+                    q = text.format(k=int(keys[i, r]))
+                    barrier.wait()
+                    t0 = time.perf_counter()
+                    got = (c.query(q)[1] if mode == "wire"
+                           else c.sql(q).rows())
+                    lat[i].append((time.perf_counter() - t0) * 1e3)
+                    rows[i][r] = got
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+                barrier.abort()
+
+        c0 = db.metrics.counters_snapshot()
+        b0 = ex.batched_compiles
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n)]
+        t0 = time.perf_counter()
+        if capture is not None:
+            with capture:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+        else:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        wall = time.perf_counter() - t0
+        c1 = db.metrics.counters_snapshot()
+        for c in clients:
+            if mode == "wire":
+                c.close()
+        if errors:
+            raise errors[0]
+        for i in range(n):
+            oracle = oracle_a if texts[i % len(texts)] == BATCH_A \
+                else oracle_b
+            for r in range(BATCH_ROUNDS):
+                want = oracle(int(keys[i, r]))
+                if mode == "wire":
+                    want = [tuple(wire_text(v) for v in w) for w in want]
+                    require(rows[i][r] == want, f"batched {name}: thread "
+                            f"{i} round {r}: {rows[i][r]} != {want}")
+                else:
+                    require(row_bits(rows[i][r]) == row_bits(want),
+                            f"batched {name}: thread {i} round {r}: "
+                            f"{rows[i][r]} != {want}")
+        all_ms = sorted(x for v in lat for x in v)
+        stmts = n * BATCH_ROUNDS
+        batched = (c1.get("stmt batched statements", 0)
+                   - c0.get("stmt batched statements", 0))
+        disp = (c1.get("stmt batched dispatches", 0)
+                - c0.get("stmt batched dispatches", 0))
+        rec = {"leg": name, "statements": stmts, "wall_s": wall,
+               "statements_per_s": stmts / wall,
+               "p50_ms": float(np.percentile(all_ms, 50)),
+               "p99_ms": float(np.percentile(all_ms, 99)),
+               "batched_statements": batched, "batched_dispatches": disp,
+               "coalesced_dispatches": (
+                   c1.get("stmt batch coalesced dispatches", 0)
+                   - c0.get("stmt batch coalesced dispatches", 0)),
+               "batched_compiles": ex.batched_compiles - b0,
+               "rows": [[row_bits(x) for x in v] for v in rows]}
+        print(f"batched leg {name}: {stmts} statements in {wall:.3f} s "
+              f"({rec['statements_per_s']:.1f} statements/s), p50 "
+              f"{rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms, "
+              f"{batched} batched statements in {disp} dispatches "
+              f"({rec['coalesced_dispatches']} coalesced), rows equal the "
+              "numpy oracle", flush=True)
+        return rec
+
+    cap = K24Capture()
+    b_start = ex.batched_compiles
+    legs = [leg("db_on", "db", True, [BATCH_A], capture=cap),
+            leg("db_off", "db", False, [BATCH_A]),
+            leg("wire_on", "wire", True, [BATCH_A]),
+            leg("wire_off", "wire", False, [BATCH_A])]
+    single_compiles = ex.batched_compiles - b_start
+    legs += [leg("coalesce_on", "db", True, [BATCH_A, BATCH_B]),
+             leg("coalesce_off", "db", False, [BATCH_A, BATCH_B])]
+    db.batcher.enabled = True
+    by = {r["leg"]: r for r in legs}
+    for on, off in (("db_on", "db_off"), ("wire_on", "wire_off"),
+                    ("coalesce_on", "coalesce_off")):
+        require(by[on]["rows"] == by[off]["rows"],
+                f"batched {on}: rows differ from {off}")
+        r = by[on]
+        require(r["batched_dispatches"] > 0 and r["batched_statements"]
+                / r["batched_dispatches"] > 1,
+                f"batched {on}: {r['batched_statements']} statements in "
+                f"{r['batched_dispatches']} dispatches")
+    require(single_compiles <= 4, f"batched: {single_compiles} bucket "
+            "programs for one plan (pow2 bound 4)")
+    # the two plans' cohorts in one call and one copy (_combo_run),
+    # against the oracle lane by lane
+    from oceanbase_tpu_torch.server.batcher import _combo_run
+
+    def rows_of(text, ks):
+        """The plan's cache entry and each key's packed row, as the
+        Session binds the statement."""
+        got = [db.engine.cached_entry(text.format(k=int(k))) for k in ks]
+        return got[0][0], np.stack([q.cpu().numpy() for _e, q in got])
+
+    ka, kb = keys[0, :5], keys[1, :3]
+    (ea, qa), (eb, qb) = rows_of(BATCH_A, ka), rows_of(BATCH_B, kb)
+    res = _combo_run(ea.prepared, eb.prepared, qa, qb)
+    require(res is not None, "batched: _combo_run overflowed")
+    from oceanbase_tpu_torch.core.column import host_rows_batched
+
+    for (hc, hv, hs, sch, dic), ks, oracle, names in (
+            (res[0], ka, oracle_a, ea.output_names),
+            (res[1], kb, oracle_b, eb.output_names)):
+        lanes = host_rows_batched(sch, dic, hc, hv, hs)
+        for lane, k in zip(lanes, ks):
+            got = list(zip(*[lane[n] for n in names]))
+            require(row_bits(got) == row_bits(oracle(int(k))),
+                    f"batched: _combo_run lane of key {k}: {got}")
+    calls = list(cap.calls.values())
+    require(any(isinstance(c["frame"], PackedParams) for c in calls),
+            "batched: no K24 call read a lane row")
+    for i, c in enumerate(calls):
+        k24_check_call(kernels, c, f"batched call {i}")
+    for r in legs:
+        del r["rows"]
+    return {"legs": legs, "threads": BATCH_THREADS, "rounds": BATCH_ROUNDS,
+            "batched_compiles_one_plan": single_compiles,
+            "batched_compiles_total": ex.batched_compiles - b_start,
+            "k24_programs_checked": len(calls)}
+
+
+def batched_phase(tables, uk, kernels, seed) -> tuple:
+    """The batched leg on a Database of its own (the TPC-H tables
+    preloaded, the wire front on localhost), with its own launch counts.
+    It runs last: after its client threads have run statements on the
+    card, torch.profiler records no device event of a later traced run
+    (seen on the H100)."""
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.server.mysql_front import MySqlFrontend
+
+    db = Database(n_nodes=1, n_ls=1, extra_catalog=tables)
+    db._unique_keys.update(uk)
+    db.engine.executor.unique_keys = db._unique_keys
+    db.engine.planner.unique_keys = db._unique_keys
+    fe = MySqlFrontend(db).start()
+    kernels.reset_launches()
+    try:
+        rec = batched_leg(db, fe, kernels, tables, seed)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        fe.stop()
+        db.close()
+    require(launches["K24_fused_expr"] > 0, "batched: K24 never launched")
+    return rec, launches
+
+
 def k23_checks(kernels, reps: int, captured: dict) -> list:
     """K23 against its plain version bit for bit on the server phase's
     arguments (the head fetch over lineitem at widths 16 and 1024, the
@@ -3155,6 +3458,400 @@ def k23_checks(kernels, reps: int, captured: dict) -> list:
              "bound_ms": bm, "bound_by": by, "library_ms": lm,
              "shape": {"cap": cap_h, "k": k, "columns": len(cols),
                        "row_bytes": row}}]
+
+
+# ---- K24: the fused expression kernel -------------------------------------
+# The statements whose expression trees K24 is held against its plain
+# version and the torch route on (the main path's, and the batched leg's)
+K24_STMTS = ("Q1", "Q6", "Q14", "Q19", "Q7", "DS3", "W4")
+
+
+class K24Capture:
+    """Within the block, every fused expression call is recorded: the
+    trees, the mode, the batch and parameter frame (compile._fused), and
+    the program, parameter row and torch-route columns K24 ran with
+    (kernels.fused_expr). `keep` bounds the records to the widest call
+    of each program."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from oceanbase_tpu_torch import kernels
+        from oceanbase_tpu_torch.expr import compile as xc
+
+        self._saved = (xc._fused, kernels.fused_expr)
+        orig_fused, orig_fx = self._saved
+        local = threading.local()  # the server's sessions run on threads
+
+        def fused(exprs, batch, predicate):
+            local.cur = (exprs, predicate, batch, xc._active_params())
+            try:
+                return orig_fused(exprs, batch, predicate)
+            finally:
+                local.cur = None
+
+        def fx(program, batch, qrow=None, ext=()):
+            cur = getattr(local, "cur", None)
+            if cur is not None:
+                exprs, predicate, b, frame = cur
+                key = id(program)
+                old = self.calls.get(key)
+                if old is None or batch.capacity > old["batch"].capacity:
+                    self.calls[key] = {
+                        "exprs": exprs, "predicate": predicate,
+                        "batch": batch, "frame": frame, "program": program,
+                        "qrow": qrow, "ext": list(ext)}
+            return orig_fx(program, batch, qrow, ext)
+
+        xc._fused, kernels.fused_expr = fused, fx
+        return self
+
+    def __exit__(self, *exc):
+        from oceanbase_tpu_torch import kernels
+        from oceanbase_tpu_torch.expr import compile as xc
+
+        xc._fused, kernels.fused_expr = self._saved
+        return False
+
+
+def _bits_t(t):
+    import torch
+
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _same_t(a, b) -> bool:
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if b.dim() == 0 and a.dim() == 1:
+        b = b.expand(a.shape[0])
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(_bits_t(a.contiguous()), _bits_t(b.contiguous())))
+
+
+def k24_bytes(prog, batch, ext) -> int:
+    """Bytes K24 must move for one run of `prog`: each input column,
+    validity plane, sel, LUT and torch-route column read once, each
+    output written once (spilled temporaries are not counted)."""
+    seen, total = set(), 0
+    luts = prog.luts_on(batch.sel.device)
+    for ch in prog.chunks:
+        for d in ch.inputs:
+            if d in seen or d[0] == "tmp":
+                continue
+            seen.add(d)
+            if d[0] == "col":
+                t = batch.cols[d[1]]
+            elif d[0] == "valid":
+                t = batch.valid[d[1]]
+            elif d[0] == "sel":
+                t = batch.sel
+            elif d[0] == "lut":
+                t = luts[d[1]]
+            else:
+                t = ext[d[1]][0 if d[0] == "ext" else 1]
+            total += t.numel() * t.element_size()
+    cap = batch.capacity
+    total += sum(cap * dt.itemsize for dt in prog.out_dtypes)
+    return total
+
+
+def k24_check_call(kernels, c, what: str) -> None:
+    """One captured call: K24 (twice) equals its plain version on the
+    card and the torch route's evaluate / compile_predicate under the
+    same parameter frame, bit for bit, with the route's dtypes and the
+    None-ness of every validity plane."""
+    from oceanbase_tpu_torch.expr import compile as xc
+
+    prog, batch, qrow, ext = c["program"], c["batch"], c["qrow"], c["ext"]
+    got = kernels.fused_expr(prog, batch, qrow, ext)
+    again = kernels.fused_expr(prog, batch, qrow, ext)
+    plain = kernels.fused_expr_plain(prog, batch, qrow, ext)
+    for a, b, p in zip(got, again, plain):
+        require(_same_t(a, p), f"K24 {what}: differs from the plain version")
+        require(_same_t(a, b), f"K24 {what}: two runs differ")
+    prev = xc.set_params(c["frame"])
+    try:
+        if c["predicate"]:
+            ref = [(xc._predicate_route(c["exprs"][0], batch), None)]
+        else:
+            ref = [xc._route(e, batch) for e in c["exprs"]]
+    finally:
+        xc.set_params(prev)
+    for (vi, ii), (rv, rvv) in zip(prog.pairs, ref):
+        require(_same_t(got[vi], rv), f"K24 {what}: values differ from the "
+                "torch route")
+        require((ii is None) == (rvv is None), f"K24 {what}: validity "
+                "None-ness differs from the torch route")
+        if ii is not None:
+            require(_same_t(got[ii], rvv), f"K24 {what}: validity differs "
+                    "from the torch route")
+
+
+def k24_statement_checks(kernels, runs: dict, reps: int) -> tuple:
+    """Each statement of K24_STMTS once more with its fused calls
+    captured; every captured program held to its plain version and the
+    torch route (k24_check_call). Returns (per-statement records, the
+    timing record of Q6's predicate)."""
+    recs, q6 = [], None
+    for name in K24_STMTS:
+        sess, text = runs[name]
+        with K24Capture() as cap:
+            sess.sql(text).nrows
+        calls = list(cap.calls.values())
+        require(calls, f"K24 {name}: no fused call was captured")
+        for i, c in enumerate(calls):
+            k24_check_call(kernels, c, f"{name} call {i}")
+        widest = max(calls, key=lambda c: c["batch"].capacity)
+        recs.append({
+            "statement": name, "programs": len(calls),
+            "chunks": sum(len(c["program"].chunks) for c in calls),
+            "instructions": [c["program"].n_instructions for c in calls],
+            "widest_rows": widest["batch"].capacity})
+        if name == "Q6":
+            preds = [c for c in calls if c["predicate"]]
+            require(preds, "K24 Q6: no predicate program")
+            q6 = max(preds, key=lambda c: c["batch"].capacity)
+        else:
+            del calls
+    prog, batch, qrow, ext = q6["program"], q6["batch"], q6["qrow"], q6["ext"]
+    km = cuda_ms(lambda: kernels.fused_expr(prog, batch, qrow, ext), reps)
+    pm = cuda_ms(lambda: kernels.fused_expr_plain(prog, batch, qrow, ext),
+                 max(1, reps // 2))
+    nbytes = k24_bytes(prog, batch, ext)
+    bm, by = bound_ms(nbytes, 0)
+    src, rep = KERNEL_META["K24_fused_expr"]
+    rec = {"name": "K24_fused_expr", "route": "cuda", "source": src,
+           "replaces": rep, "max_abs_err": 0.0, "ms": km, "plain_ms": pm,
+           "bound_ms": bm, "bound_by": by, "library_ms": None,
+           "shape": {"statement": "Q6", "rows": batch.capacity,
+                     "bytes": nbytes, "chunks": len(prog.chunks),
+                     "instructions": prog.n_instructions}}
+    print(f"kernel K24_fused_expr: bit-identical to its plain version and "
+          f"the torch route on every program of {', '.join(K24_STMTS)} "
+          f"({sum(r['programs'] for r in recs)} programs), two runs "
+          f"bit-identical; Q6's predicate ({batch.capacity} rows, "
+          f"{prog.n_instructions} instructions, {nbytes} B): kernel_ms "
+          f"{km:.6f}, plain_ms {pm:.6f}, bound_ms {bm:.6f} ({by})",
+          flush=True)
+    return recs, rec
+
+
+def k24_synthetic(kernels, dev="cuda") -> dict:
+    """K24 against its plain version and the torch route on synthetic
+    edge cases on the card: NULL planes (one all NULL), NaN, infinities
+    and -0.0 in float32 and float64, negative decimals at scales 0-6,
+    int32 edges, negative days into extract_year/month/day, dictionary
+    compares, IN and LIKE, an empty sel, a capacity that is no multiple
+    of the block, a program at the register limit and one split past
+    it (instruction limit too)."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.core.column import ColumnBatch
+    from oceanbase_tpu_torch.core.dictionary import Dictionary
+    from oceanbase_tpu_torch.core.dtypes import DataType, Field, Schema
+    from oceanbase_tpu_torch.expr import ir as E
+    from oceanbase_tpu_torch.expr import program as xp
+
+    dev = torch.device(dev)
+    rng = np.random.default_rng(24)
+    cap = 1_000_003
+    i32 = rng.integers(-2**31, 2**31, cap).astype(np.int32)
+    i32[:6] = [-2**31, 2**31 - 1, 0, -1, 1, -2**31 + 1]
+    f64 = rng.standard_normal(cap) * 1e3
+    f64[:6] = [np.nan, -0.0, 0.0, np.inf, -np.inf, 5e-324]
+    f32 = f64.astype(np.float32)
+    days = rng.integers(-800_000, 800_000, cap).astype(np.int32)
+    days[:4] = [-719468, -1, 0, -146097]
+    words = sorted({f"w{i:03d}{'ab'[i % 2]}" for i in range(300)})
+    d = Dictionary(words, sorted_=True)
+    codes = rng.integers(0, len(words), cap).astype(np.int32)
+    cols = {"i32": i32, "i64": rng.integers(-2**40, 2**40, cap),
+            "f32": f32, "f64": f64, "day": days, "s": codes}
+    types = {"i32": DataType.int32(True), "i64": DataType.int64(True),
+             "f32": DataType.float32(True), "f64": DataType.float64(True),
+             "day": DataType.date(True), "s": DataType.varchar(True)}
+    for sc in range(7):
+        cols[f"d{sc}"] = rng.integers(-10**9, 10**9, cap)
+        types[f"d{sc}"] = DataType.decimal(18, sc, True)
+    cols["nul"] = rng.integers(0, 100, cap)
+    types["nul"] = DataType.int64(True)
+    valid = {n: rng.random(cap) < 0.9 for n in cols}
+    valid["nul"] = np.zeros(cap, bool)
+    schema = Schema(tuple(Field(n, types[n]) for n in cols))
+
+    def batch_of(sel):
+        return ColumnBatch(
+            cols={n: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for n, v in cols.items()},
+            valid={n: torch.from_numpy(v).to(dev) for n, v in valid.items()},
+            sel=torch.from_numpy(sel).to(dev),
+            nrows=torch.tensor(int(sel.sum()), device=dev),
+            schema=schema, dicts={"s": d})
+
+    c, lit = E.ColRef, E.Literal
+
+    def cmp(op, a, b):
+        return E.Compare(op, a, b)
+
+    dec2 = DataType.decimal(12, 2)
+    trees = [
+        E.BinaryOp("+", c("i32"), c("i64")),
+        E.BinaryOp("*", c("i32"), c("i32")),
+        E.BinaryOp("-", lit(0, DataType.int32()), c("i32")),
+        E.BinaryOp("%", c("i64"), c("i32")),
+        E.BinaryOp("/", c("i64"), c("i32")),
+        E.BinaryOp("*", c("f32"), c("f32")),
+        E.BinaryOp("+", E.BinaryOp("*", c("f64"), c("f64")), c("f64")),
+        E.BinaryOp("/", c("f32"), c("f64")),
+        E.BinaryOp("%", c("f64"), lit(7.5, DataType.float64())),
+        E.BinaryOp("*", c("d2"), E.BinaryOp("-", lit(1, DataType.int64()),
+                                             c("d3"))),
+        E.BinaryOp("+", c("d0"), c("d6")),
+        E.BinaryOp("/", c("d5"), c("d1")),
+        E.BinaryOp("*", c("d4"), c("f32")),
+        E.Cast(c("d6"), DataType.decimal(18, 1)),
+        E.Cast(c("d3"), DataType.int32()),
+        E.Cast(c("f64"), DataType.int32()),
+        E.Cast(c("f64"), dec2),
+        E.Cast(c("i32"), DataType.float32()),
+        E.Func("extract_year", (c("day"),)),
+        E.Func("extract_month", (c("day"),)),
+        E.Func("extract_day", (c("day"),)),
+        E.Func("abs", (c("i32"),)), E.Func("neg", (c("f64"),)),
+        E.Func("abs", (c("f32"),)),
+        E.Func("least", (c("f64"), c("f32"), c("i32"))),
+        E.Func("greatest", (c("i64"), c("d2"))),
+        E.Case(((cmp("<", c("i32"), lit(0, DataType.int32())), c("f64")),
+                (E.IsNull(c("i64")), c("d2"))), c("nul")),
+        E.Case(((cmp(">", c("f32"), c("f64")), c("i32")),)),
+        E.BinaryOp("+", c("nul"), c("i64")),
+        # equal trees (0.0 == -0.0) with their own programs: +inf, -inf
+        E.BinaryOp("/", lit(1.0, DataType.float64()), E.BinaryOp(
+            "+", c("f64"), lit(0.0, DataType.float64()))),
+        E.BinaryOp("/", lit(1.0, DataType.float64()), E.BinaryOp(
+            "+", c("f64"), lit(-0.0, DataType.float64()))),
+    ]
+    preds = [
+        E.BoolOp("and", (cmp(">=", c("i32"), lit(-5, DataType.int32())),
+                         cmp("<", c("f64"), c("f32")),
+                         E.Not(E.IsNull(c("d2"))))),
+        E.BoolOp("or", (cmp("=", c("nul"), lit(3, DataType.int64())),
+                        cmp("!=", c("f32"), c("f32")),
+                        E.IsNull(c("i32"), True))),
+        E.BoolOp("and", (cmp("=", c("nul"), c("nul")),
+                         cmp("<=", c("d2"), lit(-1.5, dec2)))),
+        E.Between(c("day"), lit("1960-01-01", DataType.date()),
+                  lit("1999-12-31", DataType.date())),
+        E.InList(c("i64"), (1, -2, 3, 2**40 - 1)),
+        E.InList(c("s"), (words[3], words[7], "nope"), True),
+        cmp("<", c("s"), lit(words[150], DataType.varchar())),
+        cmp("=", c("s"), lit(words[9], DataType.varchar())),
+        E.Func("like", (c("s"), lit("w1%a", DataType.varchar()))),
+        E.Func("prefix", (c("s"), lit("w2", DataType.varchar()))),
+        E.Not(cmp("<>", c("f64"), lit(0.0, DataType.float64()))),
+    ]
+    # the register limit: an AND of n compares keeps n values live
+    def wide_and(n):
+        return E.BoolOp("and", tuple(
+            cmp("<", c("i64"), lit(i * 1000, DataType.int64()))
+            for i in range(n)))
+
+    # the instruction limit: a long chain of additions
+    def long_chain(n):
+        e = c("i64")
+        for i in range(n):
+            e = E.BinaryOp("+", E.BinaryOp("*", e, lit(3, DataType.int64())),
+                           c(f"d{i % 7}"))
+        return e
+
+    sel = rng.random(cap) < 0.5
+    b = batch_of(sel)
+
+    def lowered(e, predicate):
+        from oceanbase_tpu_torch.expr import compile as xc
+
+        return xp.lower((e,), b, xc._route, xc._predicate_route,
+                        xc.set_params, {}, False, predicate)
+
+    at_limit = max(n for n in range(2, 64)
+                   if len(lowered(wide_and(n), True).chunks) == 1)
+    p_at = lowered(wide_and(at_limit), True)
+    p_past = lowered(wide_and(at_limit + 1), True)
+    require(len(p_past.chunks) > 1, "K24: the tree past the register "
+            "limit did not split")
+    chain_n = 80
+    p_chain = lowered(long_chain(chain_n), False)
+    require(len(p_chain.chunks) > 1 and all(
+        len(ch.code) <= xp.MAX_INS for ch in p_chain.chunks),
+        "K24: the long chain did not split within the instruction limit")
+    cases = 0
+    for sel_case in (sel, np.zeros(cap, bool)):
+        bb = batch_of(sel_case)
+        for predicate, group in ((False, trees), (True, preds + [
+                wide_and(at_limit), wide_and(at_limit + 1)])):
+            for e in group:
+                with K24Capture() as capt:
+                    if predicate:
+                        from oceanbase_tpu_torch.expr.compile import (
+                            compile_predicate,
+                        )
+                        compile_predicate(e, bb)
+                    else:
+                        from oceanbase_tpu_torch.expr.compile import evaluate
+                        evaluate(e, bb)
+                require(len(capt.calls) == 1, f"K24 synthetic {e}: not lowered")
+                for call in capt.calls.values():
+                    k24_check_call(kernels, call, f"synthetic {e}")
+                cases += 1
+        with K24Capture() as capt:
+            from oceanbase_tpu_torch.expr.compile import evaluate
+            evaluate(long_chain(chain_n), bb)
+        for call in capt.calls.values():
+            k24_check_call(kernels, call, "synthetic long chain")
+        cases += 1
+    # a tree the tracer cannot record is the statement's error on the
+    # card: it never runs whole on the torch route
+    from oceanbase_tpu_torch.expr import compile as xc
+
+    real_func = xc._eval_func
+
+    def planted(e, batch):
+        if e.name == "abs":
+            v, vv = xc._route(e.args[0], batch)
+            return torch.sin(v), vv
+        return real_func(e, batch)
+
+    x0 = dict(xp.EXPR_COUNTS)
+    xc._eval_func = planted
+    try:
+        xc.evaluate(E.Func("abs", (c("f64"),)), b)
+        refused = False
+    except xp.NotLowerable:
+        refused = True
+    finally:
+        xc._eval_func = real_func
+    require(refused and xp.EXPR_COUNTS == x0,
+            "K24: an untraceable tree did not raise on the card")
+    print(f"kernel K24_fused_expr: {cases} synthetic cases bit-identical to "
+          f"the plain version and the torch route (cap {cap}, half and "
+          f"empty sel; register limit at {at_limit} live compares: "
+          f"{p_at.chunks[0].nregs} registers in 1 chunk, "
+          f"{len(p_past.chunks)} chunks past it; a {chain_n}-step chain in "
+          f"{len(p_chain.chunks)} chunks of <= {xp.MAX_INS} instructions); "
+          f"an untraceable tree raised NotLowerable", flush=True)
+    return {"cases": cases, "cap": cap, "register_limit_terms": at_limit,
+            "regs_at_limit": p_at.chunks[0].nregs,
+            "chunks_past_limit": len(p_past.chunks),
+            "chain_chunks": len(p_chain.chunks)}
 
 
 # ---- the vector phase ----------------------------------------------------
@@ -3959,6 +4656,12 @@ def main() -> int:
     captured.update(capture_analytic_kernels(sess, kernels))
     krecs = kernel_checks(sess, kernels, args.reps, captured)
     del captured
+    k24_stmts, k24_rec = k24_statement_checks(
+        kernels, {name: (se, text) for se, name, text, _c, _r, _f in runs
+                  if name in K24_STMTS}, args.reps)
+    krecs.append(k24_rec)
+    k24_syn = k24_synthetic(kernels, sess.executor.device)
+    release_device()
     frecs = float_checks(sess, kernels)
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
@@ -4116,9 +4819,15 @@ def main() -> int:
         setup=lambda se: setattr(se.executor, "device_budget", cmp_budget),
         route=streamed)
 
+    # ---- the batched program through the server: its own counts, last
+    t0 = time.perf_counter()
+    bat, b_launches = batched_phase(tables, uk, kernels, args.seed)
+    release_device()
+    print(f"batched phase in {time.perf_counter() - t0:.3f} s", flush=True)
+
     phase_launches = {"projection": p_launches, "streamed": st_launches,
                       "grace": g_launches, "vector": v_launches,
-                      "server": sv_launches}
+                      "server": sv_launches, "batched": b_launches}
     for r in krecs:
         if r["name"] == "K17_slice_scan":
             r["launches"] = p_launches[r["name"]]
@@ -4158,7 +4867,8 @@ def main() -> int:
                    "vector_phase": {"statements": vrecs, "build": vbuild,
                                     "card_vs_cpu": vcmp},
                    "narrow_ab": narrow_recs + v_ab,
-                   "server_phase": srv,
+                   "server_phase": srv, "batched_phase": bat,
+                   "k24": {"statements": k24_stmts, "synthetic": k24_syn},
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},

@@ -182,6 +182,20 @@ def batch_to_host(batch: ColumnBatch, decode_strings: bool = True) -> dict:
     )
 
 
+def host_rows_batched(schema, dicts, hcols, hvalid, hsel,
+                      decode_strings: bool = True) -> list[dict]:
+    """host_rows of every lane of a statement micro-batch: `hcols` /
+    `hvalid` values carry a leading [B] lane axis and `hsel` is [B, cap];
+    one column dict per lane, each exactly what host_rows gives for that
+    lane alone (so a batched lane equals its solo run)."""
+    return [
+        host_rows(schema, dicts, {n: a[i] for n, a in hcols.items()},
+                  {n: a[i] for n, a in hvalid.items()}, hsel[i],
+                  decode_strings)
+        for i in range(int(hsel.shape[0]))
+    ]
+
+
 def host_rows(schema, dicts, hcols, hvalid, hsel,
               decode_strings: bool = True) -> dict:
     """batch_to_host over already-fetched numpy arrays."""

@@ -42,7 +42,13 @@ from ..sql.logical import (
     TopN,
     output_schema,
 )
-from .executor import Executor, _children
+from .executor import (
+    Executor,
+    _children,
+    _collect_qparam_spec,
+    _unpack_qparams,
+    pack_qparams,
+)
 from .pipeline import StreamStats, assemble_partials_table, run_stream
 
 DEFAULT_DEVICE_BUDGET = int(
@@ -363,6 +369,9 @@ class ChunkedPreparedPlan:
         self.chunk_rows = chunk_rows
         self.retries = 0
         self.stream_stats = StreamStats()
+        # the statement's parameters ride one packed row, as a
+        # PreparedPlan's do; the chunk and merge programs share its frame
+        self._qparam_spec = _collect_qparam_spec(plan)
 
         if kind == "scan":
             # chunk program = the scan narrowed to the raw columns the
@@ -414,7 +423,12 @@ class ChunkedPreparedPlan:
         self._merge_prepared = None
         self._merge_cap = 0
 
+    def bind(self, values, dtypes):
+        """Values -> one packed int64 row over the whole statement."""
+        return pack_qparams(values, dtypes, self._qparam_spec)
+
     def run(self, max_retries: int = 3, qparams: tuple = ()):
+        qparams = _unpack_qparams(qparams, self._qparam_spec)
         cols, valids, dicts = run_stream(
             self, qparams=qparams, max_retries=max_retries)
         partials, self._partial_cap = assemble_partials_table(

@@ -60,10 +60,13 @@ from ..core.dictionary import Dictionary
 from ..core.dtypes import DataType, Field, Schema, TypeKind
 from ..expr import ir as E
 from ..expr.compile import (
+    PackedParams,
     _div_scale,
+    bind_value,
     compile_predicate,
     derive_dict_column,
     evaluate,
+    evaluate_many,
     evaluate_vector_literal,
     infer_type,
 )
@@ -430,8 +433,8 @@ class Executor:
         self.timeline = None
         # lifetime counts of compile() runs (cold builds + overflow
         # rebuilds), of narrowed result-frame programs built (one per
-        # plan and pow2 frame width) and of batched programs (none: the
-        # batched program is not ported, PreparedPlan.batchable is False)
+        # plan and pow2 frame width) and of batched programs (one per plan
+        # and pow2 bucket, PreparedPlan.run_batched_host)
         self.compiles = 0
         self.narrow_compiles = 0
         self.batched_compiles = 0
@@ -1460,10 +1463,14 @@ class Executor:
             return self._emit_node(op, inputs, emit, params, id_of)
 
         dev = self.device
+        qparam_spec = _collect_qparam_spec(plan)
 
         def run(inputs: dict[str, ColumnBatch], qparams=()):
             from ..expr import compile as expr_compile
 
+            # the packed row becomes the thread's parameter frame: K24
+            # reads its slotted literals straight from it
+            qparams = _unpack_qparams(qparams, qparam_spec)
             prev = expr_compile.set_params(qparams if len(qparams) else None)
             try:
                 out, ovf = emit(plan, inputs)
@@ -2531,14 +2538,18 @@ class Executor:
 
     def _project_batch(self, op: Project, child: ColumnBatch) -> ColumnBatch:
         cols, valid, dicts, fields = {}, {}, {}, []
-        for name, e in op.exprs:
-            derived = derive_dict_column(e, child)
-            if derived is not None:
+        derived = [derive_dict_column(e, child) for _n, e in op.exprs]
+        # every other expression in ONE K24 program (evaluate_many)
+        values = iter(evaluate_many(
+            [e for (_n, e), d in zip(op.exprs, derived) if d is None],
+            child))
+        for (name, e), der in zip(op.exprs, derived):
+            if der is not None:
                 # string transform (substr): new dict column
-                v, vv, d2 = derived
+                v, vv, d2 = der
                 dicts[name] = d2
             else:
-                v, vv = evaluate(e, child)
+                v, vv = next(values)
             if v.dim() == 0:
                 # all-literal expression: broadcast the scalar to the batch
                 v = v.expand(child.capacity).contiguous()
@@ -2653,13 +2664,16 @@ class Executor:
         # per-aggregate (op, values, effective row mask): NULL inputs skip
         # via the argument's validity mask; count(*) counts live rows
         agg_ops, agg_vals, agg_masks = [], [], []
+        # the argument list in ONE K24 program (evaluate_many)
+        arg_vals = iter(evaluate_many(
+            [arg for _n, _f, arg, _d in op.aggs if arg is not None], child))
         for name, fn, arg, distinct in op.aggs:
             if arg is None:
                 agg_ops.append("count")
                 agg_vals.append(None)
                 agg_masks.append(child.sel)
             else:
-                v, vv = evaluate(arg, child)
+                v, vv = next(arg_vals)
                 if v.dim() == 0:
                     v = v.expand(child.capacity)
                 am = child.sel if vv is None else child.sel & vv
@@ -3031,6 +3045,117 @@ class Executor:
         return self.prepare(plan).run(max_retries)
 
 
+def _collect_qparam_spec(plan) -> list | None:
+    """Parameter slots of a parameterized plan, in slot order: list of
+    (DataType, offset, width) per slot, or None when any parameter cannot
+    ride the packed int64 row (counterpart of the JAX package's
+    `_collect_qparam_spec`). Scalars take one int64 lane; VECTOR slots
+    take `precision` lanes (each float32 component widened to float64
+    bits), so a query embedding is one bound parameter block. The packed
+    form is one host-to-device copy per statement instead of one per
+    parameter, and the row K24 reads its slotted literals from."""
+    import dataclasses as _dc
+
+    slots: dict[int, object] = {}
+    bad = False
+
+    def walk(v):
+        nonlocal bad
+        if isinstance(v, E.Literal):
+            if v.slot is not None:
+                if (v.dtype.kind is TypeKind.VECTOR
+                        and int(v.dtype.precision or 0) <= 0):
+                    bad = True  # unknown dimension: cannot size the block
+                slots[v.slot] = v.dtype
+            return
+        if isinstance(v, (E.Expr, LogicalOp)):
+            if _dc.is_dataclass(v):
+                for f in _dc.fields(v):
+                    walk(getattr(v, f.name))
+            return
+        if isinstance(v, tuple):
+            for x in v:
+                walk(x)
+
+    walk(plan)
+    if bad:
+        return None
+    if not slots:
+        return []
+    if sorted(slots) != list(range(len(slots))):
+        return None  # non-dense slots: stay on the legacy tuple
+    spec = []
+    off = 0
+    for i in range(len(slots)):
+        dt = slots[i]
+        w = int(dt.precision) if dt.kind is TypeKind.VECTOR else 1
+        spec.append((dt, off, w))
+        off += w
+    return spec
+
+
+def packed_width(spec) -> int:
+    """Total int64 lanes of a packed parameter row for `spec`."""
+    if not spec:
+        return 0
+    _dt, off, w = spec[-1]
+    return off + w
+
+
+def _unpack_qparams(qparams, spec):
+    """The parameter frame of a run: a PackedParams over the device row
+    (floats ride as float64 bits, VECTOR slots come back as (d,)
+    float32), a frame an out-of-core plan made over its whole statement's
+    row, or the legacy tuple as it is."""
+    if not isinstance(qparams, torch.Tensor):
+        return qparams  # a frame, or a legacy tuple (spec None, direct callers)
+    if spec is None:
+        raise AssertionError("packed qparams without a pack spec")
+    return PackedParams(qparams, spec)
+
+
+def pack_qparams(values, dtypes, spec):
+    """Host side of the packed parameter ABI: one int64 vector for the
+    whole parameter set (or the legacy tuple of host scalars when the
+    spec opted out)."""
+    if spec is None or len(spec) != len(values):
+        return tuple(bind_value(v, t) for v, t in zip(values, dtypes))
+    out = np.empty(packed_width(spec), dtype=np.int64)
+    for (t, off, w), v in zip(spec, values):
+        if w != 1:
+            # VECTOR slot: parse and dim-check on the host, each float32
+            # component widened to float64 bits
+            a = np.asarray(bind_value(v, t), dtype=np.float64)
+            out[off:off + w] = a.view(np.int64)
+            continue
+        if type(v) is int:
+            # an integer literal into an integer slot: assignment
+            # range-checks against int64; int32 slots get bind_value's
+            # bound explicitly
+            k = t.kind
+            if k is TypeKind.INT64:
+                out[off] = v
+                continue
+            if k is TypeKind.INT32 and -2147483648 <= v <= 2147483647:
+                out[off] = v
+                continue
+        a = np.asarray(bind_value(v, t))
+        if a.dtype.kind == "f":
+            out[off] = np.float64(a).view(np.int64)
+        else:
+            out[off] = np.int64(a)
+    return out
+
+
+def upload_qparams(q, device):
+    """The dispatch form of bound parameters: a packed host row as ONE
+    device int64 row (one copy), a legacy tuple of host scalars as 0-d
+    tensors."""
+    if isinstance(q, np.ndarray):
+        return torch.from_numpy(q).to(device) if q.size else ()
+    return tuple(torch.as_tensor(np.asarray(v), device=device) for v in q)
+
+
 def _narrow_seed(plan, default_rows: int) -> int:
     """Row-count seed of the narrowed result frame: how many live rows
     the client can receive from this plan root. LIMIT/TopN roots bound it
@@ -3117,14 +3242,23 @@ class PreparedPlan:
         # optimizer row estimate per node id (prepare fills it)
         self.node_estimates: dict[int, int] = {}
         self.access_profile = ()
+        self._qparam_spec = _collect_qparam_spec(plan)
+        # batched programs: the pow2 buckets built (dropped by recompile)
+        self._batched: set = set()
+
+    def bind(self, values, dtypes):
+        """Values -> the host dispatch form: one packed int64 row when the
+        plan's parameter set allows it (uploaded in one copy)."""
+        return pack_qparams(values, dtypes, self._qparam_spec)
 
     def recompile(self) -> None:
-        """Rebuild after a capacity change; the narrowed programs close
-        over the old capacities and drop with it."""
+        """Rebuild after a capacity change; the narrowed and batched
+        programs close over the old capacities and drop with it."""
         self.program, self.input_spec, self.overflow_nodes = (
             self.executor.compile(self.plan, self.params)
         )
         self._narrow.clear()
+        self._batched.clear()
 
     def _inputs(self):
         try:
@@ -3250,16 +3384,87 @@ class PreparedPlan:
     # ---- cross-session micro-batching ----------------------------------
     @property
     def batchable(self) -> bool:
-        """Whether the statement batcher may fold this plan's concurrent
-        fast hits into one batched dispatch. The batched program (a packed
-        [B, width] parameter block through one dispatch) is not ported,
-        so every hit dispatches solo, with the same rows."""
-        return False
+        """Eligible for the statement batcher: the plan rides the packed
+        int64 parameter row with at least one slot (a 0-slot plan has
+        nothing to vary per lane; vector and legacy-tuple plans opted out
+        of packing)."""
+        return bool(self._qparam_spec)
 
-    def run_batched_host(self, qblock, max_retries: int = 3):
-        raise NotImplementedError(
-            "PreparedPlan.run_batched_host (the batched program over a "
-            "packed parameter block) is not ported to the torch engine yet")
+    def _lanes(self, dblock):
+        """Run the plan once per lane of the device block [bucket, width]
+        (lane i's row is its parameter frame, so K24 reads lane i's
+        literals at row i) over inputs assembled once; returns (outs,
+        the [bucket, n] overflow block)."""
+        inputs = self._inputs()
+        outs, ovfs = [], []
+        for i in range(int(dblock.shape[0])):
+            out, ovf = self.program(inputs, dblock[i])
+            outs.append(out)
+            ovfs.append(ovf)
+        return outs, torch.stack(ovfs)
+
+    def run_batched_host(self, qblock: np.ndarray, max_retries: int = 3):
+        """B same-plan statements in one call: `qblock` is the [B, width]
+        stack of packed parameter rows. B pads to a pow2 bucket
+        (repeating lane 0, a lane never scattered back); the block is
+        uploaded once; the plan runs once per lane with that lane's row
+        of the device block as its parameter frame; every lane's columns,
+        validity and sel come back in one device-to-host copy. Overflow
+        on any lane (the max over lanes) drives the shared bump and
+        recompile loop. Returns (hcols, hvalid, hsel, schema, dicts) with
+        a leading [bucket] axis on every array.
+
+        The lane loop keeps each lane's launches; what it saves is B-1
+        uploads and B-1 host syncs. `executor.batched_compiles` counts
+        the buckets built per plan (cleared by recompile())."""
+        from ..share.interrupt import checkpoint
+
+        b = int(qblock.shape[0])
+        bucket = next_pow2(b)
+        if bucket > b:
+            qblock = np.concatenate(
+                [qblock, np.repeat(qblock[:1], bucket - b, axis=0)])
+        dblock = torch.from_numpy(np.ascontiguousarray(qblock)).to(
+            self.executor.device)
+        for attempt in range(max_retries + 1):
+            checkpoint()
+            if bucket not in self._batched:
+                self._batched.add(bucket)
+                self.executor.batched_compiles += 1
+            outs, ovf = self._lanes(dblock)
+            res = _stack_lanes(outs)
+            host = _to_host_many([ovf] + res[0])
+            overflows = self._overflows(host[0].max(axis=0))
+            if not overflows:
+                return _split_lanes(res, host[1:])
+            if attempt == max_retries:
+                raise RuntimeError(
+                    f"capacity overflow after {max_retries} retries: "
+                    f"{overflows}")
+            self.retries += 1
+            self.params.bump(overflows)
+            self.recompile()
+        raise AssertionError
+
+
+def _stack_lanes(outs):
+    """Every lane's cols, validity planes and sel stacked [bucket, cap]:
+    (the tensors in one list, their names, schema, dicts)."""
+    o0 = outs[0]
+    cn, vn = list(o0.cols), list(o0.valid)
+    ts = ([torch.stack([o.cols[n] for o in outs]) for n in cn]
+          + [torch.stack([o.valid[n] for o in outs]) for n in vn]
+          + [torch.stack([o.sel for o in outs])])
+    return ts, cn, vn, o0.schema, o0.dicts
+
+
+def _split_lanes(res, host):
+    """run_batched_host's return from _stack_lanes' result and its host
+    copies."""
+    _ts, cn, vn, schema, dicts = res
+    hcols = dict(zip(cn, host[:len(cn)]))
+    hvalid = dict(zip(vn, host[len(cn):len(cn) + len(vn)]))
+    return hcols, hvalid, host[-1], schema, dicts
 
 
 class DeviceResult:

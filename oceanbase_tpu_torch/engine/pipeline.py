@@ -947,7 +947,7 @@ class GraceHashPreparedPlan:
             _partials_scan,
             _replace_node,
         )
-        from .executor import Executor
+        from .executor import Executor, _collect_qparam_spec
 
         self.executor = executor
         self.plan = plan
@@ -957,6 +957,9 @@ class GraceHashPreparedPlan:
         self.n_parts = n_parts
         self.retries = 0
         self.stream_stats = StreamStats()
+        # one packed row over the whole statement; the partition and
+        # merge programs share its frame
+        self._qparam_spec = _collect_qparam_spec(plan)
         self._scans = scans
 
         if mode == "groupby":
@@ -1048,9 +1051,17 @@ class GraceHashPreparedPlan:
             {c: d for c, d in t.dicts.items() if c in data}, valid=vdata,
         )
 
+    def bind(self, values, dtypes):
+        """Values -> one packed int64 row over the whole statement."""
+        from .executor import pack_qparams
+
+        return pack_qparams(values, dtypes, self._qparam_spec)
+
     def run(self, max_retries: int = 3, qparams: tuple = ()):
         from ..storage.tmp_file import TmpFileManager
+        from .executor import _unpack_qparams
 
+        qparams = _unpack_qparams(qparams, self._qparam_spec)
         stats = self.stream_stats
         cols: dict[str, list] = {
             f.name: [] for f in self.partial_schema.fields}

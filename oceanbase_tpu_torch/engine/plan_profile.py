@@ -371,11 +371,16 @@ def run_profiled(prepared, qparams=()):
     (out, ovf_vec, samples) as the plain dispatch returns (out, ovf_vec);
     the SegmentedPlan caches on the prepared plan and is rebuilt after
     any overflow recompile."""
+    from .executor import _unpack_qparams
+
     inputs = prepared._inputs()
     seg = getattr(prepared, "_segmented", None)
     if seg is None or seg.stale(prepared):
         seg = prepared._segmented = SegmentedPlan(prepared)
-    return seg.run(inputs, qparams)
+    # every stage installs the frame the plan's program installs: the
+    # packed row as a PackedParams (K24 reads it), a legacy tuple as it is
+    return seg.run(inputs, _unpack_qparams(
+        qparams, getattr(prepared, "_qparam_spec", None)))
 
 
 def profile_eligible(prepared) -> bool:

@@ -51,13 +51,17 @@ from ..sql.plan_cache import (
     CacheEntry,
     FastEntry,
     PlanCache,
-    bind,
     build_slot_map,
     parameterize,
     plan_fingerprint,
 )
 from ..sql.planner import Planner
-from .executor import DeviceResult, Executor, NarrowDeviceResult
+from .executor import (
+    DeviceResult,
+    Executor,
+    NarrowDeviceResult,
+    upload_qparams,
+)
 from .recursive import recursive_cte_of, run_recursive
 
 
@@ -438,7 +442,7 @@ class Session:
         entry = self.plan_cache.get(key)
         if entry is None:
             return None, None
-        return entry, bind(pz.values, entry.dtypes, self.executor.device)
+        return entry, _bind(entry, pz.values, self.executor.device)
 
     def _key_parts(self, norm_key: str, pz, executor=None
                    ) -> tuple[tuple, tuple, str]:
@@ -609,7 +613,7 @@ class Session:
         sstats = getattr(prepared, "stream_stats", None)
         stream0 = sstats.snapshot() if sstats is not None else None
         t0 = time.perf_counter()
-        qparams = bind(values, entry.dtypes, ex.device)
+        qparams = _bind(entry, values, ex.device)
         bind_s = time.perf_counter() - t0
         d2h_bytes = 0
         exec_t0 = time.perf_counter()
@@ -829,3 +833,11 @@ class Session:
                 tl.record_stream(stream_d[0], stream_d[3], stream_d[4],
                                  stream_d[5], stream_d[6])
         return rs
+
+
+def _bind(entry, values, device):
+    """Bound parameters in their dispatch form: every prepared plan (the
+    out-of-core ones too) packs them into one int64 row uploaded in one
+    copy (K24 reads its literals from it); a plan whose slots cannot be
+    packed keeps the legacy tuple of 0-d tensors."""
+    return upload_qparams(entry.prepared.bind(values, entry.dtypes), device)

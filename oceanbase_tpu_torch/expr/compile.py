@@ -25,6 +25,7 @@ types the engine stores.
 from __future__ import annotations
 
 import functools
+import math
 import re
 import threading
 
@@ -39,6 +40,7 @@ from ..core.dtypes import (
     TypeKind,
     common_numeric_type,
 )
+from . import program as _program
 from .ir import (
     Between,
     BinaryOp,
@@ -63,18 +65,59 @@ MAX_DECIMAL_SCALE = 6
 # ---------------------------------------------------------------------------
 
 # Bound 0-d device tensors for slotted Literals, active only while an
-# executor runs a parameterized plan (the parameter frame). Per thread:
-# the server runs concurrent statements on their connections' threads,
-# and each plan runs eagerly under its own frame.
+# executor runs a parameterized plan (the parameter frame): a tuple of
+# 0-d tensors (the legacy form) or a PackedParams over the packed int64
+# row. Per thread: the server runs concurrent statements on their
+# connections' threads, and each plan runs eagerly under its own frame.
 _FRAME = threading.local()
 
 
-def set_params(params: tuple | None):
-    """Install the active parameter tuple of this thread; returns the
+def set_params(params):
+    """Install the active parameter frame of this thread; returns the
     previous one."""
     prev = getattr(_FRAME, "params", None)
     _FRAME.params = params
     return prev
+
+
+class PackedParams:
+    """The parameter frame over the packed int64 row (the packed
+    parameter ABI, `engine/executor.py` pack_qparams): K24 reads each
+    slot straight from `row`; the torch route reads slot i as a 0-d
+    tensor made from the row on first use (a view for int64 and float64
+    slots; VECTOR slots come back as (d,) float32)."""
+
+    __slots__ = ("row", "spec", "_vals")
+
+    def __init__(self, row: torch.Tensor, spec):
+        self.row, self.spec = row, spec
+        self._vals = [None] * len(spec)
+
+    def __len__(self):
+        return len(self.spec)
+
+    def __getitem__(self, i):
+        v = self._vals[i]
+        if v is None:
+            dt, off, w = self.spec[i]
+            tdt = torch_dtype(dt.storage_np)
+            if w != 1 or dt.is_float:
+                v = self.row[off:off + w].view(torch.float64)
+                v = v.to(tdt) if w != 1 else v.reshape(()).to(tdt)
+            else:
+                v = self.row[off].to(tdt)
+            self._vals[i] = v
+        return v
+
+    def layout(self, slots):
+        """{slot: (offset, dtype)} of the scalar slots among `slots`."""
+        out = {}
+        for s in slots:
+            if s < len(self.spec):
+                dt, off, w = self.spec[s]
+                if w == 1:
+                    out[s] = (off, torch_dtype(dt.storage_np))
+        return out
 
 
 def _active_params() -> tuple | None:
@@ -224,8 +267,9 @@ CASE_FUNC_IMPL = {"lower": str.lower, "upper": str.upper, "trim": str.strip}
 
 
 def _promote(a, b):
-    """Cast two operands to their common dtype (see the module note)."""
-    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+    """Cast two operands to their common dtype (see the module note).
+    A traced value (expr/program.py) counts as a tensor."""
+    if hasattr(a, "__torch_function__") and hasattr(b, "__torch_function__") \
             and a.dtype != b.dtype:
         t = torch.promote_types(a.dtype, b.dtype)
         return a.to(t), b.to(t)
@@ -256,27 +300,28 @@ def _lut_gather(lut, codes: torch.Tensor) -> torch.Tensor:
     return t[codes.clamp(0, n).long()]
 
 
-# Boolean LUTs over dictionary values, per (dictionary, its length, the
-# test, device). The JAX package builds them once when it traces a plan;
+# Boolean LUTs over dictionary values, per (dictionary, test, device),
+# each built for the dictionary's length at the time. The JAX package builds them once when it traces a plan;
 # the port's plans run eagerly, so without this a LIKE over a 2M-value
 # dictionary (Q9's p_name at SF 10) would rerun its regex on every
-# statement. A dictionary only grows (appends change its length), and the
-# entry keeps the dictionary itself to rule out a reused id.
+# statement. A dictionary only grows (appends change its length): a table
+# built for an older length is replaced, never kept beside the new one,
+# and the entry keeps the dictionary itself to rule out a reused id.
 _LUT_CACHE: dict = {}
 _LUT_CACHE_MAX = 256
 
 
 def _cached_lut(d, key, test, device) -> torch.Tensor:
-    ck = (id(d), len(d), key, str(device))
+    ck = (id(d), key, str(device))
     hit = _LUT_CACHE.get(ck)
-    if hit is not None and hit[0] is d:
-        return hit[1]
+    if hit is not None and hit[0] is d and hit[1] == len(d):
+        return hit[2]
     lut = np.fromiter((test(v) for v in d.values()), dtype=np.bool_,
                       count=len(d))
     t = torch.from_numpy(lut).to(device)
-    if len(_LUT_CACHE) >= _LUT_CACHE_MAX:
+    if hit is None and len(_LUT_CACHE) >= _LUT_CACHE_MAX:
         _LUT_CACHE.clear()
-    _LUT_CACHE[ck] = (d, t)
+    _LUT_CACHE[ck] = (d, len(d), t)
     return t
 
 
@@ -316,8 +361,15 @@ def _literal_as(value, target: DataType, batch: ColumnBatch, col_name: str | Non
 # ---------------------------------------------------------------------------
 
 
-def evaluate(e: Expr, batch: ColumnBatch):
-    """Evaluate an expression over a batch -> (values, valid|None)."""
+def _route(e: Expr, batch: ColumnBatch):
+    """The torch route: evaluate an expression over a batch -> (values,
+    valid|None), one torch op per node. Also the tracer of
+    `expr/program.py`, which runs it over a trace batch."""
+    if isinstance(e, Func) and e.name in _program.TORCH_ROUTE_FUNCS \
+            and _program.is_trace(batch):
+        t = infer_type(e, batch.schema)
+        return _program.external_route(
+            e, batch, torch_dtype(t.storage_np), _refs_of((e,))[0])
     if isinstance(e, ColRef):
         return batch.cols[e.name], batch.valid.get(e.name)
 
@@ -348,7 +400,7 @@ def evaluate(e: Expr, batch: ColumnBatch):
         return _eval_compare(e, batch)
 
     if isinstance(e, BoolOp):
-        vals_valid = [evaluate(a, batch) for a in e.args]
+        vals_valid = [_route(a, batch) for a in e.args]
         if e.op == "and":
             out = vals_valid[0][0]
             for v, _ in vals_valid[1:]:
@@ -382,7 +434,7 @@ def evaluate(e: Expr, batch: ColumnBatch):
             return out, all_valid | known_true
 
     if isinstance(e, Not):
-        v, valid = evaluate(e.arg, batch)
+        v, valid = _route(e.arg, batch)
         return ~v, valid
 
     if isinstance(e, IsNull):
@@ -396,7 +448,7 @@ def evaluate(e: Expr, batch: ColumnBatch):
             codes, valid, vals = view
             valid = _fold_view_nulls(codes, valid, vals)
         else:
-            _, valid = evaluate(e.arg, batch)
+            _, valid = _route(e.arg, batch)
         if valid is None:
             out = torch.zeros(batch.capacity, dtype=torch.bool,
                               device=batch.device)
@@ -420,7 +472,7 @@ def evaluate(e: Expr, batch: ColumnBatch):
 
         lo = Compare(">=", e.arg, e.low)
         hi = Compare("<=", e.arg, e.high)
-        v, valid = evaluate(and_(lo, hi), batch)
+        v, valid = _route(and_(lo, hi), batch)
         return (~v if e.negated else v), valid
 
     if isinstance(e, Func):
@@ -436,8 +488,8 @@ def _numeric_align(e_left: Expr, e_right: Expr, batch: ColumnBatch):
     is 'float' or 'decimal'/'int' with the given scale (0 for pure ints).
     """
     lt, rt = infer_type(e_left, batch.schema), infer_type(e_right, batch.schema)
-    lv, lvalid = evaluate(e_left, batch)
-    rv, rvalid = evaluate(e_right, batch)
+    lv, lvalid = _route(e_left, batch)
+    rv, rvalid = _route(e_right, batch)
 
     if lt.is_float or rt.is_float:
         tgt = torch.promote_types(
@@ -482,8 +534,8 @@ def _eval_arith(e: BinaryOp, batch: ColumnBatch):
         return ops[e.op](lv, rv), _merge_valid(lvalid, rvalid)
 
     if e.op == "*" and (lt.is_decimal or rt.is_decimal):
-        lv, lvalid = evaluate(e.left, batch)
-        rv, rvalid = evaluate(e.right, batch)
+        lv, lvalid = _route(e.left, batch)
+        rv, rvalid = _route(e.right, batch)
         prod = lv.to(torch.int64) * rv.to(torch.int64)
         ls = lt.scale if lt.is_decimal else 0
         rs = rt.scale if rt.is_decimal else 0
@@ -511,8 +563,8 @@ def _eval_arith(e: BinaryOp, batch: ColumnBatch):
 
 def _numeric_align_float(e_left: Expr, e_right: Expr, batch: ColumnBatch):
     lt, rt = infer_type(e_left, batch.schema), infer_type(e_right, batch.schema)
-    lv, lvalid = evaluate(e_left, batch)
-    rv, rvalid = evaluate(e_right, batch)
+    lv, lvalid = _route(e_left, batch)
+    rv, rvalid = _route(e_right, batch)
     tgt = torch.float64 if (lt.kind is TypeKind.FLOAT64 or rt.kind is TypeKind.FLOAT64
                             or not (lt.is_float or rt.is_float)) else torch.float32
     if lt.is_decimal:
@@ -562,11 +614,11 @@ def _eval_compare(e: Compare, batch: ColumnBatch):
 
     # date vs 'YYYY-MM-DD' string literal: parse on host, compare as int days
     if lt.kind is TypeKind.DATE and isinstance(e.right, Literal) and isinstance(e.right.value, str):
-        lv, lvalid = evaluate(e.left, batch)
+        lv, lvalid = _route(e.left, batch)
         rv = _literal_as(e.right.value, lt, batch, None)
         return _cmp(e.op, lv, rv), lvalid
     if rt.kind is TypeKind.DATE and isinstance(e.left, Literal) and isinstance(e.left.value, str):
-        rv, rvalid = evaluate(e.right, batch)
+        rv, rvalid = _route(e.right, batch)
         lv = _literal_as(e.left.value, rt, batch, None)
         return _cmp(e.op, lv, rv), rvalid
 
@@ -606,8 +658,8 @@ def _eval_compare(e: Compare, batch: ColumnBatch):
                     "columns use different dictionaries; requires dictionary "
                     "translation (not yet implemented)"
                 )
-            lv, lvalid = evaluate(e.left, batch)
-            rv, rvalid = evaluate(e.right, batch)
+            lv, lvalid = _route(e.left, batch)
+            rv, rvalid = _route(e.right, batch)
             return _cmp(e.op, lv, rv), _merge_valid(lvalid, rvalid)
         raise NotImplementedError("varchar comparison form")
 
@@ -619,7 +671,7 @@ def _dict_compare(col_expr: ColRef, op: str, value: str, batch: ColumnBatch):
     d = batch.dicts.get(col_expr.name)
     if d is None:
         raise KeyError(f"no dictionary for varchar column {col_expr.name}")
-    codes, valid = evaluate(col_expr, batch)
+    codes, valid = _route(col_expr, batch)
     if d.sorted and op in ("<", "<=", ">", ">="):
         import bisect
 
@@ -677,13 +729,13 @@ def _eval_cast(e: Cast, batch: ColumnBatch):
         fv = _lut_gather(fl, codes)
         valid = _merge_valid(valid, _lut_gather(nn, codes))
         if dst.is_decimal:
-            out = torch.round(fv * dst.decimal_factor).to(dst_t)
+            out = _float_to_int(torch.round(fv * dst.decimal_factor), dst_t)
         elif dst.is_integer:
-            out = torch.round(fv).to(dst_t)
+            out = _float_to_int(torch.round(fv), dst_t)
         else:
             out = fv.to(dst_t)
         return out, valid
-    v, valid = evaluate(e.arg, batch)
+    v, valid = _route(e.arg, batch)
     if src_t.is_decimal and dst.is_decimal:
         return _rescale_decimal(v, src_t.scale, dst.scale).to(dst_t), valid
     if src_t.is_decimal and dst.is_float:
@@ -692,9 +744,25 @@ def _eval_cast(e: Cast, batch: ColumnBatch):
         return _rescale_decimal(v, src_t.scale, 0).to(dst_t), valid
     if dst.is_decimal:
         if src_t.is_float:
-            return torch.round(v * dst.decimal_factor).to(dst_t), valid
+            return _float_to_int(torch.round(v * dst.decimal_factor),
+                                 dst_t), valid
         return (v.to(dst_t) * dst.decimal_factor), valid
+    if src_t.is_float and dst.is_integer:
+        return _float_to_int(v, dst_t), valid
     return v.to(dst_t), valid
+
+
+def _float_to_int(v, dt: torch.dtype):
+    """A float tensor as integer dtype `dt`, converted as XLA converts
+    (the JAX package's astype): NaN to 0, values past the type's range
+    saturated to its bounds, the rest truncated toward zero. torch's own
+    `.to` leaves NaN and out-of-range values undefined."""
+    info = torch.iinfo(dt)
+    lim = float(2 ** (info.bits - 1))
+    big, small = v >= lim, v < -lim
+    safe = torch.where((v != v) | big | small, torch.zeros_like(v), v)
+    out = torch.where(big, info.max, safe.to(dt))
+    return torch.where(small, info.min, out)
 
 
 def _eval_case(e: Case, batch: ColumnBatch):
@@ -702,14 +770,14 @@ def _eval_case(e: Case, batch: ColumnBatch):
     dt = torch_dtype(out_t.storage_np)
     dev = batch.device
     if e.default is not None:
-        out, out_valid = evaluate(Cast(e.default, out_t), batch)
+        out, out_valid = _route(Cast(e.default, out_t), batch)
     else:
         out = torch.zeros(batch.capacity, dtype=dt, device=dev)
         out_valid = torch.zeros(batch.capacity, dtype=torch.bool, device=dev)
     for cond, val in reversed(e.whens):
-        c, cvalid = evaluate(cond, batch)
+        c, cvalid = _route(cond, batch)
         take = c if cvalid is None else (c & cvalid)
-        v, vvalid = evaluate(Cast(val, out_t), batch)
+        v, vvalid = _route(Cast(val, out_t), batch)
         out = _where(take, v, out)
         if out_valid is not None or vvalid is not None:
             ones = torch.ones(batch.capacity, dtype=torch.bool, device=dev)
@@ -734,7 +802,7 @@ def _eval_in_list(e: InList, batch: ColumnBatch):
         )
         out = _lut_gather(lut, codes)
         return (~out if e.negated else out), valid
-    v, valid = evaluate(e.arg, batch)
+    v, valid = _route(e.arg, batch)
     out = torch.zeros(batch.capacity, dtype=torch.bool, device=batch.device)
     for item in e.values:
         out = out | _cmp("=", v, _literal_as(item, t, batch, None))
@@ -772,7 +840,7 @@ def _string_view(e: Expr, batch: ColumnBatch):
         d = batch.dicts.get(e.name)
         if d is None:
             return None
-        codes, valid = evaluate(e, batch)
+        codes, valid = _route(e, batch)
         return codes, valid, list(d.values())
     if isinstance(e, Func) and e.name == "substr":
         base = _string_view(e.args[0], batch)
@@ -861,14 +929,14 @@ def _dict_lut(e: Func, batch: ColumnBatch, test):
     col_expr = e.args[0]
     assert isinstance(col_expr, ColRef) and isinstance(e.args[1], Literal)
     d = batch.dicts[col_expr.name]
-    codes, valid = evaluate(col_expr, batch)
+    codes, valid = _route(col_expr, batch)
     lut = _cached_lut(d, (e.name, str(e.args[1].value)), test, codes.device)
     return _lut_gather(lut, codes), valid
 
 
 def _eval_func(e: Func, batch: ColumnBatch):
     if e.name in ("extract_year", "extract_month", "extract_day"):
-        v, valid = evaluate(e.args[0], batch)
+        v, valid = _route(e.args[0], batch)
         y, m, d = _civil_from_days(v)
         return {"extract_year": y, "extract_month": m, "extract_day": d}[e.name], valid
 
@@ -929,7 +997,7 @@ def _eval_func(e: Func, batch: ColumnBatch):
         # vector distances in matmul form: squared L2 = ||x||^2 - 2 x.q +
         # ||q||^2; vec_ip = NEGATIVE inner product and vec_cosine = 1 -
         # cosine similarity, so ORDER BY <dist> ASC means "nearest"
-        xv, valid = evaluate(e.args[0], batch)
+        xv, valid = _route(e.args[0], batch)
         q = evaluate_vector_literal(e.args[1], batch.device)
         xq = xv @ q
         if e.name == "vec_ip":
@@ -941,24 +1009,232 @@ def _eval_func(e: Func, batch: ColumnBatch):
         xn = torch.sum(xv * xv, dim=1)
         return xn - 2.0 * xq + torch.sum(q * q), valid
     if e.name == "abs":
-        v, valid = evaluate(e.args[0], batch)
+        v, valid = _route(e.args[0], batch)
         return torch.abs(v), valid
     if e.name == "neg":
-        v, valid = evaluate(e.args[0], batch)
+        v, valid = _route(e.args[0], batch)
         return -v, valid
     if e.name in ("least", "greatest"):
         op = torch.minimum if e.name == "least" else torch.maximum
-        v, valid = evaluate(e.args[0], batch)
+        v, valid = _route(e.args[0], batch)
         for a in e.args[1:]:
-            v2, valid2 = evaluate(a, batch)
+            v2, valid2 = _route(a, batch)
             v = op(*_promote(v, v2))
             valid = _merge_valid(valid, valid2)
         return v, valid
     raise NotImplementedError(f"function {e.name}")
 
 
-def compile_predicate(e: Expr, batch: ColumnBatch) -> torch.Tensor:
-    """Predicate -> bool mask over the batch; NULL results reject the row."""
-    v, valid = evaluate(e, batch)
+def _predicate_route(e: Expr, batch: ColumnBatch) -> torch.Tensor:
+    """The torch route of compile_predicate."""
+    v, valid = _route(e, batch)
     mask = v if valid is None else (v & valid)
     return mask & batch.sel
+
+
+# ---------------------------------------------------------------------------
+# the fused route: trees lowered to K24 programs (expr/program.py)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=65536)
+def _refs_of(exprs: tuple) -> tuple:
+    """(column names, parameter slots, whether a float literal is zero)
+    of the trees. Trees compare as dataclasses, and 0.0 == -0.0: a tree
+    holding a float zero literal needs its signs in a cache key
+    (`_zero_signs`)."""
+    import dataclasses as _dc
+
+    names: dict = {}
+    slots: set = set()
+    fzero = False
+
+    def walk(e):
+        nonlocal fzero
+        if isinstance(e, ColRef):
+            names[e.name] = None
+            return
+        if isinstance(e, Literal):
+            if e.slot is not None:
+                slots.add(e.slot)
+            if isinstance(e.value, float) and e.value == 0.0:
+                fzero = True
+            return
+        if not _dc.is_dataclass(e):
+            return
+        for f in _dc.fields(e):
+            sub(getattr(e, f.name))
+
+    def sub(v):
+        if isinstance(v, Expr):
+            walk(v)
+        elif isinstance(v, tuple):
+            for x in v:
+                sub(x)
+
+    for e in exprs:
+        walk(e)
+    return tuple(names), tuple(sorted(slots)), fzero
+
+
+def _zero_signs(exprs: tuple) -> tuple:
+    """The sign bit of each float zero literal of the trees, in walk
+    order (not cached: equal trees may differ here)."""
+    import dataclasses as _dc
+
+    out = []
+
+    def walk(v):
+        if isinstance(v, Literal):
+            if isinstance(v.value, float) and v.value == 0.0:
+                out.append(math.copysign(1.0, v.value) < 0)
+        elif isinstance(v, tuple):
+            for x in v:
+                walk(x)
+        elif isinstance(v, Expr) and _dc.is_dataclass(v):
+            for f in _dc.fields(v):
+                walk(getattr(v, f.name))
+
+    walk(exprs)
+    return tuple(out)
+
+
+def _legacy_layout(params, slots):
+    """The packed row of a legacy tuple frame (made once per frame on
+    its device: integers widened to int64, floats as float64 bits) and
+    {slot: (offset, dtype)} of its 0-d slots among `slots`. Only a plan
+    whose slots cannot be packed (`_collect_qparam_spec` None: a VECTOR
+    slot of unknown width, non-dense slots) or a direct caller's tuple
+    comes here; every Session statement binds one packed row."""
+    hit = getattr(_FRAME, "legacy", None)
+    if hit is not None and hit[0] is params:
+        row, offs = hit[1], hit[2]
+    else:
+        parts, offs, off = [], [], 0
+        for p in params:
+            t = torch.as_tensor(p)
+            raw = (t.to(torch.float64).reshape(-1).view(torch.int64)
+                   if t.dtype.is_floating_point
+                   else t.to(torch.int64).reshape(-1))
+            offs.append((off, t.dtype, t.dim()))
+            parts.append(raw)
+            off += int(raw.shape[0])
+        row = torch.cat(parts) if parts else None
+        _FRAME.legacy = (params, row, offs)
+    return row, {s: offs[s][:2] for s in slots
+                 if s < len(offs) and offs[s][2] == 0}
+
+
+# Lowered programs, one entry per (trees, mode, schema, input columns,
+# parameter layout): the entry also holds the dictionaries and the
+# version (length, order flag) each was lowered for, and a dictionary
+# grown or replaced by DML replaces its stale program instead of adding
+# one. Bounded by entries and by the host bytes of the programs' lookup
+# tables (oldest first out); their device copies are shared and bounded
+# in `expr/program.py` (`device_lut`).
+_PROGRAMS: dict = {}
+_PROGRAMS_MAX = 4096
+_PROGRAM_BYTES_MAX = 256 << 20
+_PROGRAMS_LOCK = threading.Lock()
+_program_bytes = 0
+
+
+def _cache_program(key, entry) -> None:
+    global _program_bytes
+    with _PROGRAMS_LOCK:
+        old = _PROGRAMS.pop(key, None)
+        if old is not None:
+            _program_bytes -= old[0].nbytes
+        _PROGRAMS[key] = entry
+        _program_bytes += entry[0].nbytes
+        while len(_PROGRAMS) > 1 and (len(_PROGRAMS) > _PROGRAMS_MAX or
+                                      _program_bytes > _PROGRAM_BYTES_MAX):
+            _program_bytes -= _PROGRAMS.pop(next(iter(_PROGRAMS)))[0].nbytes
+
+
+def _fused(exprs: tuple, batch: ColumnBatch, predicate: bool):
+    """Run the trees as one K24 program: the list of (values, valid|None)
+    per tree (predicate mode: [mask]). A tree the tracer cannot record
+    raises `NotLowerable` on every device: no tree falls back to the
+    torch route whole (only the vector distances enter a program as
+    columns the route computed, counted in EXPR_COUNTS)."""
+    refs, slots, fzero = _refs_of(exprs)
+    params = _active_params()
+    qrow, qslots = None, {}
+    if params is not None and slots:
+        if isinstance(params, PackedParams):
+            qrow, qslots = params.row, params.layout(slots)
+        else:
+            qrow, qslots = _legacy_layout(params, slots)
+    cols, valid, dicts = batch.cols, batch.valid, batch.dicts
+    sig, dref, vers = [], [], []
+    for n in refs:
+        c = cols.get(n)
+        d = dicts.get(n)
+        dref.append(d)
+        vers.append(None if d is None else (len(d), d.sorted))
+        sig.append(None if c is None else (
+            c.dtype, c.dim(), n in valid, d is not None))
+    key = (exprs, _zero_signs(exprs) if fzero else (), predicate,
+           batch.schema, tuple(sig), tuple(sorted(qslots.items())),
+           batch.device.type, params is not None)
+    hit = _PROGRAMS.get(key)
+    if hit is None or hit[2] != vers or \
+            not all(a is b for a, b in zip(hit[1], dref)):
+        prog = _program.lower(
+            exprs, batch, _route, _predicate_route, set_params, qslots,
+            params is not None, predicate)
+        hit = (prog, tuple(dref), vers)
+        _cache_program(key, hit)
+    prog = hit[0]
+    ext = []
+    for e in prog.externals:
+        _program.EXPR_COUNTS["expr torch route"] += 1
+        ext.append(_route(e, batch))
+    from ..kernels import fused_expr
+
+    outs = fused_expr(prog, batch, qrow, ext)
+    _program.EXPR_COUNTS["expr k24 trees"] += len(exprs)
+    return [(outs[a] if a is not None else None,
+             outs[b] if b is not None else None) for a, b in prog.pairs]
+
+
+def _lowers(e: Expr) -> bool:
+    """A tree runs as a program unless it is a bare column (no copy) or
+    reads no column (it stays 0-d, as the route returns it)."""
+    return not isinstance(e, ColRef) and bool(_refs_of((e,))[0])
+
+
+def evaluate(e: Expr, batch: ColumnBatch):
+    """Evaluate an expression over a batch -> (values, valid|None): one
+    K24 launch (`kernels.fused_expr`) for a tree with a column
+    reference, the torch route for a bare column or a constant tree."""
+    if _program.is_trace(batch) or not _lowers(e):
+        return _route(e, batch)
+    return _fused((e,), batch, False)[0]
+
+
+def evaluate_many(exprs, batch: ColumnBatch) -> list:
+    """evaluate() of several trees over one batch, the lowered ones as
+    ONE multi-output program (a projection's or an aggregate's argument
+    list is one launch, shared subexpressions computed once)."""
+    exprs = tuple(exprs)
+    out = [None] * len(exprs)
+    idx = [i for i, e in enumerate(exprs) if _lowers(e)]
+    if idx and not _program.is_trace(batch):
+        res = _fused(tuple(exprs[i] for i in idx), batch, False)
+        for i, r in zip(idx, res):
+            out[i] = r
+    for i, e in enumerate(exprs):
+        if out[i] is None:
+            out[i] = _route(e, batch)
+    return out
+
+
+def compile_predicate(e: Expr, batch: ColumnBatch) -> torch.Tensor:
+    """Predicate -> bool mask over the batch; NULL results reject the
+    row. A predicate with a column reference is one K24 launch that
+    writes v & valid & sel."""
+    if _program.is_trace(batch) or not _refs_of((e,))[0]:
+        return _predicate_route(e, batch)
+    return _fused((e,), batch, True)[0][0]

@@ -28,6 +28,7 @@ K20 `kmeans_update`    per-list row-order sums    (csrc/k20_kmeans_update.cu)
 K21 `ivf_lists`        the nprobe nearest lists   (csrc/k21_ivf_lists.cu)
 K22 `ivf_probe`        filtered re-rank + top-k   (csrc/k22_ivf_probe.cu)
 K23 `first_live`       first k live rows + gather (csrc/k23_first_live.cu)
+K24 `fused_expr`       expression register programs (csrc/k24_fused_expr.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -83,6 +84,7 @@ KERNEL_NAMES = (
     "K21_ivf_lists",
     "K22_ivf_probe",
     "K23_first_live",
+    "K24_fused_expr",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -131,6 +133,7 @@ SOURCES = (
     "k21_ivf_lists.cu",
     "k22_ivf_probe.cu",
     "k23_first_live.cu",
+    "k24_fused_expr.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -276,6 +279,9 @@ def _load():
         lib.ob_k23_first_live.argtypes = [P, L, L, P, P, P, P, I, P, P, P,
                                           P, P]
         lib.ob_k23_tile_rows.argtypes = []
+        lib.ob_k24_run.argtypes = [ctypes.c_char_p, I, P]
+        lib.ob_k24_prog_bytes.argtypes = []
+        lib.ob_k24_tile_rows.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -292,7 +298,9 @@ def _load():
                    lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile,
                    lib.ob_k19_assign, lib.ob_k20_update, lib.ob_k21_lists,
                    lib.ob_k22_probe, lib.ob_k22_tile,
-                   lib.ob_k23_first_live, lib.ob_k23_tile_rows):
+                   lib.ob_k23_first_live, lib.ob_k23_tile_rows,
+                   lib.ob_k24_run, lib.ob_k24_prog_bytes,
+                   lib.ob_k24_tile_rows):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -2695,3 +2703,145 @@ def first_live(sel, k: int, cols):
         _check(rc, "K23_first_live")
     LAUNCHES["K23_first_live"] += 1
     return idx, nlive, outs
+
+
+# ---------------------------------------------------------------------------
+# K24: fused expression register programs (expr/program.py)
+# ---------------------------------------------------------------------------
+
+# the header of csrc/k24_fused_expr.cu's K24Prog: n, qrow, in[32],
+# out[32], n_ins, nregs; the instructions follow, 16 bytes each
+_K24_HDR = struct.Struct("<qQ32Q32Qii")
+_K24_MAX_INS = 160
+_k24_checked = False
+
+
+def _k24_io(program, batch, ext, dev):
+    """Output and temporary columns of one run, and a resolver from an
+    input descriptor of a chunk to its tensor."""
+    cap = batch.capacity
+    outs = [torch.empty(cap, dtype=dt, device=dev)
+            for dt in program.out_dtypes]
+    tmps = [torch.empty(cap, dtype=dt, device=dev)
+            for dt in program.tmp_dtypes]
+    luts = program.luts_on(dev)
+
+    def resolve(desc):
+        kind = desc[0]
+        if kind == "lut":
+            return luts[desc[1]]
+        if kind == "tmp":
+            return tmps[desc[1]]
+        if kind == "col":
+            t = batch.cols[desc[1]]
+        elif kind == "valid":
+            t = batch.valid[desc[1]]
+        elif kind == "sel":
+            t = batch.sel
+        elif kind == "ext":
+            t = ext[desc[1]][0]
+        else:
+            t = ext[desc[1]][1]
+        if t.dim() != 1 or int(t.shape[0]) != cap:
+            raise ValueError(f"K24 input {desc}: expected [{cap}], got "
+                             f"{tuple(t.shape)}")
+        return t.contiguous()
+
+    return outs, tmps, resolve
+
+
+def fused_expr_plain(program, batch, qrow=None, ext=()):
+    """Plain version of K24: the same chunks, instruction by instruction,
+    as torch ops of each instruction's dtype (operands are already of
+    it, so no torch promotion applies). Returns the output columns."""
+    from .expr import program as P
+
+    dev = batch.sel.device
+    outs, tmps, resolve = _k24_io(program, batch, ext, dev)
+    code_dt = P.CODE_DTYPE
+    for ch in program.chunks:
+        ins = [resolve(d) for d in ch.inputs]
+        dst = [outs[k] if kind == "out" else tmps[k]
+               for kind, k in ch.outputs]
+        r = [None] * max(ch.nregs, 1)
+        for op, t, d, a, b, c, t2, imm in ch.code:
+            dt = code_dt[t]
+            if op == P.OP_LOAD:
+                v = ins[imm]
+                if v.dtype != dt:
+                    raise TypeError(f"K24 load of {v.dtype} as {dt}")
+            elif op == P.OP_PARAM:
+                if dt.is_floating_point:
+                    v = qrow[imm:imm + 1].view(torch.float64).reshape(
+                        ()).to(dt)
+                else:
+                    v = qrow[imm].to(dt)
+            elif op == P.OP_CONST:
+                v = P.const_tensor(imm, dt, dev)
+            elif op == P.OP_LUT:
+                v = ins[imm][r[a]]
+            elif op == P.OP_CAST:
+                v = r[a].to(dt)
+            elif op == P.OP_STORE:
+                dst[imm].copy_(r[a])
+                continue
+            elif op == P.OP_SELECT:
+                v = torch.where(r[a], r[b], r[c])
+            elif op in P.PLAIN_UNARY:
+                v = P.PLAIN_UNARY[op](r[a])
+            else:
+                v = P.PLAIN_BINARY[op](r[a], r[b])
+            r[d] = v
+    return outs
+
+
+def fused_expr(program, batch, qrow=None, ext=()):
+    """K24: run a lowered program over a batch, one launch per chunk.
+    batch: a ColumnBatch whose columns the program reads (1-D, capacity
+    rows); qrow: the packed int64 parameter row on the same device (or
+    None when the program reads no parameter); ext: (values, validity)
+    of each subtree the torch route evaluated. Returns the output
+    columns, bit for bit as `fused_expr_plain`."""
+    global _k24_checked
+    sel = batch.sel
+    if not _on_cuda(sel, qrow):
+        return fused_expr_plain(program, batch, qrow, ext)
+    if qrow is not None and (qrow.dtype != torch.int64 or qrow.dim() != 1
+                             or not qrow.is_contiguous()):
+        raise TypeError("K24 parameter row must be contiguous int64 [w]")
+    dev = sel.device
+    lib = _load()
+    if not _k24_checked:
+        size = _K24_HDR.size + 16 * _K24_MAX_INS
+        if int(lib.ob_k24_prog_bytes()) != size:
+            raise RuntimeError("K24 program layout differs from the source")
+        _k24_checked = True
+    outs, tmps, resolve = _k24_io(program, batch, ext, dev)
+    cap = batch.capacity
+    if cap == 0:
+        return outs
+    tile = int(lib.ob_k24_tile_rows())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = max(1, min(-(-cap // tile), sms * 16))
+    qptr = qrow.data_ptr() if qrow is not None else 0
+    pad = b"\0" * (16 * _K24_MAX_INS)
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        for ch in program.chunks:
+            ins = [resolve(d) for d in ch.inputs]
+            for t in ins:
+                if t.device != dev:
+                    raise ValueError(f"K24 input on {t.device}, not {dev}")
+            dst = [outs[k] if kind == "out" else tmps[k]
+                   for kind, k in ch.outputs]
+            ptrs = [t.data_ptr() for t in ins]
+            optrs = [t.data_ptr() for t in dst]
+            hdr = _K24_HDR.pack(
+                cap, qptr, *(ptrs + [0] * (32 - len(ptrs))),
+                *(optrs + [0] * (32 - len(optrs))), len(ch.code),
+                max(ch.nregs, 1))
+            blob = hdr + ch.blob + pad[len(ch.blob):]
+            rc = lib.ob_k24_run(blob, nblocks, stream)
+            _check(rc, "K24_fused_expr")
+            LAUNCHES["K24_fused_expr"] += 1
+    return outs

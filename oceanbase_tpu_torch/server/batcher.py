@@ -9,10 +9,14 @@ admission across tenant queues is a weighted smooth-deficit round-robin
 seeded from TenantUnit.weight, and every gated statement holds one of
 `ob_tenant_admission_slots` running permits.
 
-In the torch engine no prepared plan is `batchable` yet (the batched
-program over a packed [B, width] parameter block is not ported), so
-every statement bypasses the lane packing and runs the solo fast path,
-with the same rows; `_combo_run` raises NotImplementedError by name.
+A plan with parameter slots is `batchable`: its lanes' packed int64
+parameter rows stack into one [B, width] block that rides ONE
+engine.executor.PreparedPlan.run_batched_host call (one upload, the plan
+run once per lane with that lane's row as its parameter frame, one
+device-to-host copy for every lane), and `_combo_run` carries two plans'
+cohorts in one call and one copy. A kernel's build or launch error is
+not a degrade: the dispatch fails, every lane re-runs solo on the card
+and the error reaches each statement.
 
 Token contract: every execute() call that returns None leaves EXACTLY ONE
 gate busy token held for the caller's solo fast-path run; the caller
@@ -31,6 +35,7 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from ..ops.hashing import next_pow2
 from ..share import gap_ledger as _gl
@@ -45,13 +50,33 @@ _SOLO = RuntimeError("solo")
 
 
 def _combo_run(pa, pb, qa: np.ndarray, qb: np.ndarray):
-    """ONE device dispatch for two different plans' batched cohorts (the
-    JAX package inlines both vmapped programs into one jitted program).
-    Not ported with the batched program: it is reached only for plans
-    whose `batchable` is True, and no port plan is."""
-    raise NotImplementedError(
-        "server.batcher._combo_run (one dispatch for two plans' batched "
-        "cohorts) is not ported to the torch engine yet")
+    """Two different plans' batched cohorts in one call: each block padded
+    to its pow2 bucket and uploaded once, each plan's lane loop
+    (PreparedPlan._lanes), then every lane of both plans in ONE
+    device-to-host copy. Returns a pair of run_batched_host-shaped host
+    tuples ((hcols, hvalid, hsel, schema, dicts) x2), or None when either
+    plan overflowed on any lane: the per-plan path then owns the bump and
+    recompile loop. A kernel's build or launch error propagates."""
+    from ..engine.executor import _split_lanes, _stack_lanes, _to_host_many
+
+    blocks = []
+    for p, q in ((pa, qa), (pb, qb)):
+        bk = next_pow2(int(q.shape[0]))
+        if bk > q.shape[0]:
+            q = np.concatenate([q, np.repeat(q[:1], bk - q.shape[0], axis=0)])
+        blocks.append(torch.from_numpy(np.ascontiguousarray(q)).to(
+            p.executor.device))
+    outa, ovfa = pa._lanes(blocks[0])
+    outb, ovfb = pb._lanes(blocks[1])
+    ra, rb = _stack_lanes(outa), _stack_lanes(outb)
+    host = _to_host_many([ovfa, ovfb] + ra[0] + rb[0])
+    if pa._overflows(host[0].max(axis=0)):
+        return None
+    if pb._overflows(host[1].max(axis=0)):
+        return None
+    na = len(ra[0])
+    return (_split_lanes(ra, host[2:2 + na]),
+            _split_lanes(rb, host[2 + na:]))
 
 
 class _Batch:

@@ -24,6 +24,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from oceanbase_tpu.core.column import batch_rows_storage as j_storage
 from oceanbase_tpu.core.dtypes import DataType as JDataType
@@ -197,6 +198,44 @@ def test_session_reports_stream_phases(tables):
     whole = Session(tt, unique_keys=UNIQUE_KEYS, device="cpu")
     assert rs.storage_columns() == whole.sql(QUERIES[6]).storage_columns()
     assert "stream_h2d_s" not in whole.last_phases
+
+
+@pytest.mark.parametrize("budget,kind,sql,lits", [
+    (BUDGET, ChunkedPreparedPlan,
+     "select sum(l_extendedprice * l_discount) as revenue, count(*) as c "
+     "from lineitem where l_quantity < {} and l_discount > {} "
+     "and l_shipdate >= date '1994-01-01'", ((24, 0.02), (30, 0.05))),
+    (GRACE_BUDGET, TP.GraceHashPreparedPlan,
+     GRACE_JOIN_SQL.replace("< 30", "< {}"), ((30,), (25,))),
+])
+def test_out_of_core_statements_bind_one_packed_row(tables, monkeypatch,
+                                                    budget, kind, sql, lits):
+    """A streamed or grace-hash statement binds its literals as one
+    packed int64 row over the whole statement, as a resident plan does:
+    its chunk, partition and merge programs share that frame, no legacy
+    tuple frame is packed, and a plan-cache hit with new literals returns
+    the resident rows bit for bit."""
+    from oceanbase_tpu_torch.expr import compile as xc
+
+    def no_legacy(*_a):
+        raise AssertionError("a legacy tuple frame was packed")
+
+    _jt, tt = tables
+    monkeypatch.setattr(xc, "_legacy_layout", no_legacy)
+    sess = Session(tt, unique_keys=UNIQUE_KEYS, device="cpu")
+    sess.executor.device_budget = budget
+    sess.executor.chunk_rows = CHUNK
+    whole = Session(tt, unique_keys=UNIQUE_KEYS, device="cpu")
+    for vals in lits:
+        text = sql.format(*vals)
+        rs = sess.sql(text)
+        _bits_equal(rs.storage_columns(), whole.sql(text).storage_columns(),
+                    f"{kind.__name__} {vals}")
+    assert rs.plan_cache_hit
+    entry, qparams = sess.cached_entry(text)
+    assert isinstance(entry.prepared, kind)
+    assert isinstance(qparams, torch.Tensor) and qparams.dtype == torch.int64
+    assert qparams.dim() == 1 and qparams.numel() >= len(lits[0])
 
 
 # ---------------------------------------------------------------------------
