@@ -87,6 +87,24 @@ phase's arguments and on synthetic edge cases, and timed. Small results
 of the main path and the vector statements are timed with the narrowed
 frame off, on, and on with K23 forced (the narrowed frame's A/B).
 
+The PX phase follows, in two legs with their own counts. Leg 1, in the
+server phase's Database after its statements: `SET ob_px_dop = 1`, so
+Q1, Q6, Q3 and Q14 run through DbSession.sql on Database._px_executor()
+(make_mesh() over the card: one shard, in the caller's thread), cold,
+warm and traced; their rows bit-identical to the same session's at dop 0
+and held to the int64 oracles, no `px fallbacks`, the PX admission quota
+back at its target. Leg 2, just before the batched phase and untraced
+(its shards run in threads): a PxExecutor over make_mesh(4, devices=
+[cuda:0] * 4) runs Q1 and Q6 (partials merged by K27), Q3 and Q18 (hash
+exchanges on K25 + K26), a DISTINCT over every lineitem row, the range
+sort of every lineitem row (tests/test_px_range.py's statement; bounds
+by K28) and a hybrid-hash join of a zipf-skewed fact of 2^20 rows a
+shard (hot buckets and the join bloom by K28), each equal to the single
+device executor's rows (floats to rel 1e-12); every one of K25-K28 must
+launch. K25-K28 are held bit for bit to their plain versions on the
+calls captured from leg 2 and on synthetic edge cases, twice, and timed
+beside their plain versions, a library yardstick and their bounds.
+
 The rest of Executor.prepare follows, each path with its launch counts
 set to 0 just before it and read just after. The projection phase builds
 `lineitem#sp:l_shipdate` (the reference bench's covered columns) and runs
@@ -389,6 +407,18 @@ KERNEL_META = {
     "K24_fused_expr": (
         "oceanbase_tpu_torch/csrc/k24_fused_expr.cu",
         "oceanbase_tpu/expr/compile.py:260"),
+    "K25_exchange_pack": (
+        "oceanbase_tpu_torch/csrc/k25_exchange_pack.cu",
+        "oceanbase_tpu/parallel/exchange.py:65"),
+    "K26_exchange_recv": (
+        "oceanbase_tpu_torch/csrc/k26_exchange_recv.cu",
+        "oceanbase_tpu/parallel/exchange.py:101"),
+    "K27_shard_merge": (
+        "oceanbase_tpu_torch/csrc/k27_shard_merge.cu",
+        "oceanbase_tpu/parallel/exchange.py:166"),
+    "K28_bucket_hist": (
+        "oceanbase_tpu_torch/csrc/k28_bucket_hist.cu",
+        "oceanbase_tpu/parallel/exchange.py:171"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -411,11 +441,14 @@ KERNEL_LINE = [k for k in KERNEL_META if k != "dedup_batch"]
 # the kernels of the vector phase's own path
 VECTOR_KERNELS = ("K19_kmeans_assign", "K20_kmeans_update", "K21_ivf_lists",
                   "K22_ivf_probe")
+# the kernels of PX's exchanges (the PX phase's path)
+PX_KERNELS = ("K25_exchange_pack", "K26_exchange_recv", "K27_shard_merge",
+              "K28_bucket_hist")
 # the kernels of each path (the rest of prepare's paths launch K17, K18)
 MAIN_KERNELS = [k for k in KERNEL_LINE
                 if "." not in k and k not in ("K17_slice_scan",
                                               "K18_decode_staged",
-                                              *VECTOR_KERNELS)]
+                                              *VECTOR_KERNELS, *PX_KERNELS)]
 
 # the reference bench's sorted projection: lineitem by l_shipdate,
 # covering every column of the headline queries (bench.py SP_COLS)
@@ -3113,6 +3146,8 @@ def server_phase(tables, uk, kernels, queries_text, checks, warm, sf):
         profiles = db.plan_profiler.store.profiles
         require(profiles > 0, "server: no statement was profiled")
         require(launches["K23_first_live"] > 0, "server: K23 never launched")
+        # the PX phase's leg 1, in the same Database: its own counts
+        px_leg = px_server_leg(db, kernels, queries_text, checks, warm)
     finally:
         ex.first_live = orig
         fe.stop()
@@ -3120,9 +3155,592 @@ def server_phase(tables, uk, kernels, queries_text, checks, warm, sf):
     require({"head", "narrow", "wide"} <= set(captured),
             f"server: K23 arguments captured for {sorted(captured)}")
     return ({"statements": recs, "head_fetch": head, "lookup": lookup,
-             "wide": wide, "dml": dml,
+             "wide": wide, "dml": dml, "px_leg": px_leg,
              "degraded": degraded, "profile_fallbacks": 0,
              "operator_profiles": profiles}, launches, captured)
+
+
+# ---- the PX phase: SET ob_px_dop through the server, then a 4-shard mesh
+# leg 1: the server statements at dop 1 (the mesh of the one card)
+PX_SERVER_STMTS = (1, 6, 3, 14)
+# leg 2: shards of the mesh on one card
+PX_MESH_SHARDS = 4
+PX_DISTINCT = "select distinct l_suppkey from lineitem"
+# tests/test_px_range.py's range sort, at SF 10 every lineitem row
+PX_SORT = """select l_orderkey, l_linenumber, l_shipdate
+from lineitem
+order by l_shipdate, l_orderkey, l_linenumber"""
+# tests/test_mesh_spmd.py's zipf join, scaled to 2^20 probe rows a shard;
+# the dim's keys clipped at 2M (the test's 20,000 x 100), so that the
+# exchange cost model hash-partitions (a broadcast of the dim to 3 more
+# shards moves more rows than the fact's one hash exchange)
+PX_ZIPF = ("select sum(f.v + d.w) as s, count(*) as c "
+           "from fact f, dim d where f.fk = d.dk")
+PX_ZIPF_ROWS_PER_SHARD = 1 << 20
+PX_ZIPF_DIM = 2_000_000
+# the PX executor's broadcast threshold on TPC-H (the reference default)
+PX_BROADCAST_THRESHOLD = 1 << 16
+# leg 2's warm runs per statement (the range sort moves every lineitem
+# row: its runs are seconds, and the phase keeps inside ~150 s)
+PX_MESH_WARM = 3
+# the functions of K25-K28 whose calls leg 2 captures (largest each)
+PX_CAPTURE = ("exchange_dest", "exchange_pack", "exchange_recv",
+              "shard_merge", "range_histogram", "range_bounds",
+              "hash_histogram", "bloom_bits", "hot_buckets", "bucket_probe")
+
+
+def px_server_leg(db, kernels, queries_text, checks, warm) -> dict:
+    """Leg 1: `SET ob_px_dop = 1` through DbSession.sql in the server
+    phase's Database, so the statements run on Database._px_executor():
+    make_mesh() over the one card, one shard in the caller's thread. Q1,
+    Q6, Q3 and Q14 cold, `warm` times warm and once traced; their rows
+    bit-identical to the same session's at dop 0 and held to the int64
+    oracles; no `px fallbacks`, the admission quota back at its target.
+    Its own launch counts."""
+    import torch
+
+    s = db.session()
+    s.sql("set ob_enable_result_cache = 0")
+    adm = db._px_admission()
+    target = adm.target
+    fb0 = db.metrics.counter("px fallbacks")
+    up0 = db.metrics.counter("px sharded upload bytes")
+    kernels.reset_launches()
+    recs = []
+    for q in PX_SERVER_STMTS:
+        text = queries_text[q]
+        name = f"PX_Q{q}"
+        s.sql("set ob_px_dop = 0")
+        ref = []
+
+        def serial():
+            rs = s.sql(text)
+            ref[:] = [rs.rows()]
+            return rs.nrows
+
+        serial_ms = timed(serial, warm + 1)[1:]
+        s.sql("set ob_px_dop = 1")
+        got = []
+
+        def px():
+            rs = s.sql(text)
+            got.append(rs)
+            return rs.nrows
+
+        torch.cuda.reset_peak_memory_stats()
+        cold = timed(px, 1)[0]
+        warm_ms = timed(px, warm)
+        busy, traced, gaps, top, attempts = device_busy_ms(
+            lambda: s.sql(text).nrows)
+        peak = torch.cuda.max_memory_allocated()
+        for rs in got:
+            require(row_bits(rs.rows()) == row_bits(ref[0]),
+                    f"{name}: rows at dop 1 differ from dop 0's")
+        # the int64 oracle reads the PX result's own storage columns
+        n = checks[q](got[-1])
+        med = statistics.median(warm_ms)
+        med0 = statistics.median(serial_ms)
+        rec = {"statement": name, "rows": n, "cold_ms": cold,
+               "warm_ms": warm_ms, "warm_median_ms": med,
+               "dop0_warm_median_ms": med0, "device_busy_ms": busy,
+               "traced_wall_ms": traced, "traced_attempts": attempts,
+               "device_idle_share": 1 - busy / med,
+               "device_ms_by_kernel": [{"name": k, "ms": v} for k, v in top],
+               "peak_memory_bytes": peak}
+        recs.append(rec)
+        print(f"{name}: dop 1 cold {cold:.3f} ms warm {med:.3f} ms (dop 0 "
+              f"{med0:.3f} ms), {n} rows bit-identical to dop 0 and the "
+              f"oracle, device busy {busy:.3f} ms (idle share "
+              f"{rec['device_idle_share']:.4f}), peak "
+              f"{peak / 2**30:.3f} GiB; most device time: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in top[:3]), flush=True)
+    launches = dict(kernels.LAUNCHES)
+    s.sql("set ob_px_dop = 0")
+    px_ex = db._px_executor_obj
+    require(px_ex is not None and px_ex.nsh == 1
+            and px_ex.mesh.devices[0] == db.device,
+            "PX leg 1: the server's PX executor is not make_mesh()'s one "
+            "card")
+    fallbacks = db.metrics.counter("px fallbacks") - fb0
+    require(fallbacks == 0, f"PX leg 1: {fallbacks} px fallbacks")
+    require(adm.used == 0 and adm.target == target,
+            f"PX leg 1: admission {adm.used} in use, target {adm.target} "
+            f"(was {target})")
+    uploads = db.metrics.counter("px sharded upload bytes") - up0
+    require(uploads > 0, "PX leg 1: no sharded upload")
+    for k in ("K26_exchange_recv", "K27_shard_merge"):
+        require(launches[k] > 0, f"PX leg 1: {k} never launched")
+    print(f"PX leg 1: px fallbacks 0, admission back at {target}, sharded "
+          f"upload {uploads:.0f} B, launches " + ", ".join(
+              f"{k} {launches[k]}" for k in PX_KERNELS), flush=True)
+    return {"statements": recs, "launches": launches,
+            "sharded_upload_bytes": uploads, "fallbacks": fallbacks}
+
+
+def zipf_tables(seed: int) -> dict:
+    """tests/test_mesh_spmd.py's zipf join tables with 2^20 probe rows on
+    each of the leg's shards: fact.fk ~ zipf(1.3) clipped to the dim's
+    PX_ZIPF_DIM + 1 keys."""
+    import numpy as np
+
+    from oceanbase_tpu_torch.core.dtypes import DataType, Schema
+    from oceanbase_tpu_torch.core.table import Table
+
+    rng = np.random.default_rng(seed)
+    n = PX_MESH_SHARDS * PX_ZIPF_ROWS_PER_SHARD
+    fk = np.minimum(rng.zipf(1.3, n) - 1, PX_ZIPF_DIM).astype(np.int64)
+    fact = Table.from_pydict(
+        "fact", Schema.of(fk=DataType.int64(), v=DataType.int64()),
+        {"fk": fk, "v": rng.integers(0, 100, n)})
+    dim = Table.from_pydict(
+        "dim", Schema.of(dk=DataType.int64(), w=DataType.int64()),
+        {"dk": np.arange(PX_ZIPF_DIM + 1),
+         "w": np.arange(PX_ZIPF_DIM + 1) * 3})
+    return {"fact": fact, "dim": dim}
+
+
+def same_storage(name, got: dict, want: dict, ordered: bool) -> None:
+    """Result columns equal: integers exactly, floats to rel 1e-12; an
+    unordered statement's rows compare after one sort of both sides."""
+    import numpy as np
+
+    require(list(got) == list(want), f"{name}: columns differ")
+    names = list(got)
+    if not ordered and names:
+        def perm(cols):
+            return np.lexsort([np.asarray(cols[c]) for c in reversed(names)])
+
+        pg, pw = perm(got), perm(want)
+        got = {c: np.asarray(got[c])[pg] for c in names}
+        want = {c: np.asarray(want[c])[pw] for c in names}
+    for c in names:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        require(g.shape == w.shape, f"{name} {c}: {g.shape} vs {w.shape}")
+        if g.dtype.kind == "f":
+            require(np.allclose(g, w, rtol=1e-12, atol=0.0, equal_nan=True),
+                    f"{name} {c}: differs beyond rel 1e-12")
+        else:
+            require(np.array_equal(g, w), f"{name} {c}: differs")
+
+
+def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
+    """Leg 2: PxExecutor(tables, make_mesh(4, devices=[cuda:0] * 4)), one
+    thread a shard on the card: Q1 and Q6 (partials merged by K27), Q3,
+    Q18 (hash group-by repartitions, K25 + K26), a big DISTINCT, the
+    range sort of every lineitem row (bounds by K28) and a hybrid-hash
+    join over a zipf-skewed fact table (hot buckets and the bloom by
+    K28), each equal to the single-device executor's rows. Its own
+    launch counts; the largest call of each K25-K28 function is captured
+    for the kernel checks. Untraced: the shards run in threads."""
+    import torch
+
+    from oceanbase_tpu_torch.core.column import batch_rows_storage
+    from oceanbase_tpu_torch.engine.executor import Executor
+    from oceanbase_tpu_torch.parallel.mesh import make_mesh
+    from oceanbase_tpu_torch.parallel.px import PxExecutor
+    from oceanbase_tpu_torch.sql.parser import parse
+    from oceanbase_tpu_torch.sql.planner import Planner
+
+    mesh = make_mesh(PX_MESH_SHARDS, devices=[dev] * PX_MESH_SHARDS)
+    zt = zipf_tables(seed)
+    zuk = {"dim": ("dk",)}
+    px = PxExecutor(tables, mesh, unique_keys=uk,
+                    broadcast_threshold=PX_BROADCAST_THRESHOLD)
+    pz = PxExecutor(zt, mesh, unique_keys=zuk, broadcast_threshold=1,
+                    hybrid_hash=True)
+    single = Executor(tables, unique_keys=uk, device=dev)
+    zsingle = Executor(zt, unique_keys=zuk, device=dev)
+    planner, zplanner = Planner(tables), Planner(zt)
+    Q = queries_text
+    stmts = [("PX4_Q1", Q[1], True), ("PX4_Q6", Q[6], True),
+             ("PX4_Q3", Q[3], True), ("PX4_Q18", Q[18], True),
+             ("PX4_DISTINCT", PX_DISTINCT, False),
+             ("PX4_SORT", PX_SORT, True), ("PX4_HYBRID", PX_ZIPF, False)]
+
+    captured: dict = {}
+    lock = threading.Lock()
+    orig = {f: getattr(kernels, f) for f in PX_CAPTURE}
+
+    def size(args):
+        tot = 0
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                tot += a.numel()
+            elif isinstance(a, (list, tuple)):
+                tot += size(a)
+        return tot
+
+    def capturing(fname, stmt):
+        def wrapper(*args, **kw):
+            with lock:
+                key = (fname, stmt)
+                if key not in captured or size(args) > captured[key][0]:
+                    captured[key] = (size(args), args, kw)
+            return orig[fname](*args, **kw)
+        return wrapper
+
+    kernels.reset_launches()
+    recs = []
+    try:
+        for name, text, ordered in stmts:
+            hybrid = name == "PX4_HYBRID"
+            ex, sx, pl = ((pz, zsingle, zplanner) if hybrid
+                          else (px, single, planner))
+            plan = pl.plan(parse(text))
+            names = list(plan.output_names)
+            for f in PX_CAPTURE:
+                setattr(kernels, f, capturing(f, name))
+            prepared = ex.prepare(plan.plan)
+            out = []
+
+            def run():
+                out[:] = [prepared.run()]
+                return out[0].nrows
+
+            cold = timed(run, 1)[0]
+            for f in PX_CAPTURE:
+                setattr(kernels, f, orig[f])
+            got = batch_rows_storage(out[0], names)
+            warm_ms = timed(run, warm)
+            sprep = sx.prepare(plan.plan)
+            want_b = sprep.run()
+            want = batch_rows_storage(want_b, names)
+            single_ms = timed(lambda: sprep.run().nrows, warm)
+            same_storage(name, got, want, ordered)
+            n = len(got[names[0]])
+            require(n > 0, f"{name}: no rows")
+            kinds = sorted({e.kind for e in prepared.mesh_plan.exchanges})
+            rec = {"statement": name, "rows": n, "cold_ms": cold,
+                   "warm_ms": warm_ms,
+                   "warm_median_ms": statistics.median(warm_ms),
+                   "single_warm_median_ms": statistics.median(single_ms),
+                   "exchanges": kinds,
+                   "collectives": prepared.mesh_plan.describe()}
+            recs.append(rec)
+            print(f"{name}: {PX_MESH_SHARDS} shards on one card, {n} rows "
+                  f"equal to the single device's, cold {cold:.3f} ms warm "
+                  f"{rec['warm_median_ms']:.3f} ms (single device "
+                  f"{rec['single_warm_median_ms']:.3f} ms), exchanges "
+                  f"{kinds} ({rec['collectives']})", flush=True)
+            del out, got, want, want_b, sprep, prepared
+    finally:
+        for f in PX_CAPTURE:
+            setattr(kernels, f, orig[f])
+    launches = dict(kernels.LAUNCHES)
+    for k in PX_KERNELS:
+        require(launches[k] > 0, f"PX leg 2: {k} never launched")
+    hyb = next(r for r in recs if r["statement"] == "PX4_HYBRID")
+    require({"skew_histogram", "bloom", "broadcast", "repartition"}
+            <= set(hyb["exchanges"]),
+            f"PX leg 2: the hybrid join's exchanges {hyb['exchanges']}")
+    srt = next(r for r in recs if r["statement"] == "PX4_SORT")
+    require("range_sample" in srt["exchanges"],
+            "PX leg 2: the sort did not exchange by range")
+    print("PX leg 2: launches " + ", ".join(
+        f"{k} {launches[k]}" for k in PX_KERNELS), flush=True)
+    return recs, launches, captured
+
+
+def _pick(captured, fname, prefer):
+    """The captured call of fname from the first statement of `prefer`
+    that made one, else the largest from any statement."""
+    for stmt in prefer:
+        hit = captured.get((fname, stmt))
+        if hit is not None:
+            return stmt, hit[1], hit[2]
+    hits = [(v[0], k[1], v) for k, v in captured.items() if k[0] == fname]
+    require(bool(hits), f"PX: no {fname} call was captured")
+    _n, stmt, v = max(hits, key=lambda t: t[0])
+    return stmt, v[1], v[2]
+
+
+def _bits(t):
+    import torch
+
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _exact(what, got, want, again) -> None:
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want, again = [got], [want], [again]
+    for a, b, c in zip(got, want, again):
+        require(a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(_bits(a), _bits(b)),
+                f"{what}: differs from the plain version")
+        require(torch.equal(_bits(a), _bits(c)), f"{what}: two runs differ")
+
+
+def _check_call(kernels, fname, args, kw, what) -> None:
+    """The kernel call against its plain version on the same inputs (the
+    outputs K26 writes into are cloned for each run), twice."""
+    import torch
+
+    plain = getattr(kernels, fname + "_plain")
+    kern = getattr(kernels, fname)
+    if fname == "exchange_recv":
+        senders, rows, lane, outs = args[:4]
+        rest = args[4:]
+
+        def fresh():
+            return [torch.zeros_like(o) for o in outs]
+
+        got = kern(senders, rows, lane, fresh(), *rest, **kw)
+        want = plain(senders, rows, lane, fresh(), *rest, **kw)
+        again = kern(senders, rows, lane, fresh(), *rest, **kw)
+    else:
+        got, want, again = (kern(*args, **kw), plain(*args, **kw),
+                            kern(*args, **kw))
+    if fname == "exchange_pack":
+        _exact(what, [*got[0], got[1], got[2]], [*want[0], want[1], want[2]],
+               [*again[0], again[1], again[2]])
+    else:
+        _exact(what, got, want, again)
+
+
+def px_synthetic(kernels, dev) -> int:
+    """K25-K28 against their plain versions on edge cases, twice: lanes
+    at cap - 1, cap and cap + 1 of the fullest lane, every row bound for
+    one shard, no live row, a row count no multiple of a tile, 64
+    shards; a stripe and ring offsets for K26; NaN, wrapping sums and
+    ORs over 64 shards for K27; one key value, no live row and a span
+    past 2^62 for K28's range; hot buckets, bits and probes of several
+    key types. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(29)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    n = (1 << 20) + 37
+    key = t(rng.integers(0, 1 << 40, n))
+    k32 = t(rng.integers(-50, 50, n).astype(np.int32))
+    f32 = t(rng.normal(size=n).astype(np.float32))
+    b8 = t(rng.random(n) < 0.5)
+    mask = t(rng.random(n) < 0.7)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    planes = [key, k32, f32, b8]
+    cases = 0
+    for nsh in (4, 64):
+        d = kernels.exchange_dest("hash", nsh, [key, k32])
+        _exact(f"K25 dest hash {nsh}", d,
+               kernels.exchange_dest_plain("hash", nsh, [key, k32]),
+               kernels.exchange_dest("hash", nsh, [key, k32]))
+        counts = torch.bincount(d[mask].long(), minlength=nsh)
+        top = int(counts.max())
+        for cap in (top - 1, top, top + 1):
+            _check_call(kernels, "exchange_pack",
+                        (planes, mask, d, nsh, cap), {},
+                        f"K25 pack {nsh} shards cap {cap}")
+            cases += 1
+    one = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    for m, what in ((mask, "one shard"), (none, "no live row")):
+        _check_call(kernels, "exchange_pack", (planes, m, one, 4, n), {},
+                    f"K25 pack {what}")
+        cases += 1
+    bounds = torch.sort(key[:7]).values
+    for desc in (False, True):
+        _exact(f"K25 dest range desc={desc}",
+               kernels.exchange_dest("range", 8, [key], bounds=bounds,
+                                     desc=desc),
+               kernels.exchange_dest_plain("range", 8, [key], bounds=bounds,
+                                           desc=desc),
+               kernels.exchange_dest("range", 8, [key], bounds=bounds,
+                                     desc=desc))
+        cases += 1
+    owner = t((np.arange(16) * 3 % 4).astype(np.int32))
+    part = t(rng.integers(-16, 20, n))
+    _exact("K25 dest partition",
+           kernels.exchange_dest("partition", 1, [part], owner=owner),
+           kernels.exchange_dest_plain("partition", 1, [part], owner=owner),
+           kernels.exchange_dest("partition", 1, [part], owner=owner))
+    _exact("K25 round robin", kernels.round_robin_dest(mask, 4, 3),
+           kernels.round_robin_dest_plain(mask, 4, 3),
+           kernels.round_robin_dest(mask, 4, 3))
+    cases += 2
+    rows = 1 << 16
+    snd = [[t(rng.integers(0, 1 << 60, 4 * rows)) for _ in range(4)],
+           [t(rng.random(4 * rows) < 0.5) for _ in range(4)],
+           [t(rng.integers(0, 9, 4 * rows).astype(np.int16))
+            for _ in range(4)]]
+    outs = [torch.empty(4 * rows, dtype=p[0].dtype, device=dev)
+            for p in snd]
+    _check_call(kernels, "exchange_recv", (snd, rows, 2, outs, 0, 1, 2, 1),
+                {}, "K26 stripe")
+    big = [torch.empty(8 * rows, dtype=p[0].dtype, device=dev) for p in snd]
+    _check_call(kernels, "exchange_recv",
+                ([[p[0]] for p in snd], rows, 3, big, 5 * rows), {},
+                "K26 ring offset")
+    cases += 2
+    for nsh in (4, 64):
+        pl = [[t(rng.integers(-(1 << 62), 1 << 62, 4096))
+               for _ in range(nsh)],
+              [t(rng.normal(size=4096)) for _ in range(nsh)],
+              [t(rng.normal(size=4096).astype(np.float32))
+               for _ in range(nsh)],
+              [t(rng.random(4096) < 0.05) for _ in range(nsh)],
+              [t(rng.integers(0, 3, 4096).astype(np.int32))
+               for _ in range(nsh)]]
+        pl[1][1][7] = float("nan")
+        for ops in (["sum", "sum", "sum", "or", "or"],
+                    ["min", "max", "min", "or", "max"]):
+            _check_call(kernels, "shard_merge", (pl, ops), {},
+                        f"K27 {nsh} shards {ops}")
+            cases += 1
+    for kv, m, what in ((key, mask, "spread"),
+                        (torch.full_like(key, 12345), mask, "one value"),
+                        (key, none, "no live row"),
+                        (t(rng.integers(-(1 << 62), 1 << 62, n)), mask,
+                         "wide span")):
+        lo = kernels.scalar_reduce("min", m, kv)
+        hi = kernels.scalar_reduce("max", m, kv)
+        mm = torch.stack([lo, hi])
+        _check_call(kernels, "range_histogram", (kv, m, mm, 4096), {},
+                    f"K28 range histogram {what}")
+        hist = kernels.range_histogram(kv, m, mm, 4096)
+        _check_call(kernels, "range_bounds", (hist, mm, 8), {},
+                    f"K28 bounds {what}")
+        cases += 2
+    for ks in ([key], [k32, f32], [b8]):
+        _check_call(kernels, "hash_histogram", (ks, mask, 4096), {},
+                    "K28 hash histogram")
+        _check_call(kernels, "bloom_bits", (ks, mask, 1 << 20), {},
+                    "K28 bloom bits")
+        bits = kernels.bloom_bits(ks, mask, 1 << 20) != 0
+        _check_call(kernels, "bucket_probe", (ks, mask, bits), {},
+                    "K28 probe")
+        cases += 3
+    ca = kernels.hash_histogram([k32], mask, 4096)
+    cb = kernels.hash_histogram([key], mask, 4096)
+    _check_call(kernels, "hot_buckets", (ca, cb, 4), {}, "K28 hot")
+    _check_call(kernels, "hot_buckets", (cb, None, 4), {}, "K28 hot one side")
+    return cases + 2
+
+
+def px_kernel_checks(kernels, reps: int, captured: dict) -> list:
+    """K25-K28 against their plain versions bit for bit on the arguments
+    captured from leg 2 (K25's pack and K28's histogram and bounds from
+    the range sort, K25's hash destinations from Q3, K26 from the sort's
+    receive, K27 from Q1's partial merge, K28's hot buckets, bloom and
+    probes from the hybrid join) and on synthetic edge cases, twice; each
+    timed with CUDA events beside its plain version, its library
+    yardstick and its bound (bytes read and written once at 3.35 TB/s;
+    a lane layout counts every slot K25 writes)."""
+    import torch
+
+    recs = []
+    for fname, prefer in (("exchange_dest", ("PX4_Q3",)),
+                          ("exchange_pack", ("PX4_SORT",)),
+                          ("exchange_recv", ("PX4_SORT",)),
+                          ("shard_merge", ("PX4_Q1",)),
+                          ("range_histogram", ("PX4_SORT",)),
+                          ("range_bounds", ("PX4_SORT",)),
+                          ("hash_histogram", ("PX4_HYBRID",)),
+                          ("bloom_bits", ("PX4_HYBRID",)),
+                          ("hot_buckets", ("PX4_HYBRID",)),
+                          ("bucket_probe", ("PX4_HYBRID",))):
+        stmt, args, kw = _pick(captured, fname, prefer)
+        _check_call(kernels, fname, args, kw, f"{fname} ({stmt})")
+    _stmt, args, _kw = _pick(captured, "exchange_pack", ("PX4_SORT",))
+    ncases = px_synthetic(kernels, args[1].device)
+
+    def esum(ts):
+        return sum(t.element_size() for t in ts)
+
+    # K25: the range sort's pack, the largest lane layout of the path
+    stmt, (planes, mask, dest, nsh, cap), _kw = _pick(
+        captured, "exchange_pack", ("PX4_SORT",))
+    n = int(mask.shape[0])
+    sent = int(mask.sum())
+    k25 = (lambda: kernels.exchange_pack(planes, mask, dest, nsh, cap),
+           lambda: kernels.exchange_pack_plain(planes, mask, dest, nsh, cap))
+
+    def k25_lib():
+        d = torch.where(mask, dest.long(), nsh)
+        order = torch.sort(d, stable=True).indices
+        return [p.index_select(0, order) for p in planes]
+
+    k25_bytes = n * 5 + min(sent, nsh * cap) * esum(planes) + \
+        nsh * cap * (esum(planes) + 1)
+    k25_shape = {"statement": stmt, "rows": n, "live": sent, "shards": nsh,
+                 "lane_cap": cap, "planes": len(planes)}
+    # K26: the sort's receive (every sender's lane of every plane)
+    stmt26, args26, kw26 = _pick(captured, "exchange_recv", ("PX4_SORT",))
+    senders, rows, lane, outs = args26[:4]
+    rest26 = args26[4:]
+    nsend = len(senders[0])
+    k26 = (lambda: kernels.exchange_recv(senders, rows, lane, outs, *rest26,
+                                         **kw26),
+           lambda: kernels.exchange_recv_plain(senders, rows, lane, outs,
+                                               *rest26, **kw26))
+
+    def k26_lib():
+        return [torch.cat([b[lane * rows:(lane + 1) * rows] for b in p])
+                for p in senders]
+
+    k26_bytes = 2 * nsend * rows * sum(p[0].element_size() for p in senders)
+    k26_shape = {"statement": stmt26, "senders": nsend, "rows": rows,
+                 "planes": len(senders)}
+    # K27: Q1's partial-aggregate merge
+    stmt27, (pl27, ops27), _kw = _pick(captured, "shard_merge", ("PX4_Q1",))
+    k27 = (lambda: kernels.shard_merge(pl27, ops27),
+           lambda: kernels.shard_merge_plain(pl27, ops27))
+
+    def k27_lib():
+        return [torch.stack(p).sum(0) for p in pl27]
+
+    k27_bytes = sum((len(p) + 1) * p[0].numel() * p[0].element_size()
+                    for p in pl27)
+    k27_shape = {"statement": stmt27, "planes": len(pl27),
+                 "shards": len(pl27[0]),
+                 "elements": [int(p[0].numel()) for p in pl27]}
+    # K28: the range sort's histogram over one shard's keys
+    stmt28, (kv, m28, mm, res), _kw = _pick(captured, "range_histogram",
+                                            ("PX4_SORT",))
+    k28 = (lambda: kernels.range_histogram(kv, m28, mm, res),
+           lambda: kernels.range_histogram_plain(kv, m28, mm, res))
+    step = kernels.range_step_plain(mm, res)
+
+    def k28_lib():
+        b = torch.clamp(torch.div(kv - mm[0], step, rounding_mode="floor"),
+                        0, res - 1)
+        return torch.bincount(b[m28], minlength=res)
+
+    k28_bytes = int(kv.shape[0]) * (kv.element_size() + 1) + res * 8
+    k28_shape = {"statement": stmt28, "rows": int(kv.shape[0]),
+                 "buckets": res}
+    libs = {"K25_exchange_pack": "torch.sort(stable) + index_select",
+            "K26_exchange_recv": "torch.cat of the lane slices",
+            "K27_shard_merge": "torch.stack(...).sum(0)",
+            "K28_bucket_hist": "torch.bincount over the torch bucket index"}
+    for name, (kern, plain), lib, nbytes, shape in (
+            ("K25_exchange_pack", k25, k25_lib, k25_bytes, k25_shape),
+            ("K26_exchange_recv", k26, k26_lib, k26_bytes, k26_shape),
+            ("K27_shard_merge", k27, k27_lib, k27_bytes, k27_shape),
+            ("K28_bucket_hist", k28, k28_lib, k28_bytes, k28_shape)):
+        km = cuda_ms(kern, reps)
+        pm = cuda_ms(plain, max(1, reps // 2))
+        lm = cuda_ms(lib, reps)
+        bm, by = bound_ms(nbytes, 0)
+        src, rep = KERNEL_META[name]
+        print(f"kernel {name}: match exact on leg 2's captured calls and "
+              f"{ncases} synthetic cases, two runs bit-identical, "
+              f"kernel_ms {km:.6f}, plain_ms {pm:.6f}, library_ms {lm:.6f} "
+              f"({libs[name]}), bound_ms {bm:.6f} ({by}, {nbytes} B) at "
+              f"{shape}", flush=True)
+        recs.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "max_abs_err": 0.0, "ms": km,
+                     "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+                     "library_ms": lm, "library": libs[name],
+                     "bytes": nbytes, "shape": shape})
+    return recs
 
 
 # the batched leg: 8 client threads in barrier-synced rounds of point
@@ -4819,6 +5437,20 @@ def main() -> int:
         setup=lambda se: setattr(se.executor, "device_budget", cmp_budget),
         route=streamed)
 
+    # ---- the PX phase's leg 2: a 4-shard mesh on the card, its own
+    # counts (untraced: its shards run in threads, and torch.profiler
+    # loses device events after threads have run, PERF.md §7)
+    t0 = time.perf_counter()
+    pxrecs, px_launches, px_captured = px_mesh_leg(
+        tables, uk, kernels, Q, args.seed, PX_MESH_WARM,
+        torch.device("cuda", 0))
+    release_device()
+    krecs += px_kernel_checks(kernels, args.reps, px_captured)
+    del px_captured
+    release_device()
+    print(f"PX phase leg 2 and the K25-K28 checks in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
     # ---- the batched program through the server: its own counts, last
     t0 = time.perf_counter()
     bat, b_launches = batched_phase(tables, uk, kernels, args.seed)
@@ -4827,7 +5459,9 @@ def main() -> int:
 
     phase_launches = {"projection": p_launches, "streamed": st_launches,
                       "grace": g_launches, "vector": v_launches,
-                      "server": sv_launches, "batched": b_launches}
+                      "server": sv_launches, "batched": b_launches,
+                      "px_server": srv["px_leg"]["launches"],
+                      "px_mesh": px_launches}
     for r in krecs:
         if r["name"] == "K17_slice_scan":
             r["launches"] = p_launches[r["name"]]
@@ -4835,6 +5469,10 @@ def main() -> int:
             r["launches"] = st_launches[r["name"]]
         elif r["name"] in VECTOR_KERNELS:
             r["launches"] = v_launches[r["name"]]
+        elif r["name"] in PX_KERNELS:
+            # this slice's path: leg 2, where all four run (leg 1's one
+            # shard launches K26 and K27, its record in the server phase)
+            r["launches"] = px_launches[r["name"]]
         elif r["name"] == "K23_first_live":
             # this slice's path: the server phase (the main path's
             # narrowed frames launch it too, main_launches)
@@ -4868,6 +5506,8 @@ def main() -> int:
                                     "card_vs_cpu": vcmp},
                    "narrow_ab": narrow_recs + v_ab,
                    "server_phase": srv, "batched_phase": bat,
+                   "px_phase": {"mesh_leg": pxrecs,
+                                "server_leg": srv["px_leg"]},
                    "k24": {"statements": k24_stmts, "synthetic": k24_syn},
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,

@@ -177,3 +177,73 @@ __device__ __forceinline__ unsigned int ob_f32_image(float v) {
   unsigned int b = __float_as_uint(v);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
+
+// Exclusive block-wide sum of one int64 per thread (blockDim.x a
+// multiple of 32, at most 1024); *total gets the block's sum. Every
+// thread of the block must call it.
+__device__ __forceinline__ long long ob_block_exscan(long long v,
+                                                     long long* total) {
+  __shared__ long long ob_warp_sums[32];
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int nwarps = blockDim.x >> 5;
+  long long x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    long long y = __shfl_up_sync(OB_FULL_MASK, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ob_warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    long long s = lane < nwarps ? ob_warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      long long y = __shfl_up_sync(OB_FULL_MASK, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < nwarps) ob_warp_sums[lane] = s;  // inclusive warp prefixes
+  }
+  __syncthreads();
+  long long before = (warp > 0 ? ob_warp_sums[warp - 1] : 0) + (x - v);
+  *total = ob_warp_sums[nwarps - 1];
+  __syncthreads();  // the sums are reused by the next call
+  return before;
+}
+
+// hash32_combine (oceanbase_tpu/ops/hashing.py:76) of row i over ncols
+// key columns read through a device table: cols[j] the column's address,
+// dts[j] its type code.
+__device__ __forceinline__ unsigned int ob_hash32_row(
+    int ncols, const long long* __restrict__ cols,
+    const long long* __restrict__ dts, long long i) {
+  unsigned int h = 0u;
+  for (int j = 0; j < ncols; j++) {
+    h = ob_mix32(h ^ (ob_fold32((const void*)cols[j], (int)dts[j], i) +
+                      OB_GOLDEN32));
+  }
+  return h;
+}
+
+// Copy element `s` of a plane of `esize`-byte elements to element `d` of
+// another (a zero when s < 0).
+__device__ __forceinline__ void ob_copy_elem(const void* src, void* dst,
+                                             int esize, long long s,
+                                             long long d) {
+  switch (esize) {
+    case 1:
+      ((unsigned char*)dst)[d] =
+          s < 0 ? 0 : ((const unsigned char*)src)[s];
+      break;
+    case 2:
+      ((unsigned short*)dst)[d] =
+          s < 0 ? 0 : ((const unsigned short*)src)[s];
+      break;
+    case 4:
+      ((unsigned int*)dst)[d] = s < 0 ? 0u : ((const unsigned int*)src)[s];
+      break;
+    default:
+      ((unsigned long long*)dst)[d] =
+          s < 0 ? 0ull : ((const unsigned long long*)src)[s];
+      break;
+  }
+}

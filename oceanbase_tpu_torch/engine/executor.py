@@ -76,6 +76,7 @@ from ..kernels import (
     affine_probe,
     bound_search,
     clustered_segments,
+    count_launch,
     first_live,
     gather_columns,
     ivf_lists,
@@ -188,6 +189,8 @@ class PhysicalParams:
     """Static capacities per plan node (keyed by pre-order node index)."""
 
     join_cap: dict[int, int] = field(default_factory=dict)
+    # PX exchange lane capacities (parallel/px.py, synthesized ids)
+    exchange_cap: dict[int, int] = field(default_factory=dict)
     # stats-packed group keys: nid -> ((vmin, bits) per key). A runtime
     # pack-validity counter rides the overflow channel (PACK_GUARD_BASE +
     # nid); overflow disables packing for that node and recompiles.
@@ -230,6 +233,8 @@ class PhysicalParams:
                 continue
             if nid in self.join_cap:
                 self.join_cap[nid] *= 4
+            if nid in self.exchange_cap:
+                self.exchange_cap[nid] *= 4
             if nid in self.scan_cap:
                 # the slice capacity was seeded from ONE representative
                 # parameter value; a wider runtime range is the normal
@@ -2528,7 +2533,7 @@ class Executor:
                 valid[name] = svals[i]
                 i += 1
         if b.device.type == "cuda":
-            ENTRY_LAUNCHES["dedup_batch"] += 1
+            count_launch(ENTRY_LAUNCHES, "dedup_batch")
         out = ColumnBatch(
             cols=cols, valid=valid, sel=sel,
             nrows=torch.sum(sel, dtype=torch.int64),
@@ -3007,6 +3012,11 @@ class Executor:
             budget = self.device_budget
             if self.governor is not None:
                 budget = min(budget, self.governor.upload_budget())
+            # mesh executors shard every upload over their devices, so the
+            # per-device budget admits that many times the working set
+            # (PxExecutor sets budget_scale; single-device has none)
+            scale = max(1, int(getattr(self, "budget_scale", 1)))
+            budget *= scale
             if plan_input_bytes(self, plan) > budget:
                 try:
                     stream, split, kind = _find_stream_split(
@@ -3019,16 +3029,17 @@ class Executor:
                     return cp
                 except NotStreamable:
                     # grace-hash partitioned spill: the BUILD side exceeds
-                    # the budget too
+                    # the budget too (mesh executors shard instead)
                     from .pipeline import NotPartitionable, try_grace_hash
 
-                    try:
-                        gp = try_grace_hash(self, plan, budget)
-                        gp.access_profile = access
-                        return gp
-                    except NotPartitionable:
-                        # whole-table upload
-                        pass
+                    if getattr(self, "mesh", None) is None:
+                        try:
+                            gp = try_grace_hash(self, plan, budget)
+                            gp.access_profile = access
+                            return gp
+                        except NotPartitionable:
+                            pass
+                    # whole-table upload
         params = self.seed_params(plan)
         run, input_spec, overflow_nodes = self.compile(plan, params)
         prepared = PreparedPlan(self, plan, params, run, input_spec,
@@ -3259,6 +3270,11 @@ class PreparedPlan:
         )
         self._narrow.clear()
         self._batched.clear()
+        # mesh executors rebuild their exchange recorder per compile; the
+        # cached plan follows the fresh one
+        sync = getattr(self.executor, "sync_prepared", None)
+        if sync is not None:
+            sync(self)
 
     def _inputs(self):
         try:

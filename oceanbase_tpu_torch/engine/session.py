@@ -743,6 +743,11 @@ class Session:
                 prepared._access_memo = memo
             if memo[1]:
                 acc.fold_resolved(memo[1])
+        # PX collective accounting: the MeshPlan rides the prepared plan
+        # (recorded on its first run), so cached plans fold identically
+        mesh_plan = getattr(prepared, "mesh_plan", None)
+        if mesh_plan is not None and not mesh_plan.total_ops:
+            mesh_plan = None
         stream_d = None
         if sstats is not None:
             d = tuple(b - a for a, b in zip(stream0, sstats.snapshot()))
@@ -761,6 +766,10 @@ class Session:
                 mon.total_transfer_bytes += profile.transfer_bytes
                 mon.last_device_bytes = profile.device_bytes
                 mon.peak_bytes = max(mon.peak_bytes, profile.peak_bytes)
+            if mesh_plan is not None:
+                mon.px_collective_ops += mesh_plan.total_ops
+                mon.px_collective_bytes += mesh_plan.total_bytes
+                mon.px_exchanges = mesh_plan.describe()
             if stream_d is not None:
                 mon.stream_chunks += stream_d[0]
                 mon.spill_partitions += stream_d[6]
@@ -818,6 +827,10 @@ class Session:
                 m.add("ann probes", sum(v.nprobe for v in vts.values()))
                 if esc > 0:
                     m.add("ann over-probe escalations", esc)
+            if mesh_plan is not None:
+                for coll, cnt in mesh_plan.ops_by_collective().items():
+                    m.add(f"px collective {coll}", cnt)
+                m.add("px collective bytes", mesh_plan.total_bytes)
             if stream_d is not None:
                 m.add("stream chunks", stream_d[0])
                 m.add("stream h2d overlap", int(stream_d[5] * 1e6))
@@ -829,6 +842,9 @@ class Session:
             # build and result-transfer interference
             tl.record_exec(dispatch_s, 0.0 if was_hit else compile_s,
                            d2h_bytes)
+            if mesh_plan is not None:
+                tl.record_collective(
+                    mesh_plan.total_ops, mesh_plan.total_bytes)
             if stream_d is not None:
                 tl.record_stream(stream_d[0], stream_d[3], stream_d[4],
                                  stream_d[5], stream_d[6])

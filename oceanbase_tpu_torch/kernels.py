@@ -29,6 +29,13 @@ K21 `ivf_lists`        the nprobe nearest lists   (csrc/k21_ivf_lists.cu)
 K22 `ivf_probe`        filtered re-rank + top-k   (csrc/k22_ivf_probe.cu)
 K23 `first_live`       first k live rows + gather (csrc/k23_first_live.cu)
 K24 `fused_expr`       expression register programs (csrc/k24_fused_expr.cu)
+K25 `exchange_dest`, `round_robin_dest`, `exchange_pack`
+                       PX send lanes, stable     (csrc/k25_exchange_pack.cu)
+K26 `exchange_recv`    PX receive from senders   (csrc/k26_exchange_recv.cu)
+K27 `shard_merge`      shard-order partial merge (csrc/k27_shard_merge.cu)
+K28 `range_histogram`, `hash_histogram`, `bloom_bits`, `range_bounds`,
+    `hot_buckets`, `bucket_probe`
+                       PX key histograms, bloom  (csrc/k28_bucket_hist.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -85,6 +92,10 @@ KERNEL_NAMES = (
     "K22_ivf_probe",
     "K23_first_live",
     "K24_fused_expr",
+    "K25_exchange_pack",
+    "K26_exchange_recv",
+    "K27_shard_merge",
+    "K28_bucket_hist",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -99,6 +110,16 @@ ENTRY_LAUNCHES: dict[str, int] = {"K5_affine_join.probe": 0,
                                   "K11_probe_run_any.mark_build": 0,
                                   "K15_distinct_first.scatter": 0,
                                   "dedup_batch": 0}
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(table: dict, name: str) -> None:
+    """One more launch in a counter table: PX shards launch kernels from
+    several threads at once, so the read-modify-write holds a lock."""
+    with _COUNT_LOCK:
+        table[name] += 1
 
 
 def reset_launches() -> None:
@@ -134,6 +155,10 @@ SOURCES = (
     "k22_ivf_probe.cu",
     "k23_first_live.cu",
     "k24_fused_expr.cu",
+    "k25_exchange_pack.cu",
+    "k26_exchange_recv.cu",
+    "k27_shard_merge.cu",
+    "k28_bucket_hist.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -282,6 +307,17 @@ def _load():
         lib.ob_k24_run.argtypes = [ctypes.c_char_p, I, P]
         lib.ob_k24_prog_bytes.argtypes = []
         lib.ob_k24_tile_rows.argtypes = []
+        lib.ob_k25_tile_rows.argtypes = []
+        lib.ob_k25_dest.argtypes = [I, I, P, L, I, P, I, P, I, L, I, P, I, P]
+        lib.ob_k25_pack.argtypes = [P, P, L, I, L, I, P, P, P, P, P, P, P, I,
+                                    P]
+        lib.ob_k25_round_robin.argtypes = [P, L, I, I, P, P, P, P, P]
+        lib.ob_k26_recv.argtypes = [I, I, P, L, L, L, I, I, I, I, P]
+        lib.ob_k27_merge.argtypes = [I, I, P, I, I, P]
+        lib.ob_k28_hist.argtypes = [I, I, P, P, L, P, L, P, I, P]
+        lib.ob_k28_bounds.argtypes = [P, L, P, I, P, P]
+        lib.ob_k28_hot.argtypes = [P, P, L, I, P, P]
+        lib.ob_k28_probe.argtypes = [I, P, P, L, P, L, P, I, P]
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -300,7 +336,11 @@ def _load():
                    lib.ob_k22_probe, lib.ob_k22_tile,
                    lib.ob_k23_first_live, lib.ob_k23_tile_rows,
                    lib.ob_k24_run, lib.ob_k24_prog_bytes,
-                   lib.ob_k24_tile_rows):
+                   lib.ob_k24_tile_rows, lib.ob_k25_tile_rows,
+                   lib.ob_k25_dest, lib.ob_k25_pack,
+                   lib.ob_k25_round_robin, lib.ob_k26_recv, lib.ob_k27_merge,
+                   lib.ob_k28_hist, lib.ob_k28_bounds, lib.ob_k28_hot,
+                   lib.ob_k28_probe):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -418,7 +458,7 @@ def scalar_reduce(op: str, mask: torch.Tensor, values=None):
             _check(rc, "K1_scalar_aggregate")
             res = out[0].to(_acc_dtype(op, vals.dtype if vals is not None
                                        else None))
-    LAUNCHES["K1_scalar_aggregate"] += 1
+    count_launch(LAUNCHES, "K1_scalar_aggregate")
     return res
 
 
@@ -512,7 +552,7 @@ def groupby_slots(keys: torch.Tensor, domain: int, aggs):
                 else:
                     results.append(row.to(_acc_dtype(
                         op, v.dtype if op != "count" else None)))
-    LAUNCHES["K2_groupby_direct"] += 1
+    count_launch(LAUNCHES, "K2_groupby_direct")
     return results
 
 
@@ -636,7 +676,7 @@ def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
                 perm = dst
         if perm is None:
             perm = torch.arange(n, dtype=torch.int32, device=dev)
-    LAUNCHES["K3_radix_sort"] += 1
+    count_launch(LAUNCHES, "K3_radix_sort")
     return perm
 
 
@@ -699,7 +739,7 @@ def gather_columns(cols, idx: torch.Tensor):
                 idx.data_ptr(), m, n, nc, src, dst, gstart, gwidth, nb,
                 stream)
             _check(rc, "K4_gather_rows")
-    LAUNCHES["K4_gather_rows"] += 1
+    count_launch(LAUNCHES, "K4_gather_rows")
     return outs
 
 
@@ -779,7 +819,7 @@ def affine_join(probe_key, probe_sel, a0: int, stride: int, build_key,
             build_sel.data_ptr(), sel.data_ptr(), nc, src, dst, width, nblk,
             stream)
         _check(rc, "K5_affine_join")
-    LAUNCHES["K5_affine_join"] += 1
+    count_launch(LAUNCHES, "K5_affine_join")
     return sel, outs
 
 
@@ -880,7 +920,7 @@ def clustered_segments(starts, ends, sel, aggs):
     res = []
     for (op, v, _m), r in zip(aggs, raw):
         res.append(r.to(v.dtype) if r.dtype == torch.float64 else r)
-    LAUNCHES["K6_clustered_agg"] += 1
+    count_launch(LAUNCHES, "K6_clustered_agg")
     return cnt, res
 
 
@@ -944,7 +984,7 @@ def topk_candidates(key, sel, desc: bool, c: int):
             hist.data_ptr(), tiles[0].data_ptr(), tiles[1].data_ptr(),
             ntiles, cand.data_ptr(), _blocks(dev, n, 256 * 8), _stream(dev))
         _check(rc, "K7_topk_candidates")
-    LAUNCHES["K7_topk_candidates"] += 1
+    count_launch(LAUNCHES, "K7_topk_candidates")
     # K7State: prefix, himask, need, cnt, ngt (int64 each)
     return out, state[3]
 
@@ -1141,7 +1181,7 @@ def segmented_reduce(skeys, ssel, order, aggs):
     for (op, v, _m), r in zip(aggs, raw):
         dt = _segreduce_dtype(op, v)
         res.append(r if r.dtype == dt else r.to(dt))
-    LAUNCHES["K8_segmented_reduce"] += 1
+    count_launch(LAUNCHES, "K8_segmented_reduce")
     return sel, res
 
 
@@ -1201,8 +1241,8 @@ def affine_probe(probe_key, probe_sel, a0: int, stride: int, build_key,
             build_sel.data_ptr(), match.data_ptr(), _blocks(dev, n, 256 * 4),
             _stream(dev))
         _check(rc, "K5_affine_join probe")
-    LAUNCHES["K5_affine_join"] += 1
-    ENTRY_LAUNCHES["K5_affine_join.probe"] += 1
+    count_launch(LAUNCHES, "K5_affine_join")
+    count_launch(ENTRY_LAUNCHES, "K5_affine_join.probe")
     return match
 
 
@@ -1270,7 +1310,7 @@ def merge_join(build_key, build_sel, probe_key, probe_sel):
             slot.data_ptr(), tsize, match.data_ptr(),
             _blocks(dev, max(nb, npr, tsize // 4), 256 * 4), _stream(dev))
         _check(rc, "K9_merge_join")
-    LAUNCHES["K9_merge_join"] += 1
+    count_launch(LAUNCHES, "K9_merge_join")
     return match
 
 
@@ -1330,8 +1370,8 @@ def join_ranges(skeys, nlive, probe_keys, probe_sel):
             probe_sel.data_ptr(), npr, cnt.data_ptr(),
             _blocks(dev, npr, 256 * 4), _stream(dev))
         _check(rc, "K10_expand_join ranges")
-    LAUNCHES["K10_expand_join"] += 1
-    ENTRY_LAUNCHES["K10_expand_join.ranges"] += 1
+    count_launch(LAUNCHES, "K10_expand_join")
+    count_launch(ENTRY_LAUNCHES, "K10_expand_join.ranges")
     return cnt
 
 
@@ -1393,7 +1433,7 @@ def expand_join(skeys, order, nlive, probe_keys, probe_sel, cap: int):
             pr.data_ptr(), br.data_ptr(), valid.data_ptr(),
             _blocks(dev, max(npr, cap), 256 * 4), _stream(dev))
         _check(rc, "K10_expand_join")
-    LAUNCHES["K10_expand_join"] += 1
+    count_launch(LAUNCHES, "K10_expand_join")
     return pr, br, valid, total[0], starts, offs
 
 
@@ -1439,7 +1479,7 @@ def probe_run_any(pair_ok, starts, offs):
                                 offs.data_ptr(), npr, out.data_ptr(),
                                 _blocks(dev, npr, 256 * 4), _stream(dev))
         _check(rc, "K11_probe_run_any")
-    LAUNCHES["K11_probe_run_any"] += 1
+    count_launch(LAUNCHES, "K11_probe_run_any")
     return out
 
 
@@ -1474,8 +1514,8 @@ def mark_build(br, pair_sel, nr: int):
                                    nr, has.data_ptr(),
                                    _blocks(dev, cap, 256 * 4), _stream(dev))
         _check(rc, "K11_probe_run_any mark_build")
-    LAUNCHES["K11_probe_run_any"] += 1
-    ENTRY_LAUNCHES["K11_probe_run_any.mark_build"] += 1
+    count_launch(LAUNCHES, "K11_probe_run_any")
+    count_launch(ENTRY_LAUNCHES, "K11_probe_run_any.mark_build")
     return has
 
 
@@ -1554,7 +1594,7 @@ def hash_columns(cols):
             (ctypes.c_int * nc)(*[DTYPE_CODE[c.dtype] for c in cols]), n,
             out.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
         _check(rc, "K12_hash_combine")
-    LAUNCHES["K12_hash_combine"] += 1
+    count_launch(LAUNCHES, "K12_hash_combine")
     return out
 
 
@@ -1597,7 +1637,7 @@ def _k13_scan(x, flags, mode: int, op: str, reverse: bool, segmented: bool,
             DTYPE_CODE[out_dtype], ident, tile_v.data_ptr(),
             tile_f.data_ptr(), ntiles, _stream(dev))
         _check(rc, "K13_window_scan")
-    LAUNCHES["K13_window_scan"] += 1
+    count_launch(LAUNCHES, "K13_window_scan")
     return out
 
 
@@ -1633,7 +1673,7 @@ def boundaries(sorted_keys):
                 (ctypes.c_int * nk)(*[DTYPE_CODE[k.dtype] for k in part]), n,
                 got.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
             _check(rc, "K13_window_scan flags")
-            LAUNCHES["K13_window_scan"] += 1
+            count_launch(LAUNCHES, "K13_window_scan")
             out = got if out is None else out | got
     return out
 
@@ -1772,7 +1812,7 @@ def bound_search(arr, target, lo=None, hi=None, right: bool = False):
             hi.data_ptr() if hi is not None else None, int(bool(right)), m,
             out.data_ptr(), _blocks(dev, m, 256 * 4), _stream(dev))
         _check(rc, "K13_window_scan search")
-    LAUNCHES["K13_window_scan"] += 1
+    count_launch(LAUNCHES, "K13_window_scan")
     return out
 
 
@@ -1950,7 +1990,7 @@ def hash_set_build(key_cols, mask: torch.Tensor, table_size: int):
                               _blocks(dev, max(nb, ts // 4), 256 * 4),
                               _stream(dev))
         _check(rc, "K14_hash_set build")
-    LAUNCHES["K14_hash_set"] += 1
+    count_launch(LAUNCHES, "K14_hash_set")
     return slot_tag, slot_row
 
 
@@ -1982,7 +2022,7 @@ def hash_set_probe(slot_tag, slot_row, build_cols, probe_cols, probe_mask):
                               slot_row.data_ptr(), ts, match.data_ptr(),
                               _blocks(dev, npr, 256 * 4), _stream(dev))
         _check(rc, "K14_hash_set probe")
-    LAUNCHES["K14_hash_set"] += 1
+    count_launch(LAUNCHES, "K14_hash_set")
     return match
 
 
@@ -2033,7 +2073,7 @@ def first_occurrence(key_cols, mask: torch.Tensor, order: torch.Tensor):
             mask.data_ptr(), order.data_ptr(), n, first.data_ptr(),
             _blocks(dev, n, 256 * 4), _stream(dev))
         _check(rc, "K15_distinct_first")
-    LAUNCHES["K15_distinct_first"] += 1
+    count_launch(LAUNCHES, "K15_distinct_first")
     return first
 
 
@@ -2077,8 +2117,8 @@ def scatter_rows(cols, order: torch.Tensor):
                 order.data_ptr(), inv.data_ptr(), n, _blocks(dev, n, 256 * 4),
                 _stream(dev))
             _check(rc, "K15_distinct_first scatter")
-    LAUNCHES["K15_distinct_first"] += 1
-    ENTRY_LAUNCHES["K15_distinct_first.scatter"] += 1
+    count_launch(LAUNCHES, "K15_distinct_first")
+    count_launch(ENTRY_LAUNCHES, "K15_distinct_first.scatter")
     return outs
 
 
@@ -2149,7 +2189,7 @@ def hll_registers(col: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                                   mask.data_ptr(), n, regs.data_ptr(), nb,
                                   _stream(dev))
         _check(rc, "K16_hll")
-    LAUNCHES["K16_hll"] += 1
+    count_launch(LAUNCHES, "K16_hll")
     return regs
 
 
@@ -2251,7 +2291,7 @@ def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
             osel.data_ptr(), nrows.data_ptr(), ovf.data_ptr(),
             _blocks(dev, cap, 256 * 4), _stream(dev))
         _check(rc, "K17_slice_scan")
-    LAUNCHES["K17_slice_scan"] += 1
+    count_launch(LAUNCHES, "K17_slice_scan")
     return outs, osel, nrows, ovf
 
 
@@ -2395,7 +2435,7 @@ def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
             arr(ctypes.c_longlong, base), arr(ctypes.c_longlong, rcap),
             arr(P, state), cap, int(count), sel.data_ptr(), _stream(dev))
         _check(rc, "K18_decode_staged")
-    LAUNCHES["K18_decode_staged"] += 1
+    count_launch(LAUNCHES, "K18_decode_staged")
     return out, sel
 
 
@@ -2451,7 +2491,7 @@ def kmeans_assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         rc = lib.ob_k19_assign(x.data_ptr(), c.data_ptr(), cnorm.data_ptr(),
                                n, nl, d, out.data_ptr(), _stream(dev))
         _check(rc, "K19_kmeans_assign")
-    LAUNCHES["K19_kmeans_assign"] += 1
+    count_launch(LAUNCHES, "K19_kmeans_assign")
     return out
 
 
@@ -2494,7 +2534,7 @@ def kmeans_update(x: torch.Tensor, a: torch.Tensor, nl: int):
                                order.data_ptr(), n, d, nl, sums.data_ptr(),
                                cnt.data_ptr(), _stream(dev))
         _check(rc, "K20_kmeans_update")
-    LAUNCHES["K20_kmeans_update"] += 1
+    count_launch(LAUNCHES, "K20_kmeans_update")
     return sums, cnt
 
 
@@ -2530,7 +2570,7 @@ def ivf_lists(cent: torch.Tensor, q: torch.Tensor,
         rc = lib.ob_k21_lists(cent.data_ptr(), q.data_ptr(), nl, d, nprobe,
                               keys.data_ptr(), out.data_ptr(), _stream(dev))
         _check(rc, "K21_ivf_lists")
-    LAUNCHES["K21_ivf_lists"] += 1
+    count_launch(LAUNCHES, "K21_ivf_lists")
     return out
 
 
@@ -2626,7 +2666,7 @@ def ivf_probe(x, sel, perm, offs, lens, probes, q, max_list: int, n: int,
             live.data_ptr(), rows.data_ptr(), osel.data_ptr(),
             starved.data_ptr(), _stream(dev))
         _check(rc, "K22_ivf_probe")
-    LAUNCHES["K22_ivf_probe"] += 1
+    count_launch(LAUNCHES, "K22_ivf_probe")
     return rows, osel, starved
 
 
@@ -2701,7 +2741,7 @@ def first_live(sel, k: int, cols):
             counts.data_ptr(), prefix.data_ptr(), nc, src, dst, esize, nper,
             _stream(dev))
         _check(rc, "K23_first_live")
-    LAUNCHES["K23_first_live"] += 1
+    count_launch(LAUNCHES, "K23_first_live")
     return idx, nlive, outs
 
 
@@ -2843,5 +2883,524 @@ def fused_expr(program, batch, qrow=None, ext=()):
             blob = hdr + ch.blob + pad[len(ch.blob):]
             rc = lib.ob_k24_run(blob, nblocks, stream)
             _check(rc, "K24_fused_expr")
-            LAUNCHES["K24_fused_expr"] += 1
+            count_launch(LAUNCHES, "K24_fused_expr")
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K25-K28: the PX exchanges (parallel/exchange.py, parallel/px.py)
+# ---------------------------------------------------------------------------
+
+_K25_MODE = {"hash": 0, "range": 1, "partition": 2}
+_K25_MAX_SHARDS = 64  # csrc/k25_exchange_pack.cu K25_MAX_SHARDS
+_K28_MODE = {"range": 0, "count": 1, "bits": 2}
+_K27_OP = {"sum": 1, "min": 2, "max": 3, "or": 4}
+
+
+def _device_table(values, dev: torch.device) -> torch.Tensor:
+    """An int64 table (column addresses, type codes, sizes) on the card,
+    copied from pinned memory without a host sync."""
+    host = torch.tensor(list(values), dtype=torch.int64)
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def _key_table(keys, n: int, what: str, dev: torch.device) -> torch.Tensor:
+    for k in keys:
+        _vector(k, n, what)
+        if k.device != dev:
+            raise ValueError(f"{what} on {k.device}, not {dev}")
+    return _device_table([k.data_ptr() for k in keys]
+                         + [DTYPE_CODE[k.dtype] for k in keys], dev)
+
+
+def _plane(t: torch.Tensor, what: str) -> None:
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{what}: planes must be contiguous 1-D tensors")
+    if t.element_size() not in _WIDTHS:
+        raise TypeError(f"{what}: element width {t.element_size()}")
+
+
+def exchange_dest_plain(mode: str, n_shards: int, keys, bounds=None,
+                        owner=None, desc: bool = False) -> torch.Tensor:
+    """Plain version of K25's destination step: int32 [n] dest shard of
+    every row (live or not). "hash": hash32_combine(keys) % n_shards
+    (parallel/exchange.py:45); "range": searchsorted(bounds, key,
+    side="right") (:52), flipped to n_shards - 1 - d when desc;
+    "partition": owner[part] (:231), negative ids wrapping once and the
+    rest clamped as jnp indexes."""
+    if mode == "hash":
+        return (hash32_combine_plain(list(keys)) % n_shards).to(torch.int32)
+    if mode == "range":
+        k = keys[0].to(torch.int64)
+        d = torch.searchsorted(bounds.to(torch.int64).contiguous(), k,
+                               right=True).to(torch.int32)
+        return (n_shards - 1 - d).to(torch.int32) if desc else d
+    if mode == "partition":
+        m = int(owner.shape[0])
+        p = keys[0].to(torch.int64)
+        p = torch.where(p < 0, p + m, p).clamp(0, m - 1)
+        return owner[p].to(torch.int32)
+    raise ValueError(f"unknown K25 mode {mode!r}")
+
+
+def exchange_dest(mode: str, n_shards: int, keys, bounds=None, owner=None,
+                  desc: bool = False) -> torch.Tensor:
+    """K25 destination step (modes as `exchange_dest_plain`): one thread a
+    row, the hash over any number of key columns."""
+    keys = list(keys)
+    extra = [bounds] if mode == "range" else (
+        [owner] if mode == "partition" else [])
+    if not _on_cuda(*keys, *extra):
+        return exchange_dest_plain(mode, n_shards, keys, bounds, owner, desc)
+    if mode not in _K25_MODE:
+        raise ValueError(f"unknown K25 mode {mode!r}")
+    if not 1 <= n_shards <= _K25_MAX_SHARDS:
+        raise ValueError(f"K25 takes 1..{_K25_MAX_SHARDS} shards")
+    if mode != "hash" and len(keys) != 1:
+        raise ValueError(f"K25 {mode} takes one key column")
+    n = int(keys[0].shape[0])
+    dev = keys[0].device
+    if mode in ("range", "partition") and keys[0].dtype.is_floating_point:
+        raise TypeError(f"K25 {mode} key must be an integer column")
+    table = _key_table(keys, n, "K25 key", dev)
+    nb, bptr, optr, odt, on = 0, None, None, 0, 0
+    if mode == "range":
+        bounds = bounds.to(torch.int64).contiguous()
+        nb, bptr = int(bounds.shape[0]), bounds.data_ptr()
+        if nb != n_shards - 1:
+            raise ValueError(f"K25 range needs {n_shards - 1} bounds")
+    if mode == "partition":
+        _vector(owner, int(owner.shape[0]), "K25 owner")
+        optr, odt, on = owner.data_ptr(), DTYPE_CODE[owner.dtype], int(
+            owner.shape[0])
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k25_dest(_K25_MODE[mode], len(keys), table.data_ptr(), n,
+                             n_shards, bptr, nb, optr, odt, on, int(desc),
+                             dest.data_ptr(), _blocks(dev, n, 256 * 4),
+                             _stream(dev))
+        _check(rc, "K25_exchange_pack dest")
+    count_launch(LAUNCHES, "K25_exchange_pack")
+    return dest
+
+
+def round_robin_dest_plain(mask: torch.Tensor, n_shards: int,
+                           shard: int) -> torch.Tensor:
+    """Plain version of K25's round robin (parallel/exchange.py:59):
+    ((cumsum(mask) - 1 + shard) mod n_shards) as int32."""
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    return ((pos + int(shard)) % n_shards).to(torch.int32)
+
+
+def round_robin_dest(mask: torch.Tensor, n_shards: int,
+                     shard: int) -> torch.Tensor:
+    """K25 round robin: the live rows dealt to the shards in row order,
+    starting at `shard`."""
+    if not _on_cuda(mask):
+        return round_robin_dest_plain(mask, n_shards, shard)
+    n = int(mask.shape[0])
+    _flags_arg(mask, "K25 mask")
+    dev = mask.device
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return dest
+    lib = _load()
+    ntiles = -(-n // int(lib.ob_k25_tile_rows()))
+    counts = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    offs = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    totals = torch.empty(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k25_round_robin(mask.data_ptr(), n, int(n_shards),
+                                    int(shard), dest.data_ptr(),
+                                    counts.data_ptr(), offs.data_ptr(),
+                                    totals.data_ptr(), _stream(dev))
+        _check(rc, "K25_exchange_pack round robin")
+    count_launch(LAUNCHES, "K25_exchange_pack")
+    return dest
+
+
+def exchange_pack_plain(planes, mask: torch.Tensor, dest: torch.Tensor,
+                        n_shards: int, cap: int):
+    """Plain version of K25's pack (the send half of parallel/
+    exchange.py:65 repartition): the live rows stably ordered by dest,
+    lane d holding the first cap of dest d's rows in row order. Returns
+    (lane planes [n_shards * cap] each, sent mask bool [n_shards * cap],
+    overflow int64 0-d = sum of max(count - cap, 0)); dead slots hold
+    zeros."""
+    n = int(mask.shape[0])
+    dev = mask.device
+    d = torch.where(mask, dest.to(torch.int64),
+                    torch.full((), n_shards, dtype=torch.int64, device=dev))
+    order = torch.sort(d, stable=True).indices
+    counts = torch.bincount(d, minlength=n_shards + 1)[:n_shards]
+    offs = torch.cumsum(counts, 0) - counts
+    s = torch.arange(cap, dtype=torch.int64, device=dev)
+    pos = (offs[:, None] + s[None, :]).clamp(0, max(n - 1, 0))
+    live = (s[None, :] < counts.clamp(max=cap)[:, None]).reshape(-1)
+    take = order[pos.reshape(-1)]
+    lanes = [torch.where(live, p[take], torch.zeros((), dtype=p.dtype,
+                                                    device=dev))
+             for p in planes]
+    overflow = torch.clamp(counts - cap, min=0).sum()
+    return lanes, live, overflow
+
+
+def exchange_pack(planes, mask: torch.Tensor, dest: torch.Tensor,
+                  n_shards: int, cap: int):
+    """K25 pack: lanes of every plane in one pass after the count, scan
+    and stable place steps; bit for bit as `exchange_pack_plain`."""
+    planes = list(planes)
+    if not _on_cuda(mask, dest, *planes):
+        return exchange_pack_plain(planes, mask, dest, n_shards, cap)
+    n = int(mask.shape[0])
+    _flags_arg(mask, "K25 mask")
+    _vector(dest, n, "K25 dest")
+    if dest.dtype != torch.int32:
+        raise TypeError("K25 dest must be int32")
+    if not 1 <= n_shards <= _K25_MAX_SHARDS or cap < 1 or n < 1:
+        raise ValueError(f"K25 pack: {n_shards} shards, cap {cap}, {n} rows")
+    for p in planes:
+        _plane(p, "K25 plane")
+        if int(p.shape[0]) != n:
+            raise ValueError(f"K25 plane of {p.shape[0]} rows, mask {n}")
+    dev = mask.device
+    lib = _load()
+    ntiles = -(-n // int(lib.ob_k25_tile_rows()))
+    slots = n_shards * cap
+    lanes = [torch.empty(slots, dtype=p.dtype, device=dev) for p in planes]
+    sent = torch.empty(slots, dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_shards * ntiles, dtype=torch.int32, device=dev)
+    offs = torch.empty(n_shards * ntiles, dtype=torch.int64, device=dev)
+    totals = torch.empty(n_shards, dtype=torch.int64, device=dev)
+    take = torch.empty(slots, dtype=torch.int64, device=dev)
+    table = _device_table([p.data_ptr() for p in planes]
+                          + [q.data_ptr() for q in lanes]
+                          + [p.element_size() for p in planes], dev) \
+        if planes else torch.zeros(1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k25_pack(dest.data_ptr(), mask.data_ptr(), n, n_shards,
+                             cap, len(planes), table.data_ptr(),
+                             sent.data_ptr(), overflow.data_ptr(),
+                             counts.data_ptr(), offs.data_ptr(),
+                             totals.data_ptr(), take.data_ptr(),
+                             _blocks(dev, slots, 256 * 4), _stream(dev))
+        _check(rc, "K25_exchange_pack")
+    count_launch(LAUNCHES, "K25_exchange_pack")
+    return lanes, sent, overflow
+
+
+def exchange_recv_plain(senders, rows: int, lane: int, outs,
+                        out_base: int = 0, mask_plane: int = -1,
+                        per_host: int = 0, host_lane: int = 0):
+    """Plain version of K26: outs[c][out_base + s * rows + j] =
+    senders[c][s][lane * rows + j]; the plane at mask_plane keeps only
+    rows r with r % per_host == host_lane when per_host > 0. Writes and
+    returns outs."""
+    for c, blocks in enumerate(senders):
+        for s, b in enumerate(blocks):
+            at = out_base + s * rows
+            outs[c][at:at + rows] = b[lane * rows:(lane + 1) * rows]
+        if c == mask_plane and per_host > 0:
+            r = torch.arange(out_base, out_base + len(blocks) * rows,
+                             device=outs[c].device)
+            seg = outs[c][out_base:out_base + len(blocks) * rows]
+            outs[c][out_base:out_base + len(blocks) * rows] = seg & (
+                r % per_host == host_lane)
+    return outs
+
+
+def exchange_recv(senders, rows: int, lane: int, outs, out_base: int = 0,
+                  mask_plane: int = -1, per_host: int = 0,
+                  host_lane: int = 0):
+    """K26: a receiver's rows from every sender's block, every plane in
+    one launch (modes as `exchange_recv_plain`). senders[c][s] lies on
+    the receiver's device."""
+    flat = [b for blocks in senders for b in blocks]
+    if not _on_cuda(*flat, *outs):
+        return exchange_recv_plain(senders, rows, lane, outs, out_base,
+                                   mask_plane, per_host, host_lane)
+    np_ = len(senders)
+    nsend = len(senders[0]) if np_ else 0
+    if not 1 <= np_ <= 65535 or nsend < 1 or any(
+            len(b) != nsend for b in senders):
+        raise ValueError("K26 takes 1..65535 planes, the same senders for "
+                         "every plane")
+    for c, blocks in enumerate(senders):
+        _plane(outs[c], "K26 out")
+        if int(outs[c].shape[0]) < out_base + nsend * rows:
+            raise ValueError("K26 out plane too short")
+        for b in blocks:
+            _plane(b, "K26 sender block")
+            if b.dtype != outs[c].dtype:
+                raise TypeError("K26 sender and out types differ")
+            if int(b.shape[0]) < (lane + 1) * rows:
+                raise ValueError("K26 sender block too short for its lane")
+    if mask_plane >= 0 and outs[mask_plane].dtype != torch.bool:
+        raise TypeError("K26 mask plane must be bool")
+    dev = outs[0].device
+    lib = _load()
+    table = _device_table(
+        [b.data_ptr() for b in flat] + [o.data_ptr() for o in outs]
+        + [o.element_size() for o in outs], dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k26_recv(np_, nsend, table.data_ptr(), int(rows),
+                             int(lane), int(out_base), int(mask_plane),
+                             int(per_host), int(host_lane),
+                             _blocks(dev, rows, 256 * 4),
+                             _stream(dev))
+        _check(rc, "K26_exchange_recv")
+    count_launch(LAUNCHES, "K26_exchange_recv")
+    return outs
+
+
+def shard_merge_plain(planes, ops):
+    """Plain version of K27: each plane's shard tensors folded left in
+    shard order: "sum" (integers wrap), "min" / "max" (NaN propagates),
+    "or" (any non-zero, a bool plane)."""
+    out = []
+    for shards, op in zip(planes, ops):
+        if op == "or":
+            acc = shards[0] != 0
+            for x in shards[1:]:
+                acc = acc | (x != 0)
+        else:
+            acc = shards[0].clone()
+            for x in shards[1:]:
+                if op == "sum":
+                    acc = acc + x
+                elif op == "min":
+                    acc = torch.minimum(acc, x)
+                elif op == "max":
+                    acc = torch.maximum(acc, x)
+                else:
+                    raise ValueError(f"unknown K27 op {op!r}")
+        out.append(acc)
+    return out
+
+
+def shard_merge(planes, ops):
+    """K27: every plane merged over the shards in one launch, bit for bit
+    as `shard_merge_plain` (floats added in shard order in their own
+    type). planes[c][s] is shard s's partial of plane c, all on one
+    device."""
+    planes = [list(p) for p in planes]
+    ops = list(ops)
+    flat = [x for p in planes for x in p]
+    if not _on_cuda(*flat):
+        return shard_merge_plain(planes, ops)
+    nsh = len(planes[0]) if planes else 0
+    if not planes or nsh < 1 or any(len(p) != nsh for p in planes):
+        raise ValueError("K27 takes the same shards for every plane")
+    dev = flat[0].device
+    outs = []
+    for p, op in zip(planes, ops):
+        if op not in _K27_OP:
+            raise ValueError(f"unknown K27 op {op!r}")
+        n = int(p[0].reshape(-1).shape[0])
+        for x in p:
+            if x.dtype != p[0].dtype or x.numel() != n or \
+                    not x.is_contiguous():
+                raise ValueError("K27 shards of a plane differ in type, "
+                                 "size or layout")
+        outs.append(torch.empty(p[0].shape, device=dev,
+                                dtype=torch.bool if op == "or"
+                                else p[0].dtype))
+    lib = _load()
+    table = _device_table(
+        [x.data_ptr() for x in flat] + [o.data_ptr() for o in outs]
+        + [DTYPE_CODE[p[0].dtype] for p in planes]
+        + [_K27_OP[op] for op in ops]
+        + [int(p[0].numel()) for p in planes], dev)
+    longest = max(int(p[0].numel()) for p in planes)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k27_merge(len(planes), nsh, table.data_ptr(),
+                              _blocks(dev, longest, 256 * 4),
+                              min(len(planes), 65535), _stream(dev))
+        _check(rc, "K27_shard_merge")
+    count_launch(LAUNCHES, "K27_shard_merge")
+    return outs
+
+
+def _floor_div64(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def range_step_plain(minmax: torch.Tensor, resolution: int) -> torch.Tensor:
+    """The equal-width bucket step over the merged span [kmin, kmax]
+    (parallel/exchange.py:196-199), in wrapping int64."""
+    span = torch.clamp(minmax[1] - minmax[0] + 1, min=1)
+    return torch.clamp(_floor_div64(span + (resolution - 1), resolution),
+                       min=1)
+
+
+def range_histogram_plain(key: torch.Tensor, mask: torch.Tensor,
+                          minmax: torch.Tensor, resolution: int):
+    """Plain version of K28's range histogram: int64 [resolution] live
+    rows per bucket clip((k - kmin) // step, 0, resolution - 1)."""
+    step = range_step_plain(minmax, resolution)
+    b = torch.clamp(_floor_div64(key.to(torch.int64) - minmax[0], step), 0,
+                    resolution - 1)
+    b = torch.where(mask, b, torch.full_like(b, resolution))
+    return torch.bincount(b, minlength=resolution + 1)[:resolution]
+
+
+def hash_histogram_plain(keys, mask: torch.Tensor, resolution: int):
+    """Plain version of K28's hash buckets (parallel/px.py:579-583): int64
+    [resolution] live rows per hash32_combine(keys) % resolution."""
+    h = hash32_combine_plain(list(keys)) % resolution
+    h = torch.where(mask, h, torch.full_like(h, resolution))
+    return torch.bincount(h, minlength=resolution + 1)[:resolution]
+
+
+def bloom_bits_plain(keys, mask: torch.Tensor, m: int):
+    """Plain version of K28's bloom bitset (parallel/px.py:612-615): int32
+    [m], 1 at hash32_combine(keys) % m of every live row."""
+    h = hash32_combine_plain(list(keys)) % m
+    bits = torch.zeros(m + 1, dtype=torch.int32, device=mask.device)
+    bits[torch.where(mask, h, torch.full_like(h, m))] = 1
+    return bits[:m]
+
+
+def range_bounds_plain(hist: torch.Tensor, minmax: torch.Tensor,
+                       n_shards: int) -> torch.Tensor:
+    """Plain version of K28's bounds (parallel/exchange.py:205-214): int64
+    [n_shards - 1] from the merged histogram and span."""
+    res = int(hist.shape[0])
+    step = range_step_plain(minmax, res)
+    cdf = torch.cumsum(hist, 0)
+    total = cdf[-1]
+    targets = _floor_div64(
+        torch.arange(1, n_shards, dtype=torch.int64, device=hist.device)
+        * total, n_shards)
+    idx = torch.searchsorted(cdf, targets, right=False)
+    return minmax[0] + (idx + 1) * step
+
+
+def hot_buckets_plain(cnt_a: torch.Tensor, cnt_b, n_shards: int):
+    """Plain version of K28's hot test (parallel/px.py:585-590): bool
+    [resolution], a bucket hot on either side when its merged count
+    exceeds max(2 * total // n_shards, 1)."""
+    def hot(c):
+        lim = torch.clamp(_floor_div64(c.sum() * 2, n_shards), min=1)
+        return c > lim
+
+    return hot(cnt_a) | hot(cnt_b) if cnt_b is not None else hot(cnt_a)
+
+
+def bucket_probe_plain(keys, mask: torch.Tensor, table: torch.Tensor):
+    """Plain version of K28's probe: mask & table[hash32_combine(keys) %
+    len(table)] (the bloom prefilter px.py:623, the popular rows :593)."""
+    m = int(table.shape[0])
+    h = hash32_combine_plain(list(keys)) % m
+    return mask & (table[h] != 0)
+
+
+def _k28_hist(mode: str, keys, mask, minmax, res: int, out):
+    n = int(mask.shape[0])
+    _flags_arg(mask, "K28 mask")
+    dev = mask.device
+    table = _key_table(keys, n, "K28 key", dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k28_hist(_K28_MODE[mode], len(keys), table.data_ptr(),
+                             mask.data_ptr(), n,
+                             minmax.data_ptr() if minmax is not None
+                             else None, int(res), out.data_ptr(),
+                             _blocks(dev, n, 256 * 4), _stream(dev))
+        _check(rc, "K28_bucket_hist")
+    count_launch(LAUNCHES, "K28_bucket_hist")
+    return out
+
+
+def range_histogram(key, mask, minmax, resolution: int):
+    """K28 range histogram (as `range_histogram_plain`); minmax is the
+    merged int64 [2] span on the card."""
+    if not _on_cuda(key, mask, minmax):
+        return range_histogram_plain(key, mask, minmax, resolution)
+    if key.dtype.is_floating_point:
+        raise TypeError("K28 range keys must be integers")
+    if minmax.dtype != torch.int64 or minmax.shape != (2,):
+        raise TypeError("K28 minmax must be int64 [2]")
+    out = torch.zeros(resolution, dtype=torch.int64, device=key.device)
+    return _k28_hist("range", [key], mask, minmax.contiguous(), resolution,
+                     out)
+
+
+def hash_histogram(keys, mask, resolution: int):
+    """K28 hash buckets (as `hash_histogram_plain`)."""
+    keys = list(keys)
+    if not _on_cuda(mask, *keys):
+        return hash_histogram_plain(keys, mask, resolution)
+    out = torch.zeros(resolution, dtype=torch.int64, device=mask.device)
+    return _k28_hist("count", keys, mask, None, resolution, out)
+
+
+def bloom_bits(keys, mask, m: int):
+    """K28 bloom bitset (as `bloom_bits_plain`)."""
+    keys = list(keys)
+    if not _on_cuda(mask, *keys):
+        return bloom_bits_plain(keys, mask, m)
+    out = torch.zeros(m, dtype=torch.int32, device=mask.device)
+    return _k28_hist("bits", keys, mask, None, m, out)
+
+
+def range_bounds(hist, minmax, n_shards: int):
+    """K28 bounds (as `range_bounds_plain`), one block."""
+    if not _on_cuda(hist, minmax):
+        return range_bounds_plain(hist, minmax, n_shards)
+    res = int(hist.shape[0])
+    if hist.dtype != torch.int64 or not 1 <= res <= 4096:
+        raise ValueError("K28 bounds take an int64 histogram of <= 4096")
+    dev = hist.device
+    out = torch.empty(max(n_shards - 1, 0), dtype=torch.int64, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k28_bounds(hist.contiguous().data_ptr(), res,
+                               minmax.contiguous().data_ptr(), int(n_shards),
+                               out.data_ptr(), _stream(dev))
+        _check(rc, "K28_bucket_hist bounds")
+    count_launch(LAUNCHES, "K28_bucket_hist")
+    return out
+
+
+def hot_buckets(cnt_a, cnt_b, n_shards: int):
+    """K28 hot test (as `hot_buckets_plain`), one block."""
+    if not _on_cuda(cnt_a, cnt_b):
+        return hot_buckets_plain(cnt_a, cnt_b, n_shards)
+    res = int(cnt_a.shape[0])
+    dev = cnt_a.device
+    out = torch.empty(res, dtype=torch.bool, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k28_hot(cnt_a.contiguous().data_ptr(),
+                            cnt_b.contiguous().data_ptr()
+                            if cnt_b is not None else None, res,
+                            int(n_shards), out.data_ptr(), _stream(dev))
+        _check(rc, "K28_bucket_hist hot")
+    count_launch(LAUNCHES, "K28_bucket_hist")
+    return out
+
+
+def bucket_probe(keys, mask, table):
+    """K28 probe (as `bucket_probe_plain`): table is bool [m]."""
+    keys = list(keys)
+    if not _on_cuda(mask, table, *keys):
+        return bucket_probe_plain(keys, mask, table)
+    n = int(mask.shape[0])
+    _flags_arg(mask, "K28 mask")
+    if table.dtype != torch.bool:
+        raise TypeError("K28 probe table must be bool")
+    dev = mask.device
+    ktab = _key_table(keys, n, "K28 key", dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k28_probe(len(keys), ktab.data_ptr(), mask.data_ptr(), n,
+                              table.contiguous().data_ptr(),
+                              int(table.shape[0]), out.data_ptr(),
+                              _blocks(dev, n, 256 * 4), _stream(dev))
+        _check(rc, "K28_bucket_hist probe")
+    count_launch(LAUNCHES, "K28_bucket_hist")
+    return out

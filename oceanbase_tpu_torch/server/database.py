@@ -3,10 +3,11 @@
 Counterpart of `oceanbase_tpu/server/database.py` over the torch engine:
 the engine Session, its executor and the degraded executors run on the
 Database's `device` (None means the first CUDA device and raises when
-there is none; the CPU tests pass ``device="cpu"``). Not ported yet, each
-raising NotImplementedError by name where it is reached: the PX executor
-and its admission quota (a session with `ob_px_dop` > 0) and the on-disk
-plan-artifact store (`ob_plan_artifact_mode` other than off).
+there is none; the CPU tests pass ``device="cpu"``). A session with
+`ob_px_dop` > 0 runs its SELECTs on the PX executor over `make_mesh()`
+(parallel/px.py). Not ported yet, raising NotImplementedError by name
+where it is reached: the on-disk plan-artifact store
+(`ob_plan_artifact_mode` other than off).
 
 Reference surface:
   * statement dispatch: ObMPQuery::process -> ObSql::stmt_query
@@ -1377,17 +1378,53 @@ class Database:
             rc.invalidate_tables((name,))
 
     def _px_executor(self):
-        """The distributed executor over the device mesh, reached when a
-        session routes statements with SET ob_px_dop > 0."""
-        raise NotImplementedError(
-            "Database._px_executor (PX execution over a device mesh, "
-            "ob_px_dop > 0) is not ported to the torch engine yet")
+        """Lazily-built distributed executor over the device mesh
+        (sessions route statements here via SET ob_px_dop): every visible
+        CUDA device, one shard each, or on a CPU Database the CPU mesh of
+        parallel.mesh.CPU_SHARDS shards."""
+        if self._px_executor_obj is None:
+            from ..parallel.mesh import cpu_mesh, make_mesh
+            from ..parallel.px import PxExecutor
+
+            mesh = cpu_mesh() if self.device.type == "cpu" else make_mesh()
+            px = PxExecutor(
+                self.catalog,
+                mesh,
+                unique_keys=self._unique_keys,
+                stats=self.engine.stats,
+                tracer=self.tracer,
+                metrics=self.metrics,
+                access=self.access,
+            )
+            # serving-plane wiring: sharded uploads land in the transfer
+            # timeline, the partitioned residency charges the memory
+            # governor per device, and PX prepare() consults the governed
+            # upload budget like the single-device executor
+            px.timeline = self.timeline
+            gov = getattr(self, "governor", None)
+            if gov is not None:
+                px.governor = gov
+                gov.register_sharded_residency(
+                    px.residency.per_device_bytes)
+            self._px_executor_obj = px
+        return self._px_executor_obj
 
     def _px_admission(self):
-        """The cluster-wide DOP quota of PX statements (ObPxAdmission)."""
-        raise NotImplementedError(
-            "Database._px_admission (the PX worker quota, ob_px_dop > 0) "
-            "is not ported to the torch engine yet")
+        """Cluster-wide DOP quota (ObPxAdmission / ObPxTargetMgr): every PX
+        statement acquires its worker grant here before executing, so a
+        burst queues instead of oversubscribing the mesh. Sized from the
+        parallel_servers_target config parameter (live-updatable)."""
+        if self._px_admission_obj is None:
+            from ..parallel.px import PxAdmission
+
+            self._px_admission_obj = PxAdmission(
+                target=self.config["parallel_servers_target"]
+            )
+            self.config.on_change(
+                "parallel_servers_target",
+                lambda _n, _o, v: setattr(self._px_admission_obj, "target", v),
+            )
+        return self._px_admission_obj
 
     def _key_extra(self, table_names: tuple[str, ...]) -> tuple:
         """Plan-cache key material: schema + dictionary versions of the

@@ -34,21 +34,39 @@ def test_default_device_is_the_card():
         Database(n_nodes=1, n_ls=1)
 
 
-def test_unported_server_paths_raise_by_name(tmp_path):
-    """PX execution (a session with ob_px_dop > 0) and the persistent plan
-    artifacts are not ported: each raises NotImplementedError naming
-    itself, and `SET ob_px_dop = 0` keeps serving."""
-    d = Database(n_nodes=1, n_ls=1, device="cpu")
+def test_unported_server_paths_raise_by_name(tmp_path, monkeypatch):
+    """PX routing (a session with ob_px_dop > 0) runs on the port's
+    PxExecutor, here over 8 `cpu` shards: `SET ob_px_dop = 4` answers as
+    dop 0 and as the JAX Database (its 8 virtual devices), with no
+    `px fallbacks` and the admission grant released. The persistent plan
+    artifacts are not ported: they raise NotImplementedError naming
+    themselves."""
+    from oceanbase_tpu_torch.parallel import mesh as t_mesh
+
+    monkeypatch.setattr(t_mesh, "CPU_SHARDS", 8)
+    d = TwinDatabase.build(n_nodes=1, n_ls=1)
     try:
         s = d.session()
-        s.sql("create table kv (id int primary key, k int)")
-        s.sql("insert into kv values (1, 10), (2, 20)")
-        s.sql("set ob_px_dop = 4")
-        with pytest.raises(NotImplementedError, match="_px_admission"):
-            s.sql("select sum(k) from kv where k > 5")
+        s.sql("create table kv (id int primary key, k int, g int)")
+        s.sql("insert into kv values (1, 10, 1), (2, 20, 2), (3, 7, 1), "
+              "(4, 30, 2), (5, 1, 3)")
+        stmts = ("select sum(k) as s from kv where k > 5",
+                 "select g, count(*) as c, max(k) as m from kv "
+                 "group by g order by g",
+                 "select id, k from kv where k > 5 order by k desc limit 3")
         s.sql("set ob_px_dop = 0")
-        assert s.sql("select sum(k) as s from kv where k > 5").rows() == [
-            (30,)]
+        serial = [s.sql(q).rows() for q in stmts]
+        s.sql("set ob_px_dop = 4")
+        for q, want in zip(stmts, serial):
+            assert s.sql(q).rows() == want  # and equal to the JAX Database
+        px = d.t._px_executor_obj
+        assert px is not None and px.nsh == 8
+        assert px.residency.total_bytes() > 0  # the statements ran on it
+        for db in (d.j, d.t):
+            assert db.metrics.counter("px fallbacks") == 0
+        assert d.t._px_admission().used == 0  # every grant released
+        s.sql("set ob_px_dop = 0")
+        assert s.sql(stmts[0]).rows() == serial[0]
     finally:
         d.close()
     d = Database(n_nodes=1, n_ls=1, device="cpu",

@@ -137,3 +137,45 @@ class TwinDatabase:
     def close(self):
         self.j.close()
         self.t.close()
+
+
+# ---------------------------------------------------------------------------
+# PX twins: result rows of a batch, order-free (tests/test_torch_px*.py,
+# tests/test_torch_mesh.py)
+
+
+def _norm_value(v):
+    if isinstance(v, (float, np.floating)):
+        return None if np.isnan(v) else float(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.bool_):
+        return bool(v)
+    return v
+
+
+def host_rows_sorted(host: dict, names) -> list[tuple]:
+    """Rows of a batch_to_host dict as comparable tuples (numpy scalars
+    unboxed, NaN as None), sorted as batch_rows_normalized sorts them;
+    floats keep every bit (the sort key rounds them to 6 digits, so rows
+    differing only by float rounding sort alike)."""
+    n = len(host[names[0]]) if names else 0
+    rows = [tuple(_norm_value(host[c][i]) for c in names) for i in range(n)]
+
+    def key(r):
+        return tuple((x is None,
+                      repr(round(x, 6)) if isinstance(x, float) else str(x))
+                     for x in r)
+
+    return sorted(rows, key=key)
+
+
+def px_rows(batch, names) -> list[tuple]:
+    """host_rows_sorted of a port or a JAX result batch."""
+    import torch
+
+    if isinstance(batch.sel, torch.Tensor):
+        from oceanbase_tpu_torch.core.column import batch_to_host as to_host
+    else:
+        from oceanbase_tpu.core.column import batch_to_host as to_host
+    return host_rows_sorted(to_host(batch), list(names))
