@@ -127,6 +127,33 @@ a synthetic chunk (validity bits, runs that exactly fill their capacity,
 -0.0 and NaN), and the projection and streamed statements run on the
 card and on the CPU at SF 0.1 with identical bits.
 
+Out-of-core PX follows (after the streamed phase, untraced, its own
+counts): leg 1, a Database of the port with `SET ob_px_dop = 1` and its
+PX executor's budget at the streamed phase's 1 GiB, runs Q1, Q6 and Q3
+through DbSession.sql, each a ChunkedPreparedPlan on the PX chunk source
+(`_PxChunkSourceExecutor`: each chunk's narrowed host planes split over
+the mesh and widened on the card by K18); leg 2, a PxExecutor over 4
+shards of the card at the same budget (1/4 GiB a shard), runs Q1 and Q6
+through PreparedPlan.run; each cold and twice warm, rows bit-identical
+to the single device's streamed runs and held to the int64 oracles, `px
+dtl host hops` equal to the chunks, K18 launched, no `px fallbacks`, the
+governor's ledger balanced. The wide leg streams the sums of 40 bigint
+columns (40 planes: K18 launches once per 32) under 256 MiB on one
+device and on the 4 shards, both equal to numpy's sums. K18 is held bit
+for bit to its plain version on one shard's chunk of leg 2 and on the
+40-plane call, and timed. Then the spill phase (its own counts):
+`partitioned_groupby_sum` (l_partkey, l_quantity) and
+`partitioned_join_sum` (against part's p_partkey, p_size) over the first
+2^23 lineitem rows in 8 hash partitions, and `external_sort` of the first
+2^21 rows by (l_shipdate, l_orderkey desc) in runs of 2^19, each against
+numpy with every spill segment freed, the device steps' time split from
+the host's; then the device steps alone at deployment size: K3 over
+2^23 packed uint64 keys (their int64 image), K29 over one hash partition
+of all lineitem (~7.5M rows, ~250,000 groups) and a two-column group-by
+with sum/count/min/max on int64 and float64 (group sets equal to the
+plain version's, float sums to rel 1e-12), K14 + K30 over one partition
+pair (exact, also with products that wrap), each timed.
+
 The batched phase comes last (after its client threads have run
 statements on the card, torch.profiler records no device event of a
 later traced run): a Database of its own with the TPC-H tables and its
@@ -419,6 +446,12 @@ KERNEL_META = {
     "K28_bucket_hist": (
         "oceanbase_tpu_torch/csrc/k28_bucket_hist.cu",
         "oceanbase_tpu/parallel/exchange.py:171"),
+    "K29_hash_groupby": (
+        "oceanbase_tpu_torch/csrc/k29_hash_groupby.cu",
+        "oceanbase_tpu/ops/hashagg.py:155"),
+    "K30_join_product_sum": (
+        "oceanbase_tpu_torch/csrc/k30_join_product_sum.cu",
+        "oceanbase_tpu/ops/spill.py:245"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -430,13 +463,24 @@ KERNEL_META = {
     "K15_distinct_first.scatter": (
         "oceanbase_tpu_torch/csrc/k15_distinct_first.cu",
         "oceanbase_tpu/engine/executor.py:2687"),
+    # K3 and K14 at the spill's shapes, K18 on the PX chunk source's
+    # decode (their launches counted on those paths)
+    "K3_radix_sort.spill": (
+        "oceanbase_tpu_torch/csrc/k3_radix_sort.cu",
+        "oceanbase_tpu/ops/spill.py:63"),
+    "K14_hash_set.spill": (
+        "oceanbase_tpu_torch/csrc/k14_hash_set.cu",
+        "oceanbase_tpu/ops/spill.py:251"),
+    "K18_decode_staged.px": (
+        "oceanbase_tpu_torch/csrc/k18_decode_staged.cu",
+        "oceanbase_tpu/engine/chunked.py:63"),
     # not a kernel of its own: the Distinct operator on K3 + K4
     "dedup_batch": (
         "oceanbase_tpu_torch/engine/executor.py",
         "oceanbase_tpu/engine/executor.py:2606"),
 }
 
-# the entries of the {"kernels": ...} line: K1-K23 and the second entries
+# the entries of the {"kernels": ...} line: K1-K30 and the second entries
 KERNEL_LINE = [k for k in KERNEL_META if k != "dedup_batch"]
 # the kernels of the vector phase's own path
 VECTOR_KERNELS = ("K19_kmeans_assign", "K20_kmeans_update", "K21_ivf_lists",
@@ -444,11 +488,14 @@ VECTOR_KERNELS = ("K19_kmeans_assign", "K20_kmeans_update", "K21_ivf_lists",
 # the kernels of PX's exchanges (the PX phase's path)
 PX_KERNELS = ("K25_exchange_pack", "K26_exchange_recv", "K27_shard_merge",
               "K28_bucket_hist")
+# the kernels of the spill operators' path (ops/spill.py, the spill phase)
+SPILL_KERNELS = ("K29_hash_groupby", "K30_join_product_sum")
 # the kernels of each path (the rest of prepare's paths launch K17, K18)
 MAIN_KERNELS = [k for k in KERNEL_LINE
                 if "." not in k and k not in ("K17_slice_scan",
                                               "K18_decode_staged",
-                                              *VECTOR_KERNELS, *PX_KERNELS)]
+                                              *VECTOR_KERNELS, *PX_KERNELS,
+                                              *SPILL_KERNELS)]
 
 # the reference bench's sorted projection: lineitem by l_shipdate,
 # covering every column of the headline queries (bench.py SP_COLS)
@@ -5120,6 +5167,712 @@ def vector_card_vs_cpu(Session, kernels, x) -> dict:
             "iterations": oidx.iterations}
 
 
+
+# ---- the spill operators (ops/spill.py) on K3, K29, K14 and K30 --------
+# End to end on the SF 10 tables, cut only because the host merge and
+# partitioning are Python and numpy: a group-by and a join over the first
+# 2^23 lineitem rows (8 hash partitions, the join against all of part),
+# and an external sort of the first 2^21 rows in runs of 2^19.
+SPILL_GROUP_ROWS = 1 << 23
+SPILL_SORT_ROWS = 1 << 21
+SPILL_SORT_CHUNK = 1 << 19
+SPILL_PARTS = 8
+# K29's float sums add in any order (atomics): held to the plain
+# version's within this relative tolerance (sums of at most a few hundred
+# positive terms differ by a few ulps)
+K29_FLOAT_RTOL = 1e-12
+
+
+class _Stored:
+    """A result's storage columns in the shape the oracle checks read."""
+
+    def __init__(self, cols: dict):
+        self.cols = cols
+
+    def storage_columns(self) -> dict:
+        return self.cols
+
+
+def _partition_rows(key, part: int, n_parts: int):
+    """The rows of one hash partition, as ops/spill.py _partition cuts."""
+    import numpy as np
+
+    h = (key.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)) \
+        >> np.uint64(33)
+    return np.flatnonzero((h % np.uint64(n_parts)) == np.uint64(part))
+
+
+def spill_phase(tables, kernels, dev) -> tuple:
+    """partitioned_groupby_sum, partitioned_join_sum and external_sort
+    end to end on the card, each against numpy (bincount, direct
+    indexing, lexsort) with every spill segment freed; the device steps'
+    time (synchronized) split from the host's. Its own launch counts."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.ops import spill
+    from oceanbase_tpu_torch.storage.tmp_file import TmpFileManager
+
+    li, part = tables["lineitem"], tables["part"]
+    n = min(SPILL_GROUP_ROWS, li.nrows)
+    key = np.asarray(li.data["l_partkey"][:n], np.int64)
+    qty = np.asarray(li.data["l_quantity"][:n], np.int64)
+    rkey = np.asarray(part.data["p_partkey"], np.int64)
+    rval = np.asarray(part.data["p_size"], np.int64)
+    ns = min(SPILL_SORT_ROWS, li.nrows)
+    ship = np.asarray(li.data["l_shipdate"][:ns], np.int64)
+    okey = np.asarray(li.data["l_orderkey"][:ns], np.int64)
+    price = np.asarray(li.data["l_extendedprice"][:ns])
+
+    steps = ("_device_sort_chunk", "_device_groupby_sum", "_device_join_sum")
+    orig = {f: getattr(spill, f) for f in steps}
+    dev_s = [0.0]
+
+    def timed_step(fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            dev_s[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    def groupby(tmp):
+        return spill.partitioned_groupby_sum(key, qty, SPILL_PARTS, tmp,
+                                             device=dev)
+
+    def groupby_check(res):
+        ks, ss, cs = res
+        uk, inv = np.unique(key, return_inverse=True)
+        o = np.argsort(ks)
+        require(np.array_equal(ks[o], uk), "SPILL_GROUPBY: keys differ")
+        want_s = np.bincount(inv, weights=qty).astype(np.int64)
+        require(np.array_equal(ss[o], want_s), "SPILL_GROUPBY: sums differ")
+        require(np.array_equal(cs[o], np.bincount(inv)),
+                "SPILL_GROUPBY: counts differ")
+        return {"rows": n, "groups": int(len(uk))}
+
+    def join(tmp):
+        return spill.partitioned_join_sum(key, qty, rkey, rval, SPILL_PARTS,
+                                          tmp, device=dev)
+
+    def join_check(res):
+        pos = np.full(int(rkey.max()) + 1, -1, np.int64)
+        pos[rkey] = np.arange(len(rkey))
+        m = np.where(key <= rkey.max(), pos[np.minimum(key, rkey.max())], -1)
+        hit = m >= 0
+        want = (int(np.sum(qty[hit] * rval[m[hit]])), int(hit.sum()))
+        require(tuple(res) == want, f"SPILL_JOIN: {res} vs numpy {want}")
+        return {"rows": n, "build_rows": int(len(rkey)), "matches": want[1]}
+
+    skey = spill.pack_sort_key([ship, okey], [False, True])
+
+    def sort(tmp):
+        return spill.external_sort({"p": price}, skey, SPILL_SORT_CHUNK, tmp,
+                                   device=dev)
+
+    def sort_check(res):
+        order = np.lexsort((-okey, ship))
+        require(np.array_equal(res["__key__"], skey[order]),
+                "SPILL_SORT: keys out of order")
+        require(np.array_equal(res["p"], price[order]),
+                "SPILL_SORT: payload differs from numpy's lexsort")
+        return {"rows": ns, "key_bits": int(skey.max()).bit_length(),
+                "runs": -(-ns // SPILL_SORT_CHUNK)}
+
+    kernels.reset_launches()
+    recs = []
+    try:
+        for f in steps:
+            setattr(spill, f, timed_step(orig[f]))
+        for name, fn, check in (("SPILL_GROUPBY", groupby, groupby_check),
+                                ("SPILL_JOIN", join, join_check),
+                                ("SPILL_SORT", sort, sort_check)):
+            dev_s[0] = 0.0
+            with TmpFileManager() as tmp:
+                t0 = time.perf_counter()
+                res = fn(tmp)
+                wall = time.perf_counter() - t0
+                left = tmp.bytes_used
+            require(left == 0, f"{name}: {left} spill bytes left")
+            info = check(res)
+            rec = {"statement": name, "wall_s": wall, "device_s": dev_s[0],
+                   "host_s": wall - dev_s[0], **info}
+            recs.append(rec)
+            print(f"{name}: {info}, wall {wall:.3f} s (device steps "
+                  f"{dev_s[0]:.3f} s, host {wall - dev_s[0]:.3f} s), equal "
+                  f"to numpy, every segment freed", flush=True)
+    finally:
+        for f in steps:
+            setattr(spill, f, orig[f])
+    launches = dict(kernels.LAUNCHES)
+    for k in ("K3_radix_sort", "K14_hash_set", *SPILL_KERNELS):
+        require(launches[k] > 0, f"spill phase: {k} never launched")
+    print("spill phase: launches " + ", ".join(
+        f"{k} {launches[k]}" for k in ("K3_radix_sort", "K14_hash_set",
+                                       *SPILL_KERNELS)), flush=True)
+    return recs, launches
+
+
+def _group_set(res):
+    """{key tuple: aggregates} of a hash group-by's used slots."""
+    import numpy as np
+
+    _rs, _sr, used, keys, aggs = res
+    u = used.cpu().numpy()
+    ks = [k.cpu().numpy()[u] for k in keys]
+    ag = [a.cpu().numpy()[u] for a in aggs]
+    return {tuple(k[i].item() for k in ks): tuple(a[i].item() for a in ag)
+            for i in range(int(u.sum()))}, int(np.count_nonzero(u))
+
+
+def spill_kernel_checks(tables, kernels, reps: int, dev) -> list:
+    """The spill's device steps alone at deployment size, each against
+    its plain version on the card and timed beside it, a PyTorch
+    yardstick and its bound: K3 over one 2^23-row chunk of packed uint64
+    keys (their int64 image), K29 over one hash partition of all
+    lineitem (l_partkey, ~250,000 groups) and a two-column group-by with
+    sum/count/min/max on int64 and float64, K14 + K30 over one partition
+    pair (lineitem against part)."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.ops import spill
+    from oceanbase_tpu_torch.ops.hashing import next_pow2
+
+    li, part = tables["lineitem"], tables["part"]
+    out = []
+
+    def record(name, km, pm, lm, nbytes, ops, err=0.0):
+        bm, by = bound_ms(nbytes, ops)
+        src, rep = KERNEL_META[name]
+        print(f"kernel {name}: kernel_ms {km:.6f}, plain_ms {pm:.6f}, "
+              f"library_ms {lm}, bound_ms {bm:.6f} ({by}), max_abs_err "
+              f"{err}", flush=True)
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "max_abs_err": err, "ms": km,
+                "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+                "library_ms": lm}
+
+    # K3 over one chunk of the spill sort's packed keys
+    n3 = min(SPILL_GROUP_ROWS, li.nrows)
+    pk = spill.pack_sort_key(
+        [np.asarray(li.data["l_shipdate"][:n3], np.int64),
+         np.asarray(li.data["l_orderkey"][:n3], np.int64)], [False, True])
+    img = torch.from_numpy(spill.sort_image(pk)).to(dev)
+    live3 = torch.ones(n3, dtype=torch.bool, device=dev)
+    got = kernels.sort_order([img], [False], live3)
+    want = kernels.sort_order_plain([img], [False], live3)
+    require(torch.equal(got, want), "K3 on the uint64 image differs")
+    require(torch.equal(got, kernels.sort_order([img], [False], live3)),
+            "K3 on the uint64 image: two runs differ")
+    require(np.array_equal(got.cpu().numpy(), np.argsort(pk, kind="stable")),
+            "K3 on the uint64 image differs from numpy's unsigned order")
+    out.append(record(
+        "K3_radix_sort.spill",
+        cuda_ms(lambda: kernels.sort_order([img], [False], live3), reps),
+        cuda_ms(lambda: kernels.sort_order_plain([img], [False], live3),
+                max(1, reps // 2)),
+        cuda_ms(lambda: torch.argsort(img, stable=True), reps),
+        n3 * (8 + 1 + 4), 0))
+    del img, live3, got, want
+
+    # K29 over one hash partition of every lineitem row
+    lk_all = np.asarray(li.data["l_partkey"], np.int64)
+    rows = _partition_rows(lk_all, 0, SPILL_PARTS)
+    key = torch.from_numpy(lk_all[rows]).to(dev)
+    qty = torch.from_numpy(
+        np.asarray(li.data["l_quantity"], np.int64)[rows]).to(dev)
+    n = int(rows.shape[0])
+    ndv = int(torch.unique(key).numel())
+    ts = next_pow2(max(2 * ndv, 16))
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    aggs = [("sum", qty), ("count", None)]
+
+    def k29():
+        return kernels.hash_groupby([key], live, aggs, ts)
+
+    def k29_plain():
+        return kernels.hash_groupby_plain([key], live, aggs, ts)
+
+    g1, u1 = _group_set(k29())
+    g2, u2 = _group_set(k29())
+    gp, up = _group_set(k29_plain())
+    require(g1 == gp and u1 == up == ndv,
+            f"K29: {u1} used slots and {up} plain for {ndv} groups, or "
+            "their aggregates differ")
+    require(g2 == g1, "K29: two runs hold different groups")
+
+    def k29_library():
+        uniq, inv = torch.unique(key, return_inverse=True)
+        s = torch.zeros(uniq.numel(), dtype=torch.int64, device=dev)
+        c = torch.zeros(uniq.numel(), dtype=torch.int64, device=dev)
+        s.index_add_(0, inv, qty)
+        c.index_add_(0, inv, torch.ones_like(qty))
+        return uniq, s, c
+
+    # two key columns, sum/count/min/max on int64 and float64 values
+    flag = torch.from_numpy(
+        np.asarray(li.data["l_returnflag"])[rows]).to(dev).contiguous()
+    price = torch.from_numpy(
+        np.asarray(li.data["l_extendedprice"])[rows].astype(np.float64)
+        / 100.0).to(dev)
+    ops2 = [("count", None), ("sum", qty), ("min", qty), ("max", qty),
+            ("sum", price), ("min", price), ("max", price)]
+    ts2 = next_pow2(2 * 3 * ndv)
+    g3, u3 = _group_set(kernels.hash_groupby([key, flag], live, ops2, ts2))
+    g4, u4 = _group_set(kernels.hash_groupby_plain([key, flag], live, ops2,
+                                                   ts2))
+    require(u3 == u4 and set(g3) == set(g4),
+            f"K29 two columns: {u3} vs {u4} groups")
+    err = 0.0
+    for k, w in g4.items():
+        g = g3[k]
+        for j, (a, b) in enumerate(zip(g, w)):
+            if j == 4:
+                err = max(err, abs(a - b))
+                require(abs(a - b) <= K29_FLOAT_RTOL * abs(b),
+                        f"K29 float sum of {k}: {a} vs {b}")
+            else:
+                require(a == b, f"K29 aggregate {j} of {k}: {a} vs {b}")
+    # K29's aggregate-only entry (ops/hashagg.py _apply_agg) over the
+    # card's own slots: live rows moved to slot -1 (they land in slot
+    # T - 1, as JAX's scatter wraps), dead rows, min/max on narrow ints,
+    # sums of int8 and float64 values
+    row_slot = k29()[0].clone()
+    row_slot[::97] = -1
+    live_a = live.clone()
+    live_a[5::89] = False
+    q8 = (qty % 100 - 50).to(torch.int8)
+    q16 = (qty * 37 - 900).to(torch.int16)
+    q32 = (qty * -1000).to(torch.int32)
+    ops_a = [("count", None), ("sum", q8), ("min", q8), ("max", q8),
+             ("min", q16), ("max", q16), ("min", q32), ("max", q32),
+             ("sum", price), ("min", price)]
+    got_a = kernels.slot_aggregate(row_slot, live_a, ops_a, ts)
+    want_a = kernels.slot_aggregate_plain(row_slot, live_a, ops_a, ts)
+    err_a = 0.0
+    for (op, v), a, b in zip(ops_a, got_a, want_a):
+        what = f"K29 slot_aggregate {op} of {v.dtype if v is not None else ''}"
+        require(a.dtype == b.dtype and a.shape == b.shape,
+                f"{what}: {a.dtype} {tuple(a.shape)} vs plain {b.dtype} "
+                f"{tuple(b.shape)}")
+        if op == "sum" and a.dtype.is_floating_point:
+            err_a = max(err_a, float((a - b).abs().max()))
+            require(bool(((a - b).abs()
+                          <= K29_FLOAT_RTOL * b.abs()).all()),
+                    f"{what}: float sums beyond {K29_FLOAT_RTOL}")
+        else:
+            require(torch.equal(a, b), f"{what}: differs from plain")
+    print(f"K29 slot_aggregate: {len(ops_a)} aggregates over {n} rows "
+          f"({int((row_slot < 0).sum())} at slot -1, "
+          f"{int((~live_a).sum())} dead) equal to the plain version, "
+          f"float sums within {K29_FLOAT_RTOL} (max abs err {err_a})",
+          flush=True)
+    del row_slot, live_a, q8, q16, q32, got_a, want_a
+
+    print(f"K29: {ndv} groups of {n} rows (ts {ts}) equal to the plain "
+          f"version's as sets, twice; two columns {u3} groups, integer "
+          f"aggregates and float min/max exact, float sums within "
+          f"{K29_FLOAT_RTOL} (max abs err {err})", flush=True)
+    out.append(record(
+        "K29_hash_groupby", cuda_ms(k29, reps),
+        cuda_ms(k29_plain, max(1, reps // 5)), cuda_ms(k29_library, reps),
+        n * (8 + 8 + 1 + 4) + ts * (4 + 1 + 8 + 8 + 8), 0, err))
+    del g1, g2, gp, g3, g4, flag, price
+
+    # K14 + K30 over the same partition pair (lineitem against part)
+    pkey_all = np.asarray(part.data["p_partkey"], np.int64)
+    prow = _partition_rows(pkey_all, 0, SPILL_PARTS)
+    rk = torch.from_numpy(pkey_all[prow]).to(dev)
+    rv = torch.from_numpy(
+        np.asarray(part.data["p_size"], np.int64)[prow]).to(dev)
+    nb = int(prow.shape[0])
+    ts3 = next_pow2(max(2 * nb, 16))
+    rsel = torch.ones(nb, dtype=torch.bool, device=dev)
+
+    def k14():
+        tag, slot = kernels.hash_set_build([rk], rsel, ts3)
+        return kernels.hash_set_probe(tag, slot, [rk], [key], live)
+
+    def k14_plain():
+        tag, slot = kernels.hash_set_build_plain([rk], rsel, ts3)
+        return kernels.hash_set_probe_plain(tag, slot, [rk], [key], live)
+
+    match = k14()
+    require(torch.equal(match, k14_plain()) and torch.equal(match, k14()),
+            "K14 on the spill's partition pair differs from its plain "
+            "version")
+    out.append(record(
+        "K14_hash_set.spill", cuda_ms(k14, reps),
+        cuda_ms(k14_plain, max(1, reps // 5)), None,
+        nb * (8 + 1) + n * (8 + 1 + 4), 0))
+    got = kernels.join_product_sum(qty, rv, match)
+    want = kernels.join_product_sum_plain(qty, rv, match)
+    require([int(x) for x in got] == [int(x) for x in want]
+            and int(got[1]) > 0, f"K30: {got} vs plain {want}")
+    # products that wrap: int64 values near 2^62
+    rng = np.random.default_rng(30)
+    big_l = torch.from_numpy(rng.integers(-(2**40), 2**40, n)).to(dev)
+    big_r = torch.from_numpy(rng.integers(2**40, 2**62, nb)).to(dev)
+    got_w = kernels.join_product_sum(big_l, big_r, match)
+    want_w = kernels.join_product_sum_plain(big_l, big_r, match)
+    require([int(x) for x in got_w] == [int(x) for x in want_w],
+            f"K30 wrapping: {got_w} vs plain {want_w}")
+    hit = match >= 0
+    idx = match.to(torch.int64).clamp(min=0)
+
+    def k30_library():
+        p = qty * rv.index_select(0, idx)
+        return torch.where(hit, p, 0).sum(), hit.sum()
+
+    print(f"K14 + K30: {n} probe rows against {nb} build rows, "
+          f"{int(got[1])} matches, exact (and the wrapping case)",
+          flush=True)
+    out.append(record(
+        "K30_join_product_sum",
+        cuda_ms(lambda: kernels.join_product_sum(qty, rv, match), reps),
+        cuda_ms(lambda: kernels.join_product_sum_plain(qty, rv, match),
+                reps),
+        cuda_ms(k30_library, reps),
+        n * (8 + 4) + sector_bytes(match[hit], 8) + 16, 2 * n))
+    return out
+
+
+# ---- out-of-core PX (the PX chunk source, decode_chunk on K18) ----------
+# Leg 1: DbSession.sql at ob_px_dop = 1 (the card's one shard) over the
+# streamed phase's budget; leg 2: PreparedPlan.run on 4 shards of the card
+# at 1/4 of that budget a shard (the port's budget is per device: 4 x
+# 1/4 on the one card); then the wide leg: 40 bigint columns (40 planes,
+# more than one K18 launch takes) streamed on one device and on PX.
+PXS_STMTS = (1, 6, 3)
+PXS_MESH_STMTS = (1, 6)
+PXS_WARM = 2
+STREAM_WIDE_COLS = 40
+STREAM_WIDE_ROWS = 1 << 22
+STREAM_WIDE_BUDGET = 256 << 20
+STREAM_WIDE_TEXT = "select " + ", ".join(
+    f"sum(c{i:02d}) as s{i:02d}"
+    for i in range(STREAM_WIDE_COLS)) + " from wide40"
+
+
+def _wide_table(seed: int):
+    import numpy as np
+
+    from oceanbase_tpu_torch.core.dtypes import DataType, Schema
+    from oceanbase_tpu_torch.core.table import Table
+
+    rng = np.random.default_rng(seed)
+    names = [f"c{i:02d}" for i in range(STREAM_WIDE_COLS)]
+    data = {c: rng.integers(0, 1000, STREAM_WIDE_ROWS) + 1000 * i
+            for i, c in enumerate(names)}
+    t = Table.from_pydict("wide40", Schema.of(
+        **{c: DataType.int64() for c in names}), data)
+    want = {f"s{i:02d}": np.asarray([int(data[c].sum())])
+            for i, c in enumerate(names)}
+    return {"wide40": t}, want
+
+
+def px_stream_phase(tables, uk, kernels, queries_text, oracles, resident,
+                    budget: int, seed: int, dev):
+    """Out-of-core PX: leg 1, leg 2 and the wide leg (above). Every run:
+    a ChunkedPreparedPlan on the PX chunk source, rows bit-identical to
+    the single-device streamed runs and held to the int64 oracles, `px
+    dtl host hops` equal to the chunks dispatched, K18 launched, no `px
+    fallbacks`, the governor's ledger balanced. Returns (records, the
+    launches of the PX runs alone, the largest K18 call of each leg's PX
+    runs, kept for the checks)."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.core.column import batch_rows_storage
+    from oceanbase_tpu_torch.engine.chunked import ChunkedPreparedPlan
+    from oceanbase_tpu_torch.engine.executor import Executor
+    from oceanbase_tpu_torch.engine.memory_governor import MemoryGovernor
+    from oceanbase_tpu_torch.engine.session import Session
+    from oceanbase_tpu_torch.parallel.mesh import make_mesh
+    from oceanbase_tpu_torch.parallel.px import (
+        PxExecutor,
+        _PxChunkSourceExecutor,
+    )
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.share.metrics import MetricsRegistry
+    from oceanbase_tpu_torch.sql.parser import parse
+    from oceanbase_tpu_torch.sql.planner import Planner
+
+    # K18 calls are kept, and launches counted, only inside the PX runs
+    # (run_counted): the single-device reference runs between them stream
+    # through the same wrapper
+    captured: dict = {}
+    px_counts: dict = {}
+    active = {"tag": None}
+    lock = threading.Lock()
+    orig_decode = kernels.decode_staged
+
+    def capturing(staged, bases, count, meta, cap, dtypes, device):
+        tag = active["tag"]
+        if tag is not None:
+            with lock:
+                size = len(meta) * int(cap)
+                if tag not in captured or size > captured[tag][0]:
+                    captured[tag] = (size, (staged, bases, count, meta, cap,
+                                            dtypes, device))
+        return orig_decode(staged, bases, count, meta, cap, dtypes, device)
+
+    def streamed_px(name, prep):
+        require(isinstance(prep, ChunkedPreparedPlan)
+                and isinstance(prep.chunk_exec, _PxChunkSourceExecutor),
+                f"{name}: prepared {type(prep).__name__} "
+                f"({type(getattr(prep, 'chunk_exec', None)).__name__}), "
+                "not streamed on the PX chunk source")
+
+    def run_counted(name, tag, fn, prep_of, metrics, gov):
+        """One PX run, its K18 calls kept under `tag` and its launches
+        added to the phase's counts: (result, wall ms, chunks, host hops,
+        K18 launches)."""
+        h0 = metrics.counter("px dtl host hops")
+        l0 = dict(kernels.LAUNCHES)
+        active["tag"] = tag
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            active["tag"] = None
+        wall = (time.perf_counter() - t0) * 1e3
+        for k, v in kernels.LAUNCHES.items():
+            px_counts[k] = px_counts.get(k, 0) + v - l0.get(k, 0)
+        k18 = kernels.LAUNCHES["K18_decode_staged"] - l0["K18_decode_staged"]
+        prep = prep_of(res)
+        streamed_px(name, prep)
+        c0 = getattr(prep, "_smoke_chunks", 0)
+        chunks = prep.stream_stats.chunks - c0
+        prep._smoke_chunks = prep.stream_stats.chunks
+        hops = metrics.counter("px dtl host hops") - h0
+        require(hops == chunks and chunks > 0,
+                f"{name}: {hops} host hops for {chunks} chunks")
+        require(k18 >= chunks, f"{name}: {k18} K18 launches, {chunks} chunks")
+        require(gov.ledger_balanced(), f"{name}: the ledger is not balanced")
+        return res, wall, chunks, hops, k18
+
+    def leg_record(name, walls, chunks, hops, k18, n, extra=None):
+        rec = {"statement": name, "rows": n, "cold_ms": walls[0],
+               "warm_ms": walls[1:],
+               "warm_median_ms": statistics.median(walls[1:]),
+               "chunks_per_run": chunks, "host_hops_per_run": hops,
+               "k18_launches_per_run": k18, **(extra or {})}
+        print(f"{name}: streamed on the PX chunk source, {n} rows "
+              f"bit-identical to the single-device streamed run and the "
+              f"oracle, cold {walls[0]:.3f} ms warm "
+              f"{rec['warm_median_ms']:.3f} ms, {chunks} chunks = {hops} "
+              f"host hops, {k18} K18 launches a run", flush=True)
+        return rec
+
+    kernels.reset_launches()
+    recs = []
+    # leg 1: the server at dop 1
+    db = Database(n_nodes=1, n_ls=1, extra_catalog=tables, device=dev)
+    try:
+        db._unique_keys.update(uk)
+        db.engine.executor.unique_keys = db._unique_keys
+        db.engine.planner.unique_keys = db._unique_keys
+        s = db.session()
+        s.sql("set ob_enable_result_cache = 0")
+        s.sql("set ob_px_dop = 1")
+        px = db._px_executor()
+        px.device_budget = budget
+        fb0 = db.metrics.counter("px fallbacks")
+        kernels.decode_staged = capturing
+        for q in PXS_STMTS:
+            name = f"PXS_Q{q}"
+            walls, last = [], None
+            for _ in range(1 + PXS_WARM):
+                rs, wall, chunks, hops, k18 = run_counted(
+                    name, "leg1", lambda: s.sql(queries_text[q]),
+                    lambda rs: rs._cursor.prepared, db.metrics, db.governor)
+                walls.append(wall)
+                require(same_bits(rs.storage_columns(),
+                                  resident[f"ST_Q{q}"]),
+                        f"{name}: rows differ from the streamed rows")
+                last = rs
+            n = oracles[f"ST_Q{q}"](last)
+            recs.append(leg_record(name, walls, chunks, hops, k18, n))
+        fallbacks = db.metrics.counter("px fallbacks") - fb0
+        require(fallbacks == 0, f"PX streamed leg 1: {fallbacks} fallbacks")
+        require(db._px_admission().used == 0,
+                "PX streamed leg 1: admission not released")
+    finally:
+        kernels.decode_staged = orig_decode
+        db.close()
+    del db, s, px
+    release_device()
+
+    # leg 2: 4 shards of the card
+    mesh = make_mesh(PX_MESH_SHARDS, devices=[dev] * PX_MESH_SHARDS)
+    m = MetricsRegistry()
+    gov = MemoryGovernor(budget=budget)
+    px2 = PxExecutor(tables, mesh, unique_keys=uk, device_budget=budget,
+                     metrics=m)
+    px2.governor = gov
+    gov.register_sharded_residency(px2.residency.per_device_bytes)
+    single = Executor(tables, unique_keys=uk, device=dev,
+                      device_budget=budget)
+    single.governor = MemoryGovernor(budget=budget)
+    planner = Planner(tables)
+    try:
+        kernels.decode_staged = capturing
+        for q in PXS_MESH_STMTS:
+            name = f"PX4S_Q{q}"
+            plan = planner.plan(parse(queries_text[q]))
+            names = list(plan.output_names)
+            sprep = single.prepare(plan.plan)
+            require(isinstance(sprep, ChunkedPreparedPlan),
+                    f"{name}: the single device did not stream")
+            want = batch_rows_storage(sprep.run(), names)
+            prepared = px2.prepare(plan.plan)
+            walls = []
+            for _ in range(1 + PXS_WARM):
+                outb, wall, chunks, hops, k18 = run_counted(
+                    name, "leg2", prepared.run, lambda _o: prepared, m, gov)
+                walls.append(wall)
+                got = batch_rows_storage(outb, names)
+                require(same_bits(got, want),
+                        f"{name}: rows differ from the single device's "
+                        "streamed run")
+            n = oracles[f"ST_Q{q}"](_Stored(got))
+            recs.append(leg_record(name, walls, chunks, hops, k18, n, {
+                "shards": PX_MESH_SHARDS, "chunk_rows": prepared.chunk_rows,
+                "chunk_capacity": prepared.chunk_exec.chunk_rows}))
+            del sprep, prepared, outb
+    finally:
+        kernels.decode_staged = orig_decode
+    del px2, single
+    release_device()
+
+    # the wide leg: 40 planes on one device (run_stream) and on PX
+    wt, wwant = _wide_table(seed)
+    wplan = Planner(wt).plan(parse(STREAM_WIDE_TEXT))
+    wnames = list(wplan.output_names)
+    wsess = Session(wt, device=dev)
+    wsess.executor.device_budget = STREAM_WIDE_BUDGET
+    wgov = MemoryGovernor(budget=STREAM_WIDE_BUDGET)
+    wsess.executor.governor = wgov
+    k0 = kernels.LAUNCHES["K18_decode_staged"]
+    t0 = time.perf_counter()
+    rs = wsess.sql(STREAM_WIDE_TEXT)
+    wall1 = (time.perf_counter() - t0) * 1e3
+    prep = rs._cursor.prepared
+    require(isinstance(prep, ChunkedPreparedPlan),
+            "WIDE: the single device did not stream")
+    k18_1 = kernels.LAUNCHES["K18_decode_staged"] - k0
+    chunks1 = prep.stream_stats.chunks
+    require(k18_1 >= 2 * chunks1,
+            f"WIDE: {k18_1} K18 launches for {chunks1} chunks of 40 planes")
+    check_oracle("WIDE", rs, wwant)
+    require(wgov.ledger_balanced(), "WIDE: the ledger is not balanced")
+    got1 = rs.storage_columns()
+    wm = MetricsRegistry()
+    pw = PxExecutor(wt, mesh, device_budget=STREAM_WIDE_BUDGET, metrics=wm)
+    pgov = MemoryGovernor(budget=STREAM_WIDE_BUDGET)
+    pw.governor = pgov
+    try:
+        kernels.decode_staged = capturing
+        pprep = pw.prepare(wplan.plan)
+        outb, wall2, chunks2, hops2, k18_2 = run_counted(
+            "PX4S_WIDE", "wide", pprep.run, lambda _o: pprep, wm, pgov)
+    finally:
+        kernels.decode_staged = orig_decode
+    require(k18_2 >= 2 * PX_MESH_SHARDS * chunks2,
+            f"PX4S_WIDE: {k18_2} K18 launches for {chunks2} chunks")
+    gotw = batch_rows_storage(outb, wnames)
+    check_oracle("PX4S_WIDE", _Stored(gotw), wwant)
+    require(same_bits(gotw, got1), "PX4S_WIDE: differs from one device's")
+    recs.append({"statement": "WIDE", "rows": 1, "wall_ms": wall1,
+                 "chunks": chunks1, "k18_launches": k18_1,
+                 "planes": STREAM_WIDE_COLS})
+    recs.append({"statement": "PX4S_WIDE", "rows": 1, "wall_ms": wall2,
+                 "chunks": chunks2, "host_hops": hops2,
+                 "k18_launches": k18_2, "planes": STREAM_WIDE_COLS})
+    print(f"WIDE: {STREAM_WIDE_COLS} bigint planes streamed under "
+          f"{STREAM_WIDE_BUDGET} B: "
+          f"one device {chunks1} chunks, {k18_1} K18 launches, "
+          f"{wall1:.3f} ms; PX on {PX_MESH_SHARDS} shards {chunks2} chunks "
+          f"= {hops2} host hops, {k18_2} K18 launches, {wall2:.3f} ms; "
+          f"both equal to the numpy sums", flush=True)
+    require(px_counts.get("K18_decode_staged", 0) > 0,
+            "PX streamed phase: K18 never launched on a PX run")
+    require(set(captured) == {"leg1", "leg2", "wide"},
+            f"PX streamed phase: K18 calls kept for {sorted(captured)}")
+    del wt, wsess, pw, pprep, outb
+    release_device()
+    return recs, px_counts, {k: v[1] for k, v in captured.items()}
+
+
+def px_decode_checks(kernels, reps: int, captured: dict) -> list:
+    """K18 on the PX chunk source's decode, each call kept from the PX
+    runs alone: one shard's chunk of leg 2 (4 shards; the record), leg
+    1's one-shard chunk, and the wide leg's 40-plane decode (two
+    launches); each against its plain version bit for bit, twice,
+    timed."""
+    import numpy as np
+    import torch
+
+    calls = {k: captured[k] for k in ("leg2", "leg1", "wide")}
+    require(len(calls["wide"][3]) > kernels.K18_MAX_COLS,
+            "the wide call does not pass K18_MAX_COLS planes")
+
+    def run(fn, call):
+        staged, bases, count, meta, cap, dtypes, dev = call
+        cols, sel = fn(staged, bases, count, meta, cap, dtypes, dev)
+        return [_bits(cols[k]) for k, _ in meta] + [sel]
+
+    for tag, call in calls.items():
+        a = run(kernels.decode_staged, call)
+        b = run(kernels.decode_staged_plain, call)
+        c = run(kernels.decode_staged, call)
+        require(all(torch.equal(x, y) and torch.equal(x, z)
+                    for x, y, z in zip(a, b, c)),
+                f"K18 on the {tag} PX decode ({len(call[3])} planes) "
+                "differs from its plain version or between two runs")
+
+    def timed(call):
+        staged, bases, count, meta, cap, dtypes, dev = call
+
+        def library():
+            return [kernels._widen_plain(staged[k]).to(dtypes[k])
+                    + np.asarray(bases[k]).item() for k, _ in meta]
+
+        nbytes = sum(staged[k].numel() * staged[k].element_size()
+                     for k, _ in meta) + sum(
+            cap * torch.empty((), dtype=dtypes[k]).element_size()
+            for k, _ in meta) + cap
+        bm, by = bound_ms(nbytes, cap * len(meta))
+        return {"ms": cuda_ms(lambda: run(kernels.decode_staged, call),
+                              reps),
+                "plain_ms": cuda_ms(
+                    lambda: run(kernels.decode_staged_plain, call), reps),
+                "library_ms": cuda_ms(library, reps), "bound_ms": bm,
+                "bound_by": by, "planes": len(meta), "rows": cap}
+
+    shard, dop1, wide = (timed(calls[k]) for k in ("leg2", "leg1", "wide"))
+    src, rep = KERNEL_META["K18_decode_staged.px"]
+    print(f"kernel K18_decode_staged.px: one shard of 4, {shard['planes']} "
+          f"planes of {shard['rows']} rows: kernel_ms {shard['ms']:.6f}, "
+          f"plain_ms {shard['plain_ms']:.6f}, library_ms "
+          f"{shard['library_ms']:.6f}, bound_ms {shard['bound_ms']:.6f} "
+          f"({shard['bound_by']}); dop 1, {dop1['planes']} planes of "
+          f"{dop1['rows']} rows: {dop1['ms']:.6f} ms (bound "
+          f"{dop1['bound_ms']:.6f}); wide, {wide['planes']} planes of "
+          f"{wide['rows']} rows in two launches: {wide['ms']:.6f} ms "
+          f"(bound {wide['bound_ms']:.6f}); all exact, twice", flush=True)
+    return [{"name": "K18_decode_staged.px", "route": "cuda", "source": src,
+             "replaces": rep, "max_abs_err": 0.0,
+             **{k: shard[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+             "shard": shard, "dop1": dop1, "wide": wide}]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
@@ -5437,6 +6190,31 @@ def main() -> int:
         setup=lambda se: setattr(se.executor, "device_budget", cmp_budget),
         route=streamed)
 
+    # ---- out-of-core PX (after the streamed phase, untraced): its own
+    # counts
+    t0 = time.perf_counter()
+    pxsrecs, pxs_launches, pxs_calls = px_stream_phase(
+        tables, uk, kernels, Q, oracles, resident, stream_budget, args.seed,
+        torch.device("cuda", 0))
+    release_device()
+    krecs += px_decode_checks(kernels, args.reps, pxs_calls)
+    del pxs_calls
+    release_device()
+    print(f"PX streamed phase and the K18 PX decode checks in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ---- the spill operators: their own counts, then their device steps
+    # alone at deployment size
+    t0 = time.perf_counter()
+    sprecs, sp_launches = spill_phase(tables, kernels,
+                                      torch.device("cuda", 0))
+    release_device()
+    krecs += spill_kernel_checks(tables, kernels, args.reps,
+                                 torch.device("cuda", 0))
+    release_device()
+    print(f"spill phase and the K3/K29/K14/K30 spill checks in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
     # ---- the PX phase's leg 2: a 4-shard mesh on the card, its own
     # counts (untraced: its shards run in threads, and torch.profiler
     # loses device events after threads have run, PERF.md §7)
@@ -5461,7 +6239,8 @@ def main() -> int:
                       "grace": g_launches, "vector": v_launches,
                       "server": sv_launches, "batched": b_launches,
                       "px_server": srv["px_leg"]["launches"],
-                      "px_mesh": px_launches}
+                      "px_mesh": px_launches, "px_stream": pxs_launches,
+                      "spill": sp_launches}
     for r in krecs:
         if r["name"] == "K17_slice_scan":
             r["launches"] = p_launches[r["name"]]
@@ -5473,6 +6252,13 @@ def main() -> int:
             # this slice's path: leg 2, where all four run (leg 1's one
             # shard launches K26 and K27, its record in the server phase)
             r["launches"] = px_launches[r["name"]]
+        elif (r["name"] in SPILL_KERNELS
+              or r["name"] in ("K3_radix_sort.spill", "K14_hash_set.spill")):
+            # the spill operators' path: the spill phase
+            r["launches"] = sp_launches[r["name"].split(".")[0]]
+        elif r["name"] == "K18_decode_staged.px":
+            # out-of-core PX: the PX runs of the PX streamed phase
+            r["launches"] = pxs_launches["K18_decode_staged"]
         elif r["name"] == "K23_first_live":
             # this slice's path: the server phase (the main path's
             # narrowed frames launch it too, main_launches)
@@ -5507,7 +6293,9 @@ def main() -> int:
                    "narrow_ab": narrow_recs + v_ab,
                    "server_phase": srv, "batched_phase": bat,
                    "px_phase": {"mesh_leg": pxrecs,
-                                "server_leg": srv["px_leg"]},
+                                "server_leg": srv["px_leg"],
+                                "streamed": pxsrecs},
+                   "spill_phase": sprecs,
                    "k24": {"statements": k24_stmts, "synthetic": k24_syn},
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,

@@ -7,8 +7,10 @@ are masked out, exactly as in the JAX package, so the executor's
 static-capacity and overflow-retry contract carries over unchanged.
 
 Uploads go at full storage width from pinned host memory. The JAX
-package's frame-of-reference narrowed upload is a transport encoding for
-a slow host link and changes no result, so it has no counterpart here.
+package's frame-of-reference narrowed upload of whole tables is a
+transport encoding for a slow host link and changes no result, so it has
+no counterpart here; its tier rule (`narrow_tier`) serves the narrowed
+chunk uploads of the chunk sources (engine/chunked.py).
 """
 
 from __future__ import annotations
@@ -166,6 +168,17 @@ def renamed_storage_schema(schema_src, names) -> Schema:
         Field(n, schema_src[sn])
         for n, sn in zip(names, schema_src.names())
     ))
+
+
+def narrow_tier(amin: int, amax: int, itemsize: int):
+    """Smallest unsigned dtype that holds [0, amax - amin], if narrower
+    than the storage width (the frame-of-reference tier rule of the
+    narrowed chunk uploads, engine/chunked.py)."""
+    span = amax - amin
+    for nt in (np.uint8, np.uint16, np.uint32):
+        if span <= np.iinfo(nt).max and np.dtype(nt).itemsize < itemsize:
+            return np.dtype(nt)
+    return None
 
 
 def batch_to_host(batch: ColumnBatch, decode_strings: bool = True) -> dict:

@@ -18,54 +18,20 @@
 // probe row; the table (8 bytes a slot, cleared once) and the random key
 // reads through slot rows are on top of that bound.
 //
-// Design: K9's table extended to k columns. (1) Clear every slot (row
-// -1, tag 0). (2) One thread per live build row walks linear probes from
-// its home slot: atomicCAS(-1 -> row) claims an empty slot and writes the
-// tag; a slot whose row holds an equal key tuple (read through the row
-// from the build columns, so a slot's key never changes) takes
+// Design: K9's table extended to k columns (the key tuple, its hash and its
+// equality are ob_common.cuh's ObKeys, shared with K29). (1) Clear every
+// slot (row -1, tag 0). (2) One thread per live build row walks linear
+// probes from its home slot: atomicCAS(-1 -> row) claims an empty slot and
+// writes the tag; a slot whose row holds an equal key tuple (read through
+// the row from the build columns, so a slot's key never changes) takes
 // atomicMin(row). Which key lands in which slot depends on the order the
 // threads run in; each key's row does not. (3) One thread per live probe
 // row walks the same probes until an empty slot or an equal tag and key
-// tuple, and writes the row into probe order. The match rows are
-// schedule-free, so two runs give the same bits; the slot layout may
-// differ.
+// tuple, and writes the row into probe order. The match rows are schedule-
+// free, so two runs give the same bits; the slot layout may differ.
 #include "ob_common.cuh"
 
 #define K14_THREADS 256
-#define K14_MAX_COLS 16
-
-struct K14Cols {
-  const void* col[K14_MAX_COLS];
-  int dt[K14_MAX_COLS];
-  int ncols;
-};
-
-__device__ __forceinline__ unsigned int k14_hash(const K14Cols& c,
-                                                 long long i) {
-  unsigned int h = 0u;
-  for (int j = 0; j < c.ncols; j++) {
-    h = ob_mix32(h ^ (ob_fold32(c.col[j], c.dt[j], i) + OB_GOLDEN32));
-  }
-  return h;
-}
-
-// Row a of columns x equals row b of columns y, column by column.
-__device__ __forceinline__ bool k14_equal(const K14Cols& x, long long a,
-                                          const K14Cols& y, long long b) {
-  for (int j = 0; j < x.ncols; j++) {
-    if (ob_is_float(x.dt[j]) || ob_is_float(y.dt[j])) {
-      double u = ob_is_float(x.dt[j]) ? ob_ldg_f64(x.col[j], x.dt[j], a)
-                                      : (double)ob_ldg_i64(x.col[j], x.dt[j], a);
-      double v = ob_is_float(y.dt[j]) ? ob_ldg_f64(y.col[j], y.dt[j], b)
-                                      : (double)ob_ldg_i64(y.col[j], y.dt[j], b);
-      if (!(u == v)) return false;
-    } else if (ob_ldg_i64(x.col[j], x.dt[j], a) !=
-               ob_ldg_i64(y.col[j], y.dt[j], b)) {
-      return false;
-    }
-  }
-  return true;
-}
 
 __global__ void k14_clear(int* __restrict__ slot_tag, int* __restrict__ slot_row,
                           long long tsize) {
@@ -77,14 +43,14 @@ __global__ void k14_clear(int* __restrict__ slot_tag, int* __restrict__ slot_row
   }
 }
 
-__global__ void k14_build(K14Cols b, const unsigned char* __restrict__ bsel,
+__global__ void k14_build(ObKeys b, const unsigned char* __restrict__ bsel,
                           long long nb, int* slot_tag, int* slot_row,
                           unsigned long long tmask) {
   long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nb;
        i += step) {
     if (!__ldg(bsel + i)) continue;
-    unsigned int h = k14_hash(b, i);
+    unsigned int h = ob_keys_hash32(b, i);
     unsigned long long s = (unsigned long long)h & tmask;
     for (unsigned long long step_n = 0; step_n <= tmask; step_n++) {
       int cur = atomicCAS(slot_row + s, -1, (int)i);
@@ -92,7 +58,7 @@ __global__ void k14_build(K14Cols b, const unsigned char* __restrict__ bsel,
         slot_tag[s] = (int)h;
         break;
       }
-      if (k14_equal(b, cur, b, i)) {
+      if (ob_keys_equal(b, cur, b, i)) {
         atomicMin(slot_row + s, (int)i);
         break;
       }
@@ -101,7 +67,7 @@ __global__ void k14_build(K14Cols b, const unsigned char* __restrict__ bsel,
   }
 }
 
-__global__ void k14_probe(K14Cols b, K14Cols p,
+__global__ void k14_probe(ObKeys b, ObKeys p,
                           const unsigned char* __restrict__ psel, long long np,
                           const int* __restrict__ slot_tag,
                           const int* __restrict__ slot_row,
@@ -111,12 +77,12 @@ __global__ void k14_probe(K14Cols b, K14Cols p,
        i += step) {
     int m = -1;
     if (__ldg(psel + i)) {
-      unsigned int h = k14_hash(p, i);
+      unsigned int h = ob_keys_hash32(p, i);
       unsigned long long s = (unsigned long long)h & tmask;
       for (unsigned long long step_n = 0; step_n <= tmask; step_n++) {
         int cur = __ldg(slot_row + s);
         if (cur < 0) break;
-        if (__ldg(slot_tag + s) == (int)h && k14_equal(b, cur, p, i)) {
+        if (__ldg(slot_tag + s) == (int)h && ob_keys_equal(b, cur, p, i)) {
           m = cur;
           break;
         }
@@ -127,25 +93,14 @@ __global__ void k14_probe(K14Cols b, K14Cols p,
   }
 }
 
-static int k14_cols(K14Cols* c, int ncols, const void* const* cols,
-                    const int* dts) {
-  if (ncols < 1 || ncols > K14_MAX_COLS) return 0;
-  c->ncols = ncols;
-  for (int j = 0; j < ncols; j++) {
-    c->col[j] = cols[j];
-    c->dt[j] = dts[j];
-  }
-  return 1;
-}
-
 // cols/dts: ncols build key columns of nb rows; sel: bool [nb];
 // slot_tag/slot_row: int32 [tsize], tsize a power of two >= 2 nb.
 extern "C" int ob_k14_build(int ncols, const void* const* cols,
                             const int* dts, const void* sel, long long nb,
                             void* slot_tag, void* slot_row, long long tsize,
                             int nblocks, void* stream) {
-  K14Cols b;
-  if (!k14_cols(&b, ncols, cols, dts) || tsize < 2 * nb ||
+  ObKeys b;
+  if (!ob_keys_set(&b, ncols, cols, dts) || tsize < 2 * nb ||
       (tsize & (tsize - 1)) != 0 || nb >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -169,8 +124,9 @@ extern "C" int ob_k14_probe(int ncols, const void* const* bcols,
                             const void* slot_tag, const void* slot_row,
                             long long tsize, void* match, int nblocks,
                             void* stream) {
-  K14Cols b, p;
-  if (!k14_cols(&b, ncols, bcols, bdts) || !k14_cols(&p, ncols, pcols, pdts) ||
+  ObKeys b, p;
+  if (!ob_keys_set(&b, ncols, bcols, bdts) ||
+      !ob_keys_set(&p, ncols, pcols, pdts) ||
       tsize < 1 || (tsize & (tsize - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }

@@ -18,7 +18,8 @@
 // Bound on an H100 (3.35 TB/s): the wire bytes read once plus the decoded
 // columns and sel written once -- memory bound.
 //
-// Design: one launch per chunk for every column. The first `row_blocks`
+// Design: one launch per chunk for up to 32 planes (the wrapper launches
+// again for the next 32, and only the first writes sel). The first `row_blocks`
 // blocks take 4096-row tiles of the raw/for/bits columns and sel. Each
 // rle column gets one block per 2048-run tile; a block takes its tile by
 // an atomic ticket (so every earlier tile's block is already running),
@@ -235,8 +236,10 @@ __global__ void k18_decode(K18Args a) {
         k18_row(c, r);
       }
     }
-    for (long long r = r0 + threadIdx.x; r < r1; r += K18_THREADS) {
-      a.sel[r] = r < a.count ? 1 : 0;
+    if (a.sel != nullptr) {
+      for (long long r = r0 + threadIdx.x; r < r1; r += K18_THREADS) {
+        a.sel[r] = r < a.count ? 1 : 0;
+      }
     }
     return;
   }
@@ -252,7 +255,9 @@ __global__ void k18_decode(K18Args a) {
 
 // Per column (ncols of them): kind, src_dt, dst_dt, src, lens, dst, base
 // bits, run_cap and state (rle: ntiles + 1 zeroed uint64 words). cap: the
-// chunk capacity; count: its live rows; sel: bool [cap].
+// chunk capacity; count: its live rows; sel: bool [cap], or null when an
+// earlier launch over the chunk's other planes wrote it (the wrapper
+// launches once per K18_MAX_COLS planes).
 extern "C" int ob_k18_decode(int ncols, const int* kind, const int* src_dt,
                              const int* dst_dt, const void* const* src,
                              const void* const* lens, void* const* dst,

@@ -224,6 +224,59 @@ __device__ __forceinline__ unsigned int ob_hash32_row(
   return h;
 }
 
+// A tuple of 1..OB_MAX_KEYS key columns passed by value to a kernel: the
+// columns' addresses and type codes (K14's hash set, K29's group-by).
+#define OB_MAX_KEYS 16
+
+struct ObKeys {
+  const void* col[OB_MAX_KEYS];
+  int dt[OB_MAX_KEYS];
+  int ncols;
+};
+
+// Fill an ObKeys from host arrays; 0 when ncols is out of range.
+static inline int ob_keys_set(ObKeys* k, int ncols, const void* const* cols,
+                              const int* dts) {
+  if (ncols < 1 || ncols > OB_MAX_KEYS) return 0;
+  k->ncols = ncols;
+  for (int j = 0; j < ncols; j++) {
+    k->col[j] = cols[j];
+    k->dt[j] = dts[j];
+  }
+  return 1;
+}
+
+// hash32_combine (oceanbase_tpu/ops/hashing.py:76) of row i of a key
+// tuple: h = 0; for each column c: h = mix32(h ^ (fold32(c) + GOLDEN32)).
+__device__ __forceinline__ unsigned int ob_keys_hash32(const ObKeys& c,
+                                                       long long i) {
+  unsigned int h = 0u;
+  for (int j = 0; j < c.ncols; j++) {
+    h = ob_mix32(h ^ (ob_fold32(c.col[j], c.dt[j], i) + OB_GOLDEN32));
+  }
+  return h;
+}
+
+// Row a of key tuple x equals row b of key tuple y, column by column with
+// `==` (in double where either side is a float, so NaN never equals and
+// -0.0 equals 0.0).
+__device__ __forceinline__ bool ob_keys_equal(const ObKeys& x, long long a,
+                                              const ObKeys& y, long long b) {
+  for (int j = 0; j < x.ncols; j++) {
+    if (ob_is_float(x.dt[j]) || ob_is_float(y.dt[j])) {
+      double u = ob_is_float(x.dt[j]) ? ob_ldg_f64(x.col[j], x.dt[j], a)
+                                      : (double)ob_ldg_i64(x.col[j], x.dt[j], a);
+      double v = ob_is_float(y.dt[j]) ? ob_ldg_f64(y.col[j], y.dt[j], b)
+                                      : (double)ob_ldg_i64(y.col[j], y.dt[j], b);
+      if (!(u == v)) return false;
+    } else if (ob_ldg_i64(x.col[j], x.dt[j], a) !=
+               ob_ldg_i64(y.col[j], y.dt[j], b)) {
+      return false;
+    }
+  }
+  return true;
+}
+
 // Copy element `s` of a plane of `esize`-byte elements to element `d` of
 // another (a zero when s < 0).
 __device__ __forceinline__ void ob_copy_elem(const void* src, void* dst,

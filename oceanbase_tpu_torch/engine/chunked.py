@@ -15,12 +15,14 @@ sum/count/min/max partials merge exactly (count merges by sum; avg was
 already decomposed into sum/count by the resolver). Joins on the stream
 path keep the streamed side as the probe (left) input, so every chunk
 probes the same resident build sides. The chunk capacity is constant
-across chunks (the last chunk is padded). The chunk loop itself is
-engine/pipeline.run_stream: prefetched, wire-encoded chunks decoded on
-the device by kernel K18.
-
-Not ported: the PX chunk source's host-slice path (`_run_legacy` and its
-`_decode_chunk` decode), which waits for the mesh.
+across chunks (the last chunk is padded). Two chunk loops: the single
+device's is engine/pipeline.run_stream (prefetched, wire-encoded chunks
+decoded on the device by kernel K18); a chunk source that cannot take
+staged chunks (the PX chunk source, parallel/px.py, whose uploads split
+over the mesh) runs `_run_legacy`, the host-slice loop: each chunk's
+columns ship frame-of-reference narrowed, split over the mesh, and
+`decode_chunk` (the reference's `_decode_chunk`) widens each shard's slice
+on its device, again on K18.
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ from __future__ import annotations
 import os
 from dataclasses import replace as dc_replace
 
+import numpy as np
+import torch
+
+from .. import kernels as K
+from ..core.column import narrow_tier, torch_dtype
 from ..core.dtypes import DataType, Field, Schema
 from ..expr import ir as E
 from ..sql.logical import (
@@ -49,12 +56,54 @@ from .executor import (
     _unpack_qparams,
     pack_qparams,
 )
-from .pipeline import StreamStats, assemble_partials_table, run_stream
+from .pipeline import (
+    StreamStats,
+    _fetch_partial,
+    _fold_partial,
+    assemble_partials_table,
+    run_stream,
+)
+
+
+def decode_chunk(narrow: dict, bases: dict, count: int, device):
+    """The K18 decode of a narrowed chunk upload: each column
+    widened back to its storage type plus its frame-of-reference base, and
+    the live-row mask sel = arange(cap) < count. Marker keys '#v:<col>'
+    are validity planes (uint8 -> bool, != 0). `narrow`: key -> tensor on
+    `device`; `bases`: key -> numpy scalar of the storage type (none for
+    the '#v:' planes). Returns ({key: column}, sel)."""
+    meta, dtypes, kbases = [], {}, {}
+    for k in narrow:
+        if k.startswith("#v:"):
+            meta.append((k, "raw"))
+            dtypes[k] = torch.bool
+            kbases[k] = 0
+        else:
+            meta.append((k, "for"))
+            dtypes[k] = torch_dtype(np.asarray(bases[k]).dtype)
+            kbases[k] = bases[k]
+    cap = int(next(iter(narrow.values())).shape[0])
+    return K.decode_staged(narrow, kbases, int(count), meta, cap, dtypes,
+                           device)
+
+
+def split_validity(decoded: dict):
+    """A decoded chunk's ({column: values}, {column: validity}): the
+    '#v:<col>' planes are the validity masks."""
+    cols = {k: v for k, v in decoded.items() if not k.startswith("#v:")}
+    valid = {k[3:]: v for k, v in decoded.items() if k.startswith("#v:")}
+    return cols, valid
+
 
 DEFAULT_DEVICE_BUDGET = int(
     os.environ.get("OB_TPU_DEVICE_BUDGET", str(6 << 30))
 )
 DEFAULT_CHUNK_ROWS = int(os.environ.get("OB_TPU_CHUNK_ROWS", str(1 << 23)))
+
+#: chunks the host-slice loop keeps in flight (the reference reads it from
+#: OB_STREAM_PIPELINE, default 2; the port fixes it until a workload needs
+#: another depth)
+_LEGACY_DEPTH = 2
 
 _MERGE_FN = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
 
@@ -294,10 +343,105 @@ class _OverlayCatalog:
         return self.base[name]
 
 
-class _ChunkSourceExecutor(Executor):
+class ChunkWindowMixin:
+    """Chunk-window behaviour shared by the single-device and the PX chunk
+    executors: chunk-sized cardinality estimates, and for the PX source's
+    host-slice loop the [start, end) window and its narrowed host slice.
+    Subclasses provide `table_batch` (the device placement differs: a
+    staged chunk on one device, or slices split over the mesh)."""
+
+    def set_chunk(self, start: int, end: int):
+        self._chunk = (start, end)
+        # drop only the streamed table's cached device batch
+        self.invalidate_table(self.stream_table)
+
+    def _chunk_narrow(self, name, cols):
+        """The current window of the streamed table as narrowed host
+        planes, padded to the constant chunk capacity: (narrow, bases,
+        count, sub_schema, dicts). Integer columns ship frame-of-reference
+        narrowed (min-subtracted, downcast per `narrow_tier`), their tiers
+        frozen per column from the TABLE's min/max on first use so every
+        chunk decodes alike; a chunk outside the frozen frame (the data
+        changed under a cached plan) ships at full width, base 0. Pad rows
+        sit inside the frame (sel masks them)."""
+        s, e = self._chunk
+        t = self.catalog[name]
+        sub_schema = Schema(
+            tuple(f for f in t.schema.fields if f.name in cols)
+        )
+        cap = self.chunk_rows
+        narrow: dict = {}
+        bases: dict = {}
+        if not hasattr(self, "_narrow_plan"):
+            self._narrow_plan: dict = {}
+
+        def tier_of(key, full, storage):
+            hit = self._narrow_plan.get(key)
+            if hit is None:
+                a = np.asarray(full)
+                if (np.dtype(storage).kind in "iu" and a.ndim == 1
+                        and len(a)):
+                    amin = int(a.min())
+                    nt = narrow_tier(
+                        amin, int(a.max()), np.dtype(storage).itemsize)
+                    hit = (nt, amin) if nt is not None else (None, 0)
+                else:
+                    hit = (None, 0)
+                self._narrow_plan[key] = hit
+            return hit
+
+        def add(key, a, storage, full):
+            a = np.asarray(a, dtype=storage)
+            nt, base = tier_of(key, full, storage)
+            if cap > len(a):
+                # pad INSIDE the frozen frame (zeros would fall below a
+                # positive table min and force the full-width fallback on
+                # every final chunk)
+                padv = base if nt is not None else 0
+                a = np.concatenate(
+                    [a, np.full((cap - len(a),) + a.shape[1:], padv,
+                                dtype=a.dtype)])
+            if nt is not None:
+                d = a.astype(np.int64) - base
+                if 0 <= int(d.min()) and int(d.max()) <= np.iinfo(nt).max:
+                    narrow[key] = d.astype(nt)
+                    bases[key] = a.dtype.type(base)
+                    return
+            narrow[key] = a
+            if not key.startswith("#v:"):
+                bases[key] = a.dtype.type(0)
+
+        for f in sub_schema.fields:
+            add(f.name, t.data[f.name][s:e], f.dtype.storage_np,
+                t.data[f.name])
+        for c, v in t.valid.items():
+            if c in cols:
+                add(f"#v:{c}", np.asarray(v[s:e], np.uint8), np.uint8, v)
+        dicts = {c: d for c, d in t.dicts.items() if c in cols}
+        return narrow, bases, e - s, sub_schema, dicts
+
+    def _est_rows(self, op):
+        # the streamed scan sees chunk_rows per execution, not table rows
+        if isinstance(op, Scan) and op.table == self.stream_table:
+            est = float(self.chunk_rows)
+            if op.pushed_filter is not None:
+                t = self.catalog[op.table]
+                ts = self.stats.table_stats(op.table) if self.stats else None
+                if ts is not None and ts.nrows > 0:
+                    est *= ts.selectivity(op.pushed_filter, t)
+                else:
+                    est *= 0.25 ** min(
+                        len(self._conjuncts(op.pushed_filter)), 3
+                    )
+            return max(est, 1.0)
+        return super()._est_rows(op)
+
+
+class _ChunkSourceExecutor(ChunkWindowMixin, Executor):
     """Executor whose streamed table reads one fixed-capacity chunk: the
     staged chunk of the current window, decoded by K18."""
 
+    supports_staged = True
     chunking_enabled = False
     # chunk windows break the whole-table storage-order premise of the
     # clustered-FK segment aggregation (fk_ranges index full-table rows)
@@ -336,22 +480,6 @@ class _ChunkSourceExecutor(Executor):
                 f"no staged chunk of {name}: the streamed table is read "
                 "only through engine/pipeline.run_stream")
         return self._stager.decode_batch(self._staged_item, cols)
-
-    def _est_rows(self, op):
-        # the streamed scan sees chunk_rows per execution, not table rows
-        if isinstance(op, Scan) and op.table == self.stream_table:
-            est = float(self.chunk_rows)
-            if op.pushed_filter is not None:
-                t = self.catalog[op.table]
-                ts = self.stats.table_stats(op.table) if self.stats else None
-                if ts is not None and ts.nrows > 0:
-                    est *= ts.selectivity(op.pushed_filter, t)
-                else:
-                    est *= 0.25 ** min(
-                        len(self._conjuncts(op.pushed_filter)), 3
-                    )
-            return max(est, 1.0)
-        return super()._est_rows(op)
 
 
 class ChunkedPreparedPlan:
@@ -429,8 +557,13 @@ class ChunkedPreparedPlan:
 
     def run(self, max_retries: int = 3, qparams: tuple = ()):
         qparams = _unpack_qparams(qparams, self._qparam_spec)
-        cols, valids, dicts = run_stream(
-            self, qparams=qparams, max_retries=max_retries)
+        if getattr(self.chunk_exec, "supports_staged", False):
+            # streaming pipeline (engine/pipeline.py): prefetch-staged
+            # wire-encoded chunks, decode on the device, overlap metering
+            cols, valids, dicts = run_stream(
+                self, qparams=qparams, max_retries=max_retries)
+        else:
+            cols, valids, dicts = self._run_legacy(max_retries, qparams)
         partials, self._partial_cap = assemble_partials_table(
             self.partial_schema, cols, valids, dicts, self._partial_cap)
         self._overlay_extra["$partials"] = partials
@@ -440,3 +573,90 @@ class ChunkedPreparedPlan:
             self._merge_prepared = self.merge_exec.prepare(self.above_plan)
             self._merge_cap = self._partial_cap
         return self._merge_prepared.run(max_retries, qparams=qparams)
+
+    def _run_legacy(self, max_retries: int = 3, qparams: tuple = ()):
+        """The host-slice chunk loop: each chunk's narrowed slice is
+        uploaded by the chunk executor's table read and decoded by K18.
+        Dispatch runs up to `_LEGACY_DEPTH` chunks ahead of the draining
+        fetch, capped so the chunks in flight stay inside half the device
+        budget. Only the first overflow since the last
+        rebuild bumps the capacities and spends a retry: chunks dispatched
+        before it re-run on the grown capacities for free, each at the
+        head of the queue. A killed statement stops between chunks.
+        Returns (cols, valids, dicts) accumulators for the $partials
+        assembly."""
+        from collections import deque
+
+        from ..share.interrupt import checkpoint
+
+        t = self.executor.catalog[self.stream.table]
+        n = t.nrows or 0
+        depth = _LEGACY_DEPTH
+        if n:
+            # the pipeline holds `depth` chunk slices on the device at
+            # once; the split's budget math sized ONE chunk
+            needed = self.executor._needed_columns(self.plan).get(
+                self.stream.alias
+            ) or set()
+            per_row = max(1, sum(
+                t.schema[c].storage_np.itemsize for c in needed
+            )) if needed else 8
+            chunk_bytes = per_row * self.chunk_rows
+            fit = max(1, int(self.executor.device_budget * 0.5)
+                      // max(chunk_bytes, 1))
+            depth = max(1, min(depth, fit))
+        windows: deque = deque()
+        s = 0
+        while s < n:
+            e = min(s + self.chunk_rows, n)
+            windows.append((s, e))
+            s = e
+        if n == 0:
+            windows.append((0, 0))
+        pending: deque = deque()  # (s, e, gen, out, ovf)
+        attempts_of: dict = {}
+        params_gen = 0  # bumps once per rebuild: two in-flight chunks
+        # overflowing the same node must not bump the capacities twice
+        cols: dict[str, list] = {
+            f.name: [] for f in self.partial_schema.fields}
+        valids: dict[str, list] = {}
+        dicts: dict = {}
+        prepared = self.chunk_prepared
+
+        def dispatch(win):
+            ws, we = win
+            self.chunk_exec.set_chunk(ws, we)
+            out, ovf = prepared.program(prepared._inputs(), qparams)
+            pending.append((ws, we, params_gen, out, ovf))
+
+        while windows or pending:
+            checkpoint()  # a killed query stops between chunks
+            while windows and len(pending) < depth:
+                dispatch(windows.popleft())
+            ws, we, gen, out, ovf = pending.popleft()
+            hovf, hcols, hvalid, hsel = _fetch_partial(
+                self.partial_schema, out, ovf)
+            overflows = prepared._overflows(np.asarray(hovf))
+            if overflows:
+                if gen == params_gen:
+                    a = attempts_of.get(ws, 0)
+                    if a >= max_retries:
+                        raise RuntimeError(
+                            f"chunk [{ws},{we}) capacity overflow after "
+                            f"{max_retries} retries: {overflows}")
+                    attempts_of[ws] = a + 1
+                    self.retries += 1
+                    prepared.retries += 1
+                    prepared.params.bump(overflows)
+                    prepared.recompile()
+                    params_gen += 1
+                # chunks in flight ran at the SMALL capacities: their own
+                # counters decide when drained; this one re-dispatches at
+                # the head of the queue
+                windows.appendleft((ws, we))
+                continue
+            self.stream_stats.chunks += 1
+            _fold_partial(self.partial_schema, cols, valids, hcols, hvalid,
+                          hsel)
+            dicts.update(out.dicts)
+        return cols, valids, dicts

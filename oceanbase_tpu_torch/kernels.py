@@ -36,6 +36,9 @@ K27 `shard_merge`      shard-order partial merge (csrc/k27_shard_merge.cu)
 K28 `range_histogram`, `hash_histogram`, `bloom_bits`, `range_bounds`,
     `hot_buckets`, `bucket_probe`
                        PX key histograms, bloom  (csrc/k28_bucket_hist.cu)
+K29 `hash_groupby`, `slot_aggregate`
+                       general hash group-by      (csrc/k29_hash_groupby.cu)
+K30 `join_product_sum` matched product sum       (csrc/k30_join_product_sum.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -96,6 +99,8 @@ KERNEL_NAMES = (
     "K26_exchange_recv",
     "K27_shard_merge",
     "K28_bucket_hist",
+    "K29_hash_groupby",
+    "K30_join_product_sum",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
@@ -159,6 +164,8 @@ SOURCES = (
     "k26_exchange_recv.cu",
     "k27_shard_merge.cu",
     "k28_bucket_hist.cu",
+    "k29_hash_groupby.cu",
+    "k30_join_product_sum.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -318,6 +325,9 @@ def _load():
         lib.ob_k28_bounds.argtypes = [P, L, P, I, P, P]
         lib.ob_k28_hot.argtypes = [P, P, L, I, P, P]
         lib.ob_k28_probe.argtypes = [I, P, P, L, P, L, P, I, P]
+        lib.ob_k29_groupby.argtypes = [I, P, P, P, L, L, I, P, P, P, P, P, P,
+                                       P, P, P, P, P, I, I, P]
+        lib.ob_k30_product_sum.argtypes = [P, I, P, I, P, L, P, I, P]
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -340,7 +350,8 @@ def _load():
                    lib.ob_k25_dest, lib.ob_k25_pack,
                    lib.ob_k25_round_robin, lib.ob_k26_recv, lib.ob_k27_merge,
                    lib.ob_k28_hist, lib.ob_k28_bounds, lib.ob_k28_hot,
-                   lib.ob_k28_probe):
+                   lib.ob_k28_probe, lib.ob_k29_groupby,
+                   lib.ob_k30_product_sum):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -1881,12 +1892,13 @@ def _as_int32(u: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
 
 
-def hash_set_build_plain(key_cols, mask: torch.Tensor, table_size: int):
-    """Plain version of K14's build (ops/join.py build_hash_table over
-    ops/hashagg.py assign_group_slots): every live row probes in lockstep,
-    the lowest row id wins each empty slot, rows meeting an equal tag and
-    key tuple join its slot, the others advance. Returns (slot_tag,
-    slot_row) int32 [T]; empty slots hold row -1, tag 0."""
+def _lockstep_slots(key_cols, mask: torch.Tensor, table_size: int):
+    """The reference's slot assignment (ops/hashagg.py assign_group_slots):
+    every live row probes in lockstep, the lowest row id wins each empty
+    slot, rows meeting an equal tag and key tuple join its slot, the others
+    advance; after table_size rounds a row still pending keeps slot -1.
+    Returns (slot_tag, slot_row, row_slot) int32; empty slots hold row -1,
+    tag 0."""
     cols = list(key_cols)
     n = int(cols[0].shape[0])
     ts = int(table_size)
@@ -1897,6 +1909,7 @@ def hash_set_build_plain(key_cols, mask: torch.Tensor, table_size: int):
     rows = torch.arange(n, dtype=torch.int64, device=dev)
     slot_tag = torch.zeros(ts + 1, dtype=torch.int32, device=dev)
     slot_row = torch.full((ts + 1,), -1, dtype=torch.int32, device=dev)
+    row_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     pending = mask.clone()
     probe_of = torch.zeros(n, dtype=torch.int64, device=dev)
     rnd = 0
@@ -1917,11 +1930,21 @@ def hash_set_build_plain(key_cols, mask: torch.Tensor, table_size: int):
         wpos = torch.where(winner, pos, ts)
         slot_tag[wpos] = tags
         slot_row[wpos] = rows.to(torch.int32)
-        pending = pending & ~(winner | same)
+        matched = winner | same
+        row_slot = torch.where(matched, pos.to(torch.int32), row_slot)
+        pending = pending & ~matched
         advance = pending & at_used & ~((at_tag == tags) & exact)
         probe_of = probe_of + advance.to(torch.int64)
         rnd += 1
-    return slot_tag[:ts].clone(), slot_row[:ts].clone()
+    return slot_tag[:ts].clone(), slot_row[:ts].clone(), row_slot
+
+
+def hash_set_build_plain(key_cols, mask: torch.Tensor, table_size: int):
+    """Plain version of K14's build (ops/join.py build_hash_table over
+    ops/hashagg.py assign_group_slots): (slot_tag, slot_row) int32 [T] of
+    the reference's lockstep schedule."""
+    slot_tag, slot_row, _ = _lockstep_slots(key_cols, mask, table_size)
+    return slot_tag, slot_row
 
 
 def hash_set_probe_plain(slot_tag, slot_row, build_cols, probe_cols,
@@ -2359,8 +2382,9 @@ def _base_bits(b, dtype: torch.dtype) -> int:
 
 def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
                   device):
-    """K18: every column of a staged chunk's wire plan decoded, and sel,
-    in one launch. Returns ({key: column}, sel)."""
+    """K18: every column of a staged chunk's wire plan decoded, and sel.
+    One launch per K18_MAX_COLS planes of `meta`; the first writes sel.
+    Returns ({key: column}, sel)."""
     global _k18_tile
     dev = torch.device(device)
     arrays = []
@@ -2371,17 +2395,27 @@ def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
                                    device)
     if any(a.device != dev for a in arrays):
         raise ValueError(f"K18 staged arrays are not on {dev}")
-    if len(meta) > K18_MAX_COLS:
-        raise ValueError(f"K18 takes at most {K18_MAX_COLS} columns")
     if cap < 1:
         raise ValueError("K18 decodes a chunk of at least one row")
     lib = _load()
     if _k18_tile is None:
         _k18_tile = int(lib.ob_k18_run_tile())
+    out = {}
+    sel = torch.empty(cap, dtype=torch.bool, device=dev)
+    meta = list(meta)
+    for g in range(0, max(len(meta), 1), K18_MAX_COLS):
+        _k18_launch(lib, dev, meta[g:g + K18_MAX_COLS], staged, bases,
+                    count, cap, dtypes, out, sel if g == 0 else None)
+    return out, sel
+
+
+def _k18_launch(lib, dev, meta, staged, bases, count: int, cap: int, dtypes,
+                out: dict, sel) -> None:
+    """One K18 launch over at most K18_MAX_COLS planes, their columns put
+    in `out`; sel is written when given."""
     nc = len(meta)
     kinds, sdt, ddt, src, lens, dst, base, rcap, state = (
         [] for _ in range(9))
-    out = {}
     scratch = []
     for k, kind in meta:
         if kind not in K18_KIND:
@@ -2422,7 +2456,6 @@ def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
         base.append(0 if kind == "bits" else _base_bits(bases[k], dt))
         rcap.append(0)
         state.append(None)
-    sel = torch.empty(cap, dtype=torch.bool, device=dev)
 
     def arr(ctype, vals):
         return (ctype * max(nc, 1))(*vals)
@@ -2433,10 +2466,10 @@ def decode_staged(staged, bases, count: int, meta, cap: int, dtypes,
             nc, arr(ctypes.c_int, kinds), arr(ctypes.c_int, sdt),
             arr(ctypes.c_int, ddt), arr(P, src), arr(P, lens), arr(P, dst),
             arr(ctypes.c_longlong, base), arr(ctypes.c_longlong, rcap),
-            arr(P, state), cap, int(count), sel.data_ptr(), _stream(dev))
+            arr(P, state), cap, int(count),
+            sel.data_ptr() if sel is not None else None, _stream(dev))
         _check(rc, "K18_decode_staged")
     count_launch(LAUNCHES, "K18_decode_staged")
-    return out, sel
 
 
 # ---------------------------------------------------------------------------
@@ -3404,3 +3437,233 @@ def bucket_probe(keys, mask, table):
         _check(rc, "K28_bucket_hist probe")
     count_launch(LAUNCHES, "K28_bucket_hist")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K29: the general hash group-by (slot assignment + per-slot aggregates)
+# ---------------------------------------------------------------------------
+
+K29_MAX_AGGS = 16
+_K29_ACC = {torch.int64: 0, torch.float32: 1, torch.float64: 2}
+
+
+def _k29_out_dtype(op: str, v) -> torch.dtype:
+    """The reference's _apply_agg output type: count and integer sums in
+    int64, float sums and min/max in the value's own type."""
+    if op == "count":
+        return torch.int64
+    if op == "sum":
+        return v.dtype if v.dtype.is_floating_point else torch.int64
+    if op in ("min", "max"):
+        if v.dtype == torch.bool:
+            raise TypeError(f"{op} of a bool column has no identity")
+        return v.dtype
+    raise NotImplementedError(op)
+
+
+def _k29_key_dtype(dtype: torch.dtype) -> torch.dtype:
+    """A group key column's output type: jnp.where(used, key, 0) keeps the
+    key's type but promotes bool to int64."""
+    return torch.int64 if dtype == torch.bool else dtype
+
+
+def slot_aggregate_plain(row_slot, mask: torch.Tensor, aggs,
+                         table_size: int):
+    """Plain version of K29's aggregate pass (ops/hashagg.py _apply_agg):
+    each live row's values scattered into its slot. A dead row drops; a
+    negative slot wraps to slot + T, as JAX's scatter normalizes the index
+    (so a live row left with slot -1 lands in T - 1)."""
+    ts = int(table_size)
+    idx = torch.where(mask, row_slot.to(torch.int64), ts)
+    idx = torch.where(idx < 0, idx + ts, idx)
+    idx = torch.where((idx < 0) | (idx > ts), ts, idx)
+    out = []
+    for op, v in aggs:
+        dt = _k29_out_dtype(op, v)
+        if op == "count":
+            acc = torch.zeros(ts + 1, dtype=dt, device=mask.device)
+            acc.index_add_(0, idx, torch.ones_like(idx))
+        elif op == "sum":
+            acc = torch.zeros(ts + 1, dtype=dt, device=mask.device)
+            acc.index_add_(0, idx, v.to(dt))
+        else:
+            acc = torch.full((ts + 1,), _identity(op, dt), dtype=dt,
+                             device=mask.device)
+            acc.scatter_reduce_(0, idx, v, "amin" if op == "min" else "amax")
+        out.append(acc[:ts].clone())
+    return out
+
+
+def hash_groupby_plain(key_cols, mask: torch.Tensor, aggs, table_size: int):
+    """Plain version of K29 (ops/hashagg.py groupby_hash over
+    assign_group_slots and _apply_agg), the reference's lockstep schedule:
+    (row_slot [N] int32, slot_row [T] int32, slot_used [T] bool, the key
+    columns at each used slot's row (0 elsewhere), the aggregates [T])."""
+    cols = list(key_cols)
+    _tag, slot_row, row_slot = _lockstep_slots(cols, mask, table_size)
+    slot_used = slot_row >= 0
+    rep = slot_row.to(torch.int64).clamp(0, max(int(cols[0].shape[0]) - 1, 0))
+    keys = []
+    for c in cols:
+        g = c[rep].to(_k29_key_dtype(c.dtype))
+        keys.append(torch.where(slot_used, g, torch.zeros_like(g)))
+    return (row_slot, slot_row, slot_used, keys,
+            slot_aggregate_plain(row_slot, mask, aggs, table_size))
+
+
+def _k29_aggs(aggs, n: int, ts: int, dev):
+    """ctypes arrays of the aggregate specs and their output tensors."""
+    aggs = list(aggs)
+    if len(aggs) > K29_MAX_AGGS:
+        raise ValueError(f"K29 takes at most {K29_MAX_AGGS} aggregates")
+    ops, vdts, kinds, odts, vals, accs, outs = ([] for _ in range(7))
+    results, keep = [], []
+    for op, v in aggs:
+        if op not in AGG_CODE:
+            raise NotImplementedError(op)
+        dt = _k29_out_dtype(op, v)
+        if op != "count":
+            _vector(v, n, "K29 values")
+            if v.device != dev:
+                raise ValueError("K29 values lie on another device")
+        acc_dt = dt if dt in _K29_ACC else torch.int64
+        acc = torch.empty(ts, dtype=acc_dt, device=dev)
+        out = acc if acc_dt == dt else torch.empty(ts, dtype=dt, device=dev)
+        keep.append(acc)
+        results.append(out)
+        ops.append(AGG_CODE[op])
+        vdts.append(DTYPE_CODE[v.dtype] if op != "count" else 0)
+        kinds.append(_K29_ACC[acc_dt])
+        odts.append(-1 if out is acc else DTYPE_CODE[dt])
+        vals.append(v.data_ptr() if op != "count" else None)
+        accs.append(acc.data_ptr())
+        outs.append(out.data_ptr() if out is not acc else None)
+    k = max(len(aggs), 1)
+    ia = ctypes.c_int * k
+    pa = ctypes.c_void_p * k
+    args = (len(aggs), ia(*ops), ia(*vdts), ia(*kinds), ia(*odts),
+            pa(*vals), pa(*accs), pa(*outs))
+    return args, results, keep
+
+
+def _k29_launch(lib, dev, keys, mask, n: int, ts: int, agg_args, row_slot,
+                slot_row, slot_used, key_out, what: str) -> None:
+    nk = max(len(keys), 1)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k29_groupby(
+            len(keys), (ctypes.c_void_p * nk)(*[c.data_ptr() for c in keys]),
+            (ctypes.c_int * nk)(*[DTYPE_CODE[c.dtype] for c in keys]),
+            mask.data_ptr(), n, ts, *agg_args,
+            row_slot.data_ptr(),
+            slot_row.data_ptr() if slot_row is not None else None,
+            slot_used.data_ptr() if slot_used is not None else None,
+            (ctypes.c_void_p * nk)(*[o.data_ptr() for o in key_out]),
+            _blocks(dev, n, 256 * 4), _blocks(dev, ts, 256 * 4),
+            _stream(dev))
+        _check(rc, what)
+    count_launch(LAUNCHES, "K29_hash_groupby")
+
+
+def _k29_table(ts: int) -> int:
+    ts = int(ts)
+    if ts < 1 or ts & (ts - 1) or ts >= 2**31:
+        raise ValueError(f"K29 needs a power-of-two table, got {ts}")
+    return ts
+
+
+def hash_groupby(key_cols, mask: torch.Tensor, aggs, table_size: int):
+    """K29: the hash group-by of the live rows' key tuples into a table of
+    `table_size` (a power of two) slots, in one launch. aggs: (op, values)
+    pairs (values None for count). Returns (row_slot, slot_row, slot_used,
+    keys, aggregates) as `hash_groupby_plain`; which key sits in which
+    slot depends on the schedule, the groups and their aggregates do
+    not."""
+    cols = list(key_cols)
+    aggs = list(aggs)
+    vals = [v for op, v in aggs if op != "count"]
+    if not _on_cuda(mask, *cols, *vals):
+        return hash_groupby_plain(cols, mask, aggs, table_size)
+    n = _flags_arg(mask, "K29 sel")
+    if not 1 <= len(cols) <= K14_MAX_COLS:
+        raise ValueError(f"K29 takes 1..{K14_MAX_COLS} key columns")
+    for c in cols:
+        _vector(c, n, "K29 key")
+    if n >= 2**31:
+        raise ValueError("K29 numbers at most 2^31 - 1 rows")
+    ts = _k29_table(table_size)
+    dev = mask.device
+    agg_args, results, _keep = _k29_aggs(aggs, n, ts, dev)
+    row_slot = torch.empty(n, dtype=torch.int32, device=dev)
+    slot_row = torch.empty(ts, dtype=torch.int32, device=dev)
+    slot_used = torch.empty(ts, dtype=torch.bool, device=dev)
+    keys = [torch.empty(ts, dtype=_k29_key_dtype(c.dtype), device=dev)
+            for c in cols]
+    _k29_launch(_load(), dev, cols, mask, n, ts, agg_args, row_slot,
+                slot_row, slot_used, keys, "K29_hash_groupby")
+    return row_slot, slot_row, slot_used, keys, results
+
+
+def slot_aggregate(row_slot, mask: torch.Tensor, aggs, table_size: int):
+    """K29's aggregate pass alone over given slots (ops/hashagg.py
+    _apply_agg): the aggregates [T] as `slot_aggregate_plain`."""
+    aggs = list(aggs)
+    vals = [v for op, v in aggs if op != "count"]
+    if not _on_cuda(row_slot, mask, *vals):
+        return slot_aggregate_plain(row_slot, mask, aggs, table_size)
+    n = _flags_arg(mask, "K29 sel")
+    _vector(row_slot, n, "K29 row slots")
+    if row_slot.dtype != torch.int32:
+        raise TypeError("K29 row slots are int32")
+    ts = _k29_table(table_size)
+    dev = mask.device
+    agg_args, results, _keep = _k29_aggs(aggs, n, ts, dev)
+    _k29_launch(_load(), dev, [], mask, n, ts, agg_args, row_slot, None,
+                None, [], "K29_hash_groupby aggregate")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# K30: the matched product sum of a unique-build join
+# ---------------------------------------------------------------------------
+
+
+def join_product_sum_plain(lv: torch.Tensor, rv: torch.Tensor,
+                           match: torch.Tensor):
+    """Plain version of K30 (ops/spill.py _device_join_sum after its
+    probe): (sum of lv[i] * rv[match[i]] over match[i] >= 0, their
+    count), int64 0-d tensors, wrapping as int64 arithmetic does."""
+    hit = match >= 0
+    idx = match.to(torch.int64).clamp(min=0)
+    if rv.shape[0] == 0:
+        prod = torch.zeros(lv.shape[0], dtype=torch.int64, device=lv.device)
+    else:
+        prod = lv.to(torch.int64) * rv.to(torch.int64)[idx]
+    prod = torch.where(hit, prod, torch.zeros_like(prod))
+    return prod.sum(), hit.sum(dtype=torch.int64)
+
+
+def join_product_sum(lv: torch.Tensor, rv: torch.Tensor,
+                     match: torch.Tensor):
+    """K30: (sum of lv[i] * rv[match[i]] where match[i] >= 0, count), int64
+    0-d tensors, in one pass."""
+    if not _on_cuda(lv, rv, match):
+        return join_product_sum_plain(lv, rv, match)
+    n = int(match.shape[0])
+    _vector(lv, n, "K30 probe values")
+    _vector(match, n, "K30 match")
+    _vector(rv, int(rv.shape[0]), "K30 build values")
+    if match.dtype != torch.int32:
+        raise TypeError("K30 match rows are int32")
+    if lv.dtype.is_floating_point or rv.dtype.is_floating_point:
+        raise TypeError("K30 multiplies integer values")
+    dev = match.device
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.ob_k30_product_sum(
+            lv.data_ptr(), DTYPE_CODE[lv.dtype], rv.data_ptr(),
+            DTYPE_CODE[rv.dtype], match.data_ptr(), n, out.data_ptr(),
+            _blocks(dev, n, 256 * 8), _stream(dev))
+        _check(rc, "K30_join_product_sum")
+    count_launch(LAUNCHES, "K30_join_product_sum")
+    return out[0], out[1]

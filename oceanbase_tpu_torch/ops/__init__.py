@@ -1,5 +1,11 @@
 from .gather import gather_rows
-from .hashagg import groupby_direct, scalar_aggregate, sort_groupby
+from .hashagg import (
+    assign_group_slots,
+    groupby_direct,
+    groupby_hash,
+    scalar_aggregate,
+    sort_groupby,
+)
 from .hashing import hash_combine, mix64, next_pow2, pack_keys
 from .join import (
     expand_join,
@@ -11,9 +17,11 @@ from .join import (
 from .sort import sort_indices, topn_indices
 
 __all__ = [
+    "assign_group_slots",
     "expand_join",
     "gather_rows",
     "groupby_direct",
+    "groupby_hash",
     "hash_combine",
     "join_keys64",
     "merge_join_unique",

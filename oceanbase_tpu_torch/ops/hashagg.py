@@ -1,13 +1,14 @@
 """Aggregation operators over the port's kernels.
 
-Counterpart of `oceanbase_tpu/ops/hashagg.py` for the ungrouped path
+Counterpart of `oceanbase_tpu/ops/hashagg.py`: the ungrouped path
 (`scalar_aggregate`, kernel K1), the direct-addressed group-by
-(`groupby_direct`, kernel K2), the sort-based group-by (`sort_groupby`:
-the order from K3, the sorted keys through K4, the segmented reduction
-K8), the first-occurrence mask of DISTINCT aggregates
-(`distinct_first_mask`: the order from K3, the run starts written back
-through it by K15) and the HyperLogLog count of `approx_ndv` (K16). The
-hash group-by is not ported yet.
+(`groupby_direct`, kernel K2), the general hash group-by (`groupby_hash`
+over `assign_group_slots` and `_apply_agg`, kernel K29), the sort-based
+group-by (`sort_groupby`: the order from K3, the sorted keys through K4,
+the segmented reduction K8), the first-occurrence mask of DISTINCT
+aggregates (`distinct_first_mask`: the order from K3, the run starts
+written back through it by K15) and the HyperLogLog count of
+`approx_ndv` (K16).
 """
 
 from __future__ import annotations
@@ -18,11 +19,48 @@ from ..kernels import (
     first_occurrence,
     gather_columns,
     groupby_slots,
+    hash_groupby,
     scalar_reduce,
     segmented_reduce,
+    slot_aggregate,
 )
+from .hashing import next_pow2
 from .hll import hll_count
 from .sort import sort_indices
+
+
+def assign_group_slots(key_cols: list[torch.Tensor], mask: torch.Tensor,
+                       table_size: int):
+    """Each live row's slot in an open-addressing table of `table_size`
+    slots (K29). Returns (row_slot [N] int32, slot_used [T] bool,
+    slot_row [T] int32: each used slot's lowest row). Dead rows, and live
+    rows that find no slot in a full table, get slot -1."""
+    row_slot, slot_row, slot_used, _keys, _aggs = hash_groupby(
+        [c.contiguous() for c in key_cols], mask, [], table_size)
+    return row_slot, slot_used, slot_row
+
+
+def _apply_agg(op: str, row_slot, mask, values, table_size: int):
+    """One aggregate scattered into the slots of `row_slot` (K29's
+    aggregate pass): count and integer sums in int64, float sums and
+    min/max in the value's type; dead rows drop, slot -1 wraps to T - 1
+    as JAX's scatter does."""
+    return slot_aggregate(row_slot, mask, [(op, values)], table_size)[0]
+
+
+def groupby_hash(key_cols: list[torch.Tensor], mask: torch.Tensor,
+                 agg_ops: list[str], agg_values: list, table_size: int):
+    """General hash group-by, one K29 launch.
+
+    Returns (group_keys: list of [T] arrays, the key columns at each used
+    slot's first row and 0 elsewhere; slot_used [T]; aggs: list of [T]
+    arrays). table_size must be a power of two >= 2 * expected NDV."""
+    assert table_size == next_pow2(table_size)
+    _row_slot, _slot_row, slot_used, keys, aggs = hash_groupby(
+        [c.contiguous() for c in key_cols], mask,
+        [(op, None if op == "count" else v.contiguous())
+         for op, v in zip(agg_ops, agg_values)], table_size)
+    return keys, slot_used, aggs
 
 
 def scalar_aggregate(mask: torch.Tensor, agg_ops: list[str],

@@ -37,8 +37,11 @@ Placement rules:
         large sorts exchange by RANGE, large DISTINCTs by hash.
   root: gathered if still SHARDED.
 
-Not ported yet: the out-of-core PX chunk source (`make_chunk_source`
-and `_PxChunkSourceExecutor` raise NotImplementedError).
+Out-of-core PX: a statement over the device budget streams its biggest
+table through the SPMD program chunk by chunk (`make_chunk_source`,
+`_PxChunkSourceExecutor`): each chunk's narrowed host planes split over
+the mesh and widen on every shard's device (K18), one counted host hop a
+chunk.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 
 from ..core.column import ColumnBatch, make_batch
 from ..core.dtypes import Schema
+from ..engine.chunked import ChunkWindowMixin, decode_chunk, split_validity
 from ..engine.executor import (
     DIRECT_GROUPBY_MAX_DOMAIN,
     PACK_GUARD_BASE,
@@ -89,7 +93,7 @@ from .exchange import (
 )
 from .group import current, run_spmd
 from .mesh import Mesh, mesh_signature
-from .spmd import ShardedResidency, SpmdLowering, shard_put
+from .spmd import ShardedResidency, SpmdLowering, shard_put, shard_put_planes
 
 SHARDED = "sharded"
 REPLICATED = "replicated"
@@ -176,9 +180,28 @@ class PxExecutor(Executor):
     scan_slice_enabled = False
 
     def make_chunk_source(self, stream_table: str, chunk_rows: int):
-        raise NotImplementedError(
-            "PxExecutor.make_chunk_source (out-of-core PX: "
-            "_PxChunkSourceExecutor) is not ported to the torch engine yet")
+        # per-shard granularity: the chunk capacity must shard evenly
+        unit = 1024 * self.nsh
+        rows = -(-chunk_rows // unit) * unit
+        src = _PxChunkSourceExecutor(
+            self.catalog, stream_table, rows, mesh=self.mesh,
+            unique_keys=self.unique_keys, stats=self.stats,
+            default_rows_estimate=self.default_rows_estimate,
+            broadcast_threshold=self.broadcast_threshold,
+            join_bloom=self.join_bloom,
+            bloom_max_bits=self.bloom_max_bits,
+            hybrid_hash=self.hybrid_hash,
+            broadcast_impl=self.broadcast_impl,
+            tracer=self.tracer, metrics=self.metrics,
+            access=self.access,
+        )
+        # the streamed path re-crosses the host every chunk: it shares the
+        # observability channels so those hops are COUNTED, and the
+        # residency ledger so resident side tables charge the governor once
+        src.timeline = self.timeline
+        src.governor = self.governor
+        src.residency = self.residency
+        return src
 
     def _affine_build_info(self, op):
         # every batch is a per-shard SLICE (and hash exchanges reorder
@@ -1117,14 +1140,61 @@ class PxExecutor(Executor):
         return run, input_spec, overflow_nodes
 
 
-class _PxChunkSourceExecutor(PxExecutor):
-    """The out-of-core PX chunk source (a chunk of the streamed table per
-    SPMD run) is not ported yet."""
+class _PxChunkSourceExecutor(ChunkWindowMixin, PxExecutor):
+    """PxExecutor whose streamed table reads one fixed-capacity chunk:
+    every chunk of the out-of-core loop is one SPMD run over the mesh
+    (engine/chunked.py drives it through `_run_legacy`; the window and
+    estimate logic lives in ChunkWindowMixin)."""
 
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "_PxChunkSourceExecutor (out-of-core PX) is not ported to the "
-            "torch engine yet")
+    chunking_enabled = False
+    # the host-slice chunk loop: the uploads split over the mesh, so the
+    # single device's prefetch/staging pipeline does not apply
+    supports_staged = False
+
+    def __init__(self, catalog, stream_table: str, chunk_rows: int,
+                 mesh=None, **kw):
+        super().__init__(catalog, mesh, **kw)
+        self.stream_table = stream_table
+        self.chunk_rows = chunk_rows
+        self._chunk: tuple[int, int] | None = None
+
+    def table_batch(self, name: str, cols: tuple[str, ...]):
+        if name != self.stream_table or self._chunk is None:
+            return super().table_batch(name, cols)
+        narrow, bases, count, _schema, _dicts = self._chunk_narrow(
+            name, cols)
+        # THE host-mediated DTL hop: each chunk of the streamed table
+        # crosses host->device per dispatch. Counted so a resident run can
+        # be shown to make none: collectives move all steady-state data.
+        m = self.metrics
+        if m is not None:
+            m.add("px dtl host hops")
+        low = self._lowering
+        if low is not None:
+            low.note_host_hop()
+        raw, nbytes = shard_put_chunk(self.mesh, narrow, bases, count)
+        self.h2d_bytes += nbytes
+        return raw
+
+
+def shard_put_chunk(mesh, narrow: dict, bases: dict, count: int):
+    """Partition a streamed chunk's narrowed host planes (numpy, capacity
+    a multiple of the shard count; engine/chunked.py `_chunk_narrow`)
+    across the mesh and widen each shard's slice on its device with one
+    `decode_chunk` (K18). Shard i's live count is clamp(count - i * per,
+    0, per), so its sel is the slice of a whole-chunk decode. The wire
+    stays narrow up to each device. Returns (raw, nbytes) as `shard_put`,
+    nbytes the narrow bytes placed."""
+    parts, per, nbytes = shard_put_planes(
+        mesh, {k: torch.from_numpy(np.ascontiguousarray(a))
+               for k, a in narrow.items()})
+    raw = []
+    for i, (dev, up) in enumerate(zip(mesh.devices, parts)):
+        live = min(max(int(count) - i * per, 0), per)
+        decoded, sel = decode_chunk(up, bases, live, dev)
+        cols, valid = split_validity(decoded)
+        raw.append({"cols": cols, "valid": valid, "sel": sel})
+    return raw, nbytes
 
 
 def _override(emit, node, result):

@@ -20,7 +20,9 @@ plan dispatches, over which mesh, moving how many bytes, lives here:
     memory governor must charge per device. Shards that share a device
     add up on it.
   * ``shard_put`` -- partition a host-built ColumnBatch across the mesh,
-    one row slice per shard on the shard's device.
+    one row slice per shard on the shard's device; ``shard_put_planes``
+    the same for loose host planes (a streamed chunk's narrowed columns,
+    which the PX chunk source then widens on each shard's device).
 """
 
 from __future__ import annotations
@@ -178,38 +180,59 @@ class ShardedResidency:
             return dict(self._tables)
 
 
+def _put(t, lo: int, hi: int, dev):
+    """Rows [lo, hi) of a host tensor on a shard's device: pinned staging
+    on a card, so the copy runs without a host sync."""
+    part = t[lo:hi].contiguous()
+    if dev.type != "cuda":
+        return part.to(dev)
+    return part.pin_memory().to(dev, non_blocking=True)
+
+
+def _per_shard(mesh, cap: int) -> int:
+    n = mesh.size
+    if cap % n:
+        raise ValueError(f"capacity {cap} does not split over {n} shards")
+    return cap // n
+
+
 def shard_put(mesh, batch):
     """Partition a host-built ColumnBatch (CPU tensors, capacity a
     multiple of the shard count) across the mesh: shard i gets rows
     [i * per, (i + 1) * per) on its device. Returns (raw, nbytes): one
     {"cols", "valid", "sel"} dict per shard, and the TOTAL bytes
     placed."""
-    n = mesh.size
-    cap = batch.capacity
-    if cap % n:
-        raise ValueError(f"capacity {cap} does not split over {n} shards")
-    per = cap // n
+    per = _per_shard(mesh, batch.capacity)
     raw = []
     nbytes = 0
     for i, dev in enumerate(mesh.devices):
         lo, hi = i * per, (i + 1) * per
-
-        def put(t):
-            part = t[lo:hi].contiguous()
-            if dev.type != "cuda":
-                return part.to(dev)
-            # pinned staging: the copy runs without a host sync
-            return part.pin_memory().to(dev, non_blocking=True)
-
         part = {
-            "cols": {c: put(a) for c, a in batch.cols.items()},
-            "valid": {c: put(a) for c, a in batch.valid.items()},
-            "sel": put(batch.sel),
+            "cols": {c: _put(a, lo, hi, dev) for c, a in batch.cols.items()},
+            "valid": {c: _put(a, lo, hi, dev)
+                      for c, a in batch.valid.items()},
+            "sel": _put(batch.sel, lo, hi, dev),
         }
         nbytes += sum(int(a.nbytes) for d in (part["cols"], part["valid"])
                       for a in d.values()) + int(part["sel"].nbytes)
         raw.append(part)
     return raw, nbytes
+
+
+def shard_put_planes(mesh, planes: dict):
+    """Partition host planes (CPU tensors of one length, a multiple of the
+    shard count) across the mesh as `shard_put` does a batch. Returns
+    (parts, per, nbytes): one {key: tensor} dict per shard, the rows per
+    shard, and the TOTAL bytes placed."""
+    per = _per_shard(mesh, len(next(iter(planes.values()))))
+    parts = []
+    nbytes = 0
+    for i, dev in enumerate(mesh.devices):
+        lo, hi = i * per, (i + 1) * per
+        part = {k: _put(a, lo, hi, dev) for k, a in planes.items()}
+        nbytes += sum(int(a.nbytes) for a in part.values())
+        parts.append(part)
+    return parts, per, nbytes
 
 
 __all__ = [
@@ -220,4 +243,5 @@ __all__ = [
     "SpmdLowering",
     "mesh_signature",
     "shard_put",
+    "shard_put_planes",
 ]

@@ -1,4 +1,5 @@
-"""Tmp-file manager: spill storage for the grace-hash route.
+"""Tmp-file manager: spill storage for the grace-hash route and the spill
+operators (ops/spill.py).
 
 Counterpart of `oceanbase_tpu/storage/tmp_file.py` without the per-tenant
 IO manager and the fault-injection arms: numpy column segments go to
@@ -70,6 +71,10 @@ class TmpFileManager:
                 self._bytes -= sz
         except FileNotFoundError:
             pass
+
+    @property
+    def bytes_used(self) -> int:
+        return self._bytes
 
     def close(self) -> None:
         shutil.rmtree(self.root, ignore_errors=True)

@@ -1,15 +1,13 @@
-"""The port's mesh-SPMD subsystem against the JAX package's: twins of 9 of
-the 12 tests of tests/test_mesh_spmd.py and of the 5 of
+"""The port's mesh-SPMD subsystem against the JAX package's: twins of 10
+of the 12 tests of tests/test_mesh_spmd.py and of the 5 of
 tests/test_exchange_methods.py, the port on `cpu` shards (one thread a
 shard), JAX on its 8 virtual CPU devices.
 
-Three test_mesh_spmd cases wait:
+Two test_mesh_spmd cases wait:
 - test_shard_map_shim_tracks_pinned_jax: the shard_map version shim is
   JAX-only; the port runs its shards eagerly and has no shim;
 - test_artifact_mesh_shape_mismatch_recompiles: needs PlanArtifactStore,
-  not ported yet;
-- test_streamed_chunks_are_the_only_host_hops: the out-of-core PX chunk
-  source comes with a later slice (make_chunk_source raises).
+  not ported yet.
 """
 
 import numpy as np
@@ -30,6 +28,7 @@ from oceanbase_tpu.parallel.mesh import SHARD_AXIS
 from oceanbase_tpu.parallel.mesh import make_mesh as j_make_mesh
 from oceanbase_tpu.parallel.mesh import shard_map_compat
 from oceanbase_tpu.parallel.px import PxExecutor as JPx
+from oceanbase_tpu.share.metrics import MetricsRegistry as JMetrics
 from oceanbase_tpu.sql import parser as JP
 from oceanbase_tpu.sql.planner import Planner as JPlanner
 from oceanbase_tpu_torch.core.dtypes import DataType as TDT
@@ -211,6 +210,31 @@ def test_collective_counters_fold_into_metrics(env):
     assert snap.get("px collective bytes", 0) > 0
     assert snap.get("px sharded upload bytes", 0) > 0
     assert snap.get("px dtl host hops", 0) == 0
+
+
+def test_streamed_chunks_are_the_only_host_hops(env):
+    """Out-of-core PX (a device budget that streams lineitem) pays one
+    counted host hop per chunk dispatch, and its rows equal the single
+    device's and the JAX mesh's; the resident run above counted none.
+    The port's budget is per device and its 8 shards share one, so it
+    gets 8 x the 32 KiB the JAX executor multiplies by its 8 devices."""
+    m = MetricsRegistry()
+    px = TPx(env["tt"], _cpu_mesh(), unique_keys=UNIQUE_KEYS, metrics=m,
+             device_budget=NSH * (32 << 10), chunk_rows=1 << 13)
+    tp, jp = _both(env, QUERIES[6])
+    prepared = px.prepare(tp.plan)
+    got = px_rows(prepared.run(), tp.output_names)
+    assert got == _rows(env["single"], tp)
+    n_chunks = -(-env["tt"]["lineitem"].nrows // prepared.chunk_rows)
+    assert n_chunks >= 2
+    assert prepared.stream_stats.chunks == n_chunks
+    assert m.counters_snapshot().get("px dtl host hops", 0) == n_chunks
+    jm = JMetrics()
+    jpx = JPx(env["jt"], j_make_mesh(NSH), unique_keys=UNIQUE_KEYS,
+              metrics=jm, device_budget=32 << 10, chunk_rows=1 << 13)
+    rows_equal(px_rows(jpx.execute(jp.plan), jp.output_names), got,
+               "Q6 streamed vs JAX mesh")
+    assert jm.counters_snapshot().get("px dtl host hops", 0) >= n_chunks
 
 
 def test_mesh_signature_identifies_geometry():
