@@ -154,6 +154,34 @@ with sum/count/min/max on int64 and float64 (group sets equal to the
 plain version's, float sums to rel 1e-12), K14 + K30 over one partition
 pair (exact, also with products that wrap), each timed.
 
+The caps leg (after the main path's kernel checks, its own counts): the
+statements that reach a wrapper past its old by-value width, at SF 10 on
+the card (an INTERSECT and an EXCEPT over 18 key planes of a LEFT JOIN's
+null-extended side: K14; a GROUP BY l_suppkey with 17 aggregates and one
+over 17 key planes: K8; 17 sums over lineitem clustered by l_orderkey
+joined to orders: K6; a self-join of lineitem on 9 integer columns: K12;
+count(DISTINCT l_suppkey) under 8 nullable keys, 17 keys: K15), each past
+its old cap at the call (the projection phase adds P_BOUNDS17, a range
+of 17 conjuncts: K17 over 17 bounds), and at SF 0.1 with the card's bits
+equal to the CPU's; every repaired wrapper (K5, K6,
+K8, K12, K14, K15, K17, K22, K29) past its old cap against its plain
+version on synthetic inputs, and K31's synthetic cases (1, 3 and 4
+shards, k 10, 3000 and every candidate) bit for bit. The vector phase's
+card-vs-CPU check adds LIMIT 4096 through K22. Late and untraced (their
+shards run in threads or processes): the sharded ANN leg lays the vector
+phase's deployment across 4 shards of the card (`parallel/ann.py`
+shard_ivf, K21 + K31 + K26's all_gather), searches its 50 queries (ids
+equal to the single device's IVF route by the margin rule, distances
+within VEC_DIST_TOL of float64, the merge's all_gather in the MeshPlan),
+and times K31's two entries on its calls; the multi-process leg spawns
+2 ranks of one gloo process group, each holding 2 shards of the card (a
+4-shard mesh across 2 processes), runs Q1, Q3 and Q6 at SF 1 through
+PxExecutor.execute (both ranks' rows bit-identical to the parent's
+4-shard single-process mesh and the int64 oracles) and a sharded kNN of
+200,000 x 128 (equal to the single-process search), and prints each
+statement's warm time and the bytes its MeshPlan says cross between the
+processes.
+
 The batched phase comes last (after its client threads have run
 statements on the card, torch.profiler records no device event of a
 later traced run): a Database of its own with the TPC-H tables and its
@@ -186,6 +214,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import statistics
 import subprocess
 import sys
@@ -452,6 +481,9 @@ KERNEL_META = {
     "K30_join_product_sum": (
         "oceanbase_tpu_torch/csrc/k30_join_product_sum.cu",
         "oceanbase_tpu/ops/spill.py:245"),
+    "K31_shard_ivf": (
+        "oceanbase_tpu_torch/csrc/k31_shard_ivf.cu",
+        "oceanbase_tpu/parallel/ann.py:86"),
     # second entries of K5, K11 and K15 (their launches count as the
     # kernel's too)
     "K5_affine_join.probe": (
@@ -463,6 +495,9 @@ KERNEL_META = {
     "K15_distinct_first.scatter": (
         "oceanbase_tpu_torch/csrc/k15_distinct_first.cu",
         "oceanbase_tpu/engine/executor.py:2687"),
+    "K31_shard_ivf.merge": (
+        "oceanbase_tpu_torch/csrc/k31_shard_ivf.cu",
+        "oceanbase_tpu/parallel/ann.py:119"),
     # K3 and K14 at the spill's shapes, K18 on the PX chunk source's
     # decode (their launches counted on those paths)
     "K3_radix_sort.spill": (
@@ -490,12 +525,15 @@ PX_KERNELS = ("K25_exchange_pack", "K26_exchange_recv", "K27_shard_merge",
               "K28_bucket_hist")
 # the kernels of the spill operators' path (ops/spill.py, the spill phase)
 SPILL_KERNELS = ("K29_hash_groupby", "K30_join_product_sum")
+# the kernel of the mesh-sharded IVF probe (parallel/ann.py, the sharded
+# ANN leg)
+ANN_KERNELS = ("K31_shard_ivf",)
 # the kernels of each path (the rest of prepare's paths launch K17, K18)
 MAIN_KERNELS = [k for k in KERNEL_LINE
                 if "." not in k and k not in ("K17_slice_scan",
                                               "K18_decode_staged",
                                               *VECTOR_KERNELS, *PX_KERNELS,
-                                              *SPILL_KERNELS)]
+                                              *SPILL_KERNELS, *ANN_KERNELS)]
 
 # the reference bench's sorted projection: lineitem by l_shipdate,
 # covering every column of the headline queries (bench.py SP_COLS)
@@ -506,6 +544,14 @@ P_RANGE = """select sum(l_extendedprice) as s, count(*) as n from lineitem
 where l_shipdate >= date '{lo}' and l_shipdate < date '{hi}'"""
 P_NARROW = ("1995-03-01", "1995-03-08")
 P_WIDE = ("1995-03-01", "1995-09-01")
+# a range of 17 conjuncts on the sort key: K17 over 17 bounds (its old by-
+# value table took 16); the largest low (03-16) and the high decide it
+P_BOUNDS17 = ("select sum(l_extendedprice) as s, count(*) as n from "
+              "lineitem where " + " and ".join(
+                  f"l_shipdate >= date '1995-03-{d:02d}'"
+                  for d in range(1, 17))
+              + " and l_shipdate < date '1995-03-20'")
+P_BOUNDS17_RANGE = ("1995-03-16", "1995-03-20")
 # the reference tests' grace-hash statements (tests/test_stream_pipeline.py)
 GRACE_JOIN = """select o.o_orderpriority, sum(l.l_quantity) as qty,
        count(*) as cnt
@@ -612,6 +658,7 @@ PATH_KERNELS = {
     "P_Q14": ("K17_slice_scan", "K5_affine_join", "K1_scalar_aggregate"),
     "P_NARROW": ("K17_slice_scan", "K1_scalar_aggregate"),
     "P_WIDE": ("K17_slice_scan", "K1_scalar_aggregate"),
+    "P_BOUNDS17": ("K17_slice_scan", "K1_scalar_aggregate"),
     "P_Q1": ("K2_groupby_direct",),
     # the streamed phase: every chunk decoded by K18
     "ST_Q1": ("K18_decode_staged", "K2_groupby_direct"),
@@ -2287,6 +2334,15 @@ def projection_phase(tables, Session, uk, kernels, queries_text, oracles,
                 "scan")
         return {"retries": prep.retries}
 
+    def bounds_after(rs):
+        out = sliced("P_BOUNDS17")(rs)
+        spec = next(iter(rs._cursor.prepared.params.scan_slice.values()))
+        nb = len(spec.lows) + len(spec.highs)
+        require(nb >= 17, f"P_BOUNDS17: K17 got {nb} bounds, not the 17 "
+                "past its old cap of 16")
+        out["bounds"] = nb
+        return out
+
     def base_after(rs):
         prep = rs._cursor.prepared
         scans = [s.table for s in prep.executor._collect_scans(prep.plan)]
@@ -2308,6 +2364,7 @@ def projection_phase(tables, Session, uk, kernels, queries_text, oracles,
         ("P_NARROW", P_RANGE.format(lo=P_NARROW[0], hi=P_NARROW[1]),
          sliced("P_NARROW")),
         ("P_WIDE", P_RANGE.format(lo=P_WIDE[0], hi=P_WIDE[1]), wide_after),
+        ("P_BOUNDS17", P_BOUNDS17, bounds_after),
         ("P_Q1", queries_text[1], base_after),
     ]
     kernels.reset_launches()
@@ -4540,6 +4597,8 @@ VEC_MARGIN = 1e-5
 VEC_DIST_TOL = 2e-5
 # the kernels' synthetic case: lists (above one block's share), rows, dims
 VEC_SYNTHETIC = (8192, 60_000, 64)
+# a LIMIT past K22's old cap of 2048 (the card against the CPU)
+K22_BIG_K = 4096
 
 
 def ann_data(n, d, blobs, seed, nq):
@@ -4654,7 +4713,8 @@ def vector_phase(Session, kernels, warm, reps):
     """The IVF vector path on the bench deployment; the launch counts
     from 0 just before and read just after. Returns (statement records,
     build record, launches, kernel arguments, the V_STARVE table's
-    vectors, the narrowed frame's A/B records)."""
+    vectors, the narrowed frame's A/B records, the deployment for the
+    sharded ANN leg)."""
     import numpy as np
     import torch
 
@@ -4839,7 +4899,10 @@ def vector_phase(Session, kernels, warm, reps):
             "K20_kmeans_update": (xd, assign, len(idx.lengths)),
             **cap}
     del sess
-    return recs, build, launches, args, small_x, ab
+    # the sharded ANN leg (late, untraced) lays this deployment across a
+    # mesh: the data, the queries and the index the card built
+    ann_ctx = {"x": x, "queries": queries, "idx": idx}
+    return recs, build, launches, args, small_x, ab, ann_ctx
 
 
 def starve_statement(Session, kernels, warm):
@@ -5137,6 +5200,32 @@ def vector_card_vs_cpu(Session, kernels, x) -> dict:
             swaps += margin_equal(exact, vec_ids(crs), vec_ids(prs), q,
                                   f"card vs CPU vectors ({where or 'all'})")
             stmts += 1
+    # K22 past its old cap of k = 2048: LIMIT 4096 on the carried index,
+    # the card's ids equal the CPU's (the margin rule)
+    import oceanbase_tpu_torch.engine.executor as ex
+
+    widths = []
+    orig_probe = ex.ivf_probe
+
+    def probe_width(*a, **kw):
+        widths.append(min(int(a[-1]), int(a[5].numel()) * int(a[7])))
+        return orig_probe(*a, **kw)
+
+    q = x[rng.integers(0, SMALL_N)]
+    text = vec_text(q, k=K22_BIG_K)
+    ex.ivf_probe = probe_width
+    try:
+        crs = card.sql(text)
+    finally:
+        ex.ivf_probe = orig_probe
+    prs = cpu.sql(text)
+    require(widths and min(widths) > 2048, f"LIMIT {K22_BIG_K}: K22 "
+            f"selected {widths} rows, not past its old cap of 2048")
+    big_swaps = margin_equal(exact, vec_ids(crs), vec_ids(prs), q,
+                             f"card vs CPU LIMIT {K22_BIG_K}")
+    print(f"card vs CPU vectors: LIMIT {K22_BIG_K} through K22 at k' "
+          f"{widths[0]} (old cap 2048) equal ({big_swaps} margin swaps)",
+          flush=True)
     require(not card.executor.ann_builds, "the card built its own index "
             "instead of serving the carried one")
     own = Session(fresh(), device="cuda")
@@ -5162,6 +5251,8 @@ def vector_card_vs_cpu(Session, kernels, x) -> dict:
           f"launches), centroid bits {'equal' if same_cent else 'differ'}",
           flush=True)
     return {"statements": stmts, "ivf_route": ivf, "swaps": swaps,
+            "k22_big_k": {"k": K22_BIG_K, "k_selected": widths[0],
+                          "swaps": big_swaps},
             "build_perm_equal": True,
             "build_lengths_equal": True, "centroid_bits_equal": same_cent,
             "iterations": oidx.iterations}
@@ -5873,6 +5964,890 @@ def px_decode_checks(kernels, reps: int, captured: dict) -> list:
              "shard": shard, "dop1": dop1, "wide": wide}]
 
 
+# ---- the caps leg's statements: each reaches a repaired wrapper past its
+# old cap. The set operations compare 9 columns of the null-extended side
+# of a LEFT JOIN (each nullable: its value and its validity plane, 18 key
+# planes of K14); the group-bys take 17 aggregates, and 8 nullable CASE
+# keys with l_suppkey (17 key planes of K8); K6, K12 and K15 below. {hi}
+# bounds the driving key
+# (every row at SF 0.1; a slice at SF 10, where the whole table would only
+# repeat the same work).
+CAPS_CASES = (
+    "case when l_quantity < 45 then l_partkey end as c0",
+    "case when l_discount < 0.09 then l_suppkey end as c1",
+    "case when l_tax < 0.07 then l_linenumber end as c2",
+    "case when l_shipmode <> 'AIR' then l_quantity end as c3",
+    "case when l_returnflag <> 'R' then l_partkey % 1000 end as c4",
+    "case when l_linestatus = 'O' then l_suppkey % 100 end as c5",
+    "case when l_quantity > 5 then l_linenumber end as c6",
+    "case when l_discount > 0.01 then l_quantity end as c7",
+)
+CAPS_SIDE = ("select o_orderstatus as c0, o_orderpriority as c1, "
+             "o_shippriority as c2, o_clerk as c3, o_orderdate as c4, "
+             "o_totalprice as c5, o_custkey as c6, o_orderkey as c7, "
+             "o_comment as c8 from customer left join orders on "
+             "c_custkey = o_custkey and o_orderpriority = '1-URGENT' "
+             "where c_custkey < {hi}")
+CAPS_ORDER = " order by " + ", ".join(f"c{i}" for i in range(9))
+CAPS_AGGS = ("count(*) as n", "sum(l_quantity) as s1",
+             "sum(l_extendedprice) as s2", "sum(l_discount) as s3",
+             "sum(l_tax) as s4", "min(l_quantity) as m1",
+             "min(l_extendedprice) as m2", "min(l_discount) as m3",
+             "min(l_tax) as m4", "max(l_quantity) as x1",
+             "max(l_extendedprice) as x2", "max(l_discount) as x3",
+             "max(l_tax) as x4", "min(l_shipdate) as d1",
+             "max(l_shipdate) as d2", "sum(l_linenumber) as s5",
+             "max(l_partkey) as x5")
+CAPS_STMTS = {
+    "CAP_INTERSECT": (CAPS_SIDE + " intersect " + CAPS_SIDE
+                      + " and c_nationkey < 12" + CAPS_ORDER),
+    "CAP_EXCEPT": (CAPS_SIDE + " except " + CAPS_SIDE
+                   + " and c_nationkey < 12" + CAPS_ORDER),
+    "CAP_AGG17": ("select l_suppkey, " + ", ".join(CAPS_AGGS)
+                  + " from lineitem where l_orderkey < {hi} "
+                  "group by l_suppkey order by l_suppkey"),
+    "CAP_KEY17": ("select " + ", ".join(CAPS_CASES[:8])
+                  + ", l_suppkey, count(*) as n from lineitem "
+                  "where l_orderkey < {hi} group by "
+                  + ", ".join(f"c{i}" for i in range(8))
+                  + ", l_suppkey order by "
+                  + ", ".join(f"c{i}" for i in range(8)) + ", l_suppkey"),
+}
+# K6: 17 sums and counts over lineitem's clustered l_orderkey joined to
+# orders (the clustered-FK group-by); K12: a self-join of lineitem on 9
+# integer columns (the 64-bit key hashes them all); K15: a DISTINCT
+# aggregate under 8 nullable keys (8 values, 8 validity planes and the
+# value: 17 keys)
+CAPS_SUMS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+             "l_linenumber", "l_partkey", "l_suppkey",
+             "l_quantity * l_discount", "l_extendedprice * l_tax",
+             "l_quantity + l_linenumber", "l_partkey % 7", "l_suppkey % 11",
+             "l_linenumber * l_linenumber", "l_quantity * l_tax",
+             "l_extendedprice * l_discount")
+CAPS_JOIN_COLS = ("l_orderkey", "l_linenumber", "l_partkey", "l_suppkey",
+                  "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode",
+                  "l_shipinstruct")
+CAPS_STMTS.update({
+    "CAP_CLUSTERED17": (
+        "select o_orderkey, "
+        + ", ".join(f"sum({e}) as s{i}" for i, e in enumerate(CAPS_SUMS))
+        + ", count(l_shipdate) as c1, count(l_commitdate) as c2 "
+        "from lineitem, orders where l_orderkey = o_orderkey and "
+        "l_orderkey < {hi} group by o_orderkey order by o_orderkey"),
+    "CAP_JOIN9": (
+        "select count(*) as n, sum(a.l_quantity) as q from lineitem a "
+        "join lineitem b on "
+        + " and ".join(f"a.{c} = b.{c}" for c in CAPS_JOIN_COLS)
+        + " where a.l_orderkey < {hi} and b.l_orderkey < {hi}"),
+    "CAP_DISTINCT17": (
+        "select " + ", ".join(CAPS_CASES[:8])
+        + ", count(distinct l_suppkey) as d, count(*) as n from lineitem "
+        "where l_orderkey < {hi} group by "
+        + ", ".join(f"c{i}" for i in range(8)) + " order by "
+        + ", ".join(f"c{i}" for i in range(8))),
+})
+# the kernel and its width each statement must reach (see caps_phase),
+# past the old caps: K14 16 key planes, K8 16 keys or aggregates, K6 16
+# aggregates, K12 8 columns, K15 16 keys
+CAPS_WIDTH = {"CAP_INTERSECT": ("K14_hash_set", 18),
+              "CAP_EXCEPT": ("K14_hash_set", 18),
+              "CAP_AGG17": ("K8_segmented_reduce", 17),
+              "CAP_KEY17": ("K8_segmented_reduce", 17),
+              "CAP_CLUSTERED17": ("K6_clustered_agg", 17),
+              "CAP_JOIN9": ("K12_hash_combine", 9),
+              "CAP_DISTINCT17": ("K15_distinct_first", 17)}
+# the driving keys' bound at SF 10: the set operations' customers (of
+# 1.5M), the other statements' orders (of 60M)
+CAPS_HI_SF10 = {"CAP_INTERSECT": 300_000, "CAP_EXCEPT": 300_000,
+                "CAP_AGG17": 2_000_000, "CAP_KEY17": 2_000_000,
+                "CAP_CLUSTERED17": 2_000_000, "CAP_JOIN9": 2_000_000,
+                "CAP_DISTINCT17": 2_000_000}
+
+
+def caps_phase(tables, Session, uk, kernels) -> tuple:
+    """The caps leg's statements at SF 10 on the card, the launch counts
+    from 0 just before and read just after: each once cold and once warm,
+    non-empty and finite, and the kernel call it reaches wider than the
+    old cap (the width seen at the call). The card-against-CPU phase then
+    holds their bits at SF 0.1. Returns (records, launches)."""
+    import torch
+
+    import oceanbase_tpu_torch.engine.executor as ex
+    import oceanbase_tpu_torch.ops.hashagg as ha
+    import oceanbase_tpu_torch.ops.join as oj
+
+    sess = Session(tables, unique_keys=uk, device="cuda")
+    seen: dict = {}
+    # (module, function, kernel, the width of a call)
+    taps = [(ex, "build_hash_table", "K14_hash_set",
+             lambda keys, *a, **kw: len(keys)),
+            (ha, "segmented_reduce", "K8_segmented_reduce",
+             lambda skeys, ssel, order, aggs: max(len(skeys), len(aggs))),
+            (ex, "clustered_segments", "K6_clustered_agg",
+             lambda starts, ends, sel, aggs: len(aggs)),
+            (oj, "hash_combine", "K12_hash_combine", lambda cols: len(cols)),
+            (ex, "distinct_first_mask", "K15_distinct_first",
+             lambda key_vals, val, mask: len(key_vals) + 1)]
+    orig = [getattr(mod, fn) for mod, fn, _k, _w in taps]
+
+    def tap(real, kname, width):
+        def call(*a, **kw):
+            seen.setdefault(kname, []).append(width(*a, **kw))
+            return real(*a, **kw)
+        return call
+
+    for (mod, fn, kname, width), real in zip(taps, orig):
+        setattr(mod, fn, tap(real, kname, width))
+    recs = []
+    kernels.reset_launches()
+    try:
+        for name, text in CAPS_STMTS.items():
+            kname, width = CAPS_WIDTH[name]
+            seen.clear()
+            sql = text.format(hi=CAPS_HI_SF10[name])
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rs = sess.sql(sql)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            n = check_sane(name, rs)
+            got = max(seen.get(kname, [0]))
+            require(got >= width, f"{name}: {kname} saw width {got}, not "
+                    f"the {width} past its old cap")
+            print(f"{name}: {n} rows, {kname} at width {got}, cold "
+                  f"{times[0]:.3f} ms, warm {times[1]:.3f} ms", flush=True)
+            recs.append({"statement": name, "rows": n, "kernel": kname,
+                         "width": got, "cold_ms": times[0],
+                         "warm_ms": times[1]})
+    finally:
+        for (mod, fn, _k, _w), real in zip(taps, orig):
+            setattr(mod, fn, real)
+    launches = dict(kernels.LAUNCHES)
+    for _mod, _fn, k, _w in taps:
+        require(launches[k] > 0, f"{k} was never launched in the caps leg")
+    del sess
+    return recs, launches
+
+
+# ---- the caps leg: each repaired wrapper over its old cap ----------------
+# (a width the plain version and the JAX package take, and a by-value
+# table once made the wrapper refuse on the card)
+CAPS_SEED = 20261018
+CAPS_FLOAT_RTOL = 1e-12
+
+
+def _close(what, got, want) -> None:
+    """Float sums to rel CAPS_FLOAT_RTOL (the kernel adds in double in
+    another order), everything else bit for bit."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    for a, b in zip(got, want):
+        require(a.dtype == b.dtype and a.shape == b.shape,
+                f"{what}: type or shape differs from the plain version")
+        if a.dtype.is_floating_point:
+            a64, b64 = a.double(), b.double()
+            same = (a64 == b64) | (torch.isnan(a64) & torch.isnan(b64))
+            rel = ((a64 - b64).abs() / b64.abs().clamp(min=1e-300))
+            require(bool((same | (rel <= CAPS_FLOAT_RTOL)).all()),
+                    f"{what}: float results past rel {CAPS_FLOAT_RTOL}")
+        else:
+            require(torch.equal(a, b), f"{what}: differs from the plain "
+                    "version")
+
+
+def caps_synthetic(kernels, dev) -> list:
+    """Every wrapper whose by-value table capped its width, run on the
+    card past the old cap and held to its plain version on the same
+    inputs (integers and orders bit for bit, float sums to rel 1e-12; the
+    hash tables by their probe matches and groups, whose slot layouts
+    depend on the schedule): K5 over 50 payload columns, K6 over 17
+    aggregates, K8 over 17 keys and 17 aggregates, K12 over 9 columns,
+    K14 over 18 key planes, K15 over 17 keys, K17 over 50 columns and 17
+    bounds, K22 at k = 4096, K29 over 17 keys and 17 aggregates. Returns
+    one record per case."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(CAPS_SEED)
+
+    def ints(n, hi, dtype=torch.int64):
+        return torch.randint(0, hi, (n,), generator=g).to(dtype).to(dev)
+
+    def flags(n, p=0.8):
+        return (torch.rand(n, generator=g) < p).to(dev)
+
+    def dyadic(n):
+        # float64 values whose partial sums are exact in any order: the
+        # plain versions' cumsum differences then equal the kernels' sums
+        return (torch.randint(-2**20, 2**20, (n,), generator=g)
+                .to(torch.float64) / 16).to(dev)
+
+    recs = []
+
+    def done(name, width, old_cap, what):
+        recs.append({"kernel": name, "width": width, "old_cap": old_cap,
+                     "check": what})
+        print(f"caps leg: {name} at {width} (old cap {old_cap}) equals its "
+              f"plain version ({what})", flush=True)
+
+    # K5: 50 payload columns of a 10,000-row build side
+    n, nb = 200_000, 10_000
+    pk, ps = ints(n, nb + 50), flags(n)
+    bk = torch.arange(nb, dtype=torch.int64, device=dev)
+    bs = flags(nb, 0.9)
+    pay = [ints(nb, 1 << 40, torch.int64 if i % 2 else torch.int32)
+           for i in range(50)]
+    sel, outs = kernels.affine_join(pk, ps, 0, 1, bk, bs, pay)
+    psel, pouts = kernels.affine_join_plain(pk, ps, 0, 1, bk, bs, pay)
+    _close("K5 50 columns", [sel, *outs], [psel, *pouts])
+    done("K5_affine_join", 50, kernels.K5_MAX_COLS, "bit for bit")
+
+    # K6: 17 aggregates over clustered ranges
+    nbu = 50_000
+    lens = torch.randint(0, 8, (nbu,), generator=g)
+    ends = torch.cumsum(lens, 0).to(torch.int32)
+    starts = (ends - lens.to(torch.int32)).to(dev)
+    ends = ends.to(dev)
+    nr = int(lens.sum())
+    s6 = flags(nr)
+    aggs6 = []
+    for i in range(17):
+        m = flags(nr, 0.7) if i % 3 == 0 else None
+        if i % 4 == 0:
+            aggs6.append(("count", None, m))
+        elif i % 4 == 1:
+            aggs6.append(("sum", dyadic(nr), m))
+        else:
+            aggs6.append(("sum", ints(nr, 1 << 50), m))
+    cnt, r6 = kernels.clustered_segments(starts, ends, s6, aggs6)
+    pc, p6 = kernels.clustered_segments_plain(starts, ends, s6, aggs6)
+    _close("K6 17 aggregates", [cnt, *r6], [pc, *p6])
+    done("K6_clustered_agg", 17, 16, "ints bit for bit, float sums rel 1e-12")
+
+    # K8: 17 sorted keys and 17 aggregates
+    n8 = 300_000
+    # lexicographically sorted key tuples of small random keys
+    cols = torch.stack([ints(n8, 3) for _ in range(17)], 1)
+    for i in reversed(range(17)):
+        cols = cols[torch.sort(cols[:, i], stable=True).indices]
+    k8 = [cols[:, i].contiguous() for i in range(17)]
+    ssel = torch.sort(flags(n8, 0.9).to(torch.int8), descending=True,
+                      stable=True).values.bool()
+    order = torch.randperm(n8, generator=g).to(torch.int32).to(dev)
+    aggs8 = []
+    for i in range(17):
+        m = flags(n8, 0.8) if i % 2 else None
+        op = ("count", "sum", "min", "max")[i % 4]
+        v = None if op == "count" else (
+            dyadic(n8) if i % 5 == 1 else ints(n8, 1 << 40))
+        aggs8.append((op, v, m))
+    s8, r8 = kernels.segmented_reduce(k8, ssel, order, aggs8)
+    ps8, p8 = kernels.segmented_reduce_plain(k8, ssel, order, aggs8)
+    _close("K8 17 keys, 17 aggregates", [s8, *r8], [ps8, *p8])
+    done("K8_segmented_reduce", "17 keys, 17 aggregates", 16,
+         "ints bit for bit, float sums rel 1e-12")
+
+    # K12: 9 join columns
+    c12 = [ints(100_000, 1 << 31, (torch.int32, torch.int64)[i % 2])
+           for i in range(9)]
+    _close("K12 9 columns", kernels.hash_columns(c12),
+           kernels.hash_columns_plain(c12))
+    done("K12_hash_combine", 9, 8, "bit for bit")
+
+    # K14: 18 key planes (9 nullable columns: value and validity)
+    nb14, np14 = 20_000, 60_000
+    bcols = [ints(nb14, 4, torch.int64 if i % 2 == 0 else torch.bool)
+             for i in range(18)]
+    pidx = torch.randint(0, nb14, (np14,), generator=g).to(dev)
+    pcols = [c[pidx].clone() for c in bcols]
+    pcols[0][::7] += 100  # rows with no match
+    bm, pm = flags(nb14, 0.9), flags(np14, 0.9)
+    ts = 1 << (2 * nb14 - 1).bit_length()
+    tag, row = kernels.hash_set_build(bcols, bm, ts)
+    got = kernels.hash_set_probe(tag, row, bcols, pcols, pm)
+    ptag, prow = kernels.hash_set_build_plain(bcols, bm, ts)
+    want = kernels.hash_set_probe_plain(ptag, prow, bcols, pcols, pm)
+    _close("K14 18 planes", got, want)
+    done("K14_hash_set", 18, 16, "probe matches bit for bit")
+
+    # K15: 17 keys through K3's order
+    n15 = 200_000
+    k15 = [ints(n15, 3) for _ in range(17)]
+    m15 = flags(n15)
+    o15 = kernels.sort_order_plain(k15, [False] * 17, m15)
+    _close("K15 17 keys", kernels.first_occurrence(k15, m15, o15),
+           kernels.first_occurrence_plain(k15, m15, o15))
+    done("K15_distinct_first", 17, 16, "bit for bit")
+
+    # K17: 50 columns and 17 bounds
+    n17 = 400_000
+    key = torch.sort(ints(n17, 100_000)).values
+    pay17 = [ints(n17, 1 << 20, (torch.int32, torch.int64, torch.int8,
+                                 torch.int16)[i % 4]) for i in range(50)]
+    s17 = flags(n17)
+    lows = [(torch.tensor(1000 + 10 * i, device=dev), "left")
+            for i in range(9)]
+    highs = [(torch.tensor(60_000 - 10 * i, dtype=torch.int32, device=dev),
+              "right") for i in range(8)]
+    got = kernels.slice_scan(key, n17, lows, highs, 300_000, pay17, s17)
+    want = kernels.slice_scan_plain(key, n17, lows, highs, 300_000, pay17,
+                                    s17)
+    _close("K17 50 columns, 17 bounds", [*got[0], got[1], got[2], got[3]],
+           [*want[0], want[1], want[2], want[3]])
+    done("K17_slice_scan", "50 columns, 17 bounds", "48 columns, 16 bounds",
+         "bit for bit")
+
+    # K22: k = 4096 over 8 lists of integer-valued vectors (exact dots)
+    nx, d, nl, ml = 40_000, 16, 32, 1250
+    x = torch.randint(-4, 5, (nx, d), generator=g).float().to(dev)
+    perm = torch.randperm(nx, generator=g).to(torch.int32).to(dev)
+    lens22 = torch.full((nl,), ml, dtype=torch.int32)
+    lens22[::3] = ml - 17
+    offs22 = (torch.arange(nl, dtype=torch.int32) * ml).to(dev)
+    lens22 = lens22.to(dev)
+    probes = torch.randperm(nl, generator=g)[:8].to(torch.int32).to(dev)
+    q = torch.randint(-4, 5, (d,), generator=g).float().to(dev)
+    s22 = flags(nx, 0.7)
+    got = kernels.ivf_probe(x, s22, perm, offs22, lens22, probes, q, ml, nx,
+                            4096)
+    want = kernels.ivf_probe_plain(x, s22, perm, offs22, lens22, probes, q,
+                                   ml, nx, 4096)
+    _close("K22 k 4096", list(got), list(want))
+    done("K22_ivf_probe", "k 4096", 2048, "bit for bit (exact dots)")
+
+    # K29: 17 keys and 17 aggregates
+    n29 = 200_000
+    gid = ints(n29, 5000)
+    k29 = [(gid * (i + 3)) % (7 + i) for i in range(17)]
+    m29 = flags(n29)
+    aggs29 = []
+    for i in range(17):
+        op = ("count", "sum", "min", "max")[i % 4]
+        aggs29.append((op, None if op == "count" else ints(n29, 1 << 40)))
+    ts29 = 1 << 16
+    got = _group_set(kernels.hash_groupby(k29, m29, aggs29, ts29))
+    want = _group_set(kernels.hash_groupby_plain(k29, m29, aggs29, ts29))
+    require(got == want, "K29 17 keys, 17 aggregates: groups differ from "
+            "the plain version")
+    done("K29_hash_groupby", "17 keys, 17 aggregates", 16, "groups as sets")
+    torch.cuda.synchronize()
+    return recs
+
+
+def k31_synthetic(kernels, dev) -> int:
+    """K31's two entries against their plain versions on integer-valued
+    vectors (every distance exact in float32, so ties are real and their
+    order is tested): 1, 3 and 4 shards (3 leaves pad rows), k 10 and k
+    3000 (past the shared-memory run), k equal to the candidates; each
+    shard's strip and the merge of the gathered strips bit for bit,
+    twice. Returns the number of cases."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(CAPS_SEED + 31)
+    n, d, nl = 30_000, 16, 64
+    x = torch.randint(-3, 4, (n, d), generator=g).float()
+    sizes = torch.randint(200, 700, (nl,), generator=g)
+    sizes = (sizes * n / sizes.sum()).long()
+    sizes[-1] += n - int(sizes.sum())
+    offs = (torch.cumsum(sizes, 0) - sizes).to(torch.int32).to(dev)
+    lens = sizes.to(torch.int32).to(dev)
+    ml = int(sizes.max())
+    q = torch.randint(-3, 4, (d,), generator=g).float().to(dev)
+    cases = 0
+    for nsh in (1, 3, 4):
+        rps = -(-n // nsh)
+        xs = torch.cat([x, torch.zeros(nsh * rps - n, d)]).to(dev)
+        for nprobe, k in ((8, 10), (16, 3000), (2, 2 * ml)):
+            probes = torch.randperm(nl, generator=g)[:nprobe].to(
+                torch.int32).to(dev)
+            kk = min(k, nprobe * ml)
+            strips, pstrips = [], []
+            for s in range(nsh):
+                blk = xs[s * rps:(s + 1) * rps]
+                args = (blk, s * rps, offs, lens, probes, q, ml, kk)
+                got, want = kernels.ann_rerank(*args), \
+                    kernels.ann_rerank_plain(*args)
+                _exact(f"K31 rerank nsh {nsh} shard {s} k {kk}", list(got),
+                       list(want), list(kernels.ann_rerank(*args)))
+                strips.append(got)
+                pstrips.append(want)
+            gd = torch.cat([t[0] for t in strips])
+            gp = torch.cat([t[1] for t in strips])
+            got = kernels.ann_merge(gd, gp, kk)
+            want = kernels.ann_merge_plain(gd, gp, kk)
+            _exact(f"K31 merge nsh {nsh} k {kk}", list(got), list(want),
+                   list(kernels.ann_merge(gd, gp, kk)))
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"K31: {cases} synthetic cases equal the plain versions bit for "
+          "bit, twice", flush=True)
+    return cases
+
+
+# ---- the sharded ANN leg: parallel/ann.py on K31 -------------------------
+# The vector phase's deployment (ANN_N x ANN_D, the ANN_LISTS-list index
+# the card built there) across 4 shards of the card; no deployment stands
+# behind 4 shards on one card: they drive the merge, as PX leg 2 does.
+ANN_MESH_SHARDS = 4
+
+
+class _Cols:
+    """A result's storage-domain columns behind the ResultSet method the
+    oracle checks read."""
+
+    def __init__(self, cols):
+        self._cols = cols
+
+    def storage_columns(self):
+        return self._cols
+
+
+def ann_mesh_leg(Session, kernels, ctx, dev) -> tuple:
+    """shard_ivf over 4 shards of the card and every query of the vector
+    phase searched at nprobe ANN_NPROBE, k ANN_K, the launch counts from 0
+    just before and read just after: the ids equal the single device's
+    IVF route (K21 + K22) at the same nprobe under the margin rule, the
+    distances lie within VEC_DIST_TOL x (|x|^2 + |q|^2) of numpy's float64
+    value, and the MeshPlan counts the merge's all_gather. Untraced (its
+    shards run in threads). Returns (record, launches, K31's arguments)."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.parallel.ann import shard_ivf
+    from oceanbase_tpu_torch.parallel.mesh import make_mesh
+    from oceanbase_tpu_torch.storage.vector_index import (
+        register_vector_index,
+    )
+
+    x, queries, idx = ctx["x"], ctx["queries"], ctx["idx"]
+    mesh = make_mesh(ANN_MESH_SHARDS, devices=[dev] * ANN_MESH_SHARDS)
+    t0 = time.perf_counter()
+    siv = shard_ivf(mesh, x, idx)
+    torch.cuda.synchronize()
+    lay_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    got, times = [], []
+    for q in queries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got.append(siv.search(q, ANN_K, ANN_NPROBE))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {**kernels.LAUNCHES, **kernels.ENTRY_LAUNCHES}
+    nq = len(queries)
+    require(launches["K31_shard_ivf"] == 2 * ANN_MESH_SHARDS * nq,
+            f"sharded ANN: K31 launched {launches['K31_shard_ivf']} times "
+            f"for {nq} queries on {ANN_MESH_SHARDS} shards")
+    colls = siv.mesh_plan.ops_by_collective()
+    require(colls.get("all_gather", 0) >= 1, f"sharded ANN: the MeshPlan "
+            f"counts no all_gather ({colls})")
+    # the single device's IVF route at the same nprobe
+    cat = vec_catalog(x, {"grp": np.arange(len(x), dtype=np.int64) % 10})
+    register_vector_index(cat, "docs", "emb", lists=ANN_LISTS,
+                          nprobe=ANN_NPROBE)
+    sess = Session(cat, device=dev)
+    sess.executor.install_ivf("docs", "emb", idx)
+    exact = ExactL2(x)
+    swaps, worst = 0, 0.0
+    for qi, (q, (rid, dist)) in enumerate(zip(queries, got)):
+        rs = sess.sql(vec_text(q))
+        require(bool(rs._cursor.prepared.params.vector_topns),
+                "sharded ANN: the single device did not take the IVF route")
+        swaps += margin_equal(exact, rid, vec_ids(rs), q,
+                              f"sharded ANN query {qi}")
+        want = exact.xn[rid] - 2.0 * (exact.x64[rid] @ q.astype(np.float64))
+        tol = VEC_DIST_TOL * exact.scale(rid, q)
+        err = np.abs(dist.astype(np.float64) - want)
+        require(bool(np.all(err <= tol)), f"sharded ANN query {qi}: a "
+                f"distance {err.max()!r} from float64, beyond {VEC_DIST_TOL}"
+                " x (|x|^2 + |q|^2)")
+        worst = max(worst, float((err / tol).max()))
+    require(not sess.executor.ann_builds, "sharded ANN: the single device "
+            "rebuilt the index")
+    del sess
+    # K31's arguments: query 0's probe of shard 0, and its gathered strips
+    q0 = torch.from_numpy(queries[0]).to(dev)
+    probes = kernels.ivf_lists(siv.cent[0], q0, ANN_NPROBE)
+    kk = min(ANN_K, ANN_NPROBE * siv.max_list)
+    rps = siv.rows_per_shard
+    strips = [kernels.ann_rerank_plain(siv.xs[i], i * rps, siv.offs[i],
+                                       siv.lens[i], probes, q0, siv.max_list,
+                                       kk) for i in range(ANN_MESH_SHARDS)]
+    args = {"rerank": (siv.xs[0], 0, siv.offs[0], siv.lens[0], probes, q0,
+                       siv.max_list, kk),
+            "merge": (torch.cat([t[0] for t in strips]),
+                      torch.cat([t[1] for t in strips]), kk),
+            "perm": siv.perm, "exact": exact, "q": queries[0]}
+    rec = {"statement": "ANN_MESH", "shards": ANN_MESH_SHARDS,
+           "queries": nq, "nprobe": ANN_NPROBE, "k": ANN_K,
+           "rows": len(x), "lists": len(idx.lengths),
+           "layout_s": lay_s, "search_median_ms": statistics.median(times),
+           "search_ms": times, "margin_swaps": swaps,
+           "dist_err_of_limit": worst, "collectives": colls,
+           "mesh_plan_bytes": siv.mesh_plan.total_bytes,
+           "device_bytes": siv.device_bytes()}
+    print(f"ANN_MESH: {nq} queries on {ANN_MESH_SHARDS} shards of the card "
+          f"({len(x)} x {x.shape[1]}, {len(idx.lengths)} lists, nprobe "
+          f"{ANN_NPROBE}, k {ANN_K}): ids equal the single device's IVF "
+          f"route ({swaps} margin swaps), distances within "
+          f"{worst:.4f} of the limit, search median "
+          f"{rec['search_median_ms']:.3f} ms, layout {lay_s:.3f} s, "
+          f"collectives {colls}", flush=True)
+    return rec, launches, args
+
+
+def k31_checks(kernels, reps: int, args: dict) -> list:
+    """K31's two entries on the sharded ANN leg's calls: the re-rank of
+    shard 0's block against its plain version (positions equal but where
+    two exact distances lie within the margin, distances to float32
+    rounding, two runs bit-identical), the merge bit for bit; each timed
+    beside its plain version, its library yardstick and its bound."""
+    import numpy as np
+    import torch
+
+    recs = []
+    ra = args["rerank"]
+    xs, lo, offs, lens, probes, q, ml, kk = ra
+    got = kernels.ann_rerank(*ra)
+    want = kernels.ann_rerank_plain(*ra)
+    again = kernels.ann_rerank(*ra)
+    _exact("K31 rerank, two runs", list(got), list(again), list(again))
+    perm, exact, qh = args["perm"], args["exact"], args["q"]
+    gp, wp = got[1].cpu().numpy(), want[1].cpu().numpy()
+    gd, wd = got[0].cpu().numpy(), want[0].cpu().numpy()
+    live_g, live_w = np.isfinite(gd), np.isfinite(wd)
+    require(np.array_equal(live_g, live_w), "K31 rerank: live lanes differ "
+            "from the plain version")
+    margin_equal(exact, perm[gp[live_g]], perm[wp[live_w]], qh,
+                 "K31 rerank against its plain version")
+    same = (gp == wp) & live_g
+    err = float(np.max(np.abs(gd[same] - wd[same]))) if same.any() else 0.0
+    # where both name one row, the two float32 distances lie within the
+    # vector tolerance of the terms they cancel
+    diff = np.abs(gd[same].astype(np.float64) - wd[same].astype(np.float64))
+    lim = VEC_DIST_TOL * exact.scale(perm[gp[same]], qh)
+    require(bool(np.all(diff <= lim)), f"K31 rerank: distance error "
+            f"{err!r} beyond {VEC_DIST_TOL} x (|x|^2 + |q|^2) of the plain "
+            f"version's")
+    err_share = float((diff / lim).max()) if same.any() else 0.0
+    # the rows of the block the probed windows hold, and their mask
+    rps, d = int(xs.shape[0]), int(xs.shape[1])
+    mask = torch.zeros(rps, dtype=torch.bool, device=xs.device)
+    mine = 0
+    for p in probes.tolist():
+        a = int(offs[p]) - lo
+        b = a + int(lens[p])
+        a, b = max(a, 0), min(b, rps)
+        if b > a:
+            mask[a:b] = True
+            mine += b - a
+    nrm = (xs * xs).sum(1)
+    inf = torch.tensor(float("inf"), device=xs.device)
+
+    def lib_rerank():
+        return torch.topk(torch.where(mask, nrm - 2.0 * (xs @ q), inf), kk,
+                          largest=False)
+
+    cand = int(probes.numel()) * ml
+    # the owned rows, each probe's list entry (probe, offset, length), q,
+    # the strip
+    nbytes = mine * d * 4 + int(probes.numel()) * 12 + d * 4 + kk * 8
+    km = cuda_ms(lambda: kernels.ann_rerank(*ra), reps)
+    pm = cuda_ms(lambda: kernels.ann_rerank_plain(*ra), max(1, reps // 2))
+    lm = cuda_ms(lib_rerank, reps)
+    bm, by = bound_ms(nbytes, mine * 4 * d)
+    src, rep = KERNEL_META["K31_shard_ivf"]
+    shape = {"rows_per_shard": rps, "d": d, "nprobe": int(probes.numel()),
+             "max_list": ml, "candidates": cand, "mine": mine, "k": kk}
+    print(f"kernel K31_shard_ivf (rerank): positions equal the plain "
+          f"version's (margin rule), max_abs_err {err:.6g} ({err_share:.4f} "
+          f"of the limit {VEC_DIST_TOL} x (|x|^2 + |q|^2)), two runs "
+          f"bit-identical, kernel_ms {km:.6f}, plain_ms {pm:.6f}, library_ms "
+          f"{lm:.6f} (xs @ q, torch.where, torch.topk), bound_ms {bm:.6f} "
+          f"({by}, {nbytes} B) at {shape}", flush=True)
+    recs.append({"name": "K31_shard_ivf", "route": "cuda", "source": src,
+                 "replaces": rep, "max_abs_err": err, "ms": km,
+                 "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+                 "library_ms": lm,
+                 "library": "block @ q, torch.where, torch.topk",
+                 "bytes": nbytes, "shape": shape})
+    ma = args["merge"]
+    _exact("K31 merge", list(kernels.ann_merge(*ma)),
+           list(kernels.ann_merge_plain(*ma)), list(kernels.ann_merge(*ma)))
+    gd_, gp_, kk_ = ma
+
+    def lib_merge():
+        v, i = torch.topk(gd_, kk_, largest=False)
+        return v, gp_[i]
+
+    m = int(gd_.numel())
+    nb2 = m * 8 + kk_ * 8
+    km = cuda_ms(lambda: kernels.ann_merge(*ma), reps)
+    pm = cuda_ms(lambda: kernels.ann_merge_plain(*ma), reps)
+    lm = cuda_ms(lib_merge, reps)
+    bm, by = bound_ms(nb2, 0)
+    src, rep = KERNEL_META["K31_shard_ivf.merge"]
+    print(f"kernel K31_shard_ivf.merge: match exact, two runs "
+          f"bit-identical, kernel_ms {km:.6f}, plain_ms {pm:.6f}, "
+          f"library_ms {lm:.6f} (torch.topk + index), bound_ms {bm:.6f} "
+          f"({by}, {nb2} B) at {m} gathered rows, k {kk_}", flush=True)
+    recs.append({"name": "K31_shard_ivf.merge", "route": "cuda",
+                 "source": src, "replaces": rep, "max_abs_err": 0.0,
+                 "ms": km, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
+                 "library_ms": lm, "library": "torch.topk + index",
+                 "bytes": nb2, "shape": {"gathered": m, "k": kk_}})
+    return recs
+
+
+# ---- the multi-process leg: a 4-shard mesh across 2 processes ----------
+# Two spawned processes, each holding 2 shards of the card, one gloo
+# process group (NCCL refuses two ranks on one GPU): TPC-H at SF 1 (cut
+# from SF 10: each process generates and uploads its own tables, and the
+# leg must fit the run's time limit), Q1, Q3, Q6 through
+# PxExecutor.execute, and a sharded kNN of 200,000 x 128 (256 lists,
+# nprobe 16, k 10).
+MP_PROCS, MP_PER = 2, 2
+MP_SF = 1.0
+MP_QIDS = (1, 3, 6)
+MP_WARM = 3
+MP_ANN = {"n": 200_000, "d": 128, "blobs": 256, "lists": 256, "nprobe": 16,
+          "k": 10, "nq": 10}
+MP_BACKEND = "gloo"
+MP_PG_TIMEOUT_S = 240
+MP_WAIT_S = 480
+
+
+def mp_child(rank, port, q, seed, arrays, device, sf, ann):
+    """One rank of the multi-process leg (spawned: it imports the port,
+    never JAX, and loads the kernels the parent built): TPC-H at `sf`,
+    and the kNN of `ann` over the index arrays the parent built."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, ROOT)
+        dist.init_process_group(
+            MP_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+            world_size=MP_PROCS, rank=rank,
+            timeout=timedelta(seconds=MP_PG_TIMEOUT_S))
+        from oceanbase_tpu_torch import kernels
+        from oceanbase_tpu_torch.core.column import batch_rows_storage
+        from oceanbase_tpu_torch.models.tpch import datagen, sql_suite
+        from oceanbase_tpu_torch.parallel.ann import shard_ivf
+        from oceanbase_tpu_torch.parallel.group import WIRE_BYTES
+        from oceanbase_tpu_torch.parallel.mesh import process_mesh
+        from oceanbase_tpu_torch.parallel.px import PxExecutor
+        from oceanbase_tpu_torch.sql.parser import parse
+        from oceanbase_tpu_torch.sql.planner import Planner
+        from oceanbase_tpu_torch.storage.vector_index import ivf_from_arrays
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            kernels._load()
+            require(not kernels.BUILD_INFO.get("log"), "a child rebuilt "
+                    "the kernels")
+        mesh = process_mesh([dev] * MP_PER, MP_BACKEND)
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+
+        tables = datagen.generate(sf=sf, seed=seed)
+        planner = Planner(tables)
+        px = PxExecutor(tables, mesh, unique_keys=sql_suite.UNIQUE_KEYS)
+        out = {}
+        for qid in MP_QIDS:
+            planned = planner.plan(parse(sql_suite.QUERIES[qid]))
+            names = list(planned.output_names)
+            times = []
+            for _ in range(MP_WARM + 1):
+                sync()
+                t0 = time.perf_counter()
+                b = px.execute(planned.plan)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            w0 = WIRE_BYTES["sent"]
+            prepared = px.prepare(planned.plan)
+            b2 = prepared.run()
+            wire = WIRE_BYTES["sent"] - w0
+            out[qid] = {"cols": batch_rows_storage(b, names),
+                        "again": batch_rows_storage(b2, names),
+                        "cold_ms": times[0], "warm_ms": times[1:],
+                        "cross_bytes": prepared.mesh_plan.cross_process_bytes,
+                        "wire_bytes": wire}
+        a = ann
+        x, _blob, _c, queries = ann_data(a["n"], a["d"], a["blobs"], seed,
+                                         a["nq"])
+        siv = shard_ivf(mesh, x, ivf_from_arrays(*arrays))
+        knn, ktimes = [], []
+        for qv in queries:
+            sync()
+            t0 = time.perf_counter()
+            knn.append(siv.search(qv, a["k"], a["nprobe"]))
+            ktimes.append((time.perf_counter() - t0) * 1e3)
+        out["knn"] = {"results": knn, "ms": ktimes,
+                      "cross_bytes": siv.mesh_plan.cross_process_bytes,
+                      "collectives": siv.mesh_plan.ops_by_collective()}
+        out["jax_imported"] = "jax" in sys.modules
+        q.put(("ok", rank, out))
+    except BaseException:  # noqa: BLE001 - the parent fails the leg
+        q.put(("err", rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mp_leg(kernels, seed, dev) -> dict:
+    """The multi-process leg: the parent's references first (the 4-shard
+    single-process mesh on the card at SF 1 with the int64 oracles, the
+    index built on the card and its 4-shard search), then the 2 ranks;
+    both ranks' rows equal each other, bit for bit the single-process
+    mesh's and the oracles; the kNN equals the single-process search
+    exactly. Every wait is bounded and no child outlives the leg."""
+    import multiprocessing as mp
+    import socket
+
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.core.column import batch_rows_storage
+    from oceanbase_tpu_torch.models.tpch import datagen, queries, sql_suite
+    from oceanbase_tpu_torch.parallel.ann import shard_ivf
+    from oceanbase_tpu_torch.parallel.mesh import make_mesh
+    from oceanbase_tpu_torch.parallel.px import PxExecutor
+    from oceanbase_tpu_torch.sql.parser import parse
+    from oceanbase_tpu_torch.sql.planner import Planner
+    from oceanbase_tpu_torch.storage.vector_index import build_ivf
+
+    t0 = time.perf_counter()
+    tables = datagen.generate(sf=MP_SF, seed=seed)
+    li = tables["lineitem"]
+    nsh = MP_PROCS * MP_PER
+    mesh = make_mesh(nsh, devices=[dev] * nsh)
+    px = PxExecutor(tables, mesh, unique_keys=sql_suite.UNIQUE_KEYS)
+    planner = Planner(tables)
+    ref = {}
+    oracle = {1: lambda r: check_q1(r, li, queries),
+              6: lambda r: check_q6(r, li, queries),
+              3: lambda r: check_oracle("MP_Q3", r, queries.q3_numpy(tables))}
+    for qid in MP_QIDS:
+        planned = planner.plan(parse(sql_suite.QUERIES[qid]))
+        ref[qid] = batch_rows_storage(px.execute(planned.plan),
+                                      list(planned.output_names))
+        oracle[qid](_Cols(ref[qid]))
+    a = MP_ANN
+    x, _blob, _c, qs = ann_data(a["n"], a["d"], a["blobs"], seed, a["nq"])
+    idx = build_ivf(x, lists=a["lists"], device=dev)
+    siv = shard_ivf(mesh, x, idx)
+    kref = [siv.search(qv, a["k"], a["nprobe"]) for qv in qs]
+    arrays = (idx.centroids, idx.perm, idx.offsets, idx.lengths)
+    del px, siv, mesh
+    release_device()
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [ctx.Process(target=mp_child,
+                         args=(r, port, q, seed, arrays, str(dev), MP_SF,
+                               MP_ANN),
+                         daemon=True) for r in range(MP_PROCS)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + MP_WAIT_S
+    try:
+        while len(got) < MP_PROCS:
+            require(time.monotonic() < deadline, f"multi-process leg: no "
+                    f"result from every rank in {MP_WAIT_S} s")
+            try:
+                kind, rank, payload = q.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                require(not dead, f"multi-process leg: a rank died "
+                        f"(exit codes {dead}) without a result")
+                continue
+            require(kind == "ok", f"multi-process leg: rank {rank} "
+                    f"failed:\n{payload}")
+            got[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    require(not any(p.is_alive() for p in procs),
+            "multi-process leg: a child outlived the leg")
+    leg_s = time.perf_counter() - t0
+    recs = []
+    for qid in MP_QIDS:
+        name = f"MP_Q{qid}"
+        for rank in range(MP_PROCS):
+            r = got[rank][qid]
+            # bit for bit: the same shards run the same kernels in the same
+            # merge order as the single-process mesh
+            for col, want in ref[qid].items():
+                for which in ("cols", "again"):
+                    g = np.asarray(r[which][col])
+                    require(g.dtype == np.asarray(want).dtype and
+                            g.tobytes() == np.asarray(want).tobytes(),
+                            f"{name} rank {rank}: {col} differs from the "
+                            "single-process mesh")
+        r0 = got[0][qid]
+        require(r0["cross_bytes"] > 0, f"{name}: the MeshPlan counts no "
+                "bytes between the processes")
+        rec = {"statement": name, "cold_ms": r0["cold_ms"],
+               "warm_median_ms": statistics.median(r0["warm_ms"]),
+               "warm_ms_rank1": statistics.median(got[1][qid]["warm_ms"]),
+               "mesh_plan_cross_bytes": r0["cross_bytes"],
+               "wire_bytes_sent": [got[k][qid]["wire_bytes"]
+                                   for k in range(MP_PROCS)],
+               "rows": len(next(iter(ref[qid].values())))}
+        print(f"{name}: rows equal in both ranks, bit-identical to the "
+              f"single-process mesh and the int64 oracle; cold "
+              f"{rec['cold_ms']:.3f} ms, warm median "
+              f"{rec['warm_median_ms']:.3f} ms (rank 1 "
+              f"{rec['warm_ms_rank1']:.3f} ms), MeshPlan cross-process "
+              f"bytes {rec['mesh_plan_cross_bytes']}, sent "
+              f"{rec['wire_bytes_sent']} B a run", flush=True)
+        recs.append(rec)
+    for rank in range(MP_PROCS):
+        require(not got[rank]["jax_imported"], "a child imported JAX")
+        kn = got[rank]["knn"]
+        require(kn["collectives"].get("all_gather", 0) >= 1,
+                "MP_KNN: no all_gather in the MeshPlan")
+        for i, ((gi, gd), (wi, wd)) in enumerate(zip(kn["results"], kref)):
+            require(np.array_equal(gi, wi) and
+                    np.asarray(gd).tobytes() == np.asarray(wd).tobytes(),
+                    f"MP_KNN rank {rank} query {i}: differs from the "
+                    "single-process 4-shard search")
+    kn = got[0]["knn"]
+    krec = {"statement": "MP_KNN", "queries": len(kref),
+            "search_median_ms": statistics.median(kn["ms"]),
+            "mesh_plan_cross_bytes": kn["cross_bytes"], **MP_ANN}
+    print(f"MP_KNN: {len(kref)} queries over 2 processes x 2 shards equal "
+          f"the single-process 4-shard search exactly; search median "
+          f"{krec['search_median_ms']:.3f} ms, MeshPlan cross-process "
+          f"bytes {kn['cross_bytes']}", flush=True)
+    recs.append(krec)
+    print(f"multi-process leg ({MP_BACKEND}, {MP_PROCS} ranks x {MP_PER} "
+          f"shards of the card, TPC-H SF {MP_SF}): references "
+          f"{ref_s:.3f} s, ranks {leg_s:.3f} s", flush=True)
+    return {"backend": MP_BACKEND, "procs": MP_PROCS, "per": MP_PER,
+            "sf": MP_SF, "statements": recs, "ref_s": ref_s,
+            "ranks_s": leg_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
@@ -5901,6 +6876,7 @@ def main() -> int:
 
     card = gpu_line()
     print(card, flush=True)
+    t_run = time.perf_counter()
     t0 = time.perf_counter()
     kernels.build()
     kernels._load()
@@ -6017,7 +6993,9 @@ def main() -> int:
 
     main_entries = dict(kernels.ENTRY_LAUNCHES)
     for k, v in main_entries.items():
-        require(v > 0, f"{k} was never run on the main path")
+        # K31's merge runs on the sharded ANN leg's path, not this one
+        require(v > 0 or k.startswith(ANN_KERNELS),
+                f"{k} was never run on the main path")
     # the narrowed frame on and off on small results (after the counts)
     ab_text = {name: text for name, text, _check in stmts}
     narrow_recs = [narrow_ab(sess, name, ab_text[name])
@@ -6037,6 +7015,18 @@ def main() -> int:
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
     release_device()
+
+    # ---- the caps leg: its own counts, then each repaired wrapper past
+    # its old cap against its plain version (and K31's synthetic cases)
+    t0 = time.perf_counter()
+    caps_recs, caps_launches = caps_phase(tables, Session,
+                                          sql_suite.UNIQUE_KEYS, kernels)
+    release_device()
+    caps_kernels = caps_synthetic(kernels, torch.device("cuda", 0))
+    k31_cases = k31_synthetic(kernels, torch.device("cuda", 0))
+    release_device()
+    caps_s = time.perf_counter() - t0
+    print(f"caps leg in {caps_s:.3f} s", flush=True)
     t0 = time.perf_counter()
     tiny = datagen.generate(sf=SQLITE_SF, seed=args.seed)
     srecs = sqlite_checks(tiny, Session, sql_suite.UNIQUE_KEYS,
@@ -6057,6 +7047,10 @@ def main() -> int:
     crecs += card_vs_cpu(small_ds, Session, tpcds.UNIQUE_KEYS,
                          [(n, t) for n, (t, d) in ANALYTIC.items()
                           if d == "tpcds"] + ds_stmts)
+    # the caps leg's statements, every row at this scale
+    crecs += card_vs_cpu(small, Session, sql_suite.UNIQUE_KEYS,
+                         [(n, t.format(hi=10**9))
+                          for n, t in CAPS_STMTS.items()])
     del small_ds, tiny, tiny_ds
     release_device()
 
@@ -6066,8 +7060,8 @@ def main() -> int:
     # events of later traced runs (seen on the H100), and the vector
     # statements' busy times would read low.
     t0 = time.perf_counter()
-    vrecs, vbuild, v_launches, v_args, small_x, v_ab = vector_phase(
-        Session, kernels, args.warm, args.reps)
+    vrecs, vbuild, v_launches, v_args, small_x, v_ab, ann_ctx = \
+        vector_phase(Session, kernels, args.warm, args.reps)
     for r in vrecs:
         del r["result"]
     release_device()
@@ -6105,6 +7099,7 @@ def main() -> int:
         "P_Q6": Q[6], "P_Q6_1995": q6_text(Q, 1995), "P_Q14": Q[14],
         "P_NARROW": P_RANGE.format(lo=P_NARROW[0], hi=P_NARROW[1]),
         "P_WIDE": P_RANGE.format(lo=P_WIDE[0], hi=P_WIDE[1]),
+        "P_BOUNDS17": P_BOUNDS17,
         "P_Q1": Q[1],
     }
     st_texts = {"ST_Q1": Q[1], "ST_Q6": Q[6], "ST_Q3": Q[3], "ST_Q14": Q[14]}
@@ -6132,6 +7127,8 @@ def main() -> int:
         "P_Q14": ref_check("P_Q14", refs["Q14"]),
         "P_NARROW": ref_check("P_NARROW", range_oracle(li, *P_NARROW)),
         "P_WIDE": ref_check("P_WIDE", range_oracle(li, *P_WIDE)),
+        "P_BOUNDS17": ref_check("P_BOUNDS17",
+                                range_oracle(li, *P_BOUNDS17_RANGE)),
         "P_Q1": q1_check, "ST_Q1": q1_check,
         "ST_Q6": ref_check("ST_Q6", {"revenue": queries.q6_numpy(li)}),
         "ST_Q3": ref_check("ST_Q3", refs["Q3"]),
@@ -6229,6 +7226,26 @@ def main() -> int:
     print(f"PX phase leg 2 and the K25-K28 checks in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
+    # ---- the sharded ANN leg: its own counts (untraced: threads), then
+    # K31 on its calls
+    t0 = time.perf_counter()
+    ann_rec, ann_launches, ann_args = ann_mesh_leg(
+        Session, kernels, ann_ctx, torch.device("cuda", 0))
+    del ann_ctx
+    release_device()
+    krecs += k31_checks(kernels, args.reps, ann_args)
+    del ann_args
+    release_device()
+    print(f"sharded ANN leg and the K31 checks in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # ---- the multi-process leg: 2 spawned ranks x 2 shards of the card
+    t0 = time.perf_counter()
+    mp_rec = mp_leg(kernels, args.seed, torch.device("cuda", 0))
+    release_device()
+    print(f"multi-process leg in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
     # ---- the batched program through the server: its own counts, last
     t0 = time.perf_counter()
     bat, b_launches = batched_phase(tables, uk, kernels, args.seed)
@@ -6240,7 +7257,8 @@ def main() -> int:
                       "server": sv_launches, "batched": b_launches,
                       "px_server": srv["px_leg"]["launches"],
                       "px_mesh": px_launches, "px_stream": pxs_launches,
-                      "spill": sp_launches}
+                      "spill": sp_launches, "caps": caps_launches,
+                      "ann_mesh": ann_launches}
     for r in krecs:
         if r["name"] == "K17_slice_scan":
             r["launches"] = p_launches[r["name"]]
@@ -6259,6 +7277,9 @@ def main() -> int:
         elif r["name"] == "K18_decode_staged.px":
             # out-of-core PX: the PX runs of the PX streamed phase
             r["launches"] = pxs_launches["K18_decode_staged"]
+        elif r["name"] in ANN_KERNELS or r["name"] == "K31_shard_ivf.merge":
+            # the sharded ANN leg (both entries; the merge's own count)
+            r["launches"] = ann_launches[r["name"]]
         elif r["name"] == "K23_first_live":
             # this slice's path: the server phase (the main path's
             # narrowed frames launch it too, main_launches)
@@ -6296,6 +7317,10 @@ def main() -> int:
                                 "server_leg": srv["px_leg"],
                                 "streamed": pxsrecs},
                    "spill_phase": sprecs,
+                   "caps_leg": {"statements": caps_recs, "seconds": caps_s,
+                                "kernels": caps_kernels,
+                                "k31_synthetic_cases": k31_cases},
+                   "ann_mesh_leg": ann_rec, "multi_process_leg": mp_rec,
                    "k24": {"statements": k24_stmts, "synthetic": k24_syn},
                    "kernels": krecs, "float_checks": frecs,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
@@ -6306,6 +7331,8 @@ def main() -> int:
                    "device": device,
                    "build_log": kernels.BUILD_INFO.get("log", "")},
                   f, indent=1)
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_run:.3f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

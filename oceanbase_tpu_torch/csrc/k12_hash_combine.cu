@@ -14,43 +14,33 @@
 // the integer rate: bytes bound.
 //
 // Design: one thread per row (grid-stride), the column pointers and type
-// codes in a by-value argument struct, loads widened through ob_ldg_i64.
+// codes in a table in device memory (ob_common.cuh ObKeys, any number of
+// join columns), loads widened through ob_ldg_i64.
 #include "ob_common.cuh"
 
 #define K12_THREADS 256
-#define K12_MAX_COLS 8
 
-struct K12Args {
-  const void* col[K12_MAX_COLS];
-  int dt[K12_MAX_COLS];
-  int ncols;
-};
-
-__global__ void k12_hash(K12Args a, long long n, long long* __restrict__ out) {
+__global__ void k12_hash(ObKeys a, long long n, long long* __restrict__ out) {
   long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += step) {
     unsigned long long h = 0ull;
     for (int c = 0; c < a.ncols; c++) {
-      unsigned long long v = (unsigned long long)ob_ldg_i64(a.col[c], a.dt[c], i);
+      unsigned long long v = (unsigned long long)ob_ldg_i64(
+          ob_key_col(a, c), ob_key_dt(a, c), i);
       h = ob_mix64(h ^ (v + OB_GOLDEN64));
     }
     out[i] = (long long)h;
   }
 }
 
-// cols/dts: ncols integer key columns of n rows (type codes of
-// ob_common.cuh, no floats); out: int64 [n].
-extern "C" int ob_k12_hash(int ncols, const void* const* cols, const int* dts,
-                           long long n, void* out, int nblocks, void* stream) {
-  if (ncols < 1 || ncols > K12_MAX_COLS) return (int)cudaErrorInvalidValue;
-  K12Args a;
-  a.ncols = ncols;
-  for (int c = 0; c < ncols; c++) {
-    if (ob_is_float(dts[c])) return (int)cudaErrorInvalidValue;
-    a.col[c] = cols[c];
-    a.dt[c] = dts[c];
-  }
+// table: the device table (ObKeys) of ncols integer key columns of n rows
+// (type codes of ob_common.cuh; the wrapper refuses floats); out: int64
+// [n].
+extern "C" int ob_k12_hash(int ncols, const void* table, long long n,
+                           void* out, int nblocks, void* stream) {
+  ObKeys a;
+  if (!ob_keys_set(&a, ncols, table)) return (int)cudaErrorInvalidValue;
   k12_hash<<<nblocks, K12_THREADS, 0, (cudaStream_t)stream>>>(
       a, n, (long long*)out);
   return (int)cudaGetLastError();

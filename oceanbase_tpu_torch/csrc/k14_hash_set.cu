@@ -19,7 +19,10 @@
 // reads through slot rows are on top of that bound.
 //
 // Design: K9's table extended to k columns (the key tuple, its hash and its
-// equality are ob_common.cuh's ObKeys, shared with K29). (1) Clear every
+// equality are ob_common.cuh's ObKeys, shared with K29; the columns'
+// addresses and types come from a table in device memory, so a key tuple
+// takes any number of columns: INTERSECT and EXCEPT give each nullable
+// column two planes). (1) Clear every
 // slot (row -1, tag 0). (2) One thread per live build row walks linear
 // probes from its home slot: atomicCAS(-1 -> row) claims an empty slot and
 // writes the tag; a slot whose row holds an equal key tuple (read through
@@ -93,14 +96,14 @@ __global__ void k14_probe(ObKeys b, ObKeys p,
   }
 }
 
-// cols/dts: ncols build key columns of nb rows; sel: bool [nb];
-// slot_tag/slot_row: int32 [tsize], tsize a power of two >= 2 nb.
-extern "C" int ob_k14_build(int ncols, const void* const* cols,
-                            const int* dts, const void* sel, long long nb,
-                            void* slot_tag, void* slot_row, long long tsize,
-                            int nblocks, void* stream) {
+// table: the device table of ncols build key columns of nb rows (ObKeys);
+// sel: bool [nb]; slot_tag/slot_row: int32 [tsize], tsize a power of two
+// >= 2 nb.
+extern "C" int ob_k14_build(int ncols, const void* table, const void* sel,
+                            long long nb, void* slot_tag, void* slot_row,
+                            long long tsize, int nblocks, void* stream) {
   ObKeys b;
-  if (!ob_keys_set(&b, ncols, cols, dts) || tsize < 2 * nb ||
+  if (!ob_keys_set(&b, ncols, table) || tsize < 2 * nb ||
       (tsize & (tsize - 1)) != 0 || nb >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -115,18 +118,16 @@ extern "C" int ob_k14_build(int ncols, const void* const* cols,
   return (int)cudaGetLastError();
 }
 
-// bcols/bdts: the build key columns the table was built from; pcols/pdts:
-// the probe key columns of np rows (column j compared with build column
-// j); psel: bool [np]; match: int32 [np].
-extern "C" int ob_k14_probe(int ncols, const void* const* bcols,
-                            const int* bdts, const void* const* pcols,
-                            const int* pdts, const void* psel, long long np,
-                            const void* slot_tag, const void* slot_row,
-                            long long tsize, void* match, int nblocks,
-                            void* stream) {
+// btable: the device table of the build key columns the hash set was
+// built from; ptable: that of the probe key columns of np rows (column j
+// compared with build column j); psel: bool [np]; match: int32 [np].
+extern "C" int ob_k14_probe(int ncols, const void* btable,
+                            const void* ptable, const void* psel,
+                            long long np, const void* slot_tag,
+                            const void* slot_row, long long tsize,
+                            void* match, int nblocks, void* stream) {
   ObKeys b, p;
-  if (!ob_keys_set(&b, ncols, bcols, bdts) ||
-      !ob_keys_set(&p, ncols, pcols, pdts) ||
+  if (!ob_keys_set(&b, ncols, btable) || !ob_keys_set(&p, ncols, ptable) ||
       tsize < 1 || (tsize & (tsize - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }

@@ -24,25 +24,20 @@
 // sort, no atomics, no ordering between threads. The scatter writes the
 // inverse permutation once (4 random bytes a row) and then gathers every
 // column through it, so the many columns' random accesses are reads and
-// their writes stay coalesced. Two runs give the same bits.
+// their writes stay coalesced. Two runs give the same bits. The key
+// columns come from a table in device memory (ob_common.cuh ObKeys), so a
+// DISTINCT aggregate takes any number of group keys.
 #include "ob_common.cuh"
 
 #define K15_THREADS 256
-#define K15_MAX_COLS 16
 #define K15_MAX_SCATTER 48
-
-struct K15Keys {
-  const void* col[K15_MAX_COLS];
-  int dt[K15_MAX_COLS];
-  int ncols;
-};
 
 // One warp covers 32 consecutive sorted positions: each thread reads the
 // live flag and keys of its own row (order[i]) once and takes the previous
 // position's from the lane below by a shuffle; only lane 0 reads row
 // order[i - 1] itself. That halves the random reads of comparing each row
 // with its predecessor.
-__global__ void k15_first(K15Keys k, const unsigned char* __restrict__ live,
+__global__ void k15_first(ObKeys k, const unsigned char* __restrict__ live,
                           const int* __restrict__ order, long long n,
                           unsigned char* __restrict__ first) {
   int lane = threadIdx.x & 31;
@@ -58,15 +53,17 @@ __global__ void k15_first(K15Keys k, const unsigned char* __restrict__ live,
     if (lane == 0) plv = (in && i > 0) ? __ldg(live + p) : 0;
     bool nw = i == 0 || plv != lv;
     for (int c = 0; c < k.ncols; c++) {
-      if (ob_is_float(k.dt[c])) {
-        double v = in ? ob_ldg_f64(k.col[c], k.dt[c], r) : 0.0;
+      const void* col = ob_key_col(k, c);
+      int dt = ob_key_dt(k, c);
+      if (ob_is_float(dt)) {
+        double v = in ? ob_ldg_f64(col, dt, r) : 0.0;
         double pv = __shfl_up_sync(OB_FULL_MASK, v, 1);
-        if (lane == 0 && in && i > 0) pv = ob_ldg_f64(k.col[c], k.dt[c], p);
+        if (lane == 0 && in && i > 0) pv = ob_ldg_f64(col, dt, p);
         nw = nw || v != pv;
       } else {
-        long long v = in ? ob_ldg_i64(k.col[c], k.dt[c], r) : 0;
+        long long v = in ? ob_ldg_i64(col, dt, r) : 0;
         long long pv = __shfl_up_sync(OB_FULL_MASK, v, 1);
-        if (lane == 0 && in && i > 0) pv = ob_ldg_i64(k.col[c], k.dt[c], p);
+        if (lane == 0 && in && i > 0) pv = ob_ldg_i64(col, dt, p);
         nw = nw || v != pv;
       }
     }
@@ -74,20 +71,15 @@ __global__ void k15_first(K15Keys k, const unsigned char* __restrict__ live,
   }
 }
 
-// cols/dts: ncols key columns of n rows in row order; live: bool [n];
-// order: int32 [n], a permutation sorting (dead, keys...); first: bool [n].
-extern "C" int ob_k15_first(int ncols, const void* const* cols,
-                            const int* dts, const void* live,
+// table: the device table of ncols key columns of n rows in row order
+// (ObKeys); live: bool [n]; order: int32 [n], a permutation sorting (dead,
+// keys...); first: bool [n].
+extern "C" int ob_k15_first(int ncols, const void* table, const void* live,
                             const void* order, long long n, void* first,
                             int nblocks, void* stream) {
-  if (ncols < 1 || ncols > K15_MAX_COLS) return (int)cudaErrorInvalidValue;
+  ObKeys k;
+  if (!ob_keys_set(&k, ncols, table)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  K15Keys k;
-  k.ncols = ncols;
-  for (int c = 0; c < ncols; c++) {
-    k.col[c] = cols[c];
-    k.dt[c] = dts[c];
-  }
   k15_first<<<nblocks, K15_THREADS, 0, (cudaStream_t)stream>>>(
       k, (const unsigned char*)live, (const int*)order, n,
       (unsigned char*)first);

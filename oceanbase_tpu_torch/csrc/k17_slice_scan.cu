@@ -16,26 +16,36 @@
 // TB/s): the sliced bytes, read once and written once, plus the probes of
 // the searches (a few sectors) -- memory bound.
 //
-// Design: one launch. Every block repeats the binary searches (one thread
-// per bound, about 26 dependent probes over 60M keys, the bound cast to
-// the key's width first as the reference's astype does), then copies its
-// share of the `cap` rows of every column through a pointer table grouped
-// by element width (as K4 does) and counts its live rows into nrows with
-// one atomic per warp. Block 0 writes the overflow.
+// Design: one launch. Every block repeats the binary searches (the
+// block's threads strided over the bounds, about 26 dependent probes over
+// 60M keys each, the bound cast to the key's width first as the
+// reference's astype does, lo and hi folded with shared atomics), writes
+// its share of sel and counts its live rows into nrows with one atomic
+// per warp, then copies its share of the `cap` rows column by column
+// through a pointer table grouped by element width (as K4 does). Block 0
+// writes the overflow. The columns and the bounds come from one table of
+// entries: up to K17_INLINE of them ride the kernel's parameters (no
+// upload, as the by-value table of the first design), a longer table lies
+// in device memory, so a projection of any width and a range of any
+// number of bounds take one launch. The copy runs column by column so that
+// a thread reads a column's two addresses once, not once a row, and issues
+// four independent loads before its stores.
 #include "ob_common.cuh"
 
 #define K17_THREADS 256
-#define K17_MAX_COLS 48
-#define K17_MAX_BOUNDS 16
+#define K17_INLINE 64
 
+// The table: ncols source addresses, ncols destination addresses (grouped
+// by width), then three entries per bound: the 0-d bound tensor's
+// address, its type code, its flags (bit 0: side right; bit 1: high
+// bound). In `e` when it has at most K17_INLINE entries (t is null), else
+// at t in device memory.
 struct K17Args {
-  const void* src[K17_MAX_COLS];
-  void* dst[K17_MAX_COLS];
+  long long e[K17_INLINE];
+  const long long* t;
+  int ncols;
   int gstart[5];  // columns [gstart[g], gstart[g+1]) have width gwidth[g]
   int gwidth[4];
-  const void* bval[K17_MAX_BOUNDS];  // 0-d bound tensors
-  int bdt[K17_MAX_BOUNDS];           // their element type codes
-  int bflag[K17_MAX_BOUNDS];         // bit 0: side right; bit 1: high bound
   int nbounds;
 };
 
@@ -48,6 +58,10 @@ __device__ __forceinline__ long long k17_as_key(long long v, int key_dt) {
     case OB_I32: return (long long)(int)v;
     default: return v;
   }
+}
+
+__device__ __forceinline__ long long k17_entry(const K17Args& a, int i) {
+  return a.t != nullptr ? __ldg(a.t + i) : a.e[i];
 }
 
 // searchsorted(key[:n], v, side): the first i with key[i] >= v (left) or
@@ -68,11 +82,26 @@ __device__ long long k17_search(const void* key, int key_dt, long long n,
   return lo;
 }
 
+// Rows first, first + stride, ... below cap of columns [c0, c1): dst[r] =
+// src[start + r].
 template <typename T>
-__device__ __forceinline__ void k17_copy_row(const K17Args& a, int c0, int c1,
-                                             long long r, long long s) {
+__device__ __forceinline__ void k17_copy_cols(const K17Args& a, int c0, int c1,
+                                              long long start, long long cap,
+                                              long long first,
+                                              long long stride) {
   for (int c = c0; c < c1; c++) {
-    ((T*)a.dst[c])[r] = ((const T*)a.src[c])[s];
+    const T* src = (const T*)k17_entry(a, c) + start;
+    T* dst = (T*)k17_entry(a, a.ncols + c);
+    long long r = first;
+    for (; r + 3 * stride < cap; r += 4 * stride) {
+      T v0 = src[r], v1 = src[r + stride], v2 = src[r + 2 * stride],
+        v3 = src[r + 3 * stride];
+      dst[r] = v0;
+      dst[r + stride] = v1;
+      dst[r + 2 * stride] = v2;
+      dst[r + 3 * stride] = v3;
+    }
+    for (; r < cap; r += stride) dst[r] = src[r];
   }
 }
 
@@ -82,23 +111,30 @@ __global__ void k17_slice(const void* __restrict__ key, int key_dt,
                           unsigned char* __restrict__ sel_out,
                           unsigned long long* nrows, long long* ovf,
                           K17Args a) {
-  __shared__ long long s_pos[K17_MAX_BOUNDS];
   __shared__ long long s_lo, s_hi, s_start;
   int t = threadIdx.x;
-  if (t < a.nbounds) {
-    long long v = k17_as_key(ob_ldg_i64(a.bval[t], a.bdt[t], 0), key_dt);
-    s_pos[t] = k17_search(key, key_dt, n, v, (a.bflag[t] & 1) != 0);
+  if (t == 0) {
+    s_lo = 0;
+    s_hi = n;
+  }
+  __syncthreads();
+  for (int b = t; b < a.nbounds; b += blockDim.x) {
+    int i = 2 * a.ncols + 3 * b;
+    const void* bv = (const void*)k17_entry(a, i);
+    int bdt = (int)k17_entry(a, i + 1);
+    int flag = (int)k17_entry(a, i + 2);
+    long long v = k17_as_key(ob_ldg_i64(bv, bdt, 0), key_dt);
+    long long pos = k17_search(key, key_dt, n, v, (flag & 1) != 0);
+    // positions lie in [0, n]: the signed atomics order them as integers
+    if (flag & 2) {
+      atomicMin(&s_hi, pos);
+    } else {
+      atomicMax(&s_lo, pos);
+    }
   }
   __syncthreads();
   if (t == 0) {
-    long long lo = 0, hi = n;
-    for (int b = 0; b < a.nbounds; b++) {
-      if (a.bflag[b] & 2) {
-        hi = s_pos[b] < hi ? s_pos[b] : hi;
-      } else {
-        lo = s_pos[b] > lo ? s_pos[b] : lo;
-      }
-    }
+    long long lo = s_lo, hi = s_hi;
     hi = hi > lo ? hi : lo;
     long long start = lo < 0 ? 0 : lo;
     if (start > cap2 - cap) start = cap2 - cap;
@@ -113,20 +149,10 @@ __global__ void k17_slice(const void* __restrict__ key, int key_dt,
   __syncthreads();
   long long lo = s_lo, hi = s_hi, start = s_start;
   long long stride = (long long)gridDim.x * blockDim.x;
+  long long first = (long long)blockIdx.x * blockDim.x + t;
   unsigned int live = 0;
-  for (long long r = (long long)blockIdx.x * blockDim.x + t; r < cap;
-       r += stride) {
+  for (long long r = first; r < cap; r += stride) {
     long long s = start + r;
-    for (int g = 0; g < 4; g++) {
-      int c0 = a.gstart[g], c1 = a.gstart[g + 1];
-      if (c0 == c1) continue;
-      switch (a.gwidth[g]) {
-        case 1: k17_copy_row<unsigned char>(a, c0, c1, r, s); break;
-        case 2: k17_copy_row<unsigned short>(a, c0, c1, r, s); break;
-        case 4: k17_copy_row<unsigned int>(a, c0, c1, r, s); break;
-        default: k17_copy_row<unsigned long long>(a, c0, c1, r, s); break;
-      }
-    }
     bool on = sel_in[s] != 0 && s >= lo && s < hi;
     sel_out[r] = on ? 1 : 0;
     live += on ? 1u : 0u;
@@ -137,37 +163,55 @@ __global__ void k17_slice(const void* __restrict__ key, int key_dt,
   if ((t & 31) == 0 && live) {
     atomicAdd(nrows, (unsigned long long)live);
   }
+  for (int g = 0; g < 4; g++) {
+    int c0 = a.gstart[g], c1 = a.gstart[g + 1];
+    if (c0 == c1) continue;
+    switch (a.gwidth[g]) {
+      case 1:
+        k17_copy_cols<unsigned char>(a, c0, c1, start, cap, first, stride);
+        break;
+      case 2:
+        k17_copy_cols<unsigned short>(a, c0, c1, start, cap, first, stride);
+        break;
+      case 4:
+        k17_copy_cols<unsigned int>(a, c0, c1, start, cap, first, stride);
+        break;
+      default:
+        k17_copy_cols<unsigned long long>(a, c0, c1, start, cap, first,
+                                          stride);
+        break;
+    }
+  }
 }
 
 // key: the sort-key column (element type key_dt), its first n rows sorted;
 // cap: the slice capacity; cap2: the capacity of every column (> cap);
-// bval/bdt/bflag: nbounds bounds; src/dst/gstart/gwidth: the columns and
-// validity masks grouped by width, as K4; sel_in [cap2] -> sel_out [cap];
-// nrows: one zeroed int64; ovf: one int64.
+// the table of K17Args (the ncols columns and validity masks grouped by
+// width, as K4, then the nbounds bounds): `entries` on the host when it
+// has at most K17_INLINE entries, else `table` in device memory (the other
+// one null); gstart/gwidth: the width groups; sel_in [cap2] -> sel_out
+// [cap]; nrows: one zeroed int64; ovf: one int64.
 extern "C" int ob_k17_slice(const void* key, int key_dt, long long n,
                             long long cap, long long cap2, int nbounds,
-                            const void* const* bval, const int* bdt,
-                            const int* bflag, int ncols,
-                            const void* const* src, void* const* dst,
-                            const int* gstart, const int* gwidth,
-                            const void* sel_in, void* sel_out, void* nrows,
-                            void* ovf, int nblocks, void* stream) {
-  if (ncols < 0 || ncols > K17_MAX_COLS || nbounds < 0 ||
-      nbounds > K17_MAX_BOUNDS || cap < 1 || cap > cap2 || n > cap2) {
+                            int ncols, const long long* entries,
+                            const void* table, const int* gstart,
+                            const int* gwidth, const void* sel_in,
+                            void* sel_out, void* nrows, void* ovf,
+                            int nblocks, void* stream) {
+  long long ne = 2LL * ncols + 3LL * nbounds;
+  if (ncols < 0 || nbounds < 0 || cap < 1 || cap > cap2 || n > cap2 ||
+      (entries != nullptr) == (table != nullptr) ||
+      (entries != nullptr && ne > K17_INLINE)) {
     return (int)cudaErrorInvalidValue;
   }
   K17Args a;
-  for (int c = 0; c < ncols; c++) {
-    a.src[c] = src[c];
-    a.dst[c] = dst[c];
+  a.t = (const long long*)table;
+  if (entries != nullptr) {
+    for (long long i = 0; i < ne; i++) a.e[i] = entries[i];
   }
+  a.ncols = ncols;
   for (int g = 0; g < 5; g++) a.gstart[g] = gstart[g];
   for (int g = 0; g < 4; g++) a.gwidth[g] = gwidth[g];
-  for (int b = 0; b < nbounds; b++) {
-    a.bval[b] = bval[b];
-    a.bdt[b] = bdt[b];
-    a.bflag[b] = bflag[b];
-  }
   a.nbounds = nbounds;
   k17_slice<<<nblocks, K17_THREADS, 0, (cudaStream_t)stream>>>(
       key, key_dt, n, cap, cap2, (const unsigned char*)sel_in,

@@ -24,47 +24,16 @@
 // lax.top_k orders. The block merges each tile into its running k'
 // smallest keys in shared memory (a key's new rank = the smaller keys
 // counted in both), keys above the running k'-th skipped. A one-block
-// merge launch folds the blocks' runs the same way and writes the rows,
-// sel and the counter.
+// merge launch folds the blocks' sorted runs (a key's rank found by a
+// binary search in each run) and writes the rows, sel and the counter.
+// The runs sit in shared memory up to K22_SMEM_K keys; a larger k' (a
+// LIMIT past 2048 over an IVF index) keeps each block's run and the merge
+// launch's in device memory instead, the same merges over global
+// addresses, so k' is bounded by the candidates alone.
 #include "ob_common.cuh"
 
 #define K22_TILE 256
-#define K22_EMPTY 0xffffffffffffffffULL
-
-// Merge `tile` (m keys in any order; K22_EMPTY = none) into `run`, the
-// sorted kk smallest keys so far (K22_EMPTY-padded). Keys other than
-// K22_EMPTY are unique. Called by every thread of the block.
-__device__ void k22_merge(unsigned long long* run, unsigned long long* nrun,
-                          const unsigned long long* tile, int m, int kk) {
-  for (int r = threadIdx.x; r < kk; r += blockDim.x) nrun[r] = K22_EMPTY;
-  __syncthreads();
-  const unsigned long long thr = run[kk - 1];
-  for (int e = threadIdx.x; e < kk + m; e += blockDim.x) {
-    unsigned long long v = e < kk ? run[e] : tile[e - kk];
-    if (v == K22_EMPTY) continue;
-    int rank;
-    if (e < kk) {
-      rank = e;  // the run is sorted and its keys unique
-    } else {
-      if (v > thr) continue;  // kk smaller keys already held
-      int lo = 0, hi = kk;
-      while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (run[mid] < v) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      rank = lo;
-    }
-    for (int t = 0; t < m && rank < kk; t++) rank += tile[t] < v;
-    if (rank < kk) nrun[rank] = v;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < kk; r += blockDim.x) run[r] = nrun[r];
-  __syncthreads();
-}
+#define K22_SMEM_K 2048
 
 // The candidate's window slot: its list and its row (perm entry of the
 // clipped window index), and whether the window holds a row there.
@@ -89,19 +58,23 @@ k22_tiles(const float* __restrict__ x, const unsigned char* __restrict__ sel,
           const float* __restrict__ q, long long cand, int max_list,
           long long n, int d, int kk,
           unsigned long long* __restrict__ partial,
-          unsigned long long* __restrict__ live) {
+          unsigned long long* __restrict__ live,
+          unsigned long long* gruns) {
   extern __shared__ unsigned long long k22_sm[];
-  unsigned long long* run = k22_sm;
-  unsigned long long* nrun = k22_sm + kk;
-  unsigned long long* tkey = k22_sm + 2 * kk;
+  // the running k' keys and their merge buffer: shared memory, or this
+  // block's 2 k' keys of device memory past K22_SMEM_K
+  unsigned long long* tkey = k22_sm;
+  unsigned long long* run =
+      gruns ? gruns + (long long)blockIdx.x * 2 * kk : k22_sm + K22_TILE;
+  unsigned long long* nrun = run + kk;
   __shared__ unsigned long long wlive[K22_TILE / 32];
-  for (int r = threadIdx.x; r < kk; r += blockDim.x) run[r] = K22_EMPTY;
+  for (int r = threadIdx.x; r < kk; r += blockDim.x) run[r] = OB_RUN_EMPTY;
   unsigned long long mylive = 0;
   const bool vec4 = (d & 3) == 0 && (((size_t)x | (size_t)q) & 15) == 0;
   const long long ntiles = (cand + K22_TILE - 1) / K22_TILE;
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
     long long pos = t * K22_TILE + threadIdx.x;
-    unsigned long long key = K22_EMPTY;
+    unsigned long long key = OB_RUN_EMPTY;
     if (pos < cand) {
       bool in_window;
       long long row = k22_slot(perm, offs, lens, probes, max_list, n, pos,
@@ -139,7 +112,7 @@ k22_tiles(const float* __restrict__ x, const unsigned char* __restrict__ sel,
     }
     tkey[threadIdx.x] = key;
     __syncthreads();
-    k22_merge(run, nrun, tkey, K22_TILE, kk);
+    ob_run_merge_tile(run, nrun, tkey, K22_TILE, kk);
   }
   for (int o = 16; o > 0; o >>= 1)
     mylive += __shfl_xor_sync(OB_FULL_MASK, mylive, o);
@@ -163,14 +136,15 @@ __global__ void k22_final(const unsigned long long* __restrict__ partial,
                           const unsigned long long* __restrict__ live,
                           int* __restrict__ rows,
                           unsigned char* __restrict__ osel,
-                          long long* __restrict__ starved) {
+                          long long* __restrict__ starved,
+                          unsigned long long* gruns) {
   extern __shared__ unsigned long long k22_sm[];
-  unsigned long long* run = k22_sm;
-  unsigned long long* nrun = k22_sm + kk;
+  unsigned long long* run = gruns ? gruns : k22_sm;
+  unsigned long long* nrun = run + kk;
   for (int r = threadIdx.x; r < kk; r += blockDim.x) run[r] = partial[r];
   __syncthreads();
   for (int b = 1; b < nblocks; b++)
-    k22_merge(run, nrun, partial + (long long)b * kk, kk, kk);
+    ob_run_merge_sorted(run, nrun, partial + (long long)b * kk, kk);
   for (int r = threadIdx.x; r < kk; r += blockDim.x) {
     unsigned long long key = run[r];
     bool in_window;
@@ -186,33 +160,39 @@ __global__ void k22_final(const unsigned long long* __restrict__ partial,
 
 // x: (>= n, d) float32 row-major, sel: bool [>= n]; perm: int32 [>= n];
 // offs, lens: int32 [L]; probes: int32 [nprobe]; q: float32 [d]. kk =
-// min(k, nprobe * max_list) <= 2048. partial: int64 [nblocks * kk]
-// scratch; live: int64, zero on entry; rows: int32 [kk]; osel: bool [kk];
-// starved: int64.
+// min(k, nprobe * max_list). partial: int64 [nblocks * kk] scratch;
+// gruns: null when kk <= K22_SMEM_K, else int64 [(nblocks + 1) * 2 kk]
+// scratch (the blocks' runs, then the merge launch's); live: int64, zero
+// on entry; rows: int32 [kk]; osel: bool [kk]; starved: int64.
 extern "C" int ob_k22_probe(const void* x, const void* sel, const void* perm,
                             const void* offs, const void* lens,
                             const void* probes, const void* q, int nprobe,
                             int max_list, long long n, int d, int kk,
-                            int nblocks, void* partial, void* live,
-                            void* rows, void* osel, void* starved,
-                            void* stream) {
+                            int nblocks, void* partial, void* gruns,
+                            void* live, void* rows, void* osel,
+                            void* starved, void* stream) {
   long long cand = (long long)nprobe * max_list;
-  if (cand < 1 || n < 1 || d < 1 || kk < 1 || kk > 2048 || kk > cand ||
-      nblocks < 1)
+  if (cand < 1 || n < 1 || d < 1 || kk < 1 || kk > cand || nblocks < 1 ||
+      ((kk > K22_SMEM_K) != (gruns != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  size_t smem = (size_t)(2 * kk + K22_TILE) * sizeof(unsigned long long);
+  unsigned long long* g = (unsigned long long*)gruns;
+  size_t smem = (size_t)(K22_TILE + (g ? 0 : 2 * kk)) *
+                sizeof(unsigned long long);
   k22_tiles<<<nblocks, K22_TILE, smem, s>>>(
       (const float*)x, (const unsigned char*)sel, (const int*)perm,
       (const int*)offs, (const int*)lens, (const int*)probes,
       (const float*)q, cand, max_list, n, d, kk,
-      (unsigned long long*)partial, (unsigned long long*)live);
-  k22_final<<<1, K22_TILE, (size_t)2 * kk * sizeof(unsigned long long), s>>>(
+      (unsigned long long*)partial, (unsigned long long*)live, g);
+  size_t fsm = g ? 0 : (size_t)2 * kk * sizeof(unsigned long long);
+  k22_final<<<1, K22_TILE, fsm, s>>>(
       (const unsigned long long*)partial, nblocks, kk, (const int*)perm,
       (const int*)offs, (const int*)lens, (const int*)probes, max_list, n,
       (const unsigned long long*)live, (int*)rows, (unsigned char*)osel,
-      (long long*)starved);
+      (long long*)starved, g ? g + (long long)nblocks * 2 * kk : nullptr);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ob_k22_tile() { return K22_TILE; }
+
+extern "C" int ob_k22_smem_k() { return K22_SMEM_K; }

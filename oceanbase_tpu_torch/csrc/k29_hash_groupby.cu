@@ -34,6 +34,11 @@
 // in which slot depends on the order the threads run in; the groups, their
 // integer aggregates and the number of used slots do not. An aggregate-
 // only entry (no key columns) takes row_slot as given, as _apply_agg does.
+// The key columns come from a table in device memory (ob_common.cuh
+// ObKeys, any number of them); a launch takes at most K29_MAX_AGGS
+// aggregates, and the wrapper runs the aggregates after the first 16
+// through the aggregate-only entry over the same row slots, so the slot
+// pass runs once however many aggregates a statement has.
 #include "ob_common.cuh"
 
 #define K29_THREADS 256
@@ -55,7 +60,9 @@ struct K29Agg {
 };
 
 struct K29Args {
-  ObKeys keys;  // ncols 0: row_slot is an input
+  ObKeys keys;  // ncols 0: row_slot is an input; the table holds each key
+                // column's output [T] at t[2 ncols + j] (the key's type;
+                // int64 for a bool key)
   const unsigned char* sel;
   long long n;
   long long tsize;
@@ -64,8 +71,6 @@ struct K29Args {
   int* row_slot;               // [n]
   int* slot_row;               // [T]
   unsigned char* slot_used;    // [T]
-  void* key_out[OB_MAX_KEYS];  // [T] each, the key columns' types (bool:
-                               // int64)
 };
 
 __device__ __forceinline__ int k29_esize(int dt) {
@@ -224,13 +229,15 @@ __global__ void k29_final(K29Args a) {
       int r = a.slot_row[s];
       a.slot_used[s] = r >= 0 ? 1 : 0;
       for (int j = 0; j < a.keys.ncols; j++) {
-        if (a.keys.dt[j] == OB_BOOL) {
+        const void* col = ob_key_col(a.keys, j);
+        int dt = ob_key_dt(a.keys, j);
+        void* out = (void*)__ldg(a.keys.t + 2 * a.keys.ncols + j);
+        if (dt == OB_BOOL) {
           // jnp.where(used, bool_key, 0) promotes to int64
-          ((long long*)a.key_out[j])[s] =
-              r >= 0 ? ob_ldg_i64(a.keys.col[j], OB_BOOL, r) : 0;
+          ((long long*)out)[s] = r >= 0 ? ob_ldg_i64(col, OB_BOOL, r) : 0;
         } else {
-          ob_copy_elem(a.keys.col[j], a.key_out[j], k29_esize(a.keys.dt[j]),
-                       r >= 0 ? (long long)r : -1, s);
+          ob_copy_elem(col, out, k29_esize(dt), r >= 0 ? (long long)r : -1,
+                       s);
         }
       }
     }
@@ -248,25 +255,26 @@ __global__ void k29_final(K29Args a) {
   }
 }
 
-// cols/dts: ncols key columns of n rows (ncols 0: row_slot is an input);
-// sel: bool [n]; tsize: a power of two; per aggregate j (naggs of them):
-// ops[j], val_dts[j], acc_kinds[j], out_dts[j] (-1 unless a narrow
+// table: the device table of ncols key columns of n rows, their type
+// codes and their outputs (3 ncols entries; ncols 0: row_slot is an
+// input); sel: bool [n]; tsize: a power of two; per aggregate j (naggs of
+// them): ops[j], val_dts[j], acc_kinds[j], out_dts[j] (-1 unless a narrow
 // integer min/max), vals[j] ([n], null for count), accs[j] ([T]), outs[j]
 // ([T] or null). row_slot: int32 [n]; slot_row: int32 [T]; slot_used:
-// bool [T]; key_out: ncols columns [T] of the keys' types (int64 for a
-// bool key).
-extern "C" int ob_k29_groupby(int ncols, const void* const* cols,
-                              const int* dts, const void* sel, long long n,
+// bool [T]. The key outputs are columns [T] of the keys' types (int64
+// for a bool key).
+extern "C" int ob_k29_groupby(int ncols, const void* table,
+                              const void* sel, long long n,
                               long long tsize, int naggs, const int* ops,
                               const int* val_dts, const int* acc_kinds,
                               const int* out_dts, const void* const* vals,
                               void* const* accs, void* const* outs,
                               void* row_slot, void* slot_row, void* slot_used,
-                              void* const* key_out, int row_blocks,
+                              int row_blocks,
                               int slot_blocks, void* stream) {
   K29Args a;
   memset(&a, 0, sizeof(a));
-  if (ncols != 0 && !ob_keys_set(&a.keys, ncols, cols, dts)) {
+  if (ncols != 0 && !ob_keys_set(&a.keys, ncols, table)) {
     return (int)cudaErrorInvalidValue;
   }
   if (tsize < 1 || (tsize & (tsize - 1)) != 0 || n < 0 || n >= (1ll << 31) ||
@@ -290,7 +298,6 @@ extern "C" int ob_k29_groupby(int ncols, const void* const* cols,
   a.row_slot = (int*)row_slot;
   a.slot_row = (int*)slot_row;
   a.slot_used = (unsigned char*)slot_used;
-  for (int j = 0; j < ncols; j++) a.key_out[j] = key_out[j];
   cudaStream_t s = (cudaStream_t)stream;
   k29_clear<<<slot_blocks, K29_THREADS, 0, s>>>(a);
   if (n > 0) k29_assign<<<row_blocks, K29_THREADS, 0, s>>>(a);

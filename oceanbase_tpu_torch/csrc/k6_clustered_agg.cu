@@ -19,20 +19,26 @@
 // contiguous, so the threads of a warp walk consecutive probe rows and
 // their loads fall into the same sectors. Empty ranges (padded build rows
 // carry [0, 0)) give 0. A build row whose range is very long is summed by
-// one thread; TPC-H's clustered keys carry 1 to 7 rows per range.
+// one thread; TPC-H's clustered keys carry 1 to 7 rows per range. The
+// aggregates' addresses and codes come from a table in device memory, so
+// one launch takes any number of aggregates and walks the ranges once.
 #include "ob_common.cuh"
 
 #define K6_THREADS 256
-#define K6_MAX_AGGS 16
+#define K6_FIELDS 5
 
+// The aggregates' table: K6_FIELDS int64 entries per aggregate k, at
+// t[k * K6_FIELDS]: the values' address (0 for count(col)), the mask's
+// address (0: no validity mask), the output's address (int64, or double
+// for float sums), the values' type code, 1 for a float sum.
 struct K6Args {
-  const void* val[K6_MAX_AGGS];    // null for count(col)
-  const void* mask[K6_MAX_AGGS];   // null: no validity mask
-  void* out[K6_MAX_AGGS];          // int64, or double for float sums
-  int dt[K6_MAX_AGGS];
-  int isf[K6_MAX_AGGS];
+  const long long* t;
   int nagg;
 };
+
+__device__ __forceinline__ long long k6_field(const K6Args& a, int k, int f) {
+  return __ldg(a.t + (long long)k * K6_FIELDS + f);
+}
 
 __global__ void k6_segments(const int* __restrict__ starts,
                             const int* __restrict__ ends, long long nbuild,
@@ -46,46 +52,43 @@ __global__ void k6_segments(const int* __restrict__ starts,
     for (long long j = s; j < e; j++) c += sel[j] ? 1 : 0;
     cnt[i] = c;
     for (int k = 0; k < a.nagg; k++) {
-      const unsigned char* m = (const unsigned char*)a.mask[k];
-      if (a.isf[k]) {
+      const void* val = (const void*)k6_field(a, k, 0);
+      const unsigned char* m = (const unsigned char*)k6_field(a, k, 1);
+      void* out = (void*)k6_field(a, k, 2);
+      int dt = (int)k6_field(a, k, 3);
+      if (k6_field(a, k, 4)) {
         double acc = 0.0;
         for (long long j = s; j < e; j++) {
-          if (sel[j] && (!m || m[j])) acc += ob_ldg_f64(a.val[k], a.dt[k], j);
+          if (sel[j] && (!m || m[j])) acc += ob_ldg_f64(val, dt, j);
         }
-        ((double*)a.out[k])[i] = acc;
+        ((double*)out)[i] = acc;
       } else {
         unsigned long long acc = 0ULL;
         for (long long j = s; j < e; j++) {
           if (sel[j] && (!m || m[j])) {
-            acc += a.val[k] ? (unsigned long long)ob_ldg_i64(a.val[k], a.dt[k], j)
-                            : 1ULL;
+            acc += val ? (unsigned long long)ob_ldg_i64(val, dt, j) : 1ULL;
           }
         }
-        ((long long*)a.out[k])[i] = (long long)acc;
+        ((long long*)out)[i] = (long long)acc;
       }
     }
   }
 }
 
 // starts/ends: int32 [nbuild]; sel: bool probe mask; cnt: int64 [nbuild].
-// Per aggregate k: val (dtype code dt, or null to count), mask (bool or
-// null), out ([nbuild] int64, or double when isf).
+// table: nagg aggregates' entries in device memory (K6Args): per
+// aggregate the values (dtype code, or null to count), the mask (bool or
+// null) and the output ([nbuild] int64, or double for a float sum).
 extern "C" int ob_k6_segments(const void* starts, const void* ends,
                               long long nbuild, const void* sel, void* cnt,
-                              int nagg, const void* const* vals,
-                              const void* const* masks, void* const* outs,
-                              const int* dts, const int* isf, int nblocks,
+                              int nagg, const void* table, int nblocks,
                               void* stream) {
-  if (nagg < 0 || nagg > K6_MAX_AGGS) return (int)cudaErrorInvalidValue;
-  K6Args a;
-  a.nagg = nagg;
-  for (int k = 0; k < nagg; k++) {
-    a.val[k] = vals[k];
-    a.mask[k] = masks[k];
-    a.out[k] = outs[k];
-    a.dt[k] = dts[k];
-    a.isf[k] = isf[k];
+  if (nagg < 0 || (nagg > 0 && table == nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
+  K6Args a;
+  a.t = (const long long*)table;
+  a.nagg = nagg;
   k6_segments<<<nblocks, K6_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)starts, (const int*)ends, nbuild,
       (const unsigned char*)sel, (long long*)cnt, a);

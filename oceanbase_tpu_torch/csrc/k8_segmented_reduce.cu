@@ -35,48 +35,57 @@
 // not folded: after the sort they are one long tail run (their keys are
 // whatever the dead rows hold), and walking it would cost more than the
 // live groups.
+//
+// The sorted keys and the aggregates come from tables in device memory
+// (the keys an ObKeys of ob_common.cuh, the aggregates K8_FIELDS entries
+// each), so one launch takes any number of group keys and aggregates and
+// finds the segments once.
 #include "ob_common.cuh"
 
 #define K8_THREADS 256
 #define K8_ITEMS 8
 #define K8_TILE (K8_THREADS * K8_ITEMS)
-#define K8_MAX_KEYS 16
-#define K8_MAX_AGGS 16
+#define K8_FIELDS 8
 
-struct K8Keys {
-  const void* key[K8_MAX_KEYS];
-  int dt[K8_MAX_KEYS];
-  int nkeys;
-};
-
+// The aggregates' table: K8_FIELDS int64 entries per aggregate g, at
+// t[g * K8_FIELDS]: the values' address (0: count), the mask's address
+// (0: no mask beyond sel), the output's ([n] int64, or double for
+// floats), the carry's ([ntiles] of the same type), the values' type
+// code, the op (count as sum), 1 for a float accumulator, the identity
+// (a double's bits for floats).
 struct K8Aggs {
-  const void* val[K8_MAX_AGGS];   // null: count
-  const void* mask[K8_MAX_AGGS];  // null: no mask beyond sel
-  void* out[K8_MAX_AGGS];         // [n] int64, or double for floats
-  void* carry[K8_MAX_AGGS];       // [ntiles] int64 or double
-  int dt[K8_MAX_AGGS];
-  int op[K8_MAX_AGGS];
-  int isf[K8_MAX_AGGS];
-  long long ident[K8_MAX_AGGS];   // identity; a double's bits for floats
+  const long long* t;
   int nagg;
 };
 
+__device__ __forceinline__ long long k8_f(const K8Aggs& a, int g, int f) {
+  return __ldg(a.t + (long long)g * K8_FIELDS + f);
+}
+#define K8_VAL(a, g) ((const void*)k8_f(a, g, 0))
+#define K8_MASK(a, g) ((const unsigned char*)k8_f(a, g, 1))
+#define K8_OUT(a, g) ((void*)k8_f(a, g, 2))
+#define K8_CARRY(a, g) ((void*)k8_f(a, g, 3))
+#define K8_DT(a, g) ((int)k8_f(a, g, 4))
+#define K8_OP(a, g) ((int)k8_f(a, g, 5))
+#define K8_ISF(a, g) ((int)k8_f(a, g, 6))
+#define K8_IDENT(a, g) (k8_f(a, g, 7))
+
 // Row r starts a segment: r == 0, or the live flag or any key differs from
 // row r - 1. Floats compare as values (NaN != NaN, -0.0 == 0.0), like the
-// reference's k[1:] != k[:-1].
-__device__ __forceinline__ bool k8_new_seg(const K8Keys& k,
+// reference's k[1:] != k[:-1]. nkeys 0 (k.t null): the live flag alone.
+__device__ __forceinline__ bool k8_new_seg(const ObKeys& k,
                                            const unsigned char* ssel,
                                            long long r) {
   if (r == 0) return true;
   if ((ssel[r] != 0) != (ssel[r - 1] != 0)) return true;
-  for (int j = 0; j < k.nkeys; j++) {
-    int dt = k.dt[j];
+  for (int j = 0; j < k.ncols; j++) {
+    const void* key = ob_key_col(k, j);
+    int dt = ob_key_dt(k, j);
     if (dt == OB_F32 || dt == OB_F64) {
-      if (ob_ldg_f64(k.key[j], dt, r) != ob_ldg_f64(k.key[j], dt, r - 1)) {
+      if (ob_ldg_f64(key, dt, r) != ob_ldg_f64(key, dt, r - 1)) {
         return true;
       }
-    } else if (ob_ldg_i64(k.key[j], dt, r) !=
-               ob_ldg_i64(k.key[j], dt, r - 1)) {
+    } else if (ob_ldg_i64(key, dt, r) != ob_ldg_i64(key, dt, r - 1)) {
       return true;
     }
   }
@@ -124,10 +133,11 @@ __device__ __forceinline__ long long k8_value<long long>(
     long long r, long long id) {
   if (!ssel[r]) return id;
   long long src = order[r];
-  const unsigned char* m = (const unsigned char*)a.mask[g];
+  const unsigned char* m = K8_MASK(a, g);
   if (m && !m[src]) return id;
-  if (!a.val[g]) return 1;  // count
-  return ob_ldg_i64(a.val[g], a.dt[g], src);
+  const void* val = K8_VAL(a, g);
+  if (!val) return 1;  // count
+  return ob_ldg_i64(val, K8_DT(a, g), src);
 }
 
 template <>
@@ -136,9 +146,9 @@ __device__ __forceinline__ double k8_value<double>(
     long long r, double id) {
   if (!ssel[r]) return id;
   long long src = order[r];
-  const unsigned char* m = (const unsigned char*)a.mask[g];
+  const unsigned char* m = K8_MASK(a, g);
   if (m && !m[src]) return id;
-  return ob_ldg_f64(a.val[g], a.dt[g], src);
+  return ob_ldg_f64(K8_VAL(a, g), K8_DT(a, g), src);
 }
 
 template <typename A>
@@ -199,8 +209,9 @@ __device__ void k8_tile_agg(const K8Aggs& a, int g, const bool* fs,
                             long long tile_start, long long tile_end,
                             long long start_in, const unsigned char* ssel,
                             const int* order, int* wf, A* wv) {
-  int op = a.op[g];
-  A id = k8_ident<A>(a.ident[g]);
+  int op = K8_OP(a, g);
+  A id = k8_ident<A>(K8_IDENT(a, g));
+  void* out = K8_OUT(a, g);
   A x[K8_ITEMS];
   bool any = false;
   A tail = id;
@@ -226,7 +237,7 @@ __device__ void k8_tile_agg(const K8Aggs& a, int g, const bool* fs,
       cur = r;
     } else {
       run = k8_comb<A>(op, run, x[j]);
-      k8_store<A>(a.out[g], r, (A)0);
+      k8_store<A>(out, r, (A)0);
     }
     bool last = r == tile_end - 1 || (j + 1 < K8_ITEMS ? fs[j + 1] : next_flag);
     if (last) {
@@ -234,15 +245,15 @@ __device__ void k8_tile_agg(const K8Aggs& a, int g, const bool* fs,
       // a dead segment's start gets 0 and its pieces carry nothing
       bool live = ssel[r] != 0;
       if (cur >= 0) {
-        k8_store<A>(a.out[g], cur, live ? run : (A)0);
+        k8_store<A>(out, cur, live ? run : (A)0);
       } else if (live) {
-        k8_store<A>(a.carry[g], tile_start / K8_TILE, run);
+        k8_store<A>(K8_CARRY(a, g), tile_start / K8_TILE, run);
       }
     }
   }
 }
 
-__global__ void k8_tile(K8Keys k, K8Aggs a, const unsigned char* ssel,
+__global__ void k8_tile(ObKeys k, K8Aggs a, const unsigned char* ssel,
                         const int* __restrict__ order, long long n,
                         unsigned char* __restrict__ out_sel,
                         int* __restrict__ tile_has, long long* last_start) {
@@ -283,7 +294,7 @@ __global__ void k8_tile(K8Keys k, K8Aggs a, const unsigned char* ssel,
     last_start[blockIdx.x] = tl;
   }
   for (int g = 0; g < a.nagg; g++) {
-    if (a.isf[g]) {
+    if (K8_ISF(a, g)) {
       k8_tile_agg<double>(a, g, fs, next_flag, r0, n, tile_start, tile_end,
                           pe, ssel, order, wf, wv_f);
     } else {
@@ -340,67 +351,51 @@ __global__ void k8_fix(K8Aggs a, const unsigned char* ssel, long long n,
   if (!ssel[at]) return;  // a dead segment keeps its 0
   int lane = threadIdx.x & 31;
   for (int g = 0; g < a.nagg; g++) {
-    int op = a.op[g];
-    if (a.isf[g]) {
-      double acc = k8_walk<double>(op, k8_ident<double>(a.ident[g]),
-                                   a.carry[g], t, ntiles, tile_has,
+    int op = K8_OP(a, g);
+    if (K8_ISF(a, g)) {
+      double acc = k8_walk<double>(op, k8_ident<double>(K8_IDENT(a, g)),
+                                   K8_CARRY(a, g), t, ntiles, tile_has,
                                    first_flag);
-      double* o = (double*)a.out[g];
+      double* o = (double*)K8_OUT(a, g);
       if (lane == 0) o[at] = k8_comb<double>(op, o[at], acc);
     } else {
-      long long acc = k8_walk<long long>(op, a.ident[g], a.carry[g], t,
-                                         ntiles, tile_has, first_flag);
-      long long* o = (long long*)a.out[g];
+      long long acc = k8_walk<long long>(op, K8_IDENT(a, g), K8_CARRY(a, g),
+                                         t, ntiles, tile_has, first_flag);
+      long long* o = (long long*)K8_OUT(a, g);
       if (lane == 0) o[at] = k8_comb<long long>(op, o[at], acc);
     }
   }
 }
 
 // Whether the first row of each tile starts a segment.
-__global__ void k8_first_flags(K8Keys k, const unsigned char* ssel,
+__global__ void k8_first_flags(ObKeys k, const unsigned char* ssel,
                                long long n, int ntiles,
                                unsigned char* first_flag) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < ntiles) first_flag[t] = k8_new_seg(k, ssel, (long long)t * K8_TILE);
 }
 
-// keys: nkeys sorted key columns (dtype codes kdts); ssel: sorted live
-// flags; order: int32 sort order (value row of each sorted position).
-// Per aggregate g: op, val (dtype vdts[g], null to count), mask (bool or
-// null), out ([n] int64, or double when isf), carry ([ntiles] scratch of
-// the same type), ident (identity, a double's bits for floats).
-// out_sel: bool [n]; tile_has: int32 [ntiles]; last_start: int64 [ntiles];
-// first_flag: uint8 [ntiles]; ntiles = ceil(n / K8_TILE).
+// ktable: the device table (ObKeys) of nkeys sorted key columns, null
+// when nkeys is 0; ssel: sorted live flags; order: int32 sort order (value
+// row of each sorted position). atable: nagg aggregates' entries in
+// device memory (K8Aggs; op codes as ob_common.cuh, count taken as a sum
+// of ones). out_sel: bool [n]; tile_has: int32 [ntiles]; last_start:
+// int64 [ntiles]; first_flag: uint8 [ntiles]; ntiles = ceil(n / K8_TILE).
 extern "C" int ob_k8_segreduce(
-    int nkeys, const void* const* keys, const int* kdts, const void* ssel,
-    const void* order, long long n, int nagg, const int* ops,
-    const void* const* vals, const int* vdts, const void* const* masks,
-    void* const* outs, void* const* carries, const int* isf,
-    const long long* idents, void* out_sel, void* tile_has, void* last_start,
-    void* first_flag, int ntiles, void* stream) {
-  if (nkeys < 0 || nkeys > K8_MAX_KEYS || nagg < 0 || nagg > K8_MAX_AGGS ||
-      n < 1) {
+    int nkeys, const void* ktable, const void* ssel, const void* order,
+    long long n, int nagg, const void* atable, void* out_sel, void* tile_has,
+    void* last_start, void* first_flag, int ntiles, void* stream) {
+  if (nkeys < 0 || nagg < 0 || n < 1 || (nkeys > 0 && ktable == nullptr) ||
+      (nagg > 0 && atable == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  K8Keys k;
-  k.nkeys = nkeys;
-  for (int j = 0; j < nkeys; j++) {
-    k.key[j] = keys[j];
-    k.dt[j] = kdts[j];
-  }
+  ObKeys k;
+  k.t = (const long long*)ktable;
+  k.ncols = nkeys;
   K8Aggs a;
+  a.t = (const long long*)atable;
   a.nagg = nagg;
-  for (int g = 0; g < nagg; g++) {
-    a.val[g] = vals[g];
-    a.mask[g] = masks[g];
-    a.out[g] = outs[g];
-    a.carry[g] = carries[g];
-    a.dt[g] = vdts[g];
-    a.op[g] = ops[g] == OB_COUNT ? OB_SUM : ops[g];
-    a.isf[g] = isf[g];
-    a.ident[g] = idents[g];
-  }
   const unsigned char* ss = (const unsigned char*)ssel;
   k8_tile<<<ntiles, K8_THREADS, 0, s>>>(k, a, ss, (const int*)order, n,
                                         (unsigned char*)out_sel,

@@ -178,6 +178,13 @@ __device__ __forceinline__ unsigned int ob_f32_image(float v) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// The float32 of an ob_f32_image (-0.0 comes back as +0.0, a NaN as the
+// positive quiet NaN).
+__device__ __forceinline__ float ob_f32_from_image(unsigned int b) {
+  return (b & 0x80000000u) ? __uint_as_float(b & 0x7fffffffu)
+                           : __uint_as_float(~b);
+}
+
 // Exclusive block-wide sum of one int64 per thread (blockDim.x a
 // multiple of 32, at most 1024); *total gets the block's sum. Every
 // thread of the block must call it.
@@ -224,26 +231,31 @@ __device__ __forceinline__ unsigned int ob_hash32_row(
   return h;
 }
 
-// A tuple of 1..OB_MAX_KEYS key columns passed by value to a kernel: the
-// columns' addresses and type codes (K14's hash set, K29's group-by).
-#define OB_MAX_KEYS 16
-
+// A tuple of key columns read through an int64 table in device memory
+// (K12's hash, K14's hash set, K15's first rows, K8's segments, K29's
+// group-by): t[j] is column j's address and t[ncols + j] its type code;
+// a kernel may keep more per-column entries after those (K29 its key
+// outputs at t[2 ncols + j]). The table is not passed by value, so a
+// tuple takes any number of columns.
 struct ObKeys {
-  const void* col[OB_MAX_KEYS];
-  int dt[OB_MAX_KEYS];
+  const long long* t;
   int ncols;
 };
 
-// Fill an ObKeys from host arrays; 0 when ncols is out of range.
-static inline int ob_keys_set(ObKeys* k, int ncols, const void* const* cols,
-                              const int* dts) {
-  if (ncols < 1 || ncols > OB_MAX_KEYS) return 0;
+// An ObKeys over a device table; 0 when ncols < 1 or the table is null.
+static inline int ob_keys_set(ObKeys* k, int ncols, const void* table) {
+  if (ncols < 1 || table == nullptr) return 0;
+  k->t = (const long long*)table;
   k->ncols = ncols;
-  for (int j = 0; j < ncols; j++) {
-    k->col[j] = cols[j];
-    k->dt[j] = dts[j];
-  }
   return 1;
+}
+
+__device__ __forceinline__ const void* ob_key_col(const ObKeys& k, int j) {
+  return (const void*)__ldg(k.t + j);
+}
+
+__device__ __forceinline__ int ob_key_dt(const ObKeys& k, int j) {
+  return (int)__ldg(k.t + k.ncols + j);
 }
 
 // hash32_combine (oceanbase_tpu/ops/hashing.py:76) of row i of a key
@@ -252,7 +264,8 @@ __device__ __forceinline__ unsigned int ob_keys_hash32(const ObKeys& c,
                                                        long long i) {
   unsigned int h = 0u;
   for (int j = 0; j < c.ncols; j++) {
-    h = ob_mix32(h ^ (ob_fold32(c.col[j], c.dt[j], i) + OB_GOLDEN32));
+    h = ob_mix32(h ^ (ob_fold32(ob_key_col(c, j), ob_key_dt(c, j), i) +
+                      OB_GOLDEN32));
   }
   return h;
 }
@@ -263,18 +276,100 @@ __device__ __forceinline__ unsigned int ob_keys_hash32(const ObKeys& c,
 __device__ __forceinline__ bool ob_keys_equal(const ObKeys& x, long long a,
                                               const ObKeys& y, long long b) {
   for (int j = 0; j < x.ncols; j++) {
-    if (ob_is_float(x.dt[j]) || ob_is_float(y.dt[j])) {
-      double u = ob_is_float(x.dt[j]) ? ob_ldg_f64(x.col[j], x.dt[j], a)
-                                      : (double)ob_ldg_i64(x.col[j], x.dt[j], a);
-      double v = ob_is_float(y.dt[j]) ? ob_ldg_f64(y.col[j], y.dt[j], b)
-                                      : (double)ob_ldg_i64(y.col[j], y.dt[j], b);
+    const void* xc = ob_key_col(x, j);
+    const void* yc = ob_key_col(y, j);
+    int xd = ob_key_dt(x, j), yd = ob_key_dt(y, j);
+    if (ob_is_float(xd) || ob_is_float(yd)) {
+      double u = ob_is_float(xd) ? ob_ldg_f64(xc, xd, a)
+                                 : (double)ob_ldg_i64(xc, xd, a);
+      double v = ob_is_float(yd) ? ob_ldg_f64(yc, yd, b)
+                                 : (double)ob_ldg_i64(yc, yd, b);
       if (!(u == v)) return false;
-    } else if (ob_ldg_i64(x.col[j], x.dt[j], a) !=
-               ob_ldg_i64(y.col[j], y.dt[j], b)) {
+    } else if (ob_ldg_i64(xc, xd, a) != ob_ldg_i64(yc, yd, b)) {
       return false;
     }
   }
   return true;
+}
+
+// Running top-k selections over unique 64-bit keys (K22's IVF probe,
+// K31's sharded probe): a run is the kk smallest keys seen so far, sorted,
+// padded with OB_RUN_EMPTY. The run and its merge buffer may lie in shared
+// or in device memory (generic addresses).
+#define OB_RUN_EMPTY 0xffffffffffffffffULL
+
+// Merge `tile` (m keys in any order; OB_RUN_EMPTY = none) into `run`,
+// the sorted kk smallest keys so far (OB_RUN_EMPTY-padded). Keys other
+// than OB_RUN_EMPTY are unique. Called by every thread of the block.
+static __device__ void ob_run_merge_tile(unsigned long long* run,
+                                         unsigned long long* nrun,
+                                         const unsigned long long* tile,
+                                         int m, int kk) {
+  for (int r = threadIdx.x; r < kk; r += blockDim.x) nrun[r] = OB_RUN_EMPTY;
+  __syncthreads();
+  const unsigned long long thr = run[kk - 1];
+  for (int e = threadIdx.x; e < kk + m; e += blockDim.x) {
+    unsigned long long v = e < kk ? run[e] : tile[e - kk];
+    if (v == OB_RUN_EMPTY) continue;
+    int rank;
+    if (e < kk) {
+      rank = e;  // the run is sorted and its keys unique
+    } else {
+      if (v > thr) continue;  // kk smaller keys already held
+      int lo = 0, hi = kk;
+      while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (run[mid] < v) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      rank = lo;
+    }
+    for (int t = 0; t < m && rank < kk; t++) rank += tile[t] < v;
+    if (rank < kk) nrun[rank] = v;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < kk; r += blockDim.x) run[r] = nrun[r];
+  __syncthreads();
+}
+
+// The first index of a sorted run of m keys holding a key >= v.
+__device__ __forceinline__ int ob_run_lower(const unsigned long long* run,
+                                            int m, unsigned long long v) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (run[mid] < v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Merge the sorted run `tile` (kk keys, OB_RUN_EMPTY-padded) into `run`
+// (the same shape): a key's rank is its index in its own run plus the
+// smaller keys of the other, found by a binary search. Called by every
+// thread of the block.
+static __device__ void ob_run_merge_sorted(unsigned long long* run,
+                                           unsigned long long* nrun,
+                                           const unsigned long long* tile,
+                                           int kk) {
+  for (int r = threadIdx.x; r < kk; r += blockDim.x) nrun[r] = OB_RUN_EMPTY;
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * kk; e += blockDim.x) {
+    bool mine = e < kk;
+    unsigned long long v = mine ? run[e] : tile[e - kk];
+    if (v == OB_RUN_EMPTY) continue;
+    int rank = (mine ? e : e - kk) + ob_run_lower(mine ? tile : run, kk, v);
+    if (rank < kk) nrun[rank] = v;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < kk; r += blockDim.x) run[r] = nrun[r];
+  __syncthreads();
 }
 
 // Copy element `s` of a plane of `esize`-byte elements to element `d` of

@@ -39,6 +39,8 @@ K28 `range_histogram`, `hash_histogram`, `bloom_bits`, `range_bounds`,
 K29 `hash_groupby`, `slot_aggregate`
                        general hash group-by      (csrc/k29_hash_groupby.cu)
 K30 `join_product_sum` matched product sum       (csrc/k30_join_product_sum.cu)
+K31 `ann_rerank`, `ann_merge`
+                       sharded IVF re-rank, merge (csrc/k31_shard_ivf.cu)
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface (one nvcc per source, all started together, then one
@@ -101,19 +103,22 @@ KERNEL_NAMES = (
     "K28_bucket_hist",
     "K29_hash_groupby",
     "K30_join_product_sum",
+    "K31_shard_ivf",
 )
 
 # launches of each kernel wrapper on CUDA tensors (plain runs not counted)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 # launches of the second entry points, counted in their kernel's LAUNCHES
 # entry too: K5's no-payload probe, K10's range search alone, K11's
-# build-side marks of the full outer join and K15's write-back scatter;
+# build-side marks of the full outer join, K15's write-back scatter and
+# K31's merge of the gathered strips;
 # and the Distinct operator's
 # runs on the card (K3 + K4 + K13, executor._dedup_batch)
 ENTRY_LAUNCHES: dict[str, int] = {"K5_affine_join.probe": 0,
                                   "K10_expand_join.ranges": 0,
                                   "K11_probe_run_any.mark_build": 0,
                                   "K15_distinct_first.scatter": 0,
+                                  "K31_shard_ivf.merge": 0,
                                   "dedup_batch": 0}
 
 
@@ -166,6 +171,7 @@ SOURCES = (
     "k28_bucket_hist.cu",
     "k29_hash_groupby.cu",
     "k30_join_product_sum.cu",
+    "k31_shard_ivf.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -208,8 +214,10 @@ def _source_digest() -> str:
 
 def build() -> Path:
     """Compile every source (in parallel) and link the shared library;
-    returns its path. Reuses a library built from identical sources."""
-    import time
+    returns its path. Reuses a library built from identical sources.
+    Processes that build at once (the ranks of a process mesh) take a
+    file lock: the first builds, the others find its library."""
+    import fcntl
 
     digest = _source_digest()
     out = _BUILD / f"libob_kernels_{digest}.so"
@@ -217,6 +225,17 @@ def build() -> Path:
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
+            return out
+        return _build(digest, out)
+
+
+def _build(digest: str, out: Path) -> Path:
+    import time
+
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
@@ -269,13 +288,13 @@ def _load():
         lib.ob_k4_gather.argtypes = [P, L, L, I, P, P, P, P, I, P]
         lib.ob_k5_affine.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P,
                                      P, P, I, P]
-        lib.ob_k6_segments.argtypes = [P, P, L, P, P, I, P, P, P, P, P, I, P]
+        lib.ob_k6_segments.argtypes = [P, P, L, P, P, I, P, I, P]
         lib.ob_k7_topk.argtypes = [P, I, P, I, L, L, P, P, P, P, P, I, P, I,
                                    P]
         lib.ob_k7_tile_rows.argtypes = []
         lib.ob_k7_state_bytes.argtypes = []
-        lib.ob_k8_segreduce.argtypes = [I, P, P, P, P, L, I, P, P, P, P, P,
-                                        P, P, P, P, P, P, P, I, P]
+        lib.ob_k8_segreduce.argtypes = [I, P, P, P, L, I, P, P, P, P, P, I,
+                                        P]
         lib.ob_k8_tile_rows.argtypes = []
         lib.ob_k5_probe.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P]
         lib.ob_k9_merge_join.argtypes = [P, I, P, L, P, I, P, L, P, L, P, I,
@@ -285,20 +304,20 @@ def _load():
                                       P, P, P, P, P, I, P]
         lib.ob_k10_tile_rows.argtypes = []
         lib.ob_k11_run_any.argtypes = [P, L, P, P, L, P, I, P]
-        lib.ob_k12_hash.argtypes = [I, P, P, L, P, I, P]
+        lib.ob_k12_hash.argtypes = [I, P, L, P, I, P]
         lib.ob_k11_mark_build.argtypes = [P, P, L, L, P, I, P]
         lib.ob_k13_tile_rows.argtypes = []
         lib.ob_k13_scan.argtypes = [P, I, P, I, I, I, I, L, P, I, L, P, P,
                                     L, P]
         lib.ob_k13_flags.argtypes = [I, P, P, L, P, I, P]
         lib.ob_k13_search.argtypes = [P, L, P, P, P, I, L, P, I, P]
-        lib.ob_k14_build.argtypes = [I, P, P, P, L, P, P, L, I, P]
-        lib.ob_k14_probe.argtypes = [I, P, P, P, P, P, L, P, P, L, P, I, P]
-        lib.ob_k15_first.argtypes = [I, P, P, P, P, L, P, I, P]
+        lib.ob_k14_build.argtypes = [I, P, P, L, P, P, L, I, P]
+        lib.ob_k14_probe.argtypes = [I, P, P, P, L, P, P, L, P, I, P]
+        lib.ob_k15_first.argtypes = [I, P, P, P, L, P, I, P]
         lib.ob_k15_scatter.argtypes = [I, P, P, P, P, P, L, I, P]
         lib.ob_k16_registers.argtypes = [P, I, P, L, P, I, P]
-        lib.ob_k17_slice.argtypes = [P, I, L, L, L, I, P, P, P, I, P, P, P,
-                                     P, P, P, P, P, I, P]
+        lib.ob_k17_slice.argtypes = [P, I, L, L, L, I, I, P, P, P, P, P, P,
+                                     P, P, I, P]
         lib.ob_k18_decode.argtypes = [I, P, P, P, P, P, P, P, P, P, L, L, P,
                                       P]
         lib.ob_k18_run_tile.argtypes = []
@@ -306,8 +325,9 @@ def _load():
         lib.ob_k20_update.argtypes = [P, P, I, P, L, I, I, P, P, P]
         lib.ob_k21_lists.argtypes = [P, P, I, I, I, P, P, P]
         lib.ob_k22_probe.argtypes = [P, P, P, P, P, P, P, I, I, L, I, I, I,
-                                     P, P, P, P, P, P]
+                                     P, P, P, P, P, P, P]
         lib.ob_k22_tile.argtypes = []
+        lib.ob_k22_smem_k.argtypes = []
         lib.ob_k23_first_live.argtypes = [P, L, L, P, P, P, P, I, P, P, P,
                                           P, P]
         lib.ob_k23_tile_rows.argtypes = []
@@ -325,9 +345,14 @@ def _load():
         lib.ob_k28_bounds.argtypes = [P, L, P, I, P, P]
         lib.ob_k28_hot.argtypes = [P, P, L, I, P, P]
         lib.ob_k28_probe.argtypes = [I, P, P, L, P, L, P, I, P]
-        lib.ob_k29_groupby.argtypes = [I, P, P, P, L, L, I, P, P, P, P, P, P,
-                                       P, P, P, P, P, I, I, P]
+        lib.ob_k29_groupby.argtypes = [I, P, P, L, L, I, P, P, P, P, P, P,
+                                       P, P, P, P, I, I, P]
         lib.ob_k30_product_sum.argtypes = [P, I, P, I, P, L, P, I, P]
+        lib.ob_k31_rerank.argtypes = [P, L, I, L, P, P, P, I, I, P, I, I, P,
+                                      P, P, P, P]
+        lib.ob_k31_merge.argtypes = [P, P, L, I, I, P, P, P, P, P]
+        lib.ob_k31_tile.argtypes = []
+        lib.ob_k31_smem_k.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
                    lib.ob_k3_pass,
@@ -343,7 +368,7 @@ def _load():
                    lib.ob_k15_scatter, lib.ob_k16_registers,
                    lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile,
                    lib.ob_k19_assign, lib.ob_k20_update, lib.ob_k21_lists,
-                   lib.ob_k22_probe, lib.ob_k22_tile,
+                   lib.ob_k22_probe, lib.ob_k22_tile, lib.ob_k22_smem_k,
                    lib.ob_k23_first_live, lib.ob_k23_tile_rows,
                    lib.ob_k24_run, lib.ob_k24_prog_bytes,
                    lib.ob_k24_tile_rows, lib.ob_k25_tile_rows,
@@ -351,7 +376,8 @@ def _load():
                    lib.ob_k25_round_robin, lib.ob_k26_recv, lib.ob_k27_merge,
                    lib.ob_k28_hist, lib.ob_k28_bounds, lib.ob_k28_hot,
                    lib.ob_k28_probe, lib.ob_k29_groupby,
-                   lib.ob_k30_product_sum):
+                   lib.ob_k30_product_sum, lib.ob_k31_rerank,
+                   lib.ob_k31_merge, lib.ob_k31_tile, lib.ob_k31_smem_k):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -803,8 +829,6 @@ def affine_join(probe_key, probe_sel, a0: int, stride: int, build_key,
     if stride <= 0 or nb < 1:
         raise ValueError(f"K5 needs stride > 0 and a build side, got "
                          f"stride {stride}, {nb} rows")
-    if len(payload) > K5_MAX_COLS:
-        raise ValueError(f"K5 takes at most {K5_MAX_COLS} payload columns")
     for c in payload:
         _vector(c, nb, "K5 payload column")
         if c.element_size() not in _WIDTHS:
@@ -818,18 +842,24 @@ def affine_join(probe_key, probe_sel, a0: int, stride: int, build_key,
     with torch.cuda.device(dev):
         nblk = _blocks(dev, n, 256 * 4)
         stream = _stream(dev)
-        nc = len(payload)
-        src = (ctypes.c_void_p * max(nc, 1))(*[c.data_ptr() for c in payload])
-        dst = (ctypes.c_void_p * max(nc, 1))(*[o.data_ptr() for o in outs])
-        width = (ctypes.c_int * max(nc, 1))(*[c.element_size()
-                                              for c in payload])
-        rc = lib.ob_k5_affine(
-            probe_key.data_ptr(), DTYPE_CODE[probe_key.dtype],
-            probe_sel.data_ptr(), n, int(a0), int(stride), nb,
-            build_key.data_ptr(), DTYPE_CODE[build_key.dtype],
-            build_sel.data_ptr(), sel.data_ptr(), nc, src, dst, width, nblk,
-            stream)
-        _check(rc, "K5_affine_join")
+        # K5_MAX_COLS payload columns a launch (its by-value table); each
+        # launch writes the same sel
+        for c0 in range(0, max(len(payload), 1), K5_MAX_COLS):
+            part = list(range(c0, min(c0 + K5_MAX_COLS, len(payload))))
+            nc = len(part)
+            src = (ctypes.c_void_p * max(nc, 1))(
+                *[payload[i].data_ptr() for i in part])
+            dst = (ctypes.c_void_p * max(nc, 1))(
+                *[outs[i].data_ptr() for i in part])
+            width = (ctypes.c_int * max(nc, 1))(
+                *[payload[i].element_size() for i in part])
+            rc = lib.ob_k5_affine(
+                probe_key.data_ptr(), DTYPE_CODE[probe_key.dtype],
+                probe_sel.data_ptr(), n, int(a0), int(stride), nb,
+                build_key.data_ptr(), DTYPE_CODE[build_key.dtype],
+                build_sel.data_ptr(), sel.data_ptr(), nc, src, dst, width,
+                nblk, stream)
+            _check(rc, "K5_affine_join")
     count_launch(LAUNCHES, "K5_affine_join")
     return sel, outs
 
@@ -837,9 +867,6 @@ def affine_join(probe_key, probe_sel, a0: int, stride: int, build_key,
 # ---------------------------------------------------------------------------
 # K6: clustered-FK segment aggregation
 # ---------------------------------------------------------------------------
-
-K6_MAX_AGGS = 16
-
 
 def _range_sum_plain(x, starts, ends):
     """The reference's per-range sum: cumsum differences at the bounds."""
@@ -871,6 +898,20 @@ def clustered_segments_plain(starts, ends, sel, aggs):
     return cnt, outs
 
 
+def k6_agg_entries(aggs, raw) -> list:
+    """K6's aggregate table (csrc/k6_clustered_agg.cu K6Args), five int64
+    entries an aggregate: values, mask, output (addresses, 0 for none),
+    the values' type code, 1 for a float sum. One launch takes any number
+    of aggregates."""
+    out = []
+    for (op, v, m), r in zip(aggs, raw):
+        out += [v.data_ptr() if op == "sum" else 0,
+                m.data_ptr() if m is not None else 0, r.data_ptr(),
+                DTYPE_CODE[v.dtype] if op == "sum" else 0,
+                int(r.dtype == torch.float64)]
+    return out
+
+
 def clustered_segments(starts, ends, sel, aggs):
     """K6: per build row i, the count of live probe rows in
     [starts[i], ends[i]) and, for each (op, values|None, mask|None) in
@@ -889,8 +930,6 @@ def clustered_segments(starts, ends, sel, aggs):
         raise TypeError("K6 ranges must be int32")
     if sel.dtype != torch.bool:
         raise TypeError("K6 sel must be bool")
-    if len(aggs) > K6_MAX_AGGS:
-        raise ValueError(f"K6 takes at most {K6_MAX_AGGS} aggregates")
     for op, v, m in aggs:
         if op not in ("count", "sum"):
             raise NotImplementedError(f"K6 aggregate {op}")
@@ -909,24 +948,15 @@ def clustered_segments(starts, ends, sel, aggs):
                                device=dev))
     if nb == 0:
         return cnt, [r for r in raw]
+    table = (_device_table(k6_agg_entries(aggs, raw), dev) if aggs
+             else None)
     lib = _load()
     with torch.cuda.device(dev):
-        nblk = _blocks(dev, nb, 256)
-        stream = _stream(dev)
-        na = len(aggs)
-        k = max(na, 1)
-        vals = (ctypes.c_void_p * k)(*[
-            v.data_ptr() if op == "sum" else None for op, v, _m in aggs])
-        masks = (ctypes.c_void_p * k)(*[
-            m.data_ptr() if m is not None else None for _op, _v, m in aggs])
-        outs = (ctypes.c_void_p * k)(*[r.data_ptr() for r in raw])
-        dts = (ctypes.c_int * k)(*[
-            DTYPE_CODE[v.dtype] if op == "sum" else 0 for op, v, _m in aggs])
-        isf = (ctypes.c_int * k)(*[
-            1 if r.dtype == torch.float64 else 0 for r in raw])
         rc = lib.ob_k6_segments(
             starts.data_ptr(), ends.data_ptr(), nb, sel.data_ptr(),
-            cnt.data_ptr(), na, vals, masks, outs, dts, isf, nblk, stream)
+            cnt.data_ptr(), len(aggs),
+            table.data_ptr() if table is not None else None,
+            _blocks(dev, nb, 256), _stream(dev))
         _check(rc, "K6_clustered_agg")
     res = []
     for (op, v, _m), r in zip(aggs, raw):
@@ -1003,10 +1033,6 @@ def topk_candidates(key, sel, desc: bool, c: int):
 # ---------------------------------------------------------------------------
 # K8: segmented reduce-by-key over sorted rows
 # ---------------------------------------------------------------------------
-
-K8_MAX_KEYS = 16
-K8_MAX_AGGS = 16
-
 
 def _segreduce_dtype(op: str, v) -> torch.dtype:
     if op == "count":
@@ -1109,6 +1135,25 @@ def segmented_reduce_plain(skeys, ssel, order, aggs):
     return new_seg & ssel, outs
 
 
+def k8_agg_entries(aggs, raw, carries) -> list:
+    """K8's aggregate table (csrc/k8_segmented_reduce.cu K8Aggs), eight
+    int64 entries an aggregate: values, mask, output, carry (addresses, 0
+    for none), the values' type code, the op (count as a sum of ones), 1
+    for a float accumulator, the identity (a double's bits for floats).
+    One launch takes any number of aggregates."""
+    out = []
+    for (op, v, m), r, c in zip(aggs, raw, carries):
+        isf = r.dtype == torch.float64
+        idv = _identity(op, v.dtype if op != "count" else torch.int64)
+        out += [v.data_ptr() if op != "count" else 0,
+                m.data_ptr() if m is not None else 0, r.data_ptr(),
+                c.data_ptr(), DTYPE_CODE[v.dtype] if op != "count" else 0,
+                AGG_CODE["sum" if op == "count" else op], int(isf),
+                struct.unpack("<q", struct.pack("<d", idv))[0] if isf
+                else int(idv)]
+    return out
+
+
 def segmented_reduce(skeys, ssel, order, aggs):
     """K8: over rows in sorted order (`skeys` the sorted key columns,
     `ssel` the sorted live flags, `order` the sort order that maps sorted
@@ -1125,12 +1170,6 @@ def segmented_reduce(skeys, ssel, order, aggs):
     _vector(order, n, "K8 order")
     if ssel.dtype != torch.bool or order.dtype != torch.int32:
         raise TypeError("K8 takes a bool sorted sel and an int32 order")
-    if len(skeys) > K8_MAX_KEYS:
-        raise ValueError(f"K8 takes at most {K8_MAX_KEYS} keys")
-    if len(aggs) > K8_MAX_AGGS:
-        raise ValueError(f"K8 takes at most {K8_MAX_AGGS} aggregates")
-    for k in skeys:
-        _vector(k, n, "K8 sorted key")
     for op, v, m in aggs:
         if op not in AGG_CODE:
             raise NotImplementedError(op)
@@ -1151,42 +1190,22 @@ def segmented_reduce(skeys, ssel, order, aggs):
         return sel, [r.to(_segreduce_dtype(op, v))
                      for (op, v, _m), r in zip(aggs, raw)]
     lib = _load()
+    tile = lib.ob_k8_tile_rows()
+    ntiles = -(-n // tile)
+    tile_has = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    last_start = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    first_flag = torch.empty(ntiles, dtype=torch.uint8, device=dev)
+    carries = [torch.empty(ntiles, dtype=r.dtype, device=dev) for r in raw]
+    ktab = _key_table(skeys, n, "K8 sorted key", dev) if skeys else None
+    atab = (_device_table(k8_agg_entries(aggs, raw, carries), dev)
+            if aggs else None)
     with torch.cuda.device(dev):
-        tile = lib.ob_k8_tile_rows()
-        ntiles = -(-n // tile)
-        stream = _stream(dev)
-        tile_has = torch.empty(ntiles, dtype=torch.int32, device=dev)
-        last_start = torch.empty(ntiles, dtype=torch.int64, device=dev)
-        first_flag = torch.empty(ntiles, dtype=torch.uint8, device=dev)
-        nk = len(skeys)
-        keys = (ctypes.c_void_p * max(nk, 1))(*[k.data_ptr() for k in skeys])
-        kdts = (ctypes.c_int * max(nk, 1))(*[DTYPE_CODE[k.dtype]
-                                             for k in skeys])
-        na = len(aggs)
-        k = max(na, 1)
-        carries = [torch.empty(ntiles, dtype=r.dtype, device=dev) for r in raw]
-        ops = (ctypes.c_int * k)(*[AGG_CODE[op] for op, _v, _m in aggs])
-        vals = (ctypes.c_void_p * k)(*[
-            v.data_ptr() if op != "count" else None for op, v, _m in aggs])
-        vdts = (ctypes.c_int * k)(*[
-            DTYPE_CODE[v.dtype] if op != "count" else 0
-            for op, v, _m in aggs])
-        masks = (ctypes.c_void_p * k)(*[
-            m.data_ptr() if m is not None else None for _op, _v, m in aggs])
-        outs = (ctypes.c_void_p * k)(*[r.data_ptr() for r in raw])
-        carr = (ctypes.c_void_p * k)(*[t.data_ptr() for t in carries])
-        isf = (ctypes.c_int * k)(*[
-            1 if r.dtype == torch.float64 else 0 for r in raw])
-        idents = (ctypes.c_longlong * k)()
-        for j, (op, v, _m) in enumerate(aggs):
-            idv = _identity(op, v.dtype if op != "count" else torch.int64)
-            idents[j] = (struct.unpack("<q", struct.pack("<d", idv))[0]
-                         if isf[j] else int(idv))
         rc = lib.ob_k8_segreduce(
-            nk, keys, kdts, ssel.data_ptr(), order.data_ptr(), n, na, ops,
-            vals, vdts, masks, outs, carr, isf, idents, sel.data_ptr(),
+            len(skeys), ktab.data_ptr() if ktab is not None else None,
+            ssel.data_ptr(), order.data_ptr(), n, len(aggs),
+            atab.data_ptr() if atab is not None else None, sel.data_ptr(),
             tile_has.data_ptr(), last_start.data_ptr(), first_flag.data_ptr(),
-            ntiles, stream)
+            ntiles, _stream(dev))
         _check(rc, "K8_segmented_reduce")
     res = []
     for (op, v, _m), r in zip(aggs, raw):
@@ -1534,7 +1553,6 @@ def mark_build(br, pair_sel, nr: int):
 # K12: splitmix64 hash of multi-column keys
 # ---------------------------------------------------------------------------
 
-K12_MAX_COLS = 8
 
 
 def _i64(u: int) -> int:
@@ -1579,31 +1597,28 @@ def hash_columns_plain(cols):
 
 
 def hash_columns(cols):
-    """K12: int64 [n] hash_combine of 1..8 integer key columns."""
+    """K12: int64 [n] hash_combine of the integer key columns (any number:
+    the columns ride a device table)."""
     cols = list(cols)
     if not cols:
         raise ValueError("K12 needs at least one column")
     if not _on_cuda(*cols):
         return hash_columns_plain(cols)
     n = int(cols[0].shape[0])
-    if len(cols) > K12_MAX_COLS:
-        raise ValueError(f"K12 takes at most {K12_MAX_COLS} columns")
     for c in cols:
-        _vector(c, n, "K12 key column")
         if c.dtype.is_floating_point:
             raise NotImplementedError(
                 "hash of float key columns is not ported")
     dev = cols[0].device
+    table = _key_table(cols, n, "K12 key column", dev)
     out = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
         return out
     lib = _load()
     with torch.cuda.device(dev):
-        nc = len(cols)
         rc = lib.ob_k12_hash(
-            nc, (ctypes.c_void_p * nc)(*[c.data_ptr() for c in cols]),
-            (ctypes.c_int * nc)(*[DTYPE_CODE[c.dtype] for c in cols]), n,
-            out.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
+            len(cols), table.data_ptr(), n, out.data_ptr(),
+            _blocks(dev, n, 256 * 4), _stream(dev))
         _check(rc, "K12_hash_combine")
     count_launch(LAUNCHES, "K12_hash_combine")
     return out
@@ -1831,7 +1846,6 @@ def bound_search(arr, target, lo=None, hi=None, right: bool = False):
 # K14: the multi-column hash set (build and existence probe)
 # ---------------------------------------------------------------------------
 
-K14_MAX_COLS = 16
 M32 = 0xFFFFFFFF
 MIX32_M1 = 0x85EBCA6B
 MIX32_M2 = 0xC2B2AE35
@@ -1978,16 +1992,6 @@ def hash_set_probe_plain(slot_tag, slot_row, build_cols, probe_cols,
     return match
 
 
-def _k14_cols(cols, n: int, what: str):
-    if not 1 <= len(cols) <= K14_MAX_COLS:
-        raise ValueError(f"K14 takes 1..{K14_MAX_COLS} key columns")
-    for c in cols:
-        _vector(c, n, what)
-    k = len(cols)
-    return ((ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
-            (ctypes.c_int * k)(*[DTYPE_CODE[c.dtype] for c in cols]))
-
-
 def hash_set_build(key_cols, mask: torch.Tensor, table_size: int):
     """K14 build: (slot_tag, slot_row) int32 [table_size] of the live rows'
     key tuples; a slot's row is the lowest live row of its key. Which key
@@ -1998,18 +2002,23 @@ def hash_set_build(key_cols, mask: torch.Tensor, table_size: int):
         return hash_set_build_plain(cols, mask, table_size)
     nb = int(mask.shape[0])
     _flags_arg(mask, "K14 build sel")
-    ptrs, dts = _k14_cols(cols, nb, "K14 build key")
+    if not cols:
+        raise ValueError("K14 takes at least one key column")
+    dev = mask.device
+    # the key tuple's table in device memory (csrc/ob_common.cuh ObKeys):
+    # any number of columns, e.g. the two planes of every nullable column
+    # that INTERSECT and EXCEPT hash
+    table = _key_table(cols, nb, "K14 build key", dev)
     ts = int(table_size)
     if ts < 2 * nb or ts & (ts - 1) or nb >= 2**31:
         raise ValueError(f"K14 needs a power-of-two table of >= 2 x {nb} "
                          f"slots, got {ts}")
-    dev = mask.device
     slot_tag = torch.empty(ts, dtype=torch.int32, device=dev)
     slot_row = torch.empty(ts, dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.ob_k14_build(len(cols), ptrs, dts, mask.data_ptr(), nb,
-                              slot_tag.data_ptr(), slot_row.data_ptr(), ts,
+        rc = lib.ob_k14_build(len(cols), table.data_ptr(), mask.data_ptr(),
+                              nb, slot_tag.data_ptr(), slot_row.data_ptr(), ts,
                               _blocks(dev, max(nb, ts // 4), 256 * 4),
                               _stream(dev))
         _check(rc, "K14_hash_set build")
@@ -2032,15 +2041,15 @@ def hash_set_probe(slot_tag, slot_row, build_cols, probe_cols, probe_mask):
     if slot_tag.dtype != torch.int32 or slot_row.dtype != torch.int32:
         raise TypeError("K14 slots must be int32")
     npr = _flags_arg(probe_mask, "K14 probe sel")
-    bp, bd = _k14_cols(bcols, int(bcols[0].shape[0]), "K14 build key")
-    pp, pd = _k14_cols(pcols, npr, "K14 probe key")
     dev = probe_mask.device
+    btab = _key_table(bcols, int(bcols[0].shape[0]), "K14 build key", dev)
+    ptab = _key_table(pcols, npr, "K14 probe key", dev)
     match = torch.empty(npr, dtype=torch.int32, device=dev)
     if npr == 0:
         return match
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.ob_k14_probe(len(bcols), bp, bd, pp, pd,
+        rc = lib.ob_k14_probe(len(bcols), btab.data_ptr(), ptab.data_ptr(),
                               probe_mask.data_ptr(), npr, slot_tag.data_ptr(),
                               slot_row.data_ptr(), ts, match.data_ptr(),
                               _blocks(dev, npr, 256 * 4), _stream(dev))
@@ -2053,7 +2062,6 @@ def hash_set_probe(slot_tag, slot_row, build_cols, probe_cols, probe_mask):
 # K15: first occurrences through a sort order; rows back through it
 # ---------------------------------------------------------------------------
 
-K15_MAX_COLS = 16
 K15_MAX_SCATTER = 48
 
 
@@ -2079,20 +2087,17 @@ def first_occurrence(key_cols, mask: torch.Tensor, order: torch.Tensor):
     _vector(order, n, "K15 order")
     if order.dtype != torch.int32:
         raise TypeError("K15 order must be int32")
-    if not 1 <= len(cols) <= K15_MAX_COLS:
-        raise ValueError(f"K15 takes 1..{K15_MAX_COLS} key columns")
-    for c in cols:
-        _vector(c, n, "K15 key")
+    if not cols:
+        raise ValueError("K15 takes at least one key column")
     dev = mask.device
+    table = _key_table(cols, n, "K15 key", dev)
     first = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return first
     lib = _load()
     with torch.cuda.device(dev):
-        k = len(cols)
         rc = lib.ob_k15_first(
-            k, (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
-            (ctypes.c_int * k)(*[DTYPE_CODE[c.dtype] for c in cols]),
+            len(cols), table.data_ptr(),
             mask.data_ptr(), order.data_ptr(), n, first.data_ptr(),
             _blocks(dev, n, 256 * 4), _stream(dev))
         _check(rc, "K15_distinct_first")
@@ -2220,9 +2225,8 @@ def hll_registers(col: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 # K17: the range slice of a sorted-projection scan
 # ---------------------------------------------------------------------------
 
-K17_MAX_COLS = 48
-K17_MAX_BOUNDS = 16
 _RANGE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+K17_INLINE = 64  # table entries in the kernel's parameters
 
 
 def slice_scan_plain(key, n: int, lows, highs, cap: int, payload, sel):
@@ -2272,10 +2276,6 @@ def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
         raise TypeError("K17 sel must be bool")
     if not 0 < cap < cap2 or n > cap2:
         raise ValueError(f"K17 slices {cap} of {cap2} rows ({n} stored)")
-    if len(bvals) > K17_MAX_BOUNDS:
-        raise ValueError(f"K17 takes at most {K17_MAX_BOUNDS} bounds")
-    if len(payload) > K17_MAX_COLS:
-        raise ValueError(f"K17 takes at most {K17_MAX_COLS} columns")
     for v in bvals:
         if v.numel() != 1 or v.dtype not in _RANGE_DTYPES:
             raise TypeError("K17 bounds are integer scalars")
@@ -2291,28 +2291,31 @@ def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
     order = sorted(range(len(payload)),
                    key=lambda i: payload[i].element_size())
     nc = len(order)
-    src = (ctypes.c_void_p * max(nc, 1))(
-        *[payload[i].data_ptr() for i in order])
-    dst = (ctypes.c_void_p * max(nc, 1))(*[outs[i].data_ptr() for i in order])
     gstart = (ctypes.c_int * 5)()
     gwidth = (ctypes.c_int * 4)(*_WIDTHS)
     for g, w in enumerate(_WIDTHS):
         gstart[g + 1] = gstart[g] + sum(
             1 for i in order if payload[i].element_size() == w)
-    nb = len(bvals)
-    bval = (ctypes.c_void_p * max(nb, 1))(*[v.data_ptr() for v in bvals])
-    bdt = (ctypes.c_int * max(nb, 1))(*[DTYPE_CODE[v.dtype] for v in bvals])
     sides = [s for _v, s in lows] + [s for _v, s in highs]
-    bflag = (ctypes.c_int * max(nb, 1))(*[
-        int(side == "right") | (2 if i >= len(lows) else 0)
-        for i, side in enumerate(sides)])
+    entries = ([payload[i].data_ptr() for i in order]
+               + [outs[i].data_ptr() for i in order])
+    for i, (v, side) in enumerate(zip(bvals, sides)):
+        entries += [v.data_ptr(), DTYPE_CODE[v.dtype],
+                    int(side == "right") | (2 if i >= len(lows) else 0)]
+    # a short table rides the kernel's parameters, a longer one device
+    # memory (csrc/k17_slice_scan.cu K17_INLINE)
+    inline, table = None, None
+    if len(entries) <= K17_INLINE:
+        inline = (ctypes.c_longlong * max(len(entries), 1))(*entries)
+    else:
+        table = _device_table(entries, dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.ob_k17_slice(
-            key.data_ptr(), DTYPE_CODE[key.dtype], n, cap, cap2, nb, bval,
-            bdt, bflag, nc, src, dst, gstart, gwidth, sel.data_ptr(),
-            osel.data_ptr(), nrows.data_ptr(), ovf.data_ptr(),
-            _blocks(dev, cap, 256 * 4), _stream(dev))
+            key.data_ptr(), DTYPE_CODE[key.dtype], n, cap, cap2, len(bvals),
+            nc, inline, table.data_ptr() if table is not None else None,
+            gstart, gwidth, sel.data_ptr(), osel.data_ptr(), nrows.data_ptr(),
+            ovf.data_ptr(), _blocks(dev, cap, 256 * 4), _stream(dev))
         _check(rc, "K17_slice_scan")
     count_launch(LAUNCHES, "K17_slice_scan")
     return outs, osel, nrows, ovf
@@ -2639,19 +2642,21 @@ def ivf_probe_plain(x, sel, perm, offs, lens, probes, q, max_list: int,
     return rows[top].to(torch.int32), dist[top] < float("inf"), starved
 
 
-K22_MAX_K = 2048
 _k22_tile = None
+_k22_smem_k = None
 
 
 def ivf_probe(x, sel, perm, offs, lens, probes, q, max_list: int, n: int,
               k: int):
     """K22: the IVF probe's gather, exact re-rank and top-k in one tile
-    pass and one merge launch. x: (cap, d) float32 vectors, sel: bool
+    pass and one merge launch (the runs in shared memory up to
+    `ob_k22_smem_k` keys, in device memory past it: any k). x: (cap, d)
+    float32 vectors, sel: bool
     [cap] live rows after the fused filter, perm/offs/lens: the index's
     int32 arrays, probes: int32 [nprobe] (K21). Returns (int32 [k'] rows,
     bool [k'] sel, 0-d int64 starvation count), k' = min(k, nprobe *
     max_list), in lax.top_k's order."""
-    global _k22_tile
+    global _k22_tile, _k22_smem_k
     if not _on_cuda(x, sel, perm, offs, lens, probes, q):
         return ivf_probe_plain(x, sel, perm, offs, lens, probes, q,
                                max_list, n, k)
@@ -2677,16 +2682,21 @@ def ivf_probe(x, sel, perm, offs, lens, probes, q, max_list: int, n: int,
     if not 1 <= n <= min(cap, int(perm.shape[0])):
         raise ValueError(f"K22 rows {n} outside the table's arrays")
     kk = min(int(k), cand)
-    if not 1 <= kk <= K22_MAX_K:
-        raise ValueError(f"K22 selects 1 to {K22_MAX_K} rows, got {kk}")
+    if kk < 1:
+        raise ValueError(f"K22 selects at least one row, got {kk}")
     lib = _load()
     if _k22_tile is None:
         _k22_tile = int(lib.ob_k22_tile())
+        _k22_smem_k = int(lib.ob_k22_smem_k())
     dev = x.device
     nblocks = max(1, min(-(-cand // _k22_tile),
                          2 * torch.cuda.get_device_properties(
                              dev).multi_processor_count))
     partial = torch.empty(nblocks * kk, dtype=torch.int64, device=dev)
+    # past the shared-memory runs: each block's run and the merge's in
+    # device memory
+    gruns = (torch.empty((nblocks + 1) * 2 * kk, dtype=torch.int64,
+                         device=dev) if kk > _k22_smem_k else None)
     live = torch.zeros((), dtype=torch.int64, device=dev)
     rows = torch.empty(kk, dtype=torch.int32, device=dev)
     osel = torch.empty(kk, dtype=torch.bool, device=dev)
@@ -2696,6 +2706,7 @@ def ivf_probe(x, sel, perm, offs, lens, probes, q, max_list: int, n: int,
             x.data_ptr(), sel.data_ptr(), perm.data_ptr(), offs.data_ptr(),
             lens.data_ptr(), probes.data_ptr(), q.data_ptr(), nprobe,
             int(max_list), int(n), d, kk, nblocks, partial.data_ptr(),
+            gruns.data_ptr() if gruns is not None else None,
             live.data_ptr(), rows.data_ptr(), osel.data_ptr(),
             starved.data_ptr(), _stream(dev))
         _check(rc, "K22_ivf_probe")
@@ -3512,10 +3523,12 @@ def hash_groupby_plain(key_cols, mask: torch.Tensor, aggs, table_size: int):
 
 
 def _k29_aggs(aggs, n: int, ts: int, dev):
-    """ctypes arrays of the aggregate specs and their output tensors."""
+    """ctypes arrays of one launch's aggregate specs (at most
+    K29_MAX_AGGS) and their output tensors."""
     aggs = list(aggs)
     if len(aggs) > K29_MAX_AGGS:
-        raise ValueError(f"K29 takes at most {K29_MAX_AGGS} aggregates")
+        raise ValueError(f"one K29 launch takes at most {K29_MAX_AGGS} "
+                         "aggregates")
     ops, vdts, kinds, odts, vals, accs, outs = ([] for _ in range(7))
     results, keep = [], []
     for op, v in aggs:
@@ -3548,20 +3561,28 @@ def _k29_aggs(aggs, n: int, ts: int, dev):
 
 def _k29_launch(lib, dev, keys, mask, n: int, ts: int, agg_args, row_slot,
                 slot_row, slot_used, key_out, what: str) -> None:
-    nk = max(len(keys), 1)
+    table = (_device_table([c.data_ptr() for c in keys]
+                           + [DTYPE_CODE[c.dtype] for c in keys]
+                           + [o.data_ptr() for o in key_out], dev)
+             if keys else None)
     with torch.cuda.device(dev):
         rc = lib.ob_k29_groupby(
-            len(keys), (ctypes.c_void_p * nk)(*[c.data_ptr() for c in keys]),
-            (ctypes.c_int * nk)(*[DTYPE_CODE[c.dtype] for c in keys]),
+            len(keys), table.data_ptr() if table is not None else None,
             mask.data_ptr(), n, ts, *agg_args,
             row_slot.data_ptr(),
             slot_row.data_ptr() if slot_row is not None else None,
             slot_used.data_ptr() if slot_used is not None else None,
-            (ctypes.c_void_p * nk)(*[o.data_ptr() for o in key_out]),
             _blocks(dev, n, 256 * 4), _blocks(dev, ts, 256 * 4),
             _stream(dev))
         _check(rc, what)
     count_launch(LAUNCHES, "K29_hash_groupby")
+
+
+def agg_groups(aggs, size: int) -> list:
+    """`aggs` in groups of at most `size`, in order (at least one group):
+    the launches of a kernel whose aggregates ride a by-value table."""
+    aggs = list(aggs)
+    return [aggs[i:i + size] for i in range(0, max(len(aggs), 1), size)]
 
 
 def _k29_table(ts: int) -> int:
@@ -3573,8 +3594,9 @@ def _k29_table(ts: int) -> int:
 
 def hash_groupby(key_cols, mask: torch.Tensor, aggs, table_size: int):
     """K29: the hash group-by of the live rows' key tuples into a table of
-    `table_size` (a power of two) slots, in one launch. aggs: (op, values)
-    pairs (values None for count). Returns (row_slot, slot_row, slot_used,
+    `table_size` (a power of two) slots, in one launch (and one of the
+    aggregate-only entry per 16 aggregates past the first 16). aggs:
+    (op, values) pairs (values None for count). Returns (row_slot, slot_row, slot_used,
     keys, aggregates) as `hash_groupby_plain`; which key sits in which
     slot depends on the schedule, the groups and their aggregates do
     not."""
@@ -3584,15 +3606,16 @@ def hash_groupby(key_cols, mask: torch.Tensor, aggs, table_size: int):
     if not _on_cuda(mask, *cols, *vals):
         return hash_groupby_plain(cols, mask, aggs, table_size)
     n = _flags_arg(mask, "K29 sel")
-    if not 1 <= len(cols) <= K14_MAX_COLS:
-        raise ValueError(f"K29 takes 1..{K14_MAX_COLS} key columns")
+    if not cols:
+        raise ValueError("K29 takes at least one key column")
     for c in cols:
         _vector(c, n, "K29 key")
     if n >= 2**31:
         raise ValueError("K29 numbers at most 2^31 - 1 rows")
     ts = _k29_table(table_size)
     dev = mask.device
-    agg_args, results, _keep = _k29_aggs(aggs, n, ts, dev)
+    first, *rest = agg_groups(aggs, K29_MAX_AGGS)
+    agg_args, results, _keep = _k29_aggs(first, n, ts, dev)
     row_slot = torch.empty(n, dtype=torch.int32, device=dev)
     slot_row = torch.empty(ts, dtype=torch.int32, device=dev)
     slot_used = torch.empty(ts, dtype=torch.bool, device=dev)
@@ -3600,6 +3623,10 @@ def hash_groupby(key_cols, mask: torch.Tensor, aggs, table_size: int):
             for c in cols]
     _k29_launch(_load(), dev, cols, mask, n, ts, agg_args, row_slot,
                 slot_row, slot_used, keys, "K29_hash_groupby")
+    # the aggregates past the first 16: the aggregate-only entry over the
+    # slots just assigned (the slot pass runs once)
+    for group in rest:
+        results += slot_aggregate(row_slot, mask, group, ts)
     return row_slot, slot_row, slot_used, keys, results
 
 
@@ -3616,9 +3643,12 @@ def slot_aggregate(row_slot, mask: torch.Tensor, aggs, table_size: int):
         raise TypeError("K29 row slots are int32")
     ts = _k29_table(table_size)
     dev = mask.device
-    agg_args, results, _keep = _k29_aggs(aggs, n, ts, dev)
-    _k29_launch(_load(), dev, [], mask, n, ts, agg_args, row_slot, None,
-                None, [], "K29_hash_groupby aggregate")
+    results = []
+    for group in agg_groups(aggs, K29_MAX_AGGS):
+        agg_args, res, _keep = _k29_aggs(group, n, ts, dev)
+        _k29_launch(_load(), dev, [], mask, n, ts, agg_args, row_slot, None,
+                    None, [], "K29_hash_groupby aggregate")
+        results += res
     return results
 
 
@@ -3667,3 +3697,134 @@ def join_product_sum(lv: torch.Tensor, rv: torch.Tensor,
         _check(rc, "K30_join_product_sum")
     count_launch(LAUNCHES, "K30_join_product_sum")
     return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# K31: the mesh-sharded IVF probe (parallel/ann.py)
+# ---------------------------------------------------------------------------
+
+_k31_consts = None
+
+
+def _ann_top(dist: torch.Tensor, kk: int) -> torch.Tensor:
+    """lax.top_k(-dist, kk)'s indices: the smaller distance first, the
+    lower index on ties."""
+    return torch.sort(dist, stable=True).indices[:kk]
+
+
+def ann_rerank_plain(xs, lo: int, offs, lens, probes, q, max_list: int,
+                     kk: int):
+    """Plain version of K31's re-rank (oceanbase_tpu/parallel/ann.py
+    :101-116): candidate c = p * max_list + j has window position pos =
+    offs[probes[p]] + j; it is mine when j < lens[probes[p]] and pos lies
+    in the block [lo, lo + rps); dist = |x|^2 - 2 x.q of the block's row
+    pos - lo, +inf where not mine; the kk smallest in lax.top_k's order.
+    Returns (float32 [kk] dist, int32 [kk] pos)."""
+    rps = int(xs.shape[0])
+    pr = probes.long()
+    starts = offs[pr].to(torch.int64)
+    ll = lens[pr].to(torch.int64)
+    j = torch.arange(max_list, dtype=torch.int64, device=xs.device)
+    pos = (starts[:, None] + j[None, :]).reshape(-1)
+    valid = (j[None, :] < ll[:, None]).reshape(-1)
+    mine = valid & (pos >= lo) & (pos < lo + rps)
+    xv = xs[torch.clamp(pos - lo, 0, max(rps - 1, 0))]
+    dist = torch.sum(xv * xv, dim=1) - 2.0 * (xv @ q)
+    dist = torch.where(mine, dist, torch.full_like(dist, float("inf")))
+    top = _ann_top(dist, kk)
+    return dist[top], pos[top].to(torch.int32)
+
+
+def ann_merge_plain(gd: torch.Tensor, gp: torch.Tensor, kk: int):
+    """Plain version of K31's merge (ann.py:119-121): the kk smallest of
+    the gathered distances, ties to the lower gathered index. Returns
+    (dist, pos)."""
+    top = _ann_top(gd, kk)
+    return gd[top], gp[top]
+
+
+def _k31_scratch(dev, cand: int, kk: int):
+    """(nblocks, partial, gruns) of one K31 launch pair: runs past
+    `ob_k31_smem_k` keys lie in device memory."""
+    global _k31_consts
+    lib = _load()
+    if _k31_consts is None:
+        _k31_consts = (int(lib.ob_k31_tile()), int(lib.ob_k31_smem_k()))
+    tile, smem_k = _k31_consts
+    nblocks = max(1, min(-(-cand // tile),
+                         2 * torch.cuda.get_device_properties(
+                             dev).multi_processor_count))
+    partial = torch.empty(nblocks * kk, dtype=torch.int64, device=dev)
+    gruns = (torch.empty((nblocks + 1) * 2 * kk, dtype=torch.int64,
+                         device=dev) if kk > smem_k else None)
+    return lib, nblocks, partial, gruns
+
+
+def ann_rerank(xs, lo: int, offs, lens, probes, q, max_list: int, kk: int):
+    """K31's re-rank: one shard's (dist, pos) strip of kk, as
+    `ann_rerank_plain`. xs: the shard's (rps, d) float32 block; offs,
+    lens: the index's int32 [L]; probes: int32 [nprobe] (K21); q: float32
+    [d]; kk <= nprobe * max_list."""
+    if not _on_cuda(xs, offs, lens, probes, q):
+        return ann_rerank_plain(xs, lo, offs, lens, probes, q, max_list, kk)
+    _matrix(xs, "K31 block")
+    rps, d = int(xs.shape[0]), int(xs.shape[1])
+    nl = int(offs.shape[0])
+    _vector(offs, nl, "K31 offsets")
+    _vector(lens, nl, "K31 lengths")
+    nprobe = int(probes.shape[0])
+    _vector(probes, nprobe, "K31 probes")
+    _vector(q, d, "K31 query")
+    if q.dtype != torch.float32:
+        raise TypeError("K31 takes a float32 query")
+    for t, what in ((offs, "offsets"), (lens, "lengths"),
+                    (probes, "probes")):
+        if t.dtype != torch.int32:
+            raise TypeError(f"K31 {what} must be int32")
+    cand = nprobe * int(max_list)
+    if not 1 <= kk <= cand or cand >= 2**32 or rps < 1 or lo < 0:
+        raise ValueError(f"K31 selects 1..{cand} of {cand} candidates, got "
+                         f"{kk} (rps {rps}, lo {lo})")
+    dev = xs.device
+    lib, nblocks, partial, gruns = _k31_scratch(dev, cand, kk)
+    dist = torch.empty(kk, dtype=torch.float32, device=dev)
+    pos = torch.empty(kk, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k31_rerank(
+            xs.data_ptr(), rps, d, int(lo), offs.data_ptr(), lens.data_ptr(),
+            probes.data_ptr(), nprobe, int(max_list), q.data_ptr(), int(kk),
+            nblocks, partial.data_ptr(),
+            gruns.data_ptr() if gruns is not None else None,
+            dist.data_ptr(), pos.data_ptr(), _stream(dev))
+        _check(rc, "K31_shard_ivf rerank")
+    count_launch(LAUNCHES, "K31_shard_ivf")
+    return dist, pos
+
+
+def ann_merge(gd: torch.Tensor, gp: torch.Tensor, kk: int):
+    """K31's merge: the kk smallest of the gathered strips' distances (ties
+    to the lower gathered index) and their positions, as
+    `ann_merge_plain`. Counts as a K31 launch."""
+    if not _on_cuda(gd, gp):
+        return ann_merge_plain(gd, gp, kk)
+    m = int(gd.shape[0])
+    _vector(gd, m, "K31 gathered distances")
+    _vector(gp, m, "K31 gathered positions")
+    if gd.dtype != torch.float32 or gp.dtype != torch.int32:
+        raise TypeError("K31 merges float32 distances and int32 positions")
+    if not 1 <= kk <= m or m >= 2**32:
+        raise ValueError(f"K31 merges 1..{m} of {m} gathered rows, got {kk}")
+    dev = gd.device
+    lib, nblocks, partial, gruns = _k31_scratch(dev, m, kk)
+    dist = torch.empty(kk, dtype=torch.float32, device=dev)
+    pos = torch.empty(kk, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ob_k31_merge(
+            gd.data_ptr(), gp.data_ptr(), m, int(kk), nblocks,
+            partial.data_ptr(),
+            gruns.data_ptr() if gruns is not None else None,
+            dist.data_ptr(), pos.data_ptr(), _stream(dev))
+        _check(rc, "K31_shard_ivf merge")
+    count_launch(LAUNCHES, "K31_shard_ivf")
+    count_launch(ENTRY_LAUNCHES, "K31_shard_ivf.merge")
+    return dist, pos

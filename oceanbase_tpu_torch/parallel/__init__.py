@@ -1,7 +1,9 @@
 """PX execution of the port over a device mesh (counterpart of
-`oceanbase_tpu/parallel`): the mesh, the SPMD runner, the exchanges on
-kernels K25-K28 and the PX executor."""
+`oceanbase_tpu/parallel`): the mesh (in one process or over several), the
+SPMD runner, the exchanges on kernels K25-K28, the PX executor and the
+mesh-sharded IVF probe on K31."""
 
+from .ann import ShardedIvf, shard_ivf
 from .exchange import (
     bc2host,
     broadcast_rows,
@@ -14,8 +16,15 @@ from .exchange import (
     ring_broadcast_rows,
     sample_range_bounds,
 )
-from .group import run_spmd
-from .mesh import SHARD_AXIS, Mesh, cpu_mesh, make_mesh, mesh_signature
+from .group import RemoteShardError, run_spmd
+from .mesh import (
+    SHARD_AXIS,
+    Mesh,
+    cpu_mesh,
+    make_mesh,
+    mesh_signature,
+    process_mesh,
+)
 from .spmd import (
     MeshExchange,
     MeshPlan,
@@ -30,7 +39,11 @@ __all__ = [
     "cpu_mesh",
     "make_mesh",
     "mesh_signature",
+    "process_mesh",
     "run_spmd",
+    "RemoteShardError",
+    "ShardedIvf",
+    "shard_ivf",
     "bc2host",
     "broadcast_rows",
     "dest_by_hash",

@@ -86,15 +86,27 @@ def dest_by_partition(part_ids: torch.Tensor,
 
 def _all_to_all(planes, rows: int) -> list:
     """Receiver d takes lane d (rows [d * rows, (d + 1) * rows)) of every
-    sender's planes, sender i's at offset i * rows (K26)."""
+    sender's planes, sender i's at offset i * rows (K26). A sender in this
+    process is read in place; across processes only lane d travels to
+    receiver d (`ShardGroup.all_to_all`), and K26 places each process's
+    run of senders in one launch."""
     ctx = current()
     dev = ctx.device
-    every = ctx.gather(planes)
     n = ctx.n_shards
-    senders = [[_local(every[s][c], dev) for s in range(n)]
-               for c in range(len(planes))]
+    blocks = ctx.group.all_to_all(ctx.shard, planes, rows)
     outs = [torch.empty(n * rows, dtype=p.dtype, device=dev) for p in planes]
-    return K.exchange_recv(senders, rows, ctx.shard, outs)
+    s0 = 0
+    while s0 < n:
+        # a run of senders whose blocks hold the lane at the same index
+        lane = blocks[0][s0][1]
+        s1 = s0 + 1
+        while s1 < n and blocks[0][s1][1] == lane:
+            s1 += 1
+        K.exchange_recv([[_local(blocks[c][s][0], dev) for s in range(s0, s1)]
+                         for c in range(len(planes))], rows, lane, outs,
+                        out_base=s0 * rows)
+        s0 = s1
+    return outs
 
 
 def _all_gather(planes, mask_plane: int = -1, per_host: int = 0) -> list:

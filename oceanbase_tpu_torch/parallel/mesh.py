@@ -14,6 +14,15 @@ tests on, and a `Database(device="cpu")` builds its mesh from
 `CPU_SHARDS`. `make_mesh()` itself takes the visible CUDA devices, one
 shard each, and raises when there is none.
 
+A mesh may also span processes (`process_mesh`, after
+`torch.distributed.init_process_group`), as the JAX package's global mesh
+spans the processes of `jax.distributed` (`oceanbase_tpu/parallel/
+mesh.py:78-89`): rank r holds shards [r * per, (r + 1) * per), runs them
+in threads of its own, and the collectives cross between the processes
+through `torch.distributed` (parallel/group.py). Every rank passes the
+whole host data, as every JAX process passes the whole array to
+`device_put`; each uploads only its own shards' slices.
+
 The JAX package's `shard_map_compat` (a version shim over jax's
 shard_map) has no counterpart: the port runs each shard eagerly in its
 thread and needs no SPMD tracer.
@@ -34,10 +43,16 @@ CPU_SHARDS = 1
 
 @dataclass(frozen=True)
 class Mesh:
-    """An ordered list of devices, one per shard, along one named axis."""
+    """An ordered list of devices, one per shard, along one named axis.
+    A process mesh also names the rank that owns each shard (`owners`),
+    this process's rank and the process group's backend; a remote shard's
+    device is the one its owner named."""
 
     devices: tuple
     axis_names: tuple = (SHARD_AXIS,)
+    owners: tuple | None = None
+    rank: int = 0
+    backend: str | None = None
 
     @property
     def shape(self) -> dict:
@@ -47,17 +62,34 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def n_procs(self) -> int:
+        """The processes the mesh spans (1 unless a process mesh)."""
+        return 1 if self.owners is None else max(self.owners) + 1
+
+    def shards_of(self, rank: int) -> tuple:
+        """The shards rank `rank` holds, in shard order."""
+        if self.owners is None:
+            return tuple(range(self.size)) if rank == 0 else ()
+        return tuple(i for i, o in enumerate(self.owners) if o == rank)
+
+    def local_shards(self) -> tuple:
+        """The shards this process holds, in shard order."""
+        return self.shards_of(self.rank)
+
     def distinct_devices(self) -> list:
-        """The devices of the mesh in first-shard order, each once."""
+        """The devices of this process's shards (every shard in a mesh of
+        one process) in first-shard order, each once."""
         out = []
-        for d in self.devices:
-            if d not in out:
-                out.append(d)
+        for i in self.local_shards():
+            if self.devices[i] not in out:
+                out.append(self.devices[i])
         return out
 
     def shards_per_device(self) -> int:
-        """The most shards any one device of the mesh holds."""
-        return max(sum(1 for x in self.devices if x == d)
+        """The most shards any one device of this process holds."""
+        shards = self.local_shards()
+        return max(sum(1 for i in shards if self.devices[i] == d)
                    for d in self.distinct_devices())
 
 
@@ -110,3 +142,48 @@ def cpu_mesh(n: int | None = None) -> Mesh:
     """The CPU mesh: one `cpu` device named `n` times (default
     CPU_SHARDS)."""
     return make_mesh(devices=[torch.device("cpu")] * (n or CPU_SHARDS))
+
+
+#: the backends a process mesh runs on: gloo moves CPU tensors, and CUDA
+#: shards stage through pinned host buffers (several processes on one
+#: card, where NCCL refuses two ranks on one GPU)
+PROCESS_BACKENDS = ("gloo",)
+
+
+def process_mesh(local_devices, backend: str) -> Mesh:
+    """A mesh over the processes of the default process group: this
+    process's shards on `local_devices` (one shard each), ordered by
+    global index (rank r holds shards [r * per, (r + 1) * per)); every
+    rank names the same number of devices. Call it in every rank, after
+    `torch.distributed.init_process_group(backend, init_method=...,
+    world_size=..., rank=..., timeout=...)`: it raises by name when no
+    process group is initialised, and never shrinks to one process."""
+    import torch.distributed as dist
+
+    if backend not in PROCESS_BACKENDS:
+        raise NotImplementedError(
+            f"process_mesh: backend {backend!r} is not supported; a process "
+            f"mesh runs on {PROCESS_BACKENDS} (one card per process over "
+            "NCCL is not ported)")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "process_mesh: no torch.distributed process group is "
+            "initialised; call torch.distributed.init_process_group("
+            f"{backend!r}, init_method=..., world_size=..., rank=...) in "
+            "every process first")
+    if dist.get_backend() != backend:
+        raise ValueError(f"process_mesh: the process group runs "
+                         f"{dist.get_backend()!r}, not {backend!r}")
+    local = [_resolve(d) for d in local_devices]
+    if not local:
+        raise ValueError("process_mesh: a rank holds at least one shard")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    named: list = [None] * world
+    dist.all_gather_object(named, [str(d) for d in local])
+    per = len(local)
+    if any(len(x) != per for x in named):
+        raise ValueError(f"process_mesh: every rank must hold the same "
+                         f"number of shards, got {[len(x) for x in named]}")
+    devices = tuple(torch.device(d) for x in named for d in x)
+    owners = tuple(r for r in range(world) for _ in range(per))
+    return Mesh(devices, owners=owners, rank=rank, backend=backend)

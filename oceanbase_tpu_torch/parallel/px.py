@@ -223,9 +223,12 @@ class PxExecutor(Executor):
             from ..share.stats import StatsManager
 
             stats = StatsManager(catalog)
+        # this process's first shard: on a mesh over processes shard 0 may
+        # lie in another process
+        self.lead = mesh.local_shards()[0]
         super().__init__(catalog, unique_keys=unique_keys,
                          default_rows_estimate=default_rows_estimate,
-                         stats=stats, device=mesh.devices[0],
+                         stats=stats, device=mesh.devices[self.lead],
                          device_budget=device_budget, chunk_rows=chunk_rows)
         self.mesh = mesh
         self.nsh = mesh.size
@@ -234,8 +237,10 @@ class PxExecutor(Executor):
             raise ValueError(f"unknown broadcast_impl {broadcast_impl!r}")
         self.broadcast_impl = broadcast_impl
         # partitioned residency: what the fullest device holds of every
-        # resident table, the ledger the memory governor charges
-        self.residency = ShardedResidency(self.nsh, mesh.shards_per_device())
+        # resident table, the ledger the memory governor charges (this
+        # process's shards: a mesh over processes keeps one a process)
+        self.residency = ShardedResidency(
+            len(mesh.local_shards()), mesh.shards_per_device())
         # the device budget is per device: a plan's inputs spread over the
         # mesh's distinct devices before prepare degrades to streaming
         self.budget_scale = len(mesh.distinct_devices())
@@ -249,7 +254,8 @@ class PxExecutor(Executor):
         self.hybrid_hash = hybrid_hash
         self.access = access
         # per-thread emission state: each shard's distribution map and
-        # whether it records the lowering (shard 0 of a first run)
+        # whether it records the lowering (the first local shard of a first
+        # run)
         self._tls = threading.local()
         self._last_dist: dict = {}
         self.tracer = tracer
@@ -260,7 +266,7 @@ class PxExecutor(Executor):
     @property
     def _dist(self) -> dict:
         """This shard's distribution map (in a shard's thread), else the
-        last run's shard-0 map."""
+        last run's map of this process's first shard."""
         d = getattr(self._tls, "dist", None)
         return d if d is not None else self._last_dist
 
@@ -269,7 +275,8 @@ class PxExecutor(Executor):
 
     def _note_exchange(self, kind: str, ncols: int, cap: int,
                        collective: str | None = None) -> None:
-        """DTL accounting, once per compile (shard 0 of the first run):
+        """DTL accounting, once per compile (the first local shard of the
+        first run):
         per-lane capacity x lane count x 8-byte columns is the shuffle
         volume each dispatch moves."""
         low = self._recorder()
@@ -349,7 +356,7 @@ class PxExecutor(Executor):
         from prepare() and again after an overflow recompile."""
         low = self._lowering
         if low is None:
-            low = SpmdLowering(self.mesh_sig, self.nsh)
+            low = SpmdLowering(self.mesh_sig, self.nsh, self.mesh.n_procs)
         prepared.mesh_plan = low.plan
         prepared.px_exchanges = low.legacy_log
         prepared.px_nsh = self.nsh
@@ -1023,7 +1030,8 @@ class PxExecutor(Executor):
         """The plan as run(inputs, qparams) -> (out batch, overflow
         vector): every shard runs the emission over its slice; the result
         (replicated on every shard) and the summed overflow vector are
-        shard 0's."""
+        this process's first shard's (every process of a mesh over
+        processes returns them)."""
         self.compiles += 1
         nodes = _number_nodes(plan)
         id_of = {id(o): i for i, o in nodes.items()}
@@ -1061,9 +1069,10 @@ class PxExecutor(Executor):
             return self._emit_node(op, inputs, emit, params, id_of)
 
         qparam_spec = _collect_qparam_spec(plan)
-        lowering = SpmdLowering(self.mesh_sig, self.nsh)
+        lowering = SpmdLowering(self.mesh_sig, self.nsh, self.mesh.n_procs)
         self._lowering = lowering
         mesh = self.mesh
+        lead = self.lead
 
         def run_local(shard, raw_inputs, qparams, record):
             from ..expr import compile as expr_compile
@@ -1110,7 +1119,7 @@ class PxExecutor(Executor):
                 (ovf_vec,) = merge([(local, "sum")])
             else:
                 ovf_vec = torch.zeros(0, dtype=torch.int64, device=dev)
-            if shard == 0:
+            if shard == lead:
                 self._last_dist = tls.dist
             tls.dist = None
             return out, ovf_vec
@@ -1129,13 +1138,13 @@ class PxExecutor(Executor):
                 self._exch_log = lowering.legacy_log
             try:
                 res = run_spmd(mesh, lambda i: run_local(
-                    i, raw_inputs, qparams, record and i == 0))
+                    i, raw_inputs, qparams, record and i == lead))
                 if record:
                     lowering.traced = True
             finally:
                 if record:
                     recording.release()
-            return res[0]
+            return res[lead]
 
         return run, input_spec, overflow_nodes
 
@@ -1184,16 +1193,16 @@ def shard_put_chunk(mesh, narrow: dict, bases: dict, count: int):
     `decode_chunk` (K18). Shard i's live count is clamp(count - i * per,
     0, per), so its sel is the slice of a whole-chunk decode. The wire
     stays narrow up to each device. Returns (raw, nbytes) as `shard_put`,
-    nbytes the narrow bytes placed."""
+    nbytes the narrow bytes placed (this process's shards alone)."""
     parts, per, nbytes = shard_put_planes(
         mesh, {k: torch.from_numpy(np.ascontiguousarray(a))
                for k, a in narrow.items()})
-    raw = []
-    for i, (dev, up) in enumerate(zip(mesh.devices, parts)):
+    raw = [None] * mesh.size
+    for i in mesh.local_shards():
         live = min(max(int(count) - i * per, 0), per)
-        decoded, sel = decode_chunk(up, bases, live, dev)
+        decoded, sel = decode_chunk(parts[i], bases, live, mesh.devices[i])
         cols, valid = split_validity(decoded)
-        raw.append({"cols": cols, "valid": valid, "sel": sel})
+        raw[i] = {"cols": cols, "valid": valid, "sel": sel}
     return raw, nbytes
 
 

@@ -15,14 +15,17 @@ plan dispatches, over which mesh, moving how many bytes, lives here:
   * ``SpmdLowering`` -- the per-compile recorder the emission sites write
     through. The JAX package fills it while jit traces the program, once;
     the port runs its emission on every dispatch, so the first run of a
-    compiled program records (from shard 0 only) and later runs do not.
+    compiled program records (from its first local shard only) and later
+    runs do not.
   * ``ShardedResidency`` -- the partitioned residency ledger: what the
     memory governor must charge per device. Shards that share a device
     add up on it.
   * ``shard_put`` -- partition a host-built ColumnBatch across the mesh,
     one row slice per shard on the shard's device; ``shard_put_planes``
     the same for loose host planes (a streamed chunk's narrowed columns,
-    which the PX chunk source then widens on each shard's device).
+    which the PX chunk source then widens on each shard's device). On a
+    mesh over processes every process passes the whole host batch and
+    uploads its own shards' slices alone.
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ class MeshExchange:
     lane_cap: int  # rows per lane
     lanes: int  # lane count across the mesh
     nbytes: int  # per-dispatch byte capacity the collective moves
+    # of those, the bytes that cross between the processes of a mesh
+    # over processes (0 on one process)
+    cross_bytes: int = 0
 
     def describe(self) -> str:
         return (f"{self.kind}->{self.collective}"
@@ -85,6 +91,11 @@ class MeshPlan:
     def total_bytes(self) -> int:
         return sum(e.nbytes for e in self.exchanges)
 
+    @property
+    def cross_process_bytes(self) -> int:
+        """Per-dispatch byte capacity that crosses between processes."""
+        return sum(e.cross_bytes for e in self.exchanges)
+
     def ops_by_collective(self) -> dict[str, int]:
         out: dict[str, int] = {}
         for e in self.exchanges:
@@ -102,12 +113,14 @@ class SpmdLowering:
     """Per-compile exchange recorder.
 
     px.py creates one per compile(); the compiled program's first run
-    resets it and records every emission-site note from shard 0, and
-    sets `traced` so later runs record nothing (the counts are the
-    program's, not the number of times it ran)."""
+    resets it and records every emission-site note from its first local
+    shard, and sets `traced` so later runs record nothing (the counts are
+    the program's, not the number of times it ran)."""
 
-    def __init__(self, mesh_sig: tuple, n_shards: int):
+    def __init__(self, mesh_sig: tuple, n_shards: int, n_procs: int = 1):
         self.plan = MeshPlan(mesh_sig=mesh_sig, n_shards=n_shards)
+        # processes the mesh spans, its shards split evenly over them
+        self.n_procs = max(1, int(n_procs))
         # (kind, ncols, cap) triples of the row exchanges: the worker-span
         # and peak-bytes consumers read this shape
         self.legacy_log: list[tuple[str, int, int]] = []
@@ -125,9 +138,17 @@ class SpmdLowering:
              legacy: bool = True) -> None:
         if collective is None:
             collective = KIND_COLLECTIVE.get(kind, kind)
+        nbytes = ncols * cap * lanes * elem_bytes
+        p = self.n_procs
+        if collective == "all_to_all":
+            # the (src, dst) lanes whose ends lie in different processes
+            cross = nbytes * (p - 1) // p
+        else:
+            # every shard's block goes once to each other process
+            cross = nbytes * (p - 1)
         self.plan.exchanges.append(MeshExchange(
             kind=kind, collective=collective, ncols=ncols, lane_cap=cap,
-            lanes=lanes, nbytes=ncols * cap * lanes * elem_bytes,
+            lanes=lanes, nbytes=nbytes, cross_bytes=cross,
         ))
         # reductions (legacy=False) stay out of the triple log: its
         # consumers size row-exchange worker spans and peak shuffle bytes
@@ -146,7 +167,9 @@ class ShardedResidency:
     holding k of the n shards holds k/n of every table: on a mesh of one
     shard per device that is total/n, and on a mesh whose shards share
     one device, all of it. The memory governor charges
-    ``per_device_bytes()`` against its per-device budget. Thread-safe."""
+    ``per_device_bytes()`` against its per-device budget. On a mesh over
+    processes the ledger is per process: it counts this process's
+    shards and the bytes it placed. Thread-safe."""
 
     def __init__(self, n_shards: int, shards_per_device: int = 1):
         self.n_shards = max(1, int(n_shards))
@@ -200,12 +223,13 @@ def shard_put(mesh, batch):
     """Partition a host-built ColumnBatch (CPU tensors, capacity a
     multiple of the shard count) across the mesh: shard i gets rows
     [i * per, (i + 1) * per) on its device. Returns (raw, nbytes): one
-    {"cols", "valid", "sel"} dict per shard, and the TOTAL bytes
-    placed."""
+    {"cols", "valid", "sel"} dict per shard (None for another process's
+    shard), and the bytes this process placed."""
     per = _per_shard(mesh, batch.capacity)
-    raw = []
+    raw = [None] * mesh.size
     nbytes = 0
-    for i, dev in enumerate(mesh.devices):
+    for i in mesh.local_shards():
+        dev = mesh.devices[i]
         lo, hi = i * per, (i + 1) * per
         part = {
             "cols": {c: _put(a, lo, hi, dev) for c, a in batch.cols.items()},
@@ -215,23 +239,25 @@ def shard_put(mesh, batch):
         }
         nbytes += sum(int(a.nbytes) for d in (part["cols"], part["valid"])
                       for a in d.values()) + int(part["sel"].nbytes)
-        raw.append(part)
+        raw[i] = part
     return raw, nbytes
 
 
 def shard_put_planes(mesh, planes: dict):
     """Partition host planes (CPU tensors of one length, a multiple of the
     shard count) across the mesh as `shard_put` does a batch. Returns
-    (parts, per, nbytes): one {key: tensor} dict per shard, the rows per
-    shard, and the TOTAL bytes placed."""
+    (parts, per, nbytes): one {key: tensor} dict per shard (None for
+    another process's shard), the rows per shard, and the bytes this
+    process placed."""
     per = _per_shard(mesh, len(next(iter(planes.values()))))
-    parts = []
+    parts = [None] * mesh.size
     nbytes = 0
-    for i, dev in enumerate(mesh.devices):
+    for i in mesh.local_shards():
         lo, hi = i * per, (i + 1) * per
-        part = {k: _put(a, lo, hi, dev) for k, a in planes.items()}
+        part = {k: _put(a, lo, hi, mesh.devices[i])
+                for k, a in planes.items()}
         nbytes += sum(int(a.nbytes) for a in part.values())
-        parts.append(part)
+        parts[i] = part
     return parts, per, nbytes
 
 

@@ -46,6 +46,13 @@ def test_scan_sees_every_module():
     assert "oceanbase_tpu_torch/engine/executor.py" in PY_FILES
 
 
+def test_scan_sees_the_sharded_probe_and_the_process_mesh():
+    for rel in ("oceanbase_tpu_torch/parallel/ann.py",
+                "oceanbase_tpu_torch/parallel/group.py",
+                "oceanbase_tpu_torch/parallel/mesh.py"):
+        assert rel in PY_FILES
+
+
 def test_session_without_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
