@@ -498,6 +498,11 @@ KERNEL_META = {
     "K31_shard_ivf.merge": (
         "oceanbase_tpu_torch/csrc/k31_shard_ivf.cu",
         "oceanbase_tpu/parallel/ann.py:119"),
+    # K8 at Q17's dense shape (the correlated avg's group-by of lineitem
+    # by l_partkey; its launches are the main path's K8 launches)
+    "K8_segmented_reduce.dense": (
+        "oceanbase_tpu_torch/csrc/k8_segmented_reduce.cu",
+        "oceanbase_tpu/ops/hashagg.py:271"),
     # K3 and K14 at the spill's shapes, K18 on the PX chunk source's
     # decode (their launches counted on those paths)
     "K3_radix_sort.spill": (
@@ -930,7 +935,9 @@ def device_busy_ms(fn) -> tuple[float, float, list, list, int]:
     for st, en, name in spans:
         short = name.split("(")[0].split("<")[0].replace("void ", "")
         by_name[short] = by_name.get(short, 0.0) + (en - st) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # every kernel of the run, most device time first (the K8 and K26
+    # rows of PERF.md read theirs even where they are not among the top)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return busy_us / 1e3, wall, gaps[:3], top, attempt
 
 
@@ -1189,13 +1196,18 @@ def capture_args(sess, text: str, targets: dict) -> dict:
 def capture_join_kernels(sess, kernels, queries_text) -> dict:
     """The arguments the main path gives the join kernels at this scale:
     K9 in Q17, K10 in Q21, K11 in Q13, K12 in Q9, and K5's probe entry and
-    the Distinct operator in Q16."""
+    the Distinct operator in Q16; and K8's largest call (most live rows)
+    in Q17, its dense shape."""
     import oceanbase_tpu_torch.engine.executor as ex
+    import oceanbase_tpu_torch.ops.hashagg as hashagg
     import oceanbase_tpu_torch.ops.join as join
 
     plan = {
         17: {"K9_merge_join": (kernels, "merge_join",
-                               lambda bk, bs, pk, ps: pk.numel())},
+                               lambda bk, bs, pk, ps: pk.numel()),
+             "K8_segmented_reduce.dense": (
+                 hashagg, "segmented_reduce",
+                 lambda sk, ss, o, aggs: int(ss.sum()))},
         21: {"K10_expand_join": (kernels, "expand_join",
                                  lambda sk, o, nl, pk, ps, cap: cap
                                  + pk.numel())},
@@ -1576,6 +1588,82 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
             kernels.segmented_reduce(skeys8, ssel8, order8, aggs8)),
         lambda: kernels.segmented_reduce_plain(skeys8, ssel8, order8, aggs8),
         k8_library, k8_bytes, n * 4)
+    # held bit for bit too (record's error is taken in float64)
+    _exact("K8 at Q7's shape",
+           flat(kernels.segmented_reduce(skeys8, ssel8, order8, aggs8)),
+           flat(kernels.segmented_reduce_plain(skeys8, ssel8, order8,
+                                               aggs8)),
+           flat(kernels.segmented_reduce(skeys8, ssel8, order8, aggs8)))
+
+    # K8 at Q17's dense shape: the largest call Q17's correlated group-by
+    # makes (lineitem by l_partkey), captured on the main path; the same
+    # bound formula, and the same library yardstick (keys packed and
+    # values gathered outside the timed call)
+    skd, ssd, od, aggd = captured["K8_segmented_reduce.dense"]
+    skd, aggd = list(skd), list(aggd)
+    nd = int(ssd.shape[0])
+    lrd = ssd.nonzero().squeeze(1)
+    live_ord = od[lrd].to(torch.int64)
+    seen, kd_sectors = set(), 0
+    for _op, v, m in aggd:
+        for arr in (v, m):
+            if arr is not None and arr.data_ptr() not in seen:
+                seen.add(arr.data_ptr())
+                kd_sectors += sector_bytes(live_ord, arr.element_size())
+    kd_bytes = (nd * (1 + 1 + 8 * len(aggd))
+                + int(lrd.numel()) * (sum(k.element_size() for k in skd) + 4)
+                + kd_sectors)
+    if len(skd) == 1 and not skd[0].dtype.is_floating_point:
+        packed_d = torch.where(ssd, skd[0].to(torch.int64),
+                               torch.iinfo(torch.int64).min)
+
+        def kd_unique():
+            return torch.unique_consecutive(packed_d, return_counts=True)
+    else:
+        stack_d = torch.stack([(~ssd).to(torch.int64)]
+                              + [k.to(torch.float64).view(torch.int64)
+                                 if k.dtype.is_floating_point
+                                 else k.to(torch.int64) for k in skd], 1)
+
+        def kd_unique():
+            return torch.unique_consecutive(stack_d, dim=0,
+                                            return_counts=True)
+    ofull = od.to(torch.int64)
+    kd_vals = []
+    for op, v, m in aggd:
+        keep = ssd if m is None else ssd & m[ofull]
+        if op == "count":
+            kd_vals.append((keep.to(torch.float64), "sum"))
+        else:
+            fill = {"sum": 0.0, "min": float("inf"),
+                    "max": float("-inf")}[op]
+            kd_vals.append((torch.where(keep, v[ofull].to(torch.float64),
+                                        fill), op))
+
+    def kd_library():
+        _u, counts = kd_unique()
+        return [torch.segment_reduce(x, red, lengths=counts)
+                for x, red in kd_vals]
+
+    _exact("K8 at Q17's dense shape",
+           flat(kernels.segmented_reduce(skd, ssd, od, aggd)),
+           flat(kernels.segmented_reduce_plain(skd, ssd, od, aggd)),
+           flat(kernels.segmented_reduce(skd, ssd, od, aggd)))
+    record(
+        "K8_segmented_reduce.dense",
+        flat(kernels.segmented_reduce(skd, ssd, od, aggd)),
+        flat(kernels.segmented_reduce_plain(skd, ssd, od, aggd)),
+        lambda: flat(kernels.segmented_reduce(skd, ssd, od, aggd)),
+        lambda: kernels.segmented_reduce_plain(skd, ssd, od, aggd),
+        kd_library, kd_bytes, nd * 4)
+    segs_d = int(kernels.segmented_reduce(skd, ssd, od, aggd)[0].sum())
+    out[-1]["shape"] = {
+        "rows": nd, "live": int(lrd.numel()), "groups": segs_d,
+        "keys": [str(k.dtype) for k in skd],
+        "aggregates": [[op, None if v is None else str(v.dtype),
+                        m is not None] for op, v, m in aggd],
+        "bytes": kd_bytes}
+    print(f"K8 dense shape (Q17): {out[-1]['shape']}", flush=True)
 
     i64max = torch.iinfo(torch.int64).max
 
@@ -1907,6 +1995,93 @@ def float_checks(sess, kernels) -> list[dict]:
         print(f"float check {name} {op} torch.float64 (integer values): "
               "exact, two runs bit-identical", flush=True)
     return out
+
+
+def k8_synthetic(kernels, dev) -> int:
+    """K8 against its plain version, twice, bit for bit, on edge cases of
+    its tiles and its look-back: no live row; a row count no multiple of a
+    tile; live segments 40 tiles long (past a look-back step of 32) and
+    one segment over every row; live and dead rows interleaved, not sorted
+    last; short segments over every row (the dense shape); 20 keys and 15
+    aggregates (past the parameter table, so the table lies in device
+    memory). Each case runs count, masked count, wrapping int64 sums,
+    integer-valued float64 sums, int8 min, float max and min, masked max.
+    Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(88)
+    T = kernels.K8_TILE
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def aggs_for(n):
+        v64 = rng.integers(-10**15, 10**15, n)
+        v64[::97] = np.iinfo(np.int64).max
+        v8 = rng.integers(-128, 128, n).astype(np.int8)
+        cents = rng.integers(-10**6, 10**6, n).astype(np.float64)
+        mask = t(rng.random(n) < 0.8)
+        return [("count", None, None), ("count", None, mask),
+                ("sum", t(v64), None), ("sum", t(cents), mask),
+                ("min", t(v8), None), ("max", t(cents), None),
+                ("max", t(v64), mask), ("min", t(cents), mask)]
+
+    def sorted_case(keys, live):
+        idx = np.lexsort(tuple(reversed([~live, *keys])))
+        return [k[idx] for k in keys], live[idx]
+
+    cases = []
+    n = 5 * T + 3
+    k, lv = sorted_case([rng.integers(0, 9, n)], np.zeros(n, dtype=bool))
+    cases.append(("no live row", k, lv))
+    n = 37 * T + 1001
+    k, lv = sorted_case([rng.integers(0, 50, n).astype(np.int32),
+                         rng.integers(0, 3, n).astype(np.int16)],
+                        rng.random(n) < 0.7)
+    cases.append(("ragged last tile", k, lv))
+    n = 200 * T + 17
+    cases.append(("segments of 40 tiles",
+                  [(np.arange(n) // (40 * T)).astype(np.int32)],
+                  np.ones(n, dtype=bool)))
+    cases.append(("one segment", [np.zeros(n, dtype=np.int64)],
+                  np.ones(n, dtype=bool)))
+    n = 50 * T + 5
+    cases.append(("interleaved live and dead",
+                  [np.sort(rng.integers(0, 400, n)).astype(np.int32)],
+                  rng.random(n) < 0.5))
+    n = 64 * T
+    cases.append(("dense short segments",
+                  [np.sort(rng.integers(0, n // 30, n)).astype(np.int32)],
+                  np.ones(n, dtype=bool)))
+    n = 9 * T + 77
+    wide = [rng.integers(0, 2, n).astype(dt) for dt in
+            (np.int16, np.int32, np.int64, np.bool_, np.float32) * 4]
+    k, lv = sorted_case(wide, rng.random(n) < 0.9)
+    cases.append(("20 keys, 15 aggregates", k, lv))
+    for name, keys, live in cases:
+        n = len(live)
+        skeys = [t(k) for k in keys]
+        ssel = t(live)
+        order = t(rng.permutation(n).astype(np.int32))
+        aggs = aggs_for(n)
+        if len(keys) == 20:
+            aggs = (aggs * 2)[:15]
+            entries = 2 * len(keys) + kernels.K8_FIELDS * len(aggs)
+            require(entries > kernels.K8_INLINE,
+                    "K8 synthetic: the wide case fits the parameters")
+
+        def run(fn):
+            sel, res = fn(skeys, ssel, order, aggs)
+            return [sel, *res]
+
+        _exact(f"K8 synthetic ({name})", run(kernels.segmented_reduce),
+               run(kernels.segmented_reduce_plain),
+               run(kernels.segmented_reduce))
+        print(f"K8 synthetic ({name}, {n} rows, {len(keys)} keys, "
+              f"{len(aggs)} aggregates): exact, two runs bit-identical",
+              flush=True)
+    return len(cases)
 
 
 # --- the sqlite oracle (a copy of tests/test_tpch_full.py's transliteration)
@@ -3427,6 +3602,44 @@ def same_storage(name, got: dict, want: dict, ordered: bool) -> None:
             require(np.array_equal(g, w), f"{name} {c}: differs")
 
 
+def recv_event_ms(kernels, run) -> tuple[float, int]:
+    """One more run with every K26 launch between two CUDA events (the C
+    entry wrapped, so the wrapper's host work falls outside): the summed
+    milliseconds between them and the number of launches. The shards'
+    threads share the card's one stream, so each thread holds a lock from
+    its first event to its second: no other shard's work is queued
+    between them. The run's launches are taken back out of the counts,
+    which stay those of the warm and cold runs."""
+    import torch
+
+    lib = kernels._load()
+    orig = lib.ob_k26_recv
+    evs = []
+    lock = threading.Lock()
+    counts = [dict(d) for d in (kernels.LAUNCHES, kernels.ENTRY_LAUNCHES)]
+
+    def timed_launch(*a):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        with lock:
+            s.record()
+            rc = orig(*a)
+            e.record()
+            evs.append((s, e))
+        return rc
+
+    lib.ob_k26_recv = timed_launch
+    try:
+        run()
+    finally:
+        lib.ob_k26_recv = orig
+        for d, before in zip((kernels.LAUNCHES, kernels.ENTRY_LAUNCHES),
+                             counts):
+            d.update(before)
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in evs), len(evs)
+
+
 def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
     """Leg 2: PxExecutor(tables, make_mesh(4, devices=[cuda:0] * 4)), one
     thread a shard on the card: Q1 and Q6 (partials merged by K27), Q3,
@@ -3506,6 +3719,7 @@ def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
                 setattr(kernels, f, orig[f])
             got = batch_rows_storage(out[0], names)
             warm_ms = timed(run, warm)
+            k26_ms, k26_calls = recv_event_ms(kernels, run)
             sprep = sx.prepare(plan.plan)
             want_b = sprep.run()
             want = batch_rows_storage(want_b, names)
@@ -3518,13 +3732,15 @@ def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
                    "warm_ms": warm_ms,
                    "warm_median_ms": statistics.median(warm_ms),
                    "single_warm_median_ms": statistics.median(single_ms),
+                   "k26_event_ms": k26_ms, "k26_calls": k26_calls,
                    "exchanges": kinds,
                    "collectives": prepared.mesh_plan.describe()}
             recs.append(rec)
             print(f"{name}: {PX_MESH_SHARDS} shards on one card, {n} rows "
                   f"equal to the single device's, cold {cold:.3f} ms warm "
                   f"{rec['warm_median_ms']:.3f} ms (single device "
-                  f"{rec['single_warm_median_ms']:.3f} ms), exchanges "
+                  f"{rec['single_warm_median_ms']:.3f} ms), K26 "
+                  f"{k26_ms:.6f} ms in {k26_calls} calls, exchanges "
                   f"{kinds} ({rec['collectives']})", flush=True)
             del out, got, want, want_b, sprep, prepared
     finally:
@@ -3611,7 +3827,8 @@ def px_synthetic(kernels, dev) -> int:
     """K25-K28 against their plain versions on edge cases, twice: lanes
     at cap - 1, cap and cap + 1 of the fullest lane, every row bound for
     one shard, no live row, a row count no multiple of a tile, 64
-    shards; a stripe and ring offsets for K26; NaN, wrapping sums and
+    shards; a stripe, ring offsets, misaligned bool and int16 planes, a
+    one-row receive and 40 planes for K26; NaN, wrapping sums and
     ORs over 64 shards for K27; one key value, no live row and a span
     past 2^62 for K28's range; hot buckets, bits and probes of several
     key types. Returns the number of cases."""
@@ -3683,6 +3900,33 @@ def px_synthetic(kernels, dev) -> int:
                 ([[p[0]] for p in snd], rows, 3, big, 5 * rows), {},
                 "K26 ring offset")
     cases += 2
+    # sources and destinations that disagree mod 16 on bool and int16
+    # planes (lane 1 of rows 65,537 or 7 into out_base 3), a one-row
+    # receive, each plain and striped; 40 planes of 4 senders, past the
+    # parameter table (the work list then lies in device memory)
+    for rows_m, base_m in ((65_537, 3), (7, 3), (1, 0)):
+        snd_m = [[t(rng.random(2 * rows_m + 5) < 0.5) for _ in range(4)],
+                 [t(rng.integers(-9, 9, 2 * rows_m + 5).astype(np.int16))
+                  for _ in range(4)]]
+        outs_m = [torch.empty(base_m + 4 * rows_m + 9, dtype=p[0].dtype,
+                              device=dev) for p in snd_m]
+        _check_call(kernels, "exchange_recv",
+                    (snd_m, rows_m, 1, outs_m, base_m), {},
+                    f"K26 misaligned rows {rows_m} out_base {base_m}")
+        _check_call(kernels, "exchange_recv",
+                    (snd_m, rows_m, 1, outs_m, base_m, 0, 3, 2), {},
+                    f"K26 misaligned stripe rows {rows_m}")
+        cases += 2
+    dts = (np.int64, np.bool_, np.int16, np.int32, np.int8) * 8
+    snd_w = [[t(rng.integers(0, 2, 3 * 1001).astype(dt)) for _ in range(4)]
+             for dt in dts]
+    outs_w = [torch.empty(2 + 4 * 1001, dtype=p[0].dtype, device=dev)
+              for p in snd_w]
+    require(len(dts) * 4 * kernels.K26_FIELDS > kernels.K26_INLINE,
+            "K26 synthetic: the wide case fits the parameters")
+    _check_call(kernels, "exchange_recv", (snd_w, 1001, 2, outs_w, 2), {},
+                "K26 40 planes")
+    cases += 1
     for nsh in (4, 64):
         pl = [[t(rng.integers(-(1 << 62), 1 << 62, 4096))
                for _ in range(nsh)],
@@ -3791,7 +4035,9 @@ def px_kernel_checks(kernels, reps: int, captured: dict) -> list:
 
     k26_bytes = 2 * nsend * rows * sum(p[0].element_size() for p in senders)
     k26_shape = {"statement": stmt26, "senders": nsend, "rows": rows,
-                 "planes": len(senders)}
+                 "planes": len(senders), "lane": lane,
+                 "dtypes": [str(p[0].dtype).replace("torch.", "")
+                            for p in senders]}
     # K27: Q1's partial-aggregate merge
     stmt27, (pl27, ops27), _kw = _pick(captured, "shard_merge", ("PX4_Q1",))
     k27 = (lambda: kernels.shard_merge(pl27, ops27),
@@ -7012,6 +7258,7 @@ def main() -> int:
     k24_syn = k24_synthetic(kernels, sess.executor.device)
     release_device()
     frecs = float_checks(sess, kernels)
+    k8_cases = k8_synthetic(kernels, torch.device("cuda", 0))
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
     release_device()
@@ -7280,6 +7527,9 @@ def main() -> int:
         elif r["name"] in ANN_KERNELS or r["name"] == "K31_shard_ivf.merge":
             # the sharded ANN leg (both entries; the merge's own count)
             r["launches"] = ann_launches[r["name"]]
+        elif r["name"] == "K8_segmented_reduce.dense":
+            # Q17's call, one of the main path's K8 launches
+            r["launches"] = main_launches["K8_segmented_reduce"]
         elif r["name"] == "K23_first_live":
             # this slice's path: the server phase (the main path's
             # narrowed frames launch it too, main_launches)
@@ -7323,6 +7573,7 @@ def main() -> int:
                    "ann_mesh_leg": ann_rec, "multi_process_leg": mp_rec,
                    "k24": {"statements": k24_stmts, "synthetic": k24_syn},
                    "kernels": krecs, "float_checks": frecs,
+                   "k8_synthetic_cases": k8_cases,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},
                    "card_vs_cpu": {"sf": CMP_SF, "statements": crecs},

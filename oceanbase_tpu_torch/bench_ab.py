@@ -1,0 +1,70 @@
+"""The shared part of the kernel A/B harnesses (`bench_k8.py`,
+`bench_k17.py`, `bench_k26.py`): each times one kernel at the shape
+chip_smoke times it, so two versions of the kernel can be compared on one
+card in one call.
+
+Every harness takes `--root DIR` and `--reps N`. `--root` imports
+`oceanbase_tpu_torch` from another checkout (its kernels built there), so
+parent and change are timed alike; run them as parent, change, change,
+parent:
+
+    for r in parent . . parent; do
+      python3 oceanbase_tpu_torch/bench_k8.py --root $r; done
+
+The harnesses are run by path, so this module is imported as a sibling of
+the script, never from the checkout under test.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+
+def start(name: str, reps: int):
+    """Parse `--root` and `--reps`, import torch and the kernels of the
+    checkout at `--root`: (root, reps, torch, kernels, the card), or None
+    (after a line on stderr) when there is no CUDA card."""
+    ap = argparse.ArgumentParser(prog=name)
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=reps)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    from oceanbase_tpu_torch import kernels
+
+    if not torch.cuda.is_available():
+        print(f"{name} needs a CUDA card", file=sys.stderr)
+        return None
+    return root, args.reps, torch, kernels, torch.device("cuda", 0)
+
+
+def same(torch, got, want) -> bool:
+    """Every tensor of `got` equals its twin in `want`, type and bits."""
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+
+
+def timed(torch, fn, reps: int) -> float:
+    """Mean milliseconds of `reps` back-to-back calls of `fn` after one
+    warm-up, between two CUDA events (the wrapper's host work included, as
+    chip_smoke times kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def report(torch, root: str, **fields) -> None:
+    """One JSON line: the root, the card's name, then `fields`."""
+    print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
+                      **fields}), flush=True)

@@ -9,19 +9,19 @@ The inputs: 59,986,052 sorted int32 ship dates (lineitem's row count at SF
 high bound (0-d int32 tensors on the card, as Q6's literals), the slice
 capacity the projection router gives that range, and the four planes Q6
 reads (l_shipdate, l_quantity and l_discount int32, l_extendedprice
-int64), every row live. `--root` imports `oceanbase_tpu_torch` from
-another checkout (its kernels built there), so parent and change are timed
-alike; run them as parent, change, change, parent. The kernel's result is
-held to its plain version bit for bit first. Prints one JSON line: the
-root, the card, the mean milliseconds of `reps` back-to-back calls after
-one warm-up (CUDA events, wrapper included, as chip_smoke times kernels),
-the rows and the slice capacity.
+int64), every row live. `--root` and the parent / change order are as
+`bench_ab.py` says. The kernel's result is held to its plain version bit
+for bit first. Prints one JSON line: the root, the card, the mean
+milliseconds of `reps` calls (`bench_ab.timed`), the rows and the slice
+capacity.
 """
 
-import argparse
-import json
-import os
 import sys
+
+try:
+    from . import bench_ab
+except ImportError:
+    import bench_ab
 
 ROWS = 59_986_052
 DAY0, DAY1 = 8036, 10561  # 1992-01-02 .. 1998-12-01, days since 1970
@@ -30,21 +30,10 @@ SEED = 6
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--reps", type=int, default=50)
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    import torch
-
-    from oceanbase_tpu_torch import kernels
-
-    if not torch.cuda.is_available():
-        print("bench_k17 needs a CUDA card", file=sys.stderr)
+    got = bench_ab.start("bench_k17", reps=50)
+    if got is None:
         return 1
-    dev = torch.device("cuda", 0)
+    root, reps, torch, kernels, dev = got
     g = torch.Generator(device=dev).manual_seed(SEED)
     key = torch.randint(DAY0, DAY1 + 1, (ROWS,), device=dev, generator=g,
                         dtype=torch.int32).sort().values
@@ -67,23 +56,12 @@ def main() -> int:
         outs, osel, nrows, ovf = fn(key, ROWS, lows, highs, cap, pay, sel)
         return [*outs, osel, nrows, ovf]
 
-    got = run(kernels.slice_scan)
-    want = run(kernels.slice_scan_plain)
-    for a, b in zip(got, want):
-        if not (a.dtype == b.dtype and torch.equal(a, b)):
-            print("K17 differs from its plain version", file=sys.stderr)
-            return 1
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.reps):
-        run(kernels.slice_scan)
-    end.record()
-    end.synchronize()
-    print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
-                      "ms": start.elapsed_time(end) / args.reps,
-                      "rows": ROWS, "cap": cap}), flush=True)
+    if not bench_ab.same(torch, run(kernels.slice_scan),
+                         run(kernels.slice_scan_plain)):
+        print("K17 differs from its plain version", file=sys.stderr)
+        return 1
+    ms = bench_ab.timed(torch, lambda: run(kernels.slice_scan), reps)
+    bench_ab.report(torch, root, ms=ms, rows=ROWS, cap=cap)
     return 0
 
 

@@ -232,8 +232,9 @@ __device__ __forceinline__ unsigned int ob_hash32_row(
 }
 
 // A tuple of key columns read through an int64 table in device memory
-// (K12's hash, K14's hash set, K15's first rows, K8's segments, K29's
-// group-by): t[j] is column j's address and t[ncols + j] its type code;
+// (K12's hash, K14's hash set, K15's first rows, K29's group-by; K8
+// keeps the same two entries a column in its own table): t[j] is column
+// j's address and t[ncols + j] its type code;
 // a kernel may keep more per-column entries after those (K29 its key
 // outputs at t[2 ncols + j]). The table is not passed by value, so a
 // tuple takes any number of columns.

@@ -293,9 +293,11 @@ def _load():
                                    P]
         lib.ob_k7_tile_rows.argtypes = []
         lib.ob_k7_state_bytes.argtypes = []
-        lib.ob_k8_segreduce.argtypes = [I, P, P, P, L, I, P, P, P, P, P, I,
-                                        P]
+        lib.ob_k8_segreduce.argtypes = [I, I, P, I, P, P, P, L, P, P, I, P]
         lib.ob_k8_tile_rows.argtypes = []
+        lib.ob_k8_inline.argtypes = []
+        lib.ob_k8_scratch_entries.argtypes = [I, I]
+        lib.ob_k8_scratch_entries.restype = ctypes.c_longlong
         lib.ob_k5_probe.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P]
         lib.ob_k9_merge_join.argtypes = [P, I, P, L, P, I, P, L, P, L, P, I,
                                          P]
@@ -339,7 +341,9 @@ def _load():
         lib.ob_k25_pack.argtypes = [P, P, L, I, L, I, P, P, P, P, P, P, P, I,
                                     P]
         lib.ob_k25_round_robin.argtypes = [P, L, I, I, P, P, P, P, P]
-        lib.ob_k26_recv.argtypes = [I, I, P, L, L, L, I, I, I, I, P]
+        lib.ob_k26_recv.argtypes = [I, P, P, L, I, I, P]
+        lib.ob_k26_chunk_bytes.argtypes = []
+        lib.ob_k26_inline.argtypes = []
         lib.ob_k27_merge.argtypes = [I, I, P, I, I, P]
         lib.ob_k28_hist.argtypes = [I, I, P, P, L, P, L, P, I, P]
         lib.ob_k28_bounds.argtypes = [P, L, P, I, P, P]
@@ -359,7 +363,8 @@ def _load():
                    lib.ob_k3_tile_rows, lib.ob_k4_gather, lib.ob_k5_affine,
                    lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_tile_rows,
                    lib.ob_k7_state_bytes, lib.ob_k8_segreduce,
-                   lib.ob_k8_tile_rows, lib.ob_k5_probe, lib.ob_k9_merge_join,
+                   lib.ob_k8_tile_rows, lib.ob_k8_inline, lib.ob_k5_probe,
+                   lib.ob_k9_merge_join,
                    lib.ob_k10_ranges, lib.ob_k10_expand, lib.ob_k10_tile_rows,
                    lib.ob_k11_run_any, lib.ob_k12_hash,
                    lib.ob_k11_mark_build, lib.ob_k13_tile_rows,
@@ -373,12 +378,22 @@ def _load():
                    lib.ob_k24_run, lib.ob_k24_prog_bytes,
                    lib.ob_k24_tile_rows, lib.ob_k25_tile_rows,
                    lib.ob_k25_dest, lib.ob_k25_pack,
-                   lib.ob_k25_round_robin, lib.ob_k26_recv, lib.ob_k27_merge,
+                   lib.ob_k25_round_robin, lib.ob_k26_recv,
+                   lib.ob_k26_chunk_bytes, lib.ob_k26_inline,
+                   lib.ob_k27_merge,
                    lib.ob_k28_hist, lib.ob_k28_bounds, lib.ob_k28_hot,
                    lib.ob_k28_probe, lib.ob_k29_groupby,
                    lib.ob_k30_product_sum, lib.ob_k31_rerank,
                    lib.ob_k31_merge, lib.ob_k31_tile, lib.ob_k31_smem_k):
             fn.restype = ctypes.c_int
+        if (lib.ob_k8_tile_rows() != K8_TILE
+                or lib.ob_k8_inline() != K8_INLINE
+                or lib.ob_k8_scratch_entries(7, 3)
+                != k8_scratch_entries(7, 3)
+                or lib.ob_k26_chunk_bytes() != K26_CHUNK
+                or lib.ob_k26_inline() != K26_INLINE):
+            raise RuntimeError("kernels.py and csrc/ disagree on the K8 or "
+                               "K26 layout constants")
         _lib = lib
         return lib
 
@@ -1135,23 +1150,52 @@ def segmented_reduce_plain(skeys, ssel, order, aggs):
     return new_seg & ssel, outs
 
 
-def k8_agg_entries(aggs, raw, carries) -> list:
-    """K8's aggregate table (csrc/k8_segmented_reduce.cu K8Aggs), eight
-    int64 entries an aggregate: values, mask, output, carry (addresses, 0
-    for none), the values' type code, the op (count as a sum of ones), 1
-    for a float accumulator, the identity (a double's bits for floats).
-    One launch takes any number of aggregates."""
+K8_FIELDS = 7  # entries per aggregate (csrc/k8_segmented_reduce.cu)
+K8_INLINE = 128  # table entries in the kernel's parameters
+K8_TILE = 2048  # sorted rows per tile (ob_k8_tile_rows)
+
+
+def k8_agg_entries(aggs, raw) -> list:
+    """K8's aggregate entries (csrc/k8_segmented_reduce.cu K8Args), seven
+    int64 entries an aggregate: values, mask, output (addresses, 0 for
+    none), the values' type code, the op (count as a sum of ones), 1 for
+    a float accumulator, the identity (a double's bits for floats)."""
     out = []
-    for (op, v, m), r, c in zip(aggs, raw, carries):
+    for (op, v, m), r in zip(aggs, raw):
         isf = r.dtype == torch.float64
         idv = _identity(op, v.dtype if op != "count" else torch.int64)
         out += [v.data_ptr() if op != "count" else 0,
                 m.data_ptr() if m is not None else 0, r.data_ptr(),
-                c.data_ptr(), DTYPE_CODE[v.dtype] if op != "count" else 0,
+                DTYPE_CODE[v.dtype] if op != "count" else 0,
                 AGG_CODE["sum" if op == "count" else op], int(isf),
                 struct.unpack("<q", struct.pack("<d", idv))[0] if isf
                 else int(idv)]
     return out
+
+
+def k8_table(skeys, aggs, raw) -> list:
+    """K8's whole table: the sorted keys' addresses, their type codes,
+    then `k8_agg_entries`. One launch takes any number of keys and
+    aggregates."""
+    return ([k.data_ptr() for k in skeys]
+            + [DTYPE_CODE[k.dtype] for k in skeys]
+            + k8_agg_entries(aggs, raw))
+
+
+def k8_scratch_entries(ntiles: int, nagg: int) -> int:
+    """int64 entries of K8's look-back scratch (ob_k8_scratch_entries): the
+    ticket and the tiles' published flags (zeroed by the launch), each
+    tile's last start, its last and leading pieces per aggregate."""
+    return 1 + (ntiles + 1) // 2 + ntiles * (1 + 2 * nagg)
+
+
+def param_table(entries, limit: int, dev: torch.device):
+    """(inline, table) of a kernel's int64 table: up to `limit` entries ride
+    the kernel's parameters (a host array the launch copies in, nothing
+    uploaded), a longer table lies in device memory."""
+    if len(entries) <= limit:
+        return (ctypes.c_longlong * max(len(entries), 1))(*entries), None
+    return None, _device_table(entries, dev)
 
 
 def segmented_reduce(skeys, ssel, order, aggs):
@@ -1170,6 +1214,11 @@ def segmented_reduce(skeys, ssel, order, aggs):
     _vector(order, n, "K8 order")
     if ssel.dtype != torch.bool or order.dtype != torch.int32:
         raise TypeError("K8 takes a bool sorted sel and an int32 order")
+    dev = ssel.device
+    for k in skeys:
+        _vector(k, n, "K8 sorted key")
+        if k.device != dev:
+            raise ValueError(f"K8 sorted key on {k.device}, not {dev}")
     for op, v, m in aggs:
         if op not in AGG_CODE:
             raise NotImplementedError(op)
@@ -1179,7 +1228,6 @@ def segmented_reduce(skeys, ssel, order, aggs):
             _vector(m, n, "K8 mask")
             if m.dtype != torch.bool:
                 raise TypeError("K8 masks must be bool")
-    dev = ssel.device
     sel = torch.empty(n, dtype=torch.bool, device=dev)
     raw = []
     for op, v, _m in aggs:
@@ -1190,22 +1238,17 @@ def segmented_reduce(skeys, ssel, order, aggs):
         return sel, [r.to(_segreduce_dtype(op, v))
                      for (op, v, _m), r in zip(aggs, raw)]
     lib = _load()
-    tile = lib.ob_k8_tile_rows()
-    ntiles = -(-n // tile)
-    tile_has = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    last_start = torch.empty(ntiles, dtype=torch.int64, device=dev)
-    first_flag = torch.empty(ntiles, dtype=torch.uint8, device=dev)
-    carries = [torch.empty(ntiles, dtype=r.dtype, device=dev) for r in raw]
-    ktab = _key_table(skeys, n, "K8 sorted key", dev) if skeys else None
-    atab = (_device_table(k8_agg_entries(aggs, raw, carries), dev)
-            if aggs else None)
+    ntiles = -(-n // K8_TILE)
+    scratch = torch.empty(k8_scratch_entries(ntiles, len(aggs)),
+                          dtype=torch.int64, device=dev)
+    entries = k8_table(skeys, aggs, raw)
+    inline, table = param_table(entries, K8_INLINE, dev)
     with torch.cuda.device(dev):
         rc = lib.ob_k8_segreduce(
-            len(skeys), ktab.data_ptr() if ktab is not None else None,
-            ssel.data_ptr(), order.data_ptr(), n, len(aggs),
-            atab.data_ptr() if atab is not None else None, sel.data_ptr(),
-            tile_has.data_ptr(), last_start.data_ptr(), first_flag.data_ptr(),
-            ntiles, _stream(dev))
+            len(skeys), len(aggs), inline, len(entries),
+            table.data_ptr() if table is not None else None,
+            ssel.data_ptr(), order.data_ptr(), n, sel.data_ptr(),
+            scratch.data_ptr(), ntiles, _stream(dev))
         _check(rc, "K8_segmented_reduce")
     res = []
     for (op, v, _m), r in zip(aggs, raw):
@@ -2304,11 +2347,7 @@ def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
                     int(side == "right") | (2 if i >= len(lows) else 0)]
     # a short table rides the kernel's parameters, a longer one device
     # memory (csrc/k17_slice_scan.cu K17_INLINE)
-    inline, table = None, None
-    if len(entries) <= K17_INLINE:
-        inline = (ctypes.c_longlong * max(len(entries), 1))(*entries)
-    else:
-        table = _device_table(entries, dev)
+    inline, table = param_table(entries, K17_INLINE, dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.ob_k17_slice(
@@ -3155,6 +3194,34 @@ def exchange_recv_plain(senders, rows: int, lane: int, outs,
     return outs
 
 
+K26_CHUNK = 32 * 1024  # bytes a chunk (csrc/k26_exchange_recv.cu)
+K26_FIELDS = 5  # entries per segment
+K26_INLINE = 160  # table entries in the kernel's parameters
+
+
+def k26_plan(senders, rows: int, lane: int, outs, out_base: int = 0,
+             mask_plane: int = -1, per_host: int = 0):
+    """K26's work list: one segment per (plane, sender) with bytes, five
+    int64 entries each (the source address, the destination address, the
+    bytes, its first chunk, and the destination row of its first byte on
+    the striped mask plane, -1 elsewhere), and the number of K26_CHUNK
+    chunks in all. Returns (entries, nchunks)."""
+    entries, chunk = [], 0
+    for c, blocks in enumerate(senders):
+        esz = outs[c].element_size()
+        nb = rows * esz
+        if nb == 0:
+            continue
+        striped = c == mask_plane and per_host > 0
+        base = outs[c].data_ptr()
+        for s, b in enumerate(blocks):
+            at = out_base + s * rows
+            entries += [b.data_ptr() + lane * nb, base + at * esz, nb, chunk,
+                        at if striped else -1]
+            chunk += -(-nb // K26_CHUNK)
+    return entries, chunk
+
+
 def exchange_recv(senders, rows: int, lane: int, outs, out_base: int = 0,
                   mask_plane: int = -1, per_host: int = 0,
                   host_lane: int = 0):
@@ -3167,10 +3234,11 @@ def exchange_recv(senders, rows: int, lane: int, outs, out_base: int = 0,
                                    mask_plane, per_host, host_lane)
     np_ = len(senders)
     nsend = len(senders[0]) if np_ else 0
-    if not 1 <= np_ <= 65535 or nsend < 1 or any(
-            len(b) != nsend for b in senders):
-        raise ValueError("K26 takes 1..65535 planes, the same senders for "
-                         "every plane")
+    if np_ < 1 or nsend < 1 or any(len(b) != nsend for b in senders):
+        raise ValueError("K26 takes at least one plane, the same senders "
+                         "for every plane")
+    if rows < 0 or lane < 0 or out_base < 0:
+        raise ValueError("K26 rows, lane and out_base are not negative")
     for c, blocks in enumerate(senders):
         _plane(outs[c], "K26 out")
         if int(outs[c].shape[0]) < out_base + nsend * rows:
@@ -3183,16 +3251,17 @@ def exchange_recv(senders, rows: int, lane: int, outs, out_base: int = 0,
                 raise ValueError("K26 sender block too short for its lane")
     if mask_plane >= 0 and outs[mask_plane].dtype != torch.bool:
         raise TypeError("K26 mask plane must be bool")
+    entries, nchunks = k26_plan(senders, rows, lane, outs, out_base,
+                                mask_plane, per_host)
+    if nchunks == 0:
+        return outs
     dev = outs[0].device
     lib = _load()
-    table = _device_table(
-        [b.data_ptr() for b in flat] + [o.data_ptr() for o in outs]
-        + [o.element_size() for o in outs], dev)
+    inline, table = param_table(entries, K26_INLINE, dev)
     with torch.cuda.device(dev):
-        rc = lib.ob_k26_recv(np_, nsend, table.data_ptr(), int(rows),
-                             int(lane), int(out_base), int(mask_plane),
-                             int(per_host), int(host_lane),
-                             _blocks(dev, rows, 256 * 4),
+        rc = lib.ob_k26_recv(len(entries) // K26_FIELDS, inline,
+                             table.data_ptr() if table is not None else None,
+                             nchunks, int(per_host), int(host_lane),
                              _stream(dev))
         _check(rc, "K26_exchange_recv")
     count_launch(LAUNCHES, "K26_exchange_recv")

@@ -193,8 +193,9 @@ def test_k5_split_launch_equals_one_group():
 
 
 def test_device_table_layouts():
-    """The aggregate tables K6 and K8 read from device memory: one entry
-    block per aggregate, in order, with its addresses, type code, op and
+    """The aggregate tables of K6 (device memory) and K8 (the kernel's
+    parameters, or device memory past K8_INLINE entries): one entry block
+    per aggregate, in order, with its addresses, type code, op and
     identity (a double's bits for a float accumulator)."""
     n = 16
     v64 = torch.arange(n, dtype=torch.int64)
@@ -215,17 +216,20 @@ def test_device_table_layouts():
              ("sum", v64, None)] * 5
     raw8 = [torch.empty(4, dtype=torch.float64 if v is f64 else torch.int64)
             for _op, v, _m in aggs8]
-    carry = [torch.empty(2, dtype=r.dtype) for r in raw8]
-    t8 = K.k8_agg_entries(aggs8, raw8, carry)
-    assert len(t8) == 8 * len(aggs8) == 160
-    for j, (op, v, _mm) in enumerate(aggs8):
-        e = t8[8 * j:8 * j + 8]
-        assert e[3] == carry[j].data_ptr()
-        assert e[5] == K.AGG_CODE["sum" if op == "count" else op]
+    t8 = K.k8_agg_entries(aggs8, raw8)
+    assert K.K8_FIELDS == 7
+    assert len(t8) == 7 * len(aggs8) == 140
+    for j, (op, v, mm) in enumerate(aggs8):
+        e = t8[7 * j:7 * j + 7]
+        assert e[0] == (v.data_ptr() if op != "count" else 0)
+        assert e[1] == (mm.data_ptr() if mm is not None else 0)
+        assert e[2] == raw8[j].data_ptr()
+        assert e[4] == K.AGG_CODE["sum" if op == "count" else op]
+        assert e[5] == int(v is f64)
         if op == "max" and v is f64:
-            assert e[7] == np.float64(-np.inf).view(np.int64)
+            assert e[6] == np.float64(-np.inf).view(np.int64)
         if op == "min" and v is v64:
-            assert e[7] == np.iinfo(np.int64).max
+            assert e[6] == np.iinfo(np.int64).max
 
 
 def test_k14_plain_18_planes_equals_jax():
