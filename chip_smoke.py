@@ -27,8 +27,18 @@ analytic kernels are captured from one more run of Q17, Q21, Q13, Q9,
 Q16, W1-W3, U2, D1, A1 and F1) and held against its plain PyTorch version
 (exact agreement, and the same bits on two runs), and timed beside the
 plain version, a one-call PyTorch yardstick and its memory-bandwidth
-bound. Every expression tree the statements evaluate runs on K24 (the
-fused expression kernel): each statement's trees on K24 and on the
+bound. K3 (the one-sweep radix sort order) is also held twice, bit for
+bit, to its plain version on edge cases of its plan, tiles and look-back
+(`k3_synthetic`: 0, 1, a tile - 1, a tile and a tile + 1 rows, every or
+no row dead, constant keys, spans of 1 to 64 bits in every image mode,
+trivial digits, least significant keys already in row order, DESC on
+minimums, NaN and -0.0, two composites, seventy keys), and run
+K3_REPEAT_RUNS times at K3_REPEAT_ROWS rows with bit-identical orders;
+one more run of Q18, Q20,
+Q21, Q10, Q15, Q4, Q12, Q13 and S1 records each K3 call's rows, kept
+keys and composites (bits, image width, row bits, passes). Every
+expression tree the statements evaluate runs on K24 (the fused
+expression kernel): each statement's trees on K24 and on the
 torch route are counted, and no tree of the main path may take the
 torch route. K24 is held bit for bit to its plain version on the card
 and to the torch route's evaluate / compile_predicate on every program
@@ -228,6 +238,14 @@ from lineitem
 where l_shipdate = date '{day}' and l_quantity < 10
 order by l_extendedprice desc, l_orderkey, l_linenumber"""
 S1_DAYS = ("1995-06-17", "1996-02-29")
+# K3's repeated runs (k3_synthetic): a race in its look-back would make
+# two runs differ
+K3_REPEAT_ROWS = 1 << 24
+K3_REPEAT_RUNS = 20
+# the statements whose traced device time K3 leads (PERF.md section 5):
+# their K3 calls by shape
+K3_SHAPE_STMTS = ("Q18", "Q20", "Q21", "Q10", "Q15", "Q4", "Q12", "Q13",
+                  "S1")
 
 T1 = """select l_orderkey, l_linenumber, l_quantity from lineitem
 order by l_quantity desc limit 5"""
@@ -1320,6 +1338,7 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
     """Each kernel at the main path's shapes against its plain version."""
     import torch
 
+    from oceanbase_tpu_torch.bench_ab import chained_sort
     from oceanbase_tpu_torch.expr.compile import _parse_date
     from oceanbase_tpu_torch.ops.hashing import pack_keys
 
@@ -1431,11 +1450,7 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
     desc = [True, False, False]
 
     def k3_library():
-        perm = torch.arange(n, device=sel.device)
-        for k, d in reversed([(~ms, False), *zip(keys, desc)]):
-            kk = (-k if d else k)[perm]
-            perm = perm[torch.sort(kk, stable=True).indices]
-        return perm
+        return chained_sort(torch, keys, desc, ms)
 
     order = kernels.sort_order(keys, desc, ms)
     record(
@@ -2082,6 +2097,171 @@ def k8_synthetic(kernels, dev) -> int:
               f"{len(aggs)} aggregates): exact, two runs bit-identical",
               flush=True)
     return len(cases)
+
+
+def k3_synthetic(kernels, dev) -> int:
+    """K3 against its plain version, twice, bit for bit, on edge cases of
+    its plan, its tiles and its look-back: 0, 1, a tile - 1, a tile and a
+    tile + 1 rows (a 64-bit image over 2 composites, and the dead flag
+    alone); every row dead, no row dead; constant keys (no pass); spans of
+    1, 8, 32, 33 and 64 bits (a one-pass composite that reads its keys, a
+    32-bit image beside the order, a 64-bit one with the row in it, a
+    64-bit one beside the order and two composites); 12 bits over 2^20
+    rows (a 32-bit image with the row in it); trivial digits (values 0
+    and 2^20: two passes that move nothing before one that moves); least
+    significant keys the rows already follow (dropped), and a tuple the
+    rows follow whose last key alone they do not; eleven keys (two span
+    sweeps, 12 spans); seventy keys (nine span sweeps; the keys past the
+    64th decide the order of most rows, the suffix check on the last
+    eight); DESC on int8/int32/int64 minimums; floats with
+    NaN, -0.0 and infinities; three 30-bit keys (two composites, the
+    second gathered through the order).
+    Then K3_REPEAT_RUNS runs at K3_REPEAT_ROWS rows, each bit-identical to
+    the first (a race in the look-back would break that). Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(33)
+    T = kernels.K3_TILE
+    i64 = np.iinfo(np.int64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def full64(n):
+        return rng.integers(i64.min, i64.max, n, endpoint=True)
+
+    def spanning(lo, hi, n):
+        # values in [lo, hi] that reach both ends: a span of hi - lo
+        a = rng.integers(lo, hi, n, endpoint=True)
+        a[:2] = (lo, hi)
+        return a
+
+    big = 3_000_017
+    a3, b3 = rng.integers(0, 1 << 12, big), rng.integers(0, 1 << 16, big)
+    # a whole-row sort's operands (_row_key_operands) over two tables of 33
+    # nullable columns: a value and a validity plane each, most rows equal
+    # on them, then four keys the rows do not follow (past the 64th key)
+    wide = 1_000_003
+    wide_keys = []
+    for _ in range(33):
+        wide_keys += [(rng.random(wide) < 0.005).astype(np.int32),
+                      rng.random(wide) < 0.995]
+    wide_keys += [full64(wide), rng.integers(-9, 9, wide).astype(np.int32),
+                  rng.random(wide) < 0.5,
+                  rng.integers(-128, 128, wide).astype(np.int8)]
+    idx = np.lexsort((b3, a3))
+    cases = []
+    for n in (0, 1, T - 1, T, T + 1):
+        live = rng.random(n) < 0.7
+        cases.append((f"{n} rows, full int64", [full64(n)], [False], live))
+        cases.append((f"{n} rows, the dead flag alone", [], [], live))
+    cases += [
+        ("every row dead", [rng.integers(0, 1000, big)], [False],
+         np.zeros(big, dtype=bool)),
+        ("no row dead", [rng.integers(0, 1000, big)], [True],
+         np.ones(big, dtype=bool)),
+        ("constant keys", [np.full(big, 7, np.int32),
+                           np.full(big, -2.5)], [False, True],
+         np.ones(big, dtype=bool)),
+        ("1-bit span", [rng.random(big) < 0.5], [False],
+         np.ones(big, dtype=bool)),
+        ("8-bit span", [rng.integers(-100, 156, big).astype(np.int16)],
+         [False], np.ones(big, dtype=bool)),
+        ("32-bit span", [spanning(0, (1 << 32) - 1, big)], [True],
+         np.ones(big, dtype=bool)),
+        ("33-bit span", [spanning(0, 1 << 32, big)], [False],
+         np.ones(big, dtype=bool)),
+        ("64-bit span", [spanning(i64.min, i64.max, big)], [True],
+         rng.random(big) < 0.5),
+        ("trivial digits", [np.where(rng.random(big) < 0.5, 0, 1 << 20)],
+         [False], np.ones(big, dtype=bool)),
+        ("12 bits over 2^20 rows", [spanning(0, 4095, 1 << 20)], [True],
+         np.ones(1 << 20, dtype=bool)),
+        ("a suffix in row order", [rng.integers(0, 1 << 24, big),
+                                   np.sort(rng.integers(0, 1 << 26, big)),
+                                   rng.integers(0, 8, big).astype(np.int8)],
+         [True, False, False], rng.random(big) < 0.01),
+        ("a tuple in row order, its last key not",
+         [rng.integers(0, 1 << 20, big)] + [c[idx] for c in (a3, b3)],
+         [False, False, False], rng.random(big) < 0.5),
+        ("eleven keys", [rng.integers(0, 1 << 6, big).astype(np.int8)
+                         for _ in range(9)]
+         + [np.arange(big) // 7, np.arange(big) % 7], [False, True] * 5
+         + [False], rng.random(big) < 0.9),
+        ("DESC on minimums",
+         [rng.choice(np.array([-128, -1, 0, 127], np.int8), big),
+          rng.choice(np.array([np.iinfo(np.int32).min, -1, 0,
+                               np.iinfo(np.int32).max], np.int32), big),
+          rng.choice(np.array([i64.min, -1, 0, i64.max]), big)],
+         [True, True, True], rng.random(big) < 0.8),
+        ("floats with NaN and -0.0",
+         [rng.choice(np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5,
+                               -1.5], np.float32), big),
+          rng.choice(np.array([np.nan, -np.nan, -0.0, 0.0, np.inf,
+                               -np.inf, 2.25]), big)],
+         [True, False], rng.random(big) < 0.8),
+        ("three 30-bit keys", [rng.integers(0, 1 << 30, big)
+                               for _ in range(3)], [False, True, False],
+         rng.random(big) < 0.6),
+        ("seventy keys", wide_keys, [False, True] * 35,
+         rng.random(wide) < 0.8),
+    ]
+    for name, keys, desc, live in cases:
+        tk, tl = [t(k) for k in keys], t(live)
+        _exact(f"K3 synthetic ({name})", kernels.sort_order(tk, desc, tl),
+               kernels.sort_order_plain(tk, desc, tl),
+               kernels.sort_order(tk, desc, tl))
+        print(f"K3 synthetic ({name}, {len(live)} rows, {len(keys)} "
+              f"keys): exact, two runs bit-identical", flush=True)
+    n = K3_REPEAT_ROWS
+    tk = [t(full64(n)), t(rng.integers(0, 1 << 20, n).astype(np.int32))]
+    tl = t(rng.random(n) < 0.9)
+    first = kernels.sort_order(tk, [False, True], tl)
+    _exact(f"K3 at {n} rows", first,
+           kernels.sort_order_plain(tk, [False, True], tl), first)
+    for r in range(K3_REPEAT_RUNS - 1):
+        require(torch.equal(first, kernels.sort_order(tk, [False, True], tl)),
+                f"K3 at {n} rows: run {r + 2} differs from run 1")
+    print(f"K3 at {n} rows: {K3_REPEAT_RUNS} runs bit-identical, equal to "
+          f"the plain version", flush=True)
+    return len(cases) + 1
+
+
+def k3_call_shapes(sess, kernels, texts: dict) -> dict:
+    """One more run of each statement with K3's planner wrapped: every
+    sort_order call's rows, the keys that still decide its order (the dead
+    flag counted) and its composites (bits, image width, row bits,
+    passes), identical calls merged with their count."""
+    got, calls = {}, []
+    orig = kernels.k3_plan
+
+    def wrapped(spans, n):
+        plan = orig(spans, n)
+        calls.append((n, len(spans), tuple((c.bits, c.width, c.rbits,
+                                            c.passes) for c in plan)))
+        return plan
+
+    kernels.k3_plan = wrapped
+    try:
+        for name, text in texts.items():
+            calls.clear()
+            sess.sql(text).nrows
+            merged = {}
+            for c in calls:
+                merged[c] = merged.get(c, 0) + 1
+            got[name] = [{"rows": n, "keys": nk,
+                          "composites": [list(x) for x in comp],
+                          "passes": sum(x[3] for x in comp), "calls": k}
+                         for (n, nk, comp), k in merged.items()]
+            print(f"K3 calls of {name}: " + "; ".join(
+                f"{r['calls']} x {r['rows']} rows, {r['keys']} keys kept, "
+                f"composites (bits, width, row bits, passes) "
+                f"{r['composites']}" for r in got[name]), flush=True)
+    finally:
+        kernels.k3_plan = orig
+    return got
 
 
 # --- the sqlite oracle (a copy of tests/test_tpch_full.py's transliteration)
@@ -7247,6 +7427,8 @@ def main() -> int:
     narrow_recs = [narrow_ab(sess, name, ab_text[name])
                    for name in NARROW_AB_MAIN]
 
+    k3_shapes = k3_call_shapes(sess, kernels, {
+        name: ab_text[name] for name in K3_SHAPE_STMTS})
     captured = capture_join_kernels(sess, kernels, sql_suite.QUERIES)
     captured.update(capture_analytic_kernels(sess, kernels))
     krecs = kernel_checks(sess, kernels, args.reps, captured)
@@ -7259,6 +7441,7 @@ def main() -> int:
     release_device()
     frecs = float_checks(sess, kernels)
     k8_cases = k8_synthetic(kernels, torch.device("cuda", 0))
+    k3_cases = k3_synthetic(kernels, torch.device("cuda", 0))
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
     release_device()
@@ -7574,6 +7757,8 @@ def main() -> int:
                    "k24": {"statements": k24_stmts, "synthetic": k24_syn},
                    "kernels": krecs, "float_checks": frecs,
                    "k8_synthetic_cases": k8_cases,
+                   "k3_synthetic_cases": k3_cases,
+                   "k3_call_shapes": k3_shapes,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},
                    "card_vs_cpu": {"sf": CMP_SF, "statements": crecs},

@@ -1,7 +1,7 @@
-"""The shared part of the kernel A/B harnesses (`bench_k8.py`,
-`bench_k17.py`, `bench_k26.py`): each times one kernel at the shape
-chip_smoke times it, so two versions of the kernel can be compared on one
-card in one call.
+"""The shared part of the kernel A/B harnesses (`bench_k3.py`,
+`bench_k8.py`, `bench_k17.py`, `bench_k26.py`): each times one kernel at
+the shape chip_smoke times it, so two versions of the kernel can be
+compared on one card in one call.
 
 Every harness takes `--root DIR` and `--reps N`. `--root` imports
 `oceanbase_tpu_torch` from another checkout (its kernels built there), so
@@ -68,3 +68,14 @@ def report(torch, root: str, **fields) -> None:
     """One JSON line: the root, the card's name, then `fields`."""
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0),
                       **fields}), flush=True)
+
+
+def chained_sort(torch, keys, desc, live):
+    """K3's yardstick (bench_k3.py and chip_smoke's K3 record): one stable
+    torch.sort a key, least significant first, the dead flag last (most
+    significant)."""
+    perm = torch.arange(live.shape[0], device=live.device)
+    for k, d in reversed([(~live, False), *zip(keys, desc)]):
+        kk = (-k if d else k)[perm]
+        perm = perm[torch.sort(kk, stable=True).indices]
+    return perm

@@ -69,6 +69,7 @@ import struct
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -281,9 +282,11 @@ def _load():
         lib.ob_k1_reduce_float.argtypes = [P, I, P, L, I, D, P, P, I, P]
         lib.ob_k2_groupby.argtypes = [P, I, L, I, I, P, P, P, P, P, P, P, P,
                                       I, I, P]
-        lib.ob_k3_minmax.argtypes = [P, I, I, L, P, I, P]
-        lib.ob_k3_pack.argtypes = [I, P, P, P, P, P, P, L, P, I, P]
-        lib.ob_k3_pass.argtypes = [P, P, L, I, P, P, I, P, P, P]
+        lib.ob_k3_spans.argtypes = [I, P, P, P, L, P, I, P]
+        lib.ob_k3_sort.argtypes = [I, P, P, P, P, P, P, P, P, P, L, P, L, P,
+                                   P, P, P, P, I, P]
+        lib.ob_k3_scratch_bytes.argtypes = [I, P, L]
+        lib.ob_k3_scratch_bytes.restype = ctypes.c_longlong
         lib.ob_k3_tile_rows.argtypes = []
         lib.ob_k4_gather.argtypes = [P, L, L, I, P, P, P, P, I, P]
         lib.ob_k5_affine.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P,
@@ -358,8 +361,7 @@ def _load():
         lib.ob_k31_tile.argtypes = []
         lib.ob_k31_smem_k.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
-                   lib.ob_k2_groupby, lib.ob_k3_minmax, lib.ob_k3_pack,
-                   lib.ob_k3_pass,
+                   lib.ob_k2_groupby, lib.ob_k3_spans, lib.ob_k3_sort,
                    lib.ob_k3_tile_rows, lib.ob_k4_gather, lib.ob_k5_affine,
                    lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_tile_rows,
                    lib.ob_k7_state_bytes, lib.ob_k8_segreduce,
@@ -386,14 +388,15 @@ def _load():
                    lib.ob_k30_product_sum, lib.ob_k31_rerank,
                    lib.ob_k31_merge, lib.ob_k31_tile, lib.ob_k31_smem_k):
             fn.restype = ctypes.c_int
-        if (lib.ob_k8_tile_rows() != K8_TILE
+        if (lib.ob_k3_tile_rows() != K3_TILE
+                or lib.ob_k8_tile_rows() != K8_TILE
                 or lib.ob_k8_inline() != K8_INLINE
                 or lib.ob_k8_scratch_entries(7, 3)
                 != k8_scratch_entries(7, 3)
                 or lib.ob_k26_chunk_bytes() != K26_CHUNK
                 or lib.ob_k26_inline() != K26_INLINE):
-            raise RuntimeError("kernels.py and csrc/ disagree on the K8 or "
-                               "K26 layout constants")
+            raise RuntimeError("kernels.py and csrc/ disagree on the K3, "
+                               "K8 or K26 layout constants")
         _lib = lib
         return lib
 
@@ -614,6 +617,78 @@ def groupby_slots(keys: torch.Tensor, domain: int, aggs):
 
 
 K3_MAX_PACK = 8
+# rows a tile of a digit pass holds (ob_k3_tile_rows)
+K3_TILE = 4096
+
+
+class K3Composite(NamedTuple):
+    """One composite of K3's plan: `members` (key index, image min, shift)
+    least significant first, packed into `bits` bits; `width` is the image
+    it rides in (64 or 32 bits, or 0: a one-pass composite whose pass reads
+    the keys themselves), `rbits` the bits of the order's row below the
+    keys in that image (0: the order rides beside the image)."""
+    members: tuple
+    bits: int
+    width: int
+    rbits: int
+
+    @property
+    def passes(self) -> int:
+        return -(-self.bits // 8)
+
+
+def _k3_image(bits: int, rbits: int) -> tuple:
+    """(width, rbits) of a composite of `bits` bits over rows that need
+    `rbits` bits: the fewest bytes a pass moves (32-bit image with the row
+    8, the 32-bit image beside the order or the 64-bit image with the row
+    16, the 64-bit image beside the order 24)."""
+    if bits <= 8:
+        return 0, 0
+    if bits + rbits <= 32:
+        return 32, rbits
+    if bits <= 32:
+        return 32, 0
+    if bits + rbits <= 64:
+        return 64, rbits
+    return 64, 0
+
+
+def k3_plan(spans, n: int) -> list:
+    """K3's composites for keys whose images span [lo, hi] (most
+    significant first, the dead flag first), least significant first:
+    constant keys dropped (they cannot change the order), the rest packed
+    (image - lo) << shift into composites of at most 64 bits and
+    K3_MAX_PACK keys; each in the image that moves the fewest bytes."""
+    groups, cur, used = [], [], 0
+    for i in reversed(range(len(spans))):
+        lo, hi = spans[i]
+        bits = (hi - lo).bit_length() if n and hi > lo else 0
+        if bits == 0:
+            continue
+        if used + bits > 64 or len(cur) == K3_MAX_PACK:
+            groups.append((cur, used))
+            cur, used = [], 0
+        cur.append((i, lo, used))
+        used += bits
+    if cur:
+        groups.append((cur, used))
+    rbits = max(1, (n - 1).bit_length())
+    return [K3Composite(tuple(m), bits, *_k3_image(bits, rbits))
+            for m, bits in groups]
+
+
+def k3_kept(nk: int, unordered: int) -> int:
+    """How many of K3's nk keys (most significant first, the dead flag
+    first) still decide the order. Only the last K3_MAX_PACK keys, from
+    first = max(0, nk - K3_MAX_PACK), are checked: bit m - first of
+    `unordered` is clear when the tuple of keys m..nk - 1 never decreases
+    from a row to the next. With the row index after it, such a suffix
+    orders rows as the row index alone does, so the longest one drops out
+    (key columns a table is stored in the order of, over every row,
+    padding included). 0: the rows are already in order."""
+    first = max(0, nk - K3_MAX_PACK)
+    return next((m for m in range(first, nk)
+                 if not unordered >> (m - first) & 1), nk)
 
 
 def _plain_key(k: torch.Tensor, desc: bool) -> torch.Tensor:
@@ -656,80 +731,75 @@ def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
         raise TypeError("K3 mask must be bool")
     for k in keys:
         _vector(k, n, "K3 key")
-    lib = _load()
     dev = mask.device
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    lib = _load()
     # most significant first: the dead flag, then the keys in order
     allk = [(mask, True)] + list(zip(keys, descending))
+    nk = len(allk)
     with torch.cuda.device(dev):
         stream = _stream(dev)
         nb = _blocks(dev, n, 256 * 8)
-        # a bool key's image spans 0..1 (the dead flag too); the spans of
-        # the other keys are measured, with one host read for all of them
-        measured = [i for i, (k, _d) in enumerate(allk)
-                    if k.dtype != torch.bool]
-        spans = [(0, 1)] * len(allk)
-        if measured:
-            mm = torch.empty((len(measured), 2), dtype=torch.int64,
-                             device=dev)
-            for row, i in enumerate(measured):
-                k, d = allk[i]
-                rc = lib.ob_k3_minmax(k.data_ptr(), DTYPE_CODE[k.dtype],
-                                      int(bool(d)), n, mm[row].data_ptr(),
-                                      nb, stream)
-                _check(rc, "K3_radix_sort minmax")
-            for i, (lo, hi) in zip(measured, mm.tolist()):
-                spans[i] = (lo & (2**64 - 1), hi & (2**64 - 1))
-        # pack least significant first into composites of <= 64 bits,
-        # dropping keys measured constant (they cannot change the order)
-        groups, cur, used = [], [], 0
-        for (k, d), (lo, hi) in reversed(list(zip(allk, spans))):
-            bits = (hi - lo).bit_length() if n and hi > lo else 0
-            if bits == 0:
-                continue
-            if used + bits > 64 or len(cur) == K3_MAX_PACK:
-                groups.append((cur, used))
-                cur, used = [], 0
-            cur.append((k, d, lo, used))
-            used += bits
-        if cur:
-            groups.append((cur, used))
-        tile = lib.ob_k3_tile_rows()
-        ntiles = max(1, -(-n // tile))
-        img = torch.empty(n, dtype=torch.int64, device=dev)
-        img2 = torch.empty(n, dtype=torch.int64, device=dev)
-        hist = torch.empty(256 * ntiles, dtype=torch.int32, device=dev)
-        totals = torch.empty(256, dtype=torch.int32, device=dev)
-        bufs = (torch.empty(n, dtype=torch.int32, device=dev),
-                torch.empty(n, dtype=torch.int32, device=dev))
-        perm = None  # identity until the first pass
-        for members, bits in groups:
-            nk = len(members)
-            rc = lib.ob_k3_pack(
-                nk, (ctypes.c_void_p * nk)(*[k.data_ptr() for k, _, _, _ in members]),
-                (ctypes.c_int * nk)(*[DTYPE_CODE[k.dtype] for k, _, _, _ in members]),
-                (ctypes.c_int * nk)(*[int(bool(d)) for _, d, _, _ in members]),
-                (ctypes.c_ulonglong * nk)(*[lo for _, _, lo, _ in members]),
-                (ctypes.c_int * nk)(*[sh for _, _, _, sh in members]),
-                perm.data_ptr() if perm is not None else None, n,
-                img.data_ptr(), nb, stream)
-            _check(rc, "K3_radix_sort pack")
-            npass = -(-bits // 8)
-            for p in range(npass):
-                dst = bufs[1] if perm is bufs[0] else bufs[0]
-                last = p == npass - 1
-                rc = lib.ob_k3_pass(
-                    img.data_ptr(),
-                    perm.data_ptr() if perm is not None else None,
-                    n, 8 * p, hist.data_ptr(), totals.data_ptr(), ntiles,
-                    None if last else img2.data_ptr(), dst.data_ptr(), stream)
-                _check(rc, "K3_radix_sort pass")
-                if not last:
-                    img, img2 = img2, img
-                perm = dst
-        if perm is None:
-            perm = torch.arange(n, dtype=torch.int32, device=dev)
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        ptrs = [k.data_ptr() for k, _ in allk]
+        dts = [DTYPE_CODE[k.dtype] for k, _ in allk]
+        descs = [int(bool(d)) for _, d in allk]
+        # every key's span and the keys already in row order, read back at
+        # once: they decide the packing
+        mm = torch.empty(2 * nk + 1, dtype=torch.int64, device=dev)
+        rc = lib.ob_k3_spans(nk, (ctypes.c_void_p * nk)(*ptrs),
+                             (ctypes.c_int * nk)(*dts),
+                             (ctypes.c_int * nk)(*descs), n, mm.data_ptr(),
+                             nb, stream)
+        _check(rc, "K3_radix_sort spans")
+        got = [v & (2**64 - 1) for v in mm.tolist()]
+        spans = [(~got[2 * k] & (2**64 - 1), got[2 * k + 1])
+                 for k in range(nk)]
+        plan = k3_plan(spans[:k3_kept(nk, got[-1])], n)
+        if plan:
+            _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out)
+        else:  # every key constant or in row order: the rows stay
+            torch.arange(n, dtype=torch.int32, device=dev, out=out)
     count_launch(LAUNCHES, "K3_radix_sort")
-    return perm
+    return out
+
+
+def _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out) -> None:
+    """ob_k3_sort over `plan` into `out`: the packs and the digit passes in
+    one C call, their buffers in one workspace (the images, the orders
+    written before the last pass, the scratch)."""
+    nc = len(plan)
+    members = [m for c in plan for m in c.members]
+    nm = len(members)
+    bits = (ctypes.c_int * nc)(*[c.bits for c in plan])
+    widths = (ctypes.c_int * nc)(*[c.width for c in plan])
+    scratch = lib.ob_k3_scratch_bytes(nc, bits, n)
+    # an imaged composite has at least two passes: two image buffers
+    img = n * max(c.width for c in plan) // 8
+    orders = nc > 1 or (plan[0].width and not plan[0].rbits)
+    perm = 4 * n if orders else 0
+
+    def up(b):
+        return -(-b // 256) * 256
+
+    ws = torch.empty(2 * up(img) + 2 * up(perm) + scratch, dtype=torch.uint8,
+                     device=out.device)
+    at = ws.data_ptr()
+    bufs = [at, at + up(img)] if img else [None, None]
+    at += 2 * up(img)
+    bufs += [at, at + up(perm)] if perm else [None, None]
+    at += 2 * up(perm)
+    rc = lib.ob_k3_sort(
+        nc, (ctypes.c_int * nc)(*[len(c.members) for c in plan]), bits,
+        widths, (ctypes.c_int * nc)(*[c.rbits for c in plan]),
+        (ctypes.c_void_p * nm)(*[ptrs[i] for i, _, _ in members]),
+        (ctypes.c_int * nm)(*[dts[i] for i, _, _ in members]),
+        (ctypes.c_int * nm)(*[descs[i] for i, _, _ in members]),
+        (ctypes.c_ulonglong * nm)(*[lo for _, lo, _ in members]),
+        (ctypes.c_int * nm)(*[sh for _, _, sh in members]), n, at, scratch,
+        *bufs, out.data_ptr(), nb, stream)
+    _check(rc, "K3_radix_sort")
 
 
 # ---------------------------------------------------------------------------
