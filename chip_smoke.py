@@ -246,6 +246,13 @@ K3_REPEAT_RUNS = 20
 # their K3 calls by shape
 K3_SHAPE_STMTS = ("Q18", "Q20", "Q21", "Q10", "Q15", "Q4", "Q12", "Q13",
                   "S1")
+# K4's repeated runs (k4_synthetic) and the statements whose traced device
+# time K4 leads (PERF.md section 5): their K4 calls by shape and path
+K4_REPEAT_ROWS = 1 << 24
+K4_REPEAT_RUNS = 20
+# warm runs of each streamed statement (stream_phase)
+STREAM_WARM = 2
+K4_SHAPE_STMTS = ("S1", "U3", "U3E", "Q15", "Q21", "Q20", "Q18", "W1", "W2")
 
 T1 = """select l_orderkey, l_linenumber, l_quantity from lineitem
 order by l_quantity desc limit 5"""
@@ -516,6 +523,12 @@ KERNEL_META = {
     "K31_shard_ivf.merge": (
         "oceanbase_tpu_torch/csrc/k31_shard_ivf.cu",
         "oceanbase_tpu/parallel/ann.py:119"),
+    # K4 at S1's payload by the compaction order of its filter (the
+    # direct path after the probe; its launches are the main path's K4
+    # launches)
+    "K4_gather_rows.monotone": (
+        "oceanbase_tpu_torch/csrc/k4_gather_rows.cu",
+        "oceanbase_tpu/ops/gather.py:54"),
     # K8 at Q17's dense shape (the correlated avg's group-by of lineitem
     # by l_partkey; its launches are the main path's K8 launches)
     "K8_segmented_reduce.dense": (
@@ -1471,6 +1484,24 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
         lambda: kernels.gather_columns_plain(payload, order),
         lambda: [p.index_select(0, order) for p in payload],
         n * (4 + 2 * width), n * len(payload))
+    out[-1]["path"] = kernels.k4_launch(payload, order, trace=True)[1]
+    require(out[-1]["path"] == "image",
+            f"K4 at S1's shape took the {out[-1]['path']} path")
+    # K4 at the same payload by the compaction order of S1's filter (live
+    # rows first, each run in row order): the probe sends it direct
+    mono = kernels.sort_order([], [], ms)
+    record(
+        "K4_gather_rows.monotone",
+        kernels.gather_columns(payload, mono),
+        kernels.gather_columns_plain(payload, mono),
+        lambda: kernels.gather_columns(payload, mono),
+        lambda: kernels.gather_columns_plain(payload, mono),
+        lambda: [p.index_select(0, mono) for p in payload],
+        n * (4 + 2 * width), n * len(payload))
+    out[-1]["path"] = kernels.k4_launch(payload, mono, trace=True)[1]
+    require(out[-1]["path"] == "rows (probe)",
+            f"K4 at the monotone shape took the {out[-1]['path']} path")
+    del mono
 
     vol = c["l_extendedprice"] * (100 - c["l_discount"].to(torch.int64))
 
@@ -2262,6 +2293,193 @@ def k3_call_shapes(sess, kernels, texts: dict) -> dict:
     finally:
         kernels.k3_plan = orig
     return got
+
+
+def k4_synthetic(kernels, dev) -> int:
+    """K4 against its plain version, twice, bit for bit, on edge cases of
+    its paths, tiles and index rule: one row; fewer rows than a tile;
+    repeated indices; indices in [-n, -1], below -n and at or past n;
+    each element width alone (one column, direct by shape; eight columns,
+    the image); payloads of 1,
+    17, 33 and 79 bytes a row (one record of 16, 32 and 64 bytes, then two
+    images); 60 one-byte columns (two images, or two direct launches);
+    each path forced by shape (image and direct, random and monotone
+    indices; two columns half in order, a pass a column) and an index
+    view that is not 16-byte aligned; each case's
+    path read back from the device (the bit that the launches doing the
+    work set, `kernels.k4_launch` with trace) and required. Then
+    K4_REPEAT_RUNS runs at K4_REPEAT_ROWS rows, each bit-identical to the
+    first. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(44)
+    kinds = {1: (np.bool_, np.int8, np.uint8), 2: (np.int16,),
+             4: (np.int32, np.float32), 8: (np.int64, np.float64)}
+
+    def column(w, i, n):
+        kind = kinds[w][i % len(kinds[w])]
+        a = rng.integers(0, 256, n * w, dtype=np.uint8).view(
+            np.dtype(f"u{w}"))
+        if kind == np.bool_:
+            a = (a & 1).astype(np.bool_)
+        else:
+            a = a.view(kind)
+        return torch.from_numpy(a).to(dev)
+
+    def cols_of(widths, n):
+        return [column(w, i, n) for i, w in enumerate(widths)]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    s1w = [8, 1, 8, 4, 1]
+    # 17 bytes a row in 3 columns of it pass K4_IMAGE_MIN_GATHER (bytes x
+    # (columns - 1)), as do 16 in 2 columns of half
+    big = 8_000_009
+    half = kernels.K4_IMAGE_MIN_GATHER // 16 + 1001
+    small = 50_000
+
+    def perm(n):
+        return rng.permutation(n)
+
+    def compaction(n):
+        live = rng.random(n) < 0.01
+        return np.concatenate([np.flatnonzero(live), np.flatnonzero(~live)])
+
+    def half_random(n):
+        """Half the rows first in random order, the rest in row order (a
+        PX shard's DISTINCT gathers so)."""
+        p, live = perm(n), rng.random(n) < 0.5
+        return np.concatenate([p[live[p]], np.flatnonzero(~live)])
+
+    wild = np.concatenate([rng.integers(0, big, 400_000),
+                           rng.integers(-big, 0, 400_000),
+                           rng.integers(big, 4 * big, 100_000),
+                           rng.integers(-4 * big, -big, 100_000)])
+    rng.shuffle(wild)
+    wild[:4] = (-1, -big, big, np.iinfo(np.int32).min)
+    cases = [
+        ("m = 1", s1w, big, [big // 2], "direct"),
+        ("m below a tile", s1w, big, rng.integers(0, big, 700), "direct"),
+        ("repeated indices", s1w, big, rng.integers(0, 1000, 2 * big),
+         "image"),
+        ("negative and out-of-range indices", s1w, big,
+         np.concatenate([wild, perm(big)]), "image"),
+        ("payload 1 byte", [1], big, perm(big), "direct"),
+        ("payload 17 bytes", [8, 8, 1], big, perm(big), "image"),
+        ("payload 33 bytes", [8, 8, 8, 8, 1], big, perm(big), "image"),
+        ("payload 79 bytes", [8] * 9 + [4, 2, 1], big, perm(big), "image"),
+        ("60 one-byte columns, image", [1] * 60, big, perm(big), "image"),
+        ("60 one-byte columns, direct", [1] * 60, big, compaction(big),
+         "rows (probe)"),
+        ("image shape, random", s1w, big, perm(big), "image"),
+        ("image shape, monotone", s1w, big, compaction(big),
+         "rows (probe)"),
+        ("image shape, two columns half in order", [8, 8], half,
+         half_random(half), "columns (probe)"),
+        ("direct shape, random", s1w, small, perm(small), "direct"),
+        ("direct shape, monotone", s1w, small, compaction(small), "direct"),
+    ]
+    for w in (1, 2, 4, 8):
+        cases.append((f"width {w} alone", [w], big, perm(big), "direct"))
+        n8 = max(big, kernels.K4_IMAGE_MIN_SOURCE // (8 * w) + 1001)
+        cases.append((f"width {w}, eight columns", [w] * 8, n8, perm(n8),
+                      "image"))
+    for name, widths, n, idx, path in cases:
+        cols, ti = cols_of(widths, n), t(idx)
+        first, got = kernels.k4_launch(cols, ti, trace=True)
+        require(got == path, f"K4 synthetic ({name}): the {got} path, "
+                f"not the {path} one")
+        _exact(f"K4 synthetic ({name})", first,
+               kernels.gather_columns_plain(cols, ti),
+               kernels.gather_columns(cols, ti))
+        print(f"K4 synthetic ({name}, {len(idx)} of {n} rows, "
+              f"{sum(widths)} bytes a row, {path}): exact, two runs "
+              f"bit-identical", flush=True)
+    # an index that starts 4 bytes past an aligned address
+    cols = cols_of(s1w, big)
+    ti = t(np.concatenate([[0], perm(big)]))[1:]
+    require(ti.data_ptr() % 16 != 0, "K4 synthetic: the view is aligned")
+    first, got = kernels.k4_launch(cols, ti, trace=True)
+    require(got == "image", f"K4 synthetic (an unaligned index view): the "
+            f"{got} path")
+    _exact("K4 synthetic (an unaligned index view)", first,
+           kernels.gather_columns_plain(cols, ti),
+           kernels.gather_columns(cols, ti))
+    print("K4 synthetic (an unaligned index view, image): exact, two runs "
+          "bit-identical", flush=True)
+    n = K4_REPEAT_ROWS
+    cols, ti = cols_of(s1w, n), t(perm(n))
+    first, got = kernels.k4_launch(cols, ti, trace=True)
+    require(got == "image", f"K4 at {n} rows: the {got} path")
+    _exact(f"K4 at {n} rows", first, kernels.gather_columns_plain(cols, ti),
+           first)
+    for r in range(K4_REPEAT_RUNS - 1):
+        again = kernels.gather_columns(cols, ti)
+        require(all(torch.equal(_bits(a), _bits(b))
+                    for a, b in zip(first, again)),
+                f"K4 at {n} rows: run {r + 2} differs from run 1")
+    print(f"K4 at {n} rows: {K4_REPEAT_RUNS} runs bit-identical, equal to "
+          f"the plain version", flush=True)
+    return len(cases) + 2
+
+
+def k4_call_shapes(sess, kernels, texts: dict) -> dict:
+    """One more run of each statement with every module's gather_columns
+    wrapped: each K4 call's rows, source rows, element widths and path
+    (read back from the device, `kernels.k4_launch` with trace), identical
+    calls merged with their count."""
+    orig = kernels.gather_columns
+    calls = []
+
+    def wrapped(cols, idx):
+        cols = list(cols)
+        if not cols or not idx.numel():
+            return orig(cols, idx)
+        outs, path = kernels.k4_launch(cols, idx, trace=True)
+        calls.append((int(idx.shape[0]), int(cols[0].shape[0]),
+                       tuple(c.element_size() for c in cols), path))
+        return outs
+
+    mods = [m for k, m in list(sys.modules.items())
+            if k.startswith("oceanbase_tpu_torch")
+            and getattr(m, "gather_columns", None) is orig]
+    got = {}
+    for m in mods:
+        m.gather_columns = wrapped
+    try:
+        for name, text in texts.items():
+            calls.clear()
+            sess.sql(text).nrows
+            merged = {}
+            for c in calls:
+                merged[c] = merged.get(c, 0) + 1
+            got[name] = [{"rows": m, "source_rows": n, "widths": list(w),
+                          "path": path, "calls": k}
+                         for (m, n, w, path), k in merged.items()]
+            print(f"K4 calls of {name}: " + "; ".join(
+                f"{r['calls']} x {r['rows']} of {r['source_rows']} rows, "
+                f"widths {r['widths']}, {r['path']}" for r in got[name]),
+                flush=True)
+    finally:
+        for m in mods:
+            m.gather_columns = orig
+    return got
+
+
+def k4_device_ms(stmt_recs, names) -> dict:
+    """The k4_* kernels' device ms in each named statement's traced run,
+    by kernel and in all."""
+    out = {}
+    for r in stmt_recs:
+        if r["statement"] in names:
+            per = {k["name"]: k["ms"] for k in r["device_ms_by_kernel"]
+                   if k["name"].startswith("k4_")}
+            out[r["statement"]] = {"total": sum(per.values()), **per}
+            print(f"k4 device ms of {r['statement']}: {out[r['statement']]}",
+                  flush=True)
+    return out
 
 
 # --- the sqlite oracle (a copy of tests/test_tpch_full.py's transliteration)
@@ -7429,6 +7647,11 @@ def main() -> int:
 
     k3_shapes = k3_call_shapes(sess, kernels, {
         name: ab_text[name] for name in K3_SHAPE_STMTS})
+    k4_texts = {**ab_text, **{n: t for n, (t, d) in ANALYTIC.items()
+                              if d == "tpch"}}
+    k4_shapes = k4_call_shapes(sess, kernels, {
+        name: k4_texts[name] for name in K4_SHAPE_STMTS})
+    k4_ms = k4_device_ms(stmt_recs, K4_SHAPE_STMTS)
     captured = capture_join_kernels(sess, kernels, sql_suite.QUERIES)
     captured.update(capture_analytic_kernels(sess, kernels))
     krecs = kernel_checks(sess, kernels, args.reps, captured)
@@ -7442,6 +7665,7 @@ def main() -> int:
     frecs = float_checks(sess, kernels)
     k8_cases = k8_synthetic(kernels, torch.device("cuda", 0))
     k3_cases = k3_synthetic(kernels, torch.device("cuda", 0))
+    k4_cases = k4_synthetic(kernels, torch.device("cuda", 0))
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
     release_device()
@@ -7573,9 +7797,11 @@ def main() -> int:
     print(f"projection phase in {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     stream_budget = int(STREAM_BUDGET_SF10 * args.sf / 10)
+    # the streamed statements spend 4-10 s a run on the host at SF 10:
+    # STREAM_WARM warm runs each keep the script inside its limit
     strecs, st_launches, legs, k18_args = stream_phase(
-        tables, Session, uk, kernels, Q, oracles, resident, args.warm,
-        stream_budget)
+        tables, Session, uk, kernels, Q, oracles, resident,
+        min(args.warm, STREAM_WARM), stream_budget)
     release_device()
     print(f"streamed phase (budget {stream_budget} B) in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
@@ -7713,6 +7939,10 @@ def main() -> int:
         elif r["name"] == "K8_segmented_reduce.dense":
             # Q17's call, one of the main path's K8 launches
             r["launches"] = main_launches["K8_segmented_reduce"]
+        elif r["name"] == "K4_gather_rows.monotone":
+            # the compaction orders' calls, among the main path's K4
+            # launches
+            r["launches"] = main_launches["K4_gather_rows"]
         elif r["name"] == "K23_first_live":
             # this slice's path: the server phase (the main path's
             # narrowed frames launch it too, main_launches)
@@ -7758,7 +7988,9 @@ def main() -> int:
                    "kernels": krecs, "float_checks": frecs,
                    "k8_synthetic_cases": k8_cases,
                    "k3_synthetic_cases": k3_cases,
+                   "k4_synthetic_cases": k4_cases,
                    "k3_call_shapes": k3_shapes,
+                   "k4_call_shapes": k4_shapes, "k4_device_ms": k4_ms,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,
                               "analytic": arecs},
                    "card_vs_cpu": {"sf": CMP_SF, "statements": crecs},

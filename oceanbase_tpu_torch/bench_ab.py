@@ -1,7 +1,7 @@
 """The shared part of the kernel A/B harnesses (`bench_k3.py`,
-`bench_k8.py`, `bench_k17.py`, `bench_k26.py`): each times one kernel at
-the shape chip_smoke times it, so two versions of the kernel can be
-compared on one card in one call.
+`bench_k4.py`, `bench_k8.py`, `bench_k17.py`, `bench_k26.py`): each times
+one kernel at the shapes chip_smoke times it at, so two versions of the
+kernel can be compared on one card in one call.
 
 Every harness takes `--root DIR` and `--reps N`. `--root` imports
 `oceanbase_tpu_torch` from another checkout (its kernels built there), so
@@ -62,6 +62,25 @@ def timed(torch, fn, reps: int) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def device_kernels(torch, fn, calls: int = 5) -> dict:
+    """{kernel: device ms a call} over `calls` calls of fn (memsets and
+    copies included), from torch.profiler, or {} when it saw no device
+    event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or 0
+        if us and e.device_type.name == "CUDA":
+            out[e.key.split("(")[0]] = us / calls / 1e3
+    return out
 
 
 def report(torch, root: str, **fields) -> None:

@@ -68,7 +68,9 @@ def spill_inputs(torch, dev):
     return [img], [False], live
 
 
-def s1_inputs(torch, dev):
+def s1_columns(torch, dev) -> dict:
+    """S1's lineitem columns at SF 10 on the card: price, okey, line,
+    ship, qty and S1's filter (live), zero past the table's rows."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     per = torch.randint(1, 8, (S1_ORDERS,), device=dev, generator=g)
     first = torch.cumsum(per, 0) - per
@@ -87,27 +89,17 @@ def s1_inputs(torch, dev):
     ship = odate[order] + torch.randint(1, 122, (S1_ROWS,), device=dev,
                                         generator=g)
     live = (ship == S1_DAY) & (qty < 10)
-    for c in (price, okey, line, live):
+    cols = {"price": price, "okey": okey, "line": line,
+            "ship": ship.to(torch.int32), "qty": qty, "live": live}
+    for c in cols.values():
         c[LINEITEM_ROWS:] = 0
-    return [price, okey, line], [True, False, False], live
+    return cols
 
 
-def device_kernels(torch, fn) -> dict:
-    """{kernel: device ms a call} over PROFILED calls of fn (memsets and
-    copies included), or {} when the profiler saw no device event."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0) or 0
-        if us and e.device_type.name == "CUDA":
-            out[e.key.split("(")[0]] = us / PROFILED / 1e3
-    return out
+def s1_inputs(torch, dev):
+    c = s1_columns(torch, dev)
+    return [c["price"], c["okey"], c["line"]], [True, False, False], \
+        c["live"]
 
 
 SHAPES = (("spill", spill_inputs), ("s1", s1_inputs))
@@ -135,8 +127,8 @@ def main() -> int:
             yard = bench_ab.timed(
                 torch, lambda: bench_ab.chained_sort(torch, keys, desc, live),
                 max(1, reps // 4))
-        per = device_kernels(torch, lambda: kernels.sort_order(keys, desc,
-                                                               live))
+        per = bench_ab.device_kernels(
+            torch, lambda: kernels.sort_order(keys, desc, live), PROFILED)
         bench_ab.report(torch, root, shape=shape, ms=ms, yardstick_ms=yard,
                         rows=int(live.shape[0]), live=int(live.sum()),
                         device_ms=sum(per.values()) if per else None,

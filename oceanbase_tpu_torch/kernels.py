@@ -288,7 +288,8 @@ def _load():
         lib.ob_k3_scratch_bytes.argtypes = [I, P, L]
         lib.ob_k3_scratch_bytes.restype = ctypes.c_longlong
         lib.ob_k3_tile_rows.argtypes = []
-        lib.ob_k4_gather.argtypes = [P, L, L, I, P, P, P, P, I, P]
+        lib.ob_k4_gather.argtypes = [P, L, L, I, P, P, P, I, P, P, P, P,
+                                      P, I, L, I, I, I, I, P]
         lib.ob_k5_affine.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P,
                                      P, P, I, P]
         lib.ob_k6_segments.argtypes = [P, P, L, P, P, I, P, I, P]
@@ -413,6 +414,17 @@ def _stream(dev: torch.device) -> int:
 def _blocks(dev: torch.device, n: int, per_block: int) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(-(-max(n, 1) // per_block), sms * 8))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's multiprocessor count, asked of the runtime once."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
 
 
 def _on_cuda(*ts) -> bool:
@@ -808,25 +820,131 @@ def _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out) -> None:
 
 K4_MAX_COLS = 48
 _WIDTHS = (1, 2, 4, 8)
+# the widest row image (bytes): a payload past it splits into several
+K4_IMAGE_BYTES = 64
+# the route's cutoffs: the image where the gathered bytes times (columns
+# - 1), the random reads a row it saves, reach K4_IMAGE_MIN_GATHER, and
+# the source's bytes K4_IMAGE_MIN_SOURCE (one L2 holds less). From
+# bench_k4.py's random gathers on an H100 80GB HBM3 at 700 W (image vs
+# direct ms): two columns, [4,1] over 30M rows (150 MB) 1.303 vs 1.267,
+# [8,1] over 15M (135 MB) 0.683 vs 0.618, over 30M (270 MB) 1.382 vs
+# 1.409, over 60M 2.756 vs 3.439; [8,4] 30M rows of 15M 1.222 vs 1.599,
+# [8,8] 20M rows of 2M (32 MB) 0.439 vs 0.400; three, [4,4,1] over 4M
+# (36 MB) 0.172 vs 0.121, over 15M (135 MB) 0.682 vs 0.894.
+K4_IMAGE_MIN_GATHER = 256 << 20
+K4_IMAGE_MIN_SOURCE = 64 << 20
+# the probe's rule: of up to K4_PROBE_PAIRS evenly spaced pairs of
+# neighbouring output rows, those whose sources lie more than K4_NEAR rows
+# apart are far. The image runs where far / pairs x (columns - 1) >
+# K4_IMAGE_SHARE (so two columns half in order do not: a PX shard's
+# DISTINCT gathers [4,1] over 30M rows so, 0.87 ms a shard through the
+# image against 0.59 for the kernel before it, which read a width at a
+# time), one pass over the rows where far * K4_FAR_DIV <= pairs, else a
+# pass a column.
+K4_NEAR = 16
+K4_FAR_DIV = 8
+K4_IMAGE_SHARE = (9, 10)
+K4_PROBE_PAIRS = 1 << 16
+
+
+class K4Image(NamedTuple):
+    """One row image: records of `rec` bytes (16, 32 or 64) holding the
+    columns `cols` (indices into the call's columns, widest first) at byte
+    offsets `offsets`, each aligned to its width."""
+    rec: int
+    cols: tuple
+    offsets: tuple
+
+
+def k4_images(widths) -> list[K4Image]:
+    """The row images of columns of these element widths: widest first,
+    each image filled in turn up to K4_IMAGE_BYTES and K4_MAX_COLS
+    columns, its record the payload rounded up to 16, 32 or 64 bytes."""
+    cap = K4_IMAGE_BYTES
+    order = sorted(range(len(widths)), key=lambda i: -widths[i])
+    groups, cur, at = [], [], 0
+    for i in order:
+        w = widths[i]
+        if cur and (at + w > cap or len(cur) == K4_MAX_COLS):
+            groups.append(cur)
+            cur, at = [], 0
+        cur.append((i, at))
+        at += w
+    if cur:
+        groups.append(cur)
+    out = []
+    for g in groups:
+        end = g[-1][1] + widths[g[-1][0]]
+        rec = next(r for r in (16, 32, 64) if end <= r)
+        out.append(K4Image(rec, tuple(i for i, _ in g),
+                           tuple(o for _, o in g)))
+    return out
+
+
+def k4_route(m: int, n: int, widths) -> str:
+    """K4's route by shape alone: "image" where a row image may pay (the
+    gathered bytes, m rows of the payload, times (columns - 1) at least
+    K4_IMAGE_MIN_GATHER; a source of K4_IMAGE_MIN_SOURCE bytes or more
+    and below 2^31 rows; enough output rows to amortize the pack: m *
+    (columns - 1) >= n; the probe then picks the image, one pass over the
+    rows or a pass a column on the device), else "direct" (a pass a
+    column; one pass for one column)."""
+    k, p = len(widths), sum(widths)
+    if m * p * (k - 1) >= K4_IMAGE_MIN_GATHER \
+            and n * p >= K4_IMAGE_MIN_SOURCE and n < 1 << 31 \
+            and m * (k - 1) >= n:
+        return "image"
+    return "direct"
+
+
+def k4_norm_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """jnp's gather rule on an index (int64): below 0 counts from the end,
+    then clamped to [0, n - 1]."""
+    j = idx.long()
+    return torch.where(j < 0, j + n, j).clamp(0, max(n - 1, 0))
+
+
+def k4_probe_pairs(m: int) -> int:
+    """How many pairs of neighbouring rows the probe samples."""
+    return max(0, min(m - 1, K4_PROBE_PAIRS))
 
 
 def gather_columns_plain(cols, idx: torch.Tensor):
-    """Plain version of K4: each column indexed by idx (clamped to the
-    column length, like a jnp gather)."""
+    """Plain version of K4: each column indexed by idx under jnp's gather
+    rule (an index below 0 counts from the end, then clamped to the column
+    length)."""
     if not cols:
         return []
-    n = int(cols[0].shape[0])
-    j = idx.long().clamp(0, max(n - 1, 0))
+    j = k4_norm_index(idx, int(cols[0].shape[0]))
     return [c[j] for c in cols]
 
 
+# the bits of the state's second word (csrc/k4_gather_rows.cu): the path
+# whose launches did the work
+K4_RAN = {1: "image", 2: "rows (probe)", 4: "columns (probe)"}
+
+
 def gather_columns(cols, idx: torch.Tensor):
-    """K4: [c[idx] for c in cols] in one launch for all columns."""
+    """K4: [c[idx] for c in cols] under jnp's gather rule, through a row
+    image or directly (`k4_route`, then the probe on the device)."""
+    return k4_launch(cols, idx)[0]
+
+
+def k4_launch(cols, idx: torch.Tensor, route: str | None = None,
+              trace: bool = False):
+    """K4's launches: (the gathered columns, the path). `route` ("image"
+    or "direct") stands in for `k4_route`'s choice by shape, so that a
+    bench can time both routes at one shape (the probe still decides on
+    the image route). With `trace` the path is read back from the device
+    (a host read, for checks and benches): "direct" by shape, or the
+    path whose launches did the work, "image", "rows (probe)" or
+    "columns (probe)"; "plain" on the CPU. Without it the path is
+    None."""
     cols = list(cols)
     if not cols:
-        return []
+        return [], None
     if not _on_cuda(idx, *cols):
-        return gather_columns_plain(cols, idx)
+        return gather_columns_plain(cols, idx), "plain" if trace else None
     n = int(cols[0].shape[0])
     m = int(idx.shape[0])
     _vector(idx, m, "K4 idx")
@@ -838,31 +956,55 @@ def gather_columns(cols, idx: torch.Tensor):
             raise TypeError(f"K4 column width {c.element_size()}")
     outs = [torch.empty(m, dtype=c.dtype, device=c.device) for c in cols]
     if m == 0:
-        return outs
+        return outs, "direct" if trace else None
     if n == 0:
         raise ValueError("K4 gathers from empty columns")
     lib = _load()
     dev = idx.device
+    widths = [c.element_size() for c in cols]
+    nc = len(cols)
+    if (route or k4_route(m, n, widths)) == "image":
+        images = k4_images(widths)
+        order = [i for im in images for i in im.cols]
+    else:
+        images = []
+        order = sorted(range(nc), key=lambda i: -widths[i])
+    ni = len(images)
     with torch.cuda.device(dev):
-        nb = _blocks(dev, m, 256 * 4)
-        stream = _stream(dev)
-        order = sorted(range(len(cols)), key=lambda i: cols[i].element_size())
-        for c0 in range(0, len(order), K4_MAX_COLS):
-            part = order[c0:c0 + K4_MAX_COLS]
-            nc = len(part)
-            src = (ctypes.c_void_p * nc)(*[cols[i].data_ptr() for i in part])
-            dst = (ctypes.c_void_p * nc)(*[outs[i].data_ptr() for i in part])
-            gstart = (ctypes.c_int * 5)()
-            gwidth = (ctypes.c_int * 4)(*_WIDTHS)
-            for g, w in enumerate(_WIDTHS):
-                gstart[g + 1] = gstart[g] + sum(
-                    1 for i in part if cols[i].element_size() == w)
-            rc = lib.ob_k4_gather(
-                idx.data_ptr(), m, n, nc, src, dst, gstart, gwidth, nb,
-                stream)
-            _check(rc, "K4_gather_rows")
+        # the state (the probe's count, the bits of the paths that ran),
+        # then each image, 256-byte aligned; none on the direct route
+        at, starts = 256, []
+        for im in images:
+            starts.append(at)
+            at += -(-n * im.rec // 256) * 256
+        scratch = torch.empty(at, dtype=torch.uint8, device=dev) \
+            if images else None
+        base = scratch.data_ptr() if images else None
+        istart = [0]
+        for im in images:
+            istart.append(istart[-1] + len(im.cols))
+        rc = lib.ob_k4_gather(
+            idx.data_ptr(), m, n, nc,
+            (ctypes.c_void_p * nc)(*[cols[i].data_ptr() for i in order]),
+            (ctypes.c_void_p * nc)(*[outs[i].data_ptr() for i in order]),
+            (ctypes.c_int * nc)(*[widths[i] for i in order]), ni,
+            (ctypes.c_int * ni)(*[im.rec for im in images]),
+            (ctypes.c_void_p * ni)(*[base + a for a in starts]),
+            (ctypes.c_int * (ni + 1))(*istart),
+            (ctypes.c_int * nc)(*[o for im in images for o in im.offsets]),
+            base, K4_NEAR, k4_probe_pairs(m), K4_FAR_DIV, *K4_IMAGE_SHARE,
+            _sm_count(dev), _stream(dev))
+        _check(rc, "K4_gather_rows")
+        ran = int(scratch[8:16].view(torch.int64).item()) \
+            if trace and images else 0
     count_launch(LAUNCHES, "K4_gather_rows")
-    return outs
+    if not trace:
+        return outs, None
+    if not images:
+        return outs, "direct"
+    if ran not in K4_RAN:
+        raise RuntimeError(f"K4's launches left the path bits {ran}")
+    return outs, K4_RAN[ran]
 
 
 # ---------------------------------------------------------------------------

@@ -278,6 +278,95 @@ def test_k4_gather_rows(m):
         _same(jo[k], to[k], k)
 
 
+def _bits(a):
+    """An array's bits: floats compared as integers of their width, so
+    -0.0, NaN payloads and every other value must match exactly."""
+    a = np.asarray(a.numpy() if isinstance(a, torch.Tensor) else a)
+    if a.dtype.kind == "f":
+        return a.view(f"u{a.dtype.itemsize}")
+    return a
+
+
+def _exact(j, t, what=""):
+    j, t = _bits(j), _bits(t)
+    assert j.dtype == t.dtype, f"{what}: {j.dtype} vs {t.dtype}"
+    assert j.shape == t.shape, f"{what}: {j.shape} vs {t.shape}"
+    np.testing.assert_array_equal(t, j, err_msg=what)
+
+
+def _k4_columns(rng, n):
+    """One column of every dtype test_k4_gather_rows covers, and a VECTOR
+    column ((n, 3) float32, NaN and -0.0 among its values)."""
+    vec = rng.normal(size=(n, 3)).astype(np.float32)
+    vec.reshape(-1)[::7] = -0.0
+    vec.reshape(-1)[::11] = np.nan
+    return {
+        "i8": rng.integers(-128, 128, n).astype(np.int8),
+        "i16": rng.integers(-3000, 3000, n).astype(np.int16),
+        "i32": rng.integers(I32.min, I32.max, n, dtype=np.int32),
+        "i64": _values("int64_extremes", rng, n),
+        "f32": rng.normal(size=n).astype(np.float32),
+        "f64": rng.normal(size=n),
+        "b": rng.random(n) < 0.5,
+        "vec": vec,
+    }
+
+
+# (n, idx): indices in [-n, -1], below -n and at or past n beside
+# in-range ones; the first is the case the port once clamped to 0
+K4_INDEX_CASES = {
+    "wrap and clamp": (10, [-1, -3, 0, 9, 10, 25, -20]),
+    "every class": (1500, None),
+    "extremes": (7, [I32.min, I32.max, -7, -8, 6, 7, -1, 0]),
+    "one row": (1, [-1, 0, 1, -2, 5]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_INDEX_CASES))
+def test_k4_gather_rows_index_rule(case):
+    """gather_rows on negative and out-of-range indices, against the JAX
+    package's gather_rows bit for bit, every dtype and a VECTOR column."""
+    n, idx = K4_INDEX_CASES[case]
+    rng = np.random.default_rng(n)
+    if idx is None:
+        idx = np.concatenate([
+            rng.integers(0, n, 200), rng.integers(-n, 0, 200),
+            rng.integers(n, 4 * n, 100), rng.integers(-4 * n, -n, 100)])
+        rng.shuffle(idx)
+    idx = np.asarray(idx, dtype=np.int32)
+    cols = _k4_columns(rng, n)
+    jo = j_gather({k: jnp.asarray(v) for k, v in cols.items()},
+                  jnp.asarray(idx))
+    to = t_gather({k: _t(v) for k, v in cols.items()}, _t(idx))
+    for k in cols:
+        _exact(jo[k], to[k], k)
+    # the wrapper's plain version alone, column by column, against jnp's
+    # own gather
+    flat = [k for k in cols if cols[k].ndim == 1]
+    got = kernels.gather_columns([_t(cols[k]) for k in flat], _t(idx))
+    for k, g in zip(flat, got):
+        _exact(np.asarray(jnp.asarray(cols[k])[jnp.asarray(idx)]), g, k)
+
+
+@pytest.mark.parametrize("width", [1, 4, 128])
+def test_gather_rows_vector_column(width):
+    """ops/gather.py's VECTOR branch (a 2-D column gathered by its
+    flattened elements) against the JAX package, beside flat columns."""
+    rng = np.random.default_rng(width)
+    n = 300
+    cols = {"id": np.arange(n, dtype=np.int64),
+            "v": rng.normal(size=(n, width)).astype(np.float32),
+            "ok": rng.random(n) < 0.9}
+    idx = rng.integers(-n - 5, n + 5, 450).astype(np.int32)
+    idx[:4] = (0, n - 1, -1, -n)
+    jo = j_gather({k: jnp.asarray(v) for k, v in cols.items()},
+                  jnp.asarray(idx))
+    to = t_gather({k: _t(v) for k, v in cols.items()}, _t(idx))
+    assert list(to) == list(cols)
+    for k in cols:
+        _exact(jo[k], to[k], k)
+
+
 @pytest.mark.parametrize("domains", [[3, 2], [2, 2, 2], [64], [5, 7]])
 def test_pack_keys(domains):
     rng = np.random.default_rng(sum(domains))
