@@ -1591,6 +1591,16 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
         lambda: kernels.topk_candidates_plain(rev, osel, True, C),
         lambda: torch.topk(masked7, C),
         nb6 + sector_bytes(osel.nonzero().squeeze(1), 8) + C * 4 + 8, nb6)
+    path7 = kernels.topk_candidates_traced(rev, osel, True, C)[2]
+    want7 = kernels.topk_candidates_path_plain(rev, osel, True, C)
+    require(path7 == want7, f"K7 at Q3's shape: the {path7} path ran, the "
+            f"model predicts {want7}")
+    out[-1].update(path=path7, rows=int(rev.numel()),
+                   live=int(osel.sum()),
+                   launches_a_call=3 if path7 == "full" else 4)
+    print(f"kernel K7_topk_candidates at Q3's shape: the {path7} path "
+          f"({int(osel.sum())} live of {int(rev.numel())} rows, c {C})",
+          flush=True)
 
     # K8 at Q7's shape: three int32 keys (two nation-like codes and a
     # year) over 60M rows in sorted order, one int64 volume sum, the
@@ -2293,6 +2303,138 @@ def k3_call_shapes(sess, kernels, texts: dict) -> dict:
     finally:
         kernels.k3_plan = orig
     return got
+
+
+def k7_synthetic(kernels, dev) -> dict:
+    """K7 against its plain version, twice, bit for bit (the candidates
+    and the tie count), on its edge cases, each case's path read back from
+    the device (`topk_candidates_traced`) and held to the path
+    `topk_candidates_path_plain` predicts from the same inputs: spread
+    keys of every integer width, DESC and ASC (the survivor path); dense
+    values at 8M rows, ties across the C-th value, fewer live rows than C
+    and every row dead (the exact path: overflow); ASC on INT64_MAX (live
+    rows at the dead rows' INT64_MIN) on both paths; c = n on the survivor
+    and the full path; c past K7_FAST_C; a kth bin of exactly
+    K7_SORT_MAX rows and one more; a sel view that is not 16-byte aligned;
+    1, 5, 17 and 600 rows. Returns {"cases": n, "paths": {path: n}}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(77)
+    i64 = np.iinfo(np.int64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def spread(dtype, n):
+        info = np.iinfo(dtype)
+        return rng.integers(int(info.min), int(info.max), n,
+                            endpoint=True).astype(dtype)
+
+    cases = []
+    n = 1 << 20
+    for dtype in (np.int8, np.int16, np.int32, np.int64):
+        for desc in (True, False):
+            cases.append((f"spread {np.dtype(dtype).name} desc {desc}",
+                          spread(dtype, n), rng.random(n) < 0.5, desc, 256))
+    ties = rng.integers(0, 7, n).astype(np.int32)
+    cases.append(("ties", ties, rng.random(n) < 0.6, True, 256))
+    dense = rng.integers(0, 1 << 25, 8 * n)
+    cases.append(("dense values, half live", dense, rng.random(8 * n) < 0.5,
+                  True, 256))
+    few = np.zeros(n, dtype=bool)
+    few[rng.choice(n, 40, replace=False)] = True
+    cases.append(("few live", spread(np.int64, n), few, True, 256))
+    cases.append(("all dead", spread(np.int64, n), np.zeros(n, bool), True,
+                  256))
+    for rows in (n, 5000):
+        key = rng.integers(-10**6, 10**6, rows)
+        sel = rng.random(rows) < 0.03
+        live = sel.nonzero()[0]
+        key[live[-4:]] = i64.max
+        key[live[-8:-4]] = i64.min
+        for desc in (True, False):
+            cases.append((f"sentinels {rows} rows desc {desc}", key, sel,
+                          desc, 256))
+    key = spread(np.int64, 3000)
+    cases.append(("c = n, 3000 rows", key, rng.random(3000) < 0.7, True,
+                  3000))
+    key = spread(np.int32, 20000)
+    cases.append(("c = n, 20000 rows", key, rng.random(20000) < 0.7, False,
+                  20000))
+    cases.append(("c past K7_FAST_C", spread(np.int64, n),
+                  rng.random(n) < 0.5, True, kernels.K7_FAST_C + 1))
+    for rows in (kernels.K7_SORT_MAX, kernels.K7_SORT_MAX + 1):
+        cases.append((f"one value in {rows} rows",
+                      np.full(rows, 1995, np.int32), np.ones(rows, bool),
+                      True, 1))
+    for rows in (1, 5, 17, 600):
+        key = spread(np.int64, rows)
+        sel = rng.random(rows) < 0.6
+        cases.append((f"{rows} rows, c = n", key, sel, True, rows))
+        cases.append((f"{rows} rows, c = 1", key, sel, False, 1))
+    paths: dict = {}
+    for what, key, sel, desc, c in cases:
+        tk, ts = t(key), t(sel)
+        got = kernels.topk_candidates_traced(tk, ts, desc, c)
+        want = kernels.topk_candidates_plain(tk, ts, desc, c)
+        again = kernels.topk_candidates(tk, ts, desc, c)
+        _exact(f"K7 {what}", list(got[:2]), list(want), list(again))
+        expect = kernels.topk_candidates_path_plain(tk, ts, desc, c)
+        require(got[2] == expect, f"K7 {what}: the {got[2]} path ran, the "
+                f"model predicts {expect}")
+        paths[got[2]] = paths.get(got[2], 0) + 1
+    # a sel view that starts off a 16-byte boundary
+    full = rng.random(n + 3) < 0.5
+    key = spread(np.int64, n)
+    ts = t(full)[3:]
+    tk = t(key)
+    got = kernels.topk_candidates_traced(tk, ts, True, 256)
+    _exact("K7 misaligned sel", list(got[:2]),
+           list(kernels.topk_candidates_plain(tk, ts, True, 256)),
+           list(kernels.topk_candidates(tk, ts, True, 256)))
+    paths[got[2]] = paths.get(got[2], 0) + 1
+    torch.cuda.synchronize()
+    require(set(paths) == set(kernels.K7_PATHS),
+            f"K7: the edge cases ran the paths {paths}, not all three")
+    print(f"K7: {len(cases) + 1} edge cases equal the plain version bit "
+          f"for bit, twice, on the paths the model predicts: {paths}",
+          flush=True)
+    return {"cases": len(cases) + 1, "paths": paths}
+
+
+def k12_float_check(kernels, dev) -> int:
+    """K12 over float64 and float32 key columns (with -0.0 beside 0.0) and
+    beside an integer column, against `hash_columns_plain` bit for bit,
+    twice; equal values hash alike. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+    n = 1 << 23
+    f64 = rng.integers(-400, 400, n) / 4
+    f64[rng.random(n) < 0.05] = -0.0
+    f32 = (rng.integers(-400, 400, n) / 8).astype(np.float32)
+    f32[rng.random(n) < 0.05] = -0.0
+    i32 = rng.integers(-1000, 1000, n).astype(np.int32)
+    cols = {"f64": torch.from_numpy(f64).to(dev),
+            "f32": torch.from_numpy(f32).to(dev),
+            "i32": torch.from_numpy(i32).to(dev)}
+    combos = (("f64",), ("f32",), ("f64", "i32"), ("f32", "f64", "i32"))
+    for combo in combos:
+        cs = [cols[c] for c in combo]
+        _exact(f"K12 over {combo}", kernels.hash_columns(cs),
+               kernels.hash_columns_plain(cs), kernels.hash_columns(cs))
+    z = torch.tensor([0.0, -0.0, 2.5, 2.5], dtype=torch.float64,
+                     device=dev)
+    h = kernels.hash_columns([z, torch.tensor([7, 7, 1, 1], device=dev)])
+    require(int(h[0]) == int(h[1]) and int(h[2]) == int(h[3]),
+            "K12: equal float values hash apart")
+    torch.cuda.synchronize()
+    print(f"K12: float64 and float32 key columns ({n} rows, "
+          f"{len(combos)} column sets) equal the plain version bit for "
+          "bit, twice; -0.0 hashes as 0.0", flush=True)
+    return len(combos)
 
 
 def k4_synthetic(kernels, dev) -> int:
@@ -3855,6 +3997,13 @@ PX_ZIPF = ("select sum(f.v + d.w) as s, count(*) as c "
            "from fact f, dim d where f.fk = d.dk")
 PX_ZIPF_ROWS_PER_SHARD = 1 << 20
 PX_ZIPF_DIM = 2_000_000
+# a VECTOR column across the exchanges: vdocs (the vector cell's width,
+# 128 float32, a quarter of a million rows) joined to the zipf leg's dim,
+# then range-sorted by id: its rows cross as 512-byte row planes through
+# K25's pack and K26's all_to_all and all_gather
+PX_VECTOR = ("select v.id, v.emb, d.w from vdocs v, dim d "
+             "where v.id = d.dk and v.g = 3 order by v.id")
+PX_VECTOR_ROWS = 1 << 18
 # the PX executor's broadcast threshold on TPC-H (the reference default)
 PX_BROADCAST_THRESHOLD = 1 << 16
 # leg 2's warm runs per statement (the range sort moves every lineitem
@@ -3973,7 +4122,11 @@ def zipf_tables(seed: int) -> dict:
         "dim", Schema.of(dk=DataType.int64(), w=DataType.int64()),
         {"dk": np.arange(PX_ZIPF_DIM + 1),
          "w": np.arange(PX_ZIPF_DIM + 1) * 3})
-    return {"fact": fact, "dim": dim}
+    vdocs = vec_catalog(
+        rng.normal(size=(PX_VECTOR_ROWS, ANN_D)).astype(np.float32),
+        {"g": np.arange(PX_VECTOR_ROWS, dtype=np.int64) % 16})["docs"]
+    vdocs.name = "vdocs"
+    return {"fact": fact, "dim": dim, "vdocs": vdocs}
 
 
 def same_storage(name, got: dict, want: dict, ordered: bool) -> None:
@@ -4063,6 +4216,7 @@ def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
                     broadcast_threshold=PX_BROADCAST_THRESHOLD)
     pz = PxExecutor(zt, mesh, unique_keys=zuk, broadcast_threshold=1,
                     hybrid_hash=True)
+    pv = PxExecutor(zt, mesh, unique_keys=zuk, broadcast_threshold=1)
     single = Executor(tables, unique_keys=uk, device=dev)
     zsingle = Executor(zt, unique_keys=zuk, device=dev)
     planner, zplanner = Planner(tables), Planner(zt)
@@ -4070,7 +4224,8 @@ def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
     stmts = [("PX4_Q1", Q[1], True), ("PX4_Q6", Q[6], True),
              ("PX4_Q3", Q[3], True), ("PX4_Q18", Q[18], True),
              ("PX4_DISTINCT", PX_DISTINCT, False),
-             ("PX4_SORT", PX_SORT, True), ("PX4_HYBRID", PX_ZIPF, False)]
+             ("PX4_SORT", PX_SORT, True), ("PX4_HYBRID", PX_ZIPF, False),
+             ("PX4_VECTOR", PX_VECTOR, True)]
 
     captured: dict = {}
     lock = threading.Lock()
@@ -4098,9 +4253,9 @@ def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
     recs = []
     try:
         for name, text, ordered in stmts:
-            hybrid = name == "PX4_HYBRID"
-            ex, sx, pl = ((pz, zsingle, zplanner) if hybrid
-                          else (px, single, planner))
+            zipf = name in ("PX4_HYBRID", "PX4_VECTOR")
+            ex, sx, pl = ((pz if name == "PX4_HYBRID" else pv, zsingle,
+                           zplanner) if zipf else (px, single, planner))
             plan = pl.plan(parse(text))
             names = list(plan.output_names)
             for f in PX_CAPTURE:
@@ -4154,6 +4309,9 @@ def px_mesh_leg(tables, uk, kernels, queries_text, seed, warm, dev):
     srt = next(r for r in recs if r["statement"] == "PX4_SORT")
     require("range_sample" in srt["exchanges"],
             "PX leg 2: the sort did not exchange by range")
+    vec = next(r for r in recs if r["statement"] == "PX4_VECTOR")
+    require("repartition" in vec["exchanges"],
+            f"PX leg 2: the VECTOR join's exchanges {vec['exchanges']}")
     print("PX leg 2: launches " + ", ".join(
         f"{k} {launches[k]}" for k in PX_KERNELS), flush=True)
     return recs, launches, captured
@@ -7025,6 +7183,21 @@ def k31_synthetic(kernels, dev) -> int:
             _exact(f"K31 merge nsh {nsh} k {kk}", list(got), list(want),
                    list(kernels.ann_merge(gd, gp, kk)))
             cases += 1
+    # the merge at and past its one-launch limit (integer distances: real
+    # ties; +inf lanes)
+    lim = kernels.K31_MERGE_ONE
+    for m, kk in ((1, 1), (lim, 10), (lim, lim), (lim + 1, 10),
+                  (lim + 1, lim + 1)):
+        gd = torch.randint(-4, 5, (m,), generator=g).float()
+        gd[torch.rand(m, generator=g) < 0.3] = float("inf")
+        gd = gd.to(dev)
+        gp = torch.randint(0, 10**6, (m,), generator=g).to(
+            torch.int32).to(dev)
+        _exact(f"K31 merge of {m} pairs, k {kk}",
+               list(kernels.ann_merge(gd, gp, kk)),
+               list(kernels.ann_merge_plain(gd, gp, kk)),
+               list(kernels.ann_merge(gd, gp, kk)))
+        cases += 1
     torch.cuda.synchronize()
     print(f"K31: {cases} synthetic cases equal the plain versions bit for "
           "bit, twice", flush=True)
@@ -7666,6 +7839,8 @@ def main() -> int:
     k8_cases = k8_synthetic(kernels, torch.device("cuda", 0))
     k3_cases = k3_synthetic(kernels, torch.device("cuda", 0))
     k4_cases = k4_synthetic(kernels, torch.device("cuda", 0))
+    k7_cases = k7_synthetic(kernels, torch.device("cuda", 0))
+    k12_cases = k12_float_check(kernels, torch.device("cuda", 0))
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
     release_device()
@@ -7989,6 +8164,8 @@ def main() -> int:
                    "k8_synthetic_cases": k8_cases,
                    "k3_synthetic_cases": k3_cases,
                    "k4_synthetic_cases": k4_cases,
+                   "k7_synthetic": k7_cases,
+                   "k12_float_cases": k12_cases,
                    "k3_call_shapes": k3_shapes,
                    "k4_call_shapes": k4_shapes, "k4_device_ms": k4_ms,
                    "sqlite": {"sf": SQLITE_SF, "queries": srecs,

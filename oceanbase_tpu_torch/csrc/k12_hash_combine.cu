@@ -8,6 +8,11 @@
 // (-1 -> 2^64 - 1) and an unsigned byte zero-extends; the result's bits
 // are read as int64, as join_keys64's astype does. The bits decide which
 // rows share a sorted run in expand_join, so they equal the JAX package's.
+// A float column (float32 or float64) hashes the canonical image of its
+// value instead: the float64 bits, float32 widened exactly, -0.0 as +0.0,
+// so equal values hash alike (the JAX package casts floats to uint64,
+// which truncates; the port joins float keys by value, and its plain
+// version hashes the same image).
 //
 // Bound on an H100 (3.35 TB/s): it reads each key column once and writes
 // 8 bytes a row; three 64-bit multiplies per column a row are far below
@@ -26,17 +31,22 @@ __global__ void k12_hash(ObKeys a, long long n, long long* __restrict__ out) {
        i += step) {
     unsigned long long h = 0ull;
     for (int c = 0; c < a.ncols; c++) {
-      unsigned long long v = (unsigned long long)ob_ldg_i64(
-          ob_key_col(a, c), ob_key_dt(a, c), i);
+      const int dt = ob_key_dt(a, c);
+      unsigned long long v;
+      if (ob_is_float(dt)) {
+        double f = ob_ldg_f64(ob_key_col(a, c), dt, i);
+        v = (unsigned long long)__double_as_longlong(f == 0.0 ? 0.0 : f);
+      } else {
+        v = (unsigned long long)ob_ldg_i64(ob_key_col(a, c), dt, i);
+      }
       h = ob_mix64(h ^ (v + OB_GOLDEN64));
     }
     out[i] = (long long)h;
   }
 }
 
-// table: the device table (ObKeys) of ncols integer key columns of n rows
-// (type codes of ob_common.cuh; the wrapper refuses floats); out: int64
-// [n].
+// table: the device table (ObKeys) of ncols key columns of n rows (type
+// codes of ob_common.cuh); out: int64 [n].
 extern "C" int ob_k12_hash(int ncols, const void* table, long long n,
                            void* out, int nblocks, void* stream) {
   ObKeys a;

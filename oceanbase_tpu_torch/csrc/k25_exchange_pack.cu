@@ -175,7 +175,8 @@ __global__ void k25_place(const int* __restrict__ dest,
 }
 
 // Every slot of every plane: planes[c] the source, planes[np + c] the
-// lane buffer, esz[c] the element bytes.
+// lane buffer, esz[c] the element bytes (a row's bytes for a plane of
+// fixed-width rows, a VECTOR column).
 __global__ void k25_gather(int np, const long long* __restrict__ planes,
                            const long long* __restrict__ esz, int nsh,
                            long long cap, const long long* __restrict__ take,

@@ -33,11 +33,21 @@
 // distances by their gathered index and runs the same two launches.
 // Non-mine lanes read no row; the pad rows of the last block are zeros
 // (never inf), as the reference pads them.
+//
+// The merge of up to K31_MERGE_ONE gathered pairs (nsh * k: 40 for four
+// shards at k 10) is one launch of one block, a thread a pair, with no
+// scratch: each pair's key (the distance's image above its gathered
+// index, unique) sits in shared memory, and its rank is the count of
+// smaller keys; a rank below kk writes the pair to that slot. Its device
+// work is a few hundred instructions a thread, so the call's cost is the
+// launch and the wrapper's host work. Larger merges take the two launches
+// above.
 #include "ob_common.cuh"
 
 #define K31_TILE 256
 #define K31_SMEM_K 2048
 #define K31_SMEM_BYTES (48 * 1024)
+#define K31_MERGE_ONE 1024
 
 struct K31Probe {
   const float* xs;     // (rps, d) the shard's block
@@ -228,6 +238,45 @@ extern "C" int ob_k31_merge(const void* gd, const void* gp, long long m,
   return k31_launch(a, (const float*)gd, (const int*)gp, m, kk, nblocks,
                     partial, gruns, out_dist, out_pos, stream);
 }
+
+__global__ void __launch_bounds__(K31_MERGE_ONE)
+k31_merge_one(const float* __restrict__ gd, const int* __restrict__ gp,
+              int m, int kk, float* __restrict__ out_dist,
+              int* __restrict__ out_pos) {
+  __shared__ unsigned long long keys[K31_MERGE_ONE];
+  const int i = threadIdx.x;
+  float d = 0.0f;
+  unsigned long long k = OB_RUN_EMPTY;
+  if (i < m) {
+    d = __ldg(gd + i);
+    k = ((unsigned long long)ob_f32_image(d) << 32) | (unsigned int)i;
+  }
+  keys[i] = k;
+  __syncthreads();
+  if (i < m) {
+    int rank = 0;
+    for (int j = 0; j < m; j++) rank += keys[j] < k;
+    if (rank < kk) {
+      out_dist[rank] = d;
+      out_pos[rank] = __ldg(gp + i);
+    }
+  }
+}
+
+// The merge in one launch: gd, gp as ob_k31_merge, 1 <= kk <= m <=
+// K31_MERGE_ONE; no scratch.
+extern "C" int ob_k31_merge_one(const void* gd, const void* gp, int m, int kk,
+                                void* out_dist, void* out_pos, void* stream) {
+  if (m < 1 || m > K31_MERGE_ONE || kk < 1 || kk > m) {
+    return (int)cudaErrorInvalidValue;
+  }
+  k31_merge_one<<<1, (m + 31) & ~31, 0, (cudaStream_t)stream>>>(
+      (const float*)gd, (const int*)gp, m, kk, (float*)out_dist,
+      (int*)out_pos);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ob_k31_merge_one_max() { return K31_MERGE_ONE; }
 
 extern "C" int ob_k31_tile() { return K31_TILE; }
 

@@ -374,10 +374,25 @@ static __device__ void ob_run_merge_sorted(unsigned long long* run,
 }
 
 // Copy element `s` of a plane of `esize`-byte elements to element `d` of
-// another (a zero when s < 0).
+// another (a zero when s < 0). An element wider than 8 bytes is a
+// fixed-width row (a VECTOR column's d float32 values), copied a 4-byte
+// word at a time when its width allows, else a byte at a time.
 __device__ __forceinline__ void ob_copy_elem(const void* src, void* dst,
                                              int esize, long long s,
                                              long long d) {
+  if (esize > 8) {
+    if ((esize & 3) == 0) {
+      const int nw = esize >> 2;
+      const unsigned int* sp = (const unsigned int*)src + s * nw;
+      unsigned int* dp = (unsigned int*)dst + d * nw;
+      for (int k = 0; k < nw; k++) dp[k] = s < 0 ? 0u : sp[k];
+    } else {
+      const unsigned char* sp = (const unsigned char*)src + s * esize;
+      unsigned char* dp = (unsigned char*)dst + d * esize;
+      for (int k = 0; k < esize; k++) dp[k] = s < 0 ? 0 : sp[k];
+    }
+    return;
+  }
   switch (esize) {
     case 1:
       ((unsigned char*)dst)[d] =

@@ -99,6 +99,7 @@ from ..ops.join import (
     build_hash_table,
     expand_join,
     hash_join_probe,
+    key_live,
     merge_join_unique,
     probe_has_match,
     probe_run_any,
@@ -1814,6 +1815,22 @@ class Executor:
             out.append(v.contiguous())
         return out
 
+    def _join_keys(self, op: JoinOp, left: ColumnBatch, right: ColumnBatch):
+        """Both sides' key columns, pair by pair comparable by value: a
+        pair whose types differ with a float among them compares as
+        float64, as MySQL and numpy compare BIGINT with DOUBLE (a decimal
+        by its value). The cast comes before either side is imaged or
+        hashed, so every join route and PX's hash exchange see the same
+        keys on both sides."""
+        lkeys = self._key_columns(op.left_keys, left)
+        rkeys = self._key_columns(op.right_keys, right)
+        for i, (a, b) in enumerate(zip(lkeys, rkeys)):
+            if a.dtype != b.dtype and (a.dtype.is_floating_point
+                                       or b.dtype.is_floating_point):
+                lkeys[i] = _key_float64(a, op.left_keys[i], left.schema)
+                rkeys[i] = _key_float64(b, op.right_keys[i], right.schema)
+        return lkeys, rkeys
+
     @staticmethod
     def _pair_batch(left, right, pr, br, sel) -> ColumnBatch:
         """The expanded pairs as one batch: left columns gathered by the
@@ -1851,8 +1868,7 @@ class Executor:
         left, lovf = emit(op.left, inputs)
         right, rovf = emit(op.right, inputs)
         ovf = {**lovf, **rovf}
-        lkeys = self._key_columns(op.left_keys, left)
-        rkeys = self._key_columns(op.right_keys, right)
+        lkeys, rkeys = self._join_keys(op, left, right)
         dev = left.device
         if not lkeys:
             # cross join: a constant key matches every probe row to every
@@ -1892,9 +1908,11 @@ class Executor:
             )
         else:
             cap = params.join_cap[nid]
-            skeys, order = sort_build_side(rkeys, right.sel)
+            rsel = key_live(rkeys, right.sel)
+            skeys, order = sort_build_side(rkeys, rsel)
             pr, br, valid_rows, total, _st, _of = expand_join(
-                skeys, order, right.nrows, lkeys, left.sel, cap)
+                skeys, order, _live_rows(right, rsel), lkeys,
+                key_live(lkeys, left.sel), cap)
             sel = valid_rows
             if len(op.left_keys) > 1:
                 sel = sel & _pair_keys_equal(lkeys, rkeys, pr, br)
@@ -1918,8 +1936,7 @@ class Executor:
         left, lovf = emit(op.left, inputs)
         right, rovf = emit(op.right, inputs)
         ovf = {**lovf, **rovf}
-        lkeys = self._key_columns(op.left_keys, left)
-        rkeys = self._key_columns(op.right_keys, right)
+        lkeys, rkeys = self._join_keys(op, left, right)
         if op.residual is None:
             if len(lkeys) != 1 or not (_is_int(lkeys[0])
                                        and _is_int(rkeys[0])):
@@ -1938,9 +1955,11 @@ class Executor:
                 has = probe_has_match(skeys, right.nrows, lkeys[0], left.sel)
         else:
             cap = params.join_cap[nid]
-            skeys, order = sort_build_side(rkeys, right.sel)
+            rsel = key_live(rkeys, right.sel)
+            skeys, order = sort_build_side(rkeys, rsel)
             pr, br, valid_rows, total, starts, offs = expand_join(
-                skeys, order, right.nrows, lkeys, left.sel, cap)
+                skeys, order, _live_rows(right, rsel), lkeys,
+                key_live(lkeys, left.sel), cap)
             pair_sel = valid_rows
             if len(op.left_keys) > 1:
                 pair_sel = pair_sel & _pair_keys_equal(lkeys, rkeys, pr, br)
@@ -1962,12 +1981,13 @@ class Executor:
         left, lovf = emit(op.left, inputs)
         right, rovf = emit(op.right, inputs)
         ovf = {**lovf, **rovf}
-        lkeys = self._key_columns(op.left_keys, left)
-        rkeys = self._key_columns(op.right_keys, right)
+        lkeys, rkeys = self._join_keys(op, left, right)
         cap = params.join_cap[nid]
-        skeys, order = sort_build_side(rkeys, right.sel)
+        rsel = key_live(rkeys, right.sel)
+        skeys, order = sort_build_side(rkeys, rsel)
         pr, br, valid_rows, total, starts, offs = expand_join(
-            skeys, order, right.nrows, lkeys, left.sel, cap)
+            skeys, order, _live_rows(right, rsel), lkeys,
+            key_live(lkeys, left.sel), cap)
         pair_sel = valid_rows
         if len(op.left_keys) > 1:
             pair_sel = pair_sel & _pair_keys_equal(lkeys, rkeys, pr, br)
@@ -2017,12 +2037,13 @@ class Executor:
         left, lovf = emit(op.left, inputs)
         right, rovf = emit(op.right, inputs)
         ovf = {**lovf, **rovf}
-        lkeys = self._key_columns(op.left_keys, left)
-        rkeys = self._key_columns(op.right_keys, right)
+        lkeys, rkeys = self._join_keys(op, left, right)
         cap = params.join_cap[nid]
-        skeys, order = sort_build_side(rkeys, right.sel)
+        rsel = key_live(rkeys, right.sel)
+        skeys, order = sort_build_side(rkeys, rsel)
         pr, br, valid_rows, total, starts, offs = expand_join(
-            skeys, order, right.nrows, lkeys, left.sel, cap)
+            skeys, order, _live_rows(right, rsel), lkeys,
+            key_live(lkeys, left.sel), cap)
         pair_sel = valid_rows
         if len(op.left_keys) > 1:
             pair_sel = pair_sel & _pair_keys_equal(lkeys, rkeys, pr, br)
@@ -3776,6 +3797,25 @@ def _pair_keys_equal(lkeys, rkeys, pr, br) -> torch.Tensor:
     for a, b in zip(gather_columns(lkeys, pr), gather_columns(rkeys, br)):
         eq = eq & (a == b)
     return eq
+
+
+def _key_float64(c: torch.Tensor, e, schema: Schema) -> torch.Tensor:
+    """A join key column as float64 values (a decimal divided by its
+    scale)."""
+    if c.dtype == torch.float64:
+        return c
+    t = infer_type(e, schema)
+    if t.is_decimal:
+        return _div_scale(c.to(torch.float64), t.decimal_factor)
+    return c.to(torch.float64)
+
+
+def _live_rows(batch: ColumnBatch, sel: torch.Tensor) -> torch.Tensor:
+    """The live count of a batch under a narrower mask (the batch's own
+    count where the mask is its sel)."""
+    if sel is batch.sel:
+        return batch.nrows
+    return torch.sum(sel, dtype=torch.int64)
 
 
 def _is_int(t: torch.Tensor) -> bool:

@@ -61,6 +61,7 @@ within float32 rounding of each other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -293,10 +294,11 @@ def _load():
         lib.ob_k5_affine.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P,
                                      P, P, I, P]
         lib.ob_k6_segments.argtypes = [P, P, L, P, P, I, P, I, P]
-        lib.ob_k7_topk.argtypes = [P, I, P, I, L, L, P, P, P, P, P, I, P, I,
-                                   P]
-        lib.ob_k7_tile_rows.argtypes = []
-        lib.ob_k7_state_bytes.argtypes = []
+        lib.ob_k7_topk.argtypes = [P, I, P, I, L, L, P, P, I, P]
+        lib.ob_k7_scratch_bytes.argtypes = [L]
+        lib.ob_k7_scratch_bytes.restype = ctypes.c_longlong
+        lib.ob_k7_fast_c.argtypes = []
+        lib.ob_k7_word.argtypes = [I]
         lib.ob_k8_segreduce.argtypes = [I, I, P, I, P, P, P, L, P, P, I, P]
         lib.ob_k8_tile_rows.argtypes = []
         lib.ob_k8_inline.argtypes = []
@@ -361,11 +363,13 @@ def _load():
         lib.ob_k31_merge.argtypes = [P, P, L, I, I, P, P, P, P, P]
         lib.ob_k31_tile.argtypes = []
         lib.ob_k31_smem_k.argtypes = []
+        lib.ob_k31_merge_one.argtypes = [P, P, I, I, P, P, P]
+        lib.ob_k31_merge_one_max.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
                    lib.ob_k2_groupby, lib.ob_k3_spans, lib.ob_k3_sort,
                    lib.ob_k3_tile_rows, lib.ob_k4_gather, lib.ob_k5_affine,
-                   lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_tile_rows,
-                   lib.ob_k7_state_bytes, lib.ob_k8_segreduce,
+                   lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_fast_c,
+                   lib.ob_k7_word, lib.ob_k8_segreduce,
                    lib.ob_k8_tile_rows, lib.ob_k8_inline, lib.ob_k5_probe,
                    lib.ob_k9_merge_join,
                    lib.ob_k10_ranges, lib.ob_k10_expand, lib.ob_k10_tile_rows,
@@ -387,17 +391,20 @@ def _load():
                    lib.ob_k28_hist, lib.ob_k28_bounds, lib.ob_k28_hot,
                    lib.ob_k28_probe, lib.ob_k29_groupby,
                    lib.ob_k30_product_sum, lib.ob_k31_rerank,
-                   lib.ob_k31_merge, lib.ob_k31_tile, lib.ob_k31_smem_k):
+                   lib.ob_k31_merge, lib.ob_k31_tile, lib.ob_k31_smem_k,
+                   lib.ob_k31_merge_one, lib.ob_k31_merge_one_max):
             fn.restype = ctypes.c_int
         if (lib.ob_k3_tile_rows() != K3_TILE
+                or lib.ob_k7_fast_c() != K7_FAST_C
                 or lib.ob_k8_tile_rows() != K8_TILE
                 or lib.ob_k8_inline() != K8_INLINE
                 or lib.ob_k8_scratch_entries(7, 3)
                 != k8_scratch_entries(7, 3)
                 or lib.ob_k26_chunk_bytes() != K26_CHUNK
-                or lib.ob_k26_inline() != K26_INLINE):
+                or lib.ob_k26_inline() != K26_INLINE
+                or lib.ob_k31_merge_one_max() != K31_MERGE_ONE):
             raise RuntimeError("kernels.py and csrc/ disagree on the K3, "
-                               "K8 or K26 layout constants")
+                               "K7, K8, K26 or K31 layout constants")
         _lib = lib
         return lib
 
@@ -1218,12 +1225,48 @@ def topk_candidates_plain(key, sel, desc: bool, c: int):
     return idx.to(torch.int32), cnt
 
 
-def topk_candidates(key, sel, desc: bool, c: int):
-    """K7: (int32 [c] row indices of the c largest of
-    where(sel, key or ~key, INT64_MIN), value descending and ties by lower
-    index; the 0-d int64 count of live rows whose value is >= the c-th)."""
-    if not _on_cuda(key, sel):
-        return topk_candidates_plain(key, sel, desc, c)
+# the paths of K7 (csrc/k7_topk_candidates.cu K7State::path), its largest
+# c on the survivor path and the entries its one-block selection holds
+K7_PATHS = ("survivors", "overflow", "full")
+K7_FAST_C = 4096
+K7_SORT_MAX = 8192
+_k7_consts: dict = {}
+
+
+def k7_bin_plain(v: torch.Tensor) -> torch.Tensor:
+    """K7's order-preserving 13-bit code of int64 values (csrc k7_bin):
+    x = v or ~v; x below 64 is its own code, else (e - 5) << 6 | the six
+    bits after x's top bit e; values >= 0 take 4096 + code, the others
+    4095 - code. INT64_MIN (a dead row) gets 384, the lowest."""
+    v = v.to(torch.int64)
+    x = torch.where(v >= 0, v, ~v)
+    e = torch.zeros_like(x)
+    for step in (32, 16, 8, 4, 2, 1):
+        e = e + step * ((x >> (e + step)) > 0).to(torch.int64)
+    code = torch.where(x < 64, x,
+                       ((e - 5) << 6) | ((x >> (e - 6).clamp(min=0)) & 63))
+    return torch.where(v >= 0, 4096 + code, 4095 - code)
+
+
+def topk_candidates_path_plain(key, sel, desc: bool, c: int) -> str:
+    """The K7_PATHS name of the path K7's launch takes on these inputs:
+    past K7_FAST_C candidates "full"; else "survivors" when the bin of the
+    c-th largest value (dead rows in the lowest) and the bins above it
+    hold at most K7_SORT_MAX rows, the one-block selection's room, else
+    "overflow" (the exact path)."""
+    if c > K7_FAST_C:
+        return "full"
+    hist = torch.bincount(k7_bin_plain(_topk_masked(key, sel, desc)),
+                          minlength=8192)
+    at_or_above = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0])
+    kth_bin = int(torch.nonzero(at_or_above >= c).max())
+    total = int(at_or_above[kth_bin])
+    return "survivors" if total <= K7_SORT_MAX else "overflow"
+
+
+def _k7_launch(key, sel, desc: bool, c: int):
+    """One K7 call on the card: (int32 [c] candidates, the int64 scratch
+    whose words hold the tie count and the path)."""
     n = int(key.shape[0])
     _vector(key, n, "K7 key")
     _vector(sel, n, "K7 sel")
@@ -1237,24 +1280,38 @@ def topk_candidates(key, sel, desc: bool, c: int):
         raise ValueError("K7 takes at most 2^31 - 1 rows")
     lib = _load()
     dev = key.device
+    if not _k7_consts:
+        _k7_consts.update(cnt=int(lib.ob_k7_word(0)),
+                          path=int(lib.ob_k7_word(1)))
+    out = torch.empty(c, dtype=torch.int32, device=dev)
+    scratch = torch.empty(int(lib.ob_k7_scratch_bytes(c)) // 8,
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        tile = lib.ob_k7_tile_rows()
-        ntiles = -(-n // tile)
-        out = torch.empty(c, dtype=torch.int32, device=dev)
-        state = torch.empty(-(-lib.ob_k7_state_bytes() // 8),
-                            dtype=torch.int64, device=dev)
-        hist = torch.empty(256, dtype=torch.int64, device=dev)
-        tiles = torch.empty((2, ntiles), dtype=torch.int32, device=dev)
-        cand = torch.empty(c, dtype=torch.int32, device=dev)
         rc = lib.ob_k7_topk(
             key.data_ptr(), DTYPE_CODE[key.dtype], sel.data_ptr(),
-            int(bool(desc)), n, c, out.data_ptr(), state.data_ptr(),
-            hist.data_ptr(), tiles[0].data_ptr(), tiles[1].data_ptr(),
-            ntiles, cand.data_ptr(), _blocks(dev, n, 256 * 8), _stream(dev))
+            int(bool(desc)), n, c, out.data_ptr(), scratch.data_ptr(),
+            max(1, min(-(-n // 4096), 6 * _sm_count(dev))), _stream(dev))
         _check(rc, "K7_topk_candidates")
     count_launch(LAUNCHES, "K7_topk_candidates")
-    # K7State: prefix, himask, need, cnt, ngt (int64 each)
-    return out, state[3]
+    return out, scratch
+
+
+def topk_candidates(key, sel, desc: bool, c: int):
+    """K7: (int32 [c] row indices of the c largest of
+    where(sel, key or ~key, INT64_MIN), value descending and ties by lower
+    index; the 0-d int64 count of live rows whose value is >= the c-th)."""
+    if not _on_cuda(key, sel):
+        return topk_candidates_plain(key, sel, desc, c)
+    out, scratch = _k7_launch(key, sel, desc, c)
+    return out, scratch[_k7_consts["cnt"]]
+
+
+def topk_candidates_traced(key, sel, desc: bool, c: int):
+    """`topk_candidates` and the path its launch took on the card (a
+    K7_PATHS name; one host read)."""
+    out, scratch = _k7_launch(key, sel, desc, c)
+    return out, scratch[_k7_consts["cnt"]], K7_PATHS[
+        int(scratch[_k7_consts["path"]])]
 
 
 # ---------------------------------------------------------------------------
@@ -1836,15 +1893,25 @@ def mix64_plain(x: torch.Tensor) -> torch.Tensor:
     return x ^ _shr(x, 31)
 
 
+def float_key_image(c: torch.Tensor) -> torch.Tensor:
+    """The int64 image of a float key column's values: the float64 bits,
+    float32 widened exactly, -0.0 as +0.0. Equal values give equal images
+    and unequal ones unequal images (NaN rows, which equal nothing, are
+    the caller's to mask)."""
+    f = c.to(torch.float64)
+    return torch.where(f == 0, 0.0, f).view(torch.int64)
+
+
 def _hash_operand(c: torch.Tensor) -> torch.Tensor:
     if c.dtype.is_floating_point:
-        raise NotImplementedError("hash of float key columns is not ported")
+        return float_key_image(c)
     return c.to(torch.int64)  # sign-extends, as astype(uint64) converts
 
 
 def hash_columns_plain(cols):
     """Plain version of K12 (ops/hashing.py hash_combine, read as int64 as
-    join_keys64 does)."""
+    join_keys64 does); a float column hashes `float_key_image`, where the
+    JAX package truncates it to uint64."""
     h = torch.zeros(cols[0].shape, dtype=torch.int64, device=cols[0].device)
     for c in cols:
         h = mix64_plain(h ^ (_hash_operand(c) + GOLDEN64))
@@ -1852,18 +1919,15 @@ def hash_columns_plain(cols):
 
 
 def hash_columns(cols):
-    """K12: int64 [n] hash_combine of the integer key columns (any number:
-    the columns ride a device table)."""
+    """K12: int64 [n] hash_combine of the key columns (any number: the
+    columns ride a device table; a float column hashes its value's
+    image, as `hash_columns_plain`)."""
     cols = list(cols)
     if not cols:
         raise ValueError("K12 needs at least one column")
     if not _on_cuda(*cols):
         return hash_columns_plain(cols)
     n = int(cols[0].shape[0])
-    for c in cols:
-        if c.dtype.is_floating_point:
-            raise NotImplementedError(
-                "hash of float key columns is not ported")
     dev = cols[0].device
     table = _key_table(cols, n, "K12 key column", dev)
     out = torch.empty(n, dtype=torch.int64, device=dev)
@@ -3209,10 +3273,21 @@ def _key_table(keys, n: int, what: str, dev: torch.device) -> torch.Tensor:
 
 
 def _plane(t: torch.Tensor, what: str) -> None:
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{what}: planes must be contiguous 1-D tensors")
-    if t.element_size() not in _WIDTHS:
+    """A plane K25 and K26 move: a contiguous column, or a contiguous
+    (rows, d) tensor of fixed-width rows (a VECTOR column)."""
+    if t.dim() not in (1, 2) or not t.is_contiguous():
+        raise ValueError(f"{what}: planes must be contiguous 1-D columns "
+                         "or 2-D row planes")
+    if t.dim() == 1 and t.element_size() not in _WIDTHS:
         raise TypeError(f"{what}: element width {t.element_size()}")
+    if t.dim() == 2 and plane_row_bytes(t) < 1:
+        raise TypeError(f"{what}: a row plane of width 0")
+
+
+def plane_row_bytes(t: torch.Tensor) -> int:
+    """Bytes of one row of a plane (an element of a 1-D column, d values
+    of a row plane)."""
+    return t.element_size() * (int(t.shape[1]) if t.dim() == 2 else 1)
 
 
 def exchange_dest_plain(mode: str, n_shards: int, keys, bounds=None,
@@ -3334,8 +3409,8 @@ def exchange_pack_plain(planes, mask: torch.Tensor, dest: torch.Tensor,
     pos = (offs[:, None] + s[None, :]).clamp(0, max(n - 1, 0))
     live = (s[None, :] < counts.clamp(max=cap)[:, None]).reshape(-1)
     take = order[pos.reshape(-1)]
-    lanes = [torch.where(live, p[take], torch.zeros((), dtype=p.dtype,
-                                                    device=dev))
+    lanes = [torch.where(live.view(-1, *([1] * (p.dim() - 1))), p[take],
+                         torch.zeros((), dtype=p.dtype, device=dev))
              for p in planes]
     overflow = torch.clamp(counts - cap, min=0).sum()
     return lanes, live, overflow
@@ -3363,7 +3438,8 @@ def exchange_pack(planes, mask: torch.Tensor, dest: torch.Tensor,
     lib = _load()
     ntiles = -(-n // int(lib.ob_k25_tile_rows()))
     slots = n_shards * cap
-    lanes = [torch.empty(slots, dtype=p.dtype, device=dev) for p in planes]
+    lanes = [torch.empty((slots, *p.shape[1:]), dtype=p.dtype, device=dev)
+             for p in planes]
     sent = torch.empty(slots, dtype=torch.bool, device=dev)
     overflow = torch.empty((), dtype=torch.int64, device=dev)
     counts = torch.empty(n_shards * ntiles, dtype=torch.int32, device=dev)
@@ -3372,7 +3448,7 @@ def exchange_pack(planes, mask: torch.Tensor, dest: torch.Tensor,
     take = torch.empty(slots, dtype=torch.int64, device=dev)
     table = _device_table([p.data_ptr() for p in planes]
                           + [q.data_ptr() for q in lanes]
-                          + [p.element_size() for p in planes], dev) \
+                          + [plane_row_bytes(p) for p in planes], dev) \
         if planes else torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.ob_k25_pack(dest.data_ptr(), mask.data_ptr(), n, n_shards,
@@ -3420,7 +3496,7 @@ def k26_plan(senders, rows: int, lane: int, outs, out_base: int = 0,
     chunks in all. Returns (entries, nchunks)."""
     entries, chunk = [], 0
     for c, blocks in enumerate(senders):
-        esz = outs[c].element_size()
+        esz = plane_row_bytes(outs[c])
         nb = rows * esz
         if nb == 0:
             continue
@@ -3457,7 +3533,7 @@ def exchange_recv(senders, rows: int, lane: int, outs, out_base: int = 0,
             raise ValueError("K26 out plane too short")
         for b in blocks:
             _plane(b, "K26 sender block")
-            if b.dtype != outs[c].dtype:
+            if b.dtype != outs[c].dtype or b.shape[1:] != outs[c].shape[1:]:
                 raise TypeError("K26 sender and out types differ")
             if int(b.shape[0]) < (lane + 1) * rows:
                 raise ValueError("K26 sender block too short for its lane")
@@ -4032,9 +4108,7 @@ def _k31_scratch(dev, cand: int, kk: int):
     if _k31_consts is None:
         _k31_consts = (int(lib.ob_k31_tile()), int(lib.ob_k31_smem_k()))
     tile, smem_k = _k31_consts
-    nblocks = max(1, min(-(-cand // tile),
-                         2 * torch.cuda.get_device_properties(
-                             dev).multi_processor_count))
+    nblocks = max(1, min(-(-cand // tile), 2 * _sm_count(dev)))
     partial = torch.empty(nblocks * kk, dtype=torch.int64, device=dev)
     gruns = (torch.empty((nblocks + 1) * 2 * kk, dtype=torch.int64,
                          device=dev) if kk > smem_k else None)
@@ -4082,30 +4156,47 @@ def ann_rerank(xs, lo: int, offs, lens, probes, q, max_list: int, kk: int):
     return dist, pos
 
 
+K31_MERGE_ONE = 1024  # gathered pairs of the one-launch merge (csrc)
+
+
 def ann_merge(gd: torch.Tensor, gp: torch.Tensor, kk: int):
     """K31's merge: the kk smallest of the gathered strips' distances (ties
     to the lower gathered index) and their positions, as
-    `ann_merge_plain`. Counts as a K31 launch."""
-    if not _on_cuda(gd, gp):
+    `ann_merge_plain`. Up to K31_MERGE_ONE pairs it is one launch that
+    allocates only its outputs; past that, two launches. Its host work is
+    kept to the checks and the launch: the call is a few microseconds of
+    device work. Counts as a K31 launch."""
+    if gd.device.type != "cuda" or gp.device.type != "cuda":
+        _on_cuda(gd, gp)  # raises on a mix
         return ann_merge_plain(gd, gp, kk)
-    m = int(gd.shape[0])
-    _vector(gd, m, "K31 gathered distances")
-    _vector(gp, m, "K31 gathered positions")
+    m = gd.shape[0]
+    if (gd.dim() != 1 or gp.shape != gd.shape or gd.device != gp.device
+            or not (gd.is_contiguous() and gp.is_contiguous())):
+        raise ValueError("K31 merges two contiguous 1-D strips of one "
+                         "length on one device")
     if gd.dtype != torch.float32 or gp.dtype != torch.int32:
         raise TypeError("K31 merges float32 distances and int32 positions")
     if not 1 <= kk <= m or m >= 2**32:
         raise ValueError(f"K31 merges 1..{m} of {m} gathered rows, got {kk}")
     dev = gd.device
-    lib, nblocks, partial, gruns = _k31_scratch(dev, m, kk)
     dist = torch.empty(kk, dtype=torch.float32, device=dev)
     pos = torch.empty(kk, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ob_k31_merge(
-            gd.data_ptr(), gp.data_ptr(), m, int(kk), nblocks,
-            partial.data_ptr(),
-            gruns.data_ptr() if gruns is not None else None,
-            dist.data_ptr(), pos.data_ptr(), _stream(dev))
-        _check(rc, "K31_shard_ivf merge")
-    count_launch(LAUNCHES, "K31_shard_ivf")
-    count_launch(ENTRY_LAUNCHES, "K31_shard_ivf.merge")
+    lib = _lib if _lib is not None else _load()
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        if m <= K31_MERGE_ONE:
+            rc = lib.ob_k31_merge_one(
+                gd.data_ptr(), gp.data_ptr(), m, int(kk), dist.data_ptr(),
+                pos.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
+        else:
+            lib, nblocks, partial, gruns = _k31_scratch(dev, m, kk)
+            rc = lib.ob_k31_merge(
+                gd.data_ptr(), gp.data_ptr(), m, int(kk), nblocks,
+                partial.data_ptr(),
+                gruns.data_ptr() if gruns is not None else None,
+                dist.data_ptr(), pos.data_ptr(), _stream(dev))
+    _check(rc, "K31_shard_ivf merge")
+    with _COUNT_LOCK:
+        LAUNCHES["K31_shard_ivf"] += 1
+        ENTRY_LAUNCHES["K31_shard_ivf.merge"] += 1
     return dist, pos

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..kernels import gather_columns
+from ..kernels import float_key_image, gather_columns
 from .hashing import hash_combine
 from .sort import sort_indices
 
@@ -24,11 +24,25 @@ _I64_MAX = torch.iinfo(torch.int64).max
 
 def join_keys64(key_cols: list[torch.Tensor]) -> torch.Tensor:
     """Canonical 64-bit join key: one integer column widens exactly to
-    int64 (no collision risk); several columns hash-combine, and the
-    engine exact-verifies the expanded pairs of such keys."""
-    if len(key_cols) == 1 and not key_cols[0].dtype.is_floating_point:
-        return key_cols[0].to(torch.int64)
+    int64, one float column becomes the injective image of its value
+    (`float_key_image`; no collision risk either way); several columns
+    hash-combine (K12, floats by the same image), and the engine
+    exact-verifies the expanded pairs of such keys."""
+    if len(key_cols) == 1:
+        c = key_cols[0]
+        if c.dtype.is_floating_point:
+            return float_key_image(c)
+        return c.to(torch.int64)
     return hash_combine([c.contiguous() for c in key_cols])
+
+
+def key_live(key_cols: list, mask: torch.Tensor) -> torch.Tensor:
+    """The rows of `mask` that can match: a NaN key equals nothing, as in
+    SQL comparison."""
+    for c in key_cols:
+        if c.dtype.is_floating_point:
+            mask = mask & ~torch.isnan(c)
+    return mask
 
 
 def sort_build_side(key_cols: list[torch.Tensor], mask: torch.Tensor):

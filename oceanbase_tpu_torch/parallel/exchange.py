@@ -35,17 +35,25 @@ from .group import current
 
 
 def _planes(tensors, n: int | None = None) -> list:
-    """1-D contiguous planes (a 0-d value broadcast to n rows)."""
+    """Contiguous planes (a 0-d value broadcast to n rows). A VECTOR
+    column, (rows, d) float32, crosses as one plane of fixed-width rows:
+    K25 packs and K26 places d x 4 bytes a row, as they move an element
+    of a 1-D column."""
     out = []
     for t in tensors:
         if t.dim() == 0:
             t = t.expand(n)
-        if t.dim() != 1:
-            raise NotImplementedError(
-                "PX exchanges move 1-D columns; a VECTOR column cannot "
-                "cross an exchange")
+        if t.dim() not in (1, 2):
+            raise ValueError(f"PX exchanges move columns and (rows, d) row "
+                             f"planes, not a {t.dim()}-D tensor")
         out.append(t.contiguous())
     return out
+
+
+def _empty_like_rows(p: torch.Tensor, rows: int,
+                     dev: torch.device) -> torch.Tensor:
+    """An uninitialised plane of `rows` rows shaped as p's rows."""
+    return torch.empty((rows, *p.shape[1:]), dtype=p.dtype, device=dev)
 
 
 def _local(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -94,7 +102,7 @@ def _all_to_all(planes, rows: int) -> list:
     dev = ctx.device
     n = ctx.n_shards
     blocks = ctx.group.all_to_all(ctx.shard, planes, rows)
-    outs = [torch.empty(n * rows, dtype=p.dtype, device=dev) for p in planes]
+    outs = [_empty_like_rows(p, n * rows, dev) for p in planes]
     s0 = 0
     while s0 < n:
         # a run of senders whose blocks hold the lane at the same index
@@ -122,7 +130,7 @@ def _all_gather(planes, mask_plane: int = -1, per_host: int = 0) -> list:
             raise ValueError("all_gather needs one capacity on every shard")
     senders = [[_local(every[s][c], dev) for s in range(n)]
                for c in range(len(planes))]
-    outs = [torch.empty(n * rows, dtype=p.dtype, device=dev) for p in planes]
+    outs = [_empty_like_rows(p, n * rows, dev) for p in planes]
     return K.exchange_recv(senders, rows, 0, outs, mask_plane=mask_plane,
                            per_host=per_host,
                            host_lane=ctx.shard % per_host if per_host else 0)
@@ -180,8 +188,7 @@ def ring_broadcast_rows(cols: dict, mask: torch.Tensor, n_shards: int):
     names = list(cols)
     n = int(mask.shape[0])
     blk = _planes([cols[c] for c in names], n) + [mask.contiguous()]
-    outs = [torch.empty(n_shards * n, dtype=p.dtype, device=dev)
-            for p in blk]
+    outs = [_empty_like_rows(p, n_shards * n, dev) for p in blk]
     K.exchange_recv([[p] for p in blk], n, 0, outs, out_base=me * n)
     for s in range(1, n_shards):
         every = ctx.gather(blk)

@@ -474,8 +474,7 @@ class PxExecutor(Executor):
         """GATHER/BROADCAST: replicate all rows on every shard (the
         all_gather layout, or the ring per broadcast_impl)."""
         ring = self.broadcast_impl == "ring"
-        self._note_exchange("broadcast", len(b.cols) + len(b.valid),
-                            b.capacity,
+        self._note_exchange("broadcast", _payload_units(b), b.capacity,
                             collective="ppermute" if ring else "all_gather")
         payload = {("c", n): a for n, a in b.cols.items()}
         payload.update({("v", n): a for n, a in b.valid.items()})
@@ -494,7 +493,7 @@ class PxExecutor(Executor):
 
     def _exchange_dest(self, b: ColumnBatch, dest, cap: int):
         """Redistribute rows of a batch to per-row dest shards."""
-        self._note_exchange("repartition", len(b.cols) + len(b.valid), cap)
+        self._note_exchange("repartition", _payload_units(b), cap)
         payload = {("c", n): a for n, a in b.cols.items()}
         payload.update({("v", n): a for n, a in b.valid.items()})
         out, mask, ovf = repartition(payload, b.sel, dest, self.nsh, cap)
@@ -518,7 +517,11 @@ class PxExecutor(Executor):
 
     def _exchange_hash(self, b: ColumnBatch, key_exprs, cap: int):
         """HASH distribution: co-partition rows by key hash."""
-        keys = self._key_values(key_exprs, b)
+        return self._exchange_keys(b, self._key_values(key_exprs, b), cap)
+
+    def _exchange_keys(self, b: ColumnBatch, keys, cap: int):
+        """HASH distribution on evaluated key columns (a join's, made
+        comparable across its sides first)."""
         return self._exchange_dest(b, dest_by_hash(keys, self.nsh), cap)
 
     def _concat_batches(self, a: ColumnBatch, b: ColumnBatch) -> ColumnBatch:
@@ -532,18 +535,16 @@ class PxExecutor(Executor):
             schema=a.schema, dicts=a.dicts,
         )
 
-    def _hybrid_exchange(self, probe: ColumnBatch, probe_keys,
-                         build: ColumnBatch, build_keys,
+    def _hybrid_exchange(self, probe: ColumnBatch, pk,
+                         build: ColumnBatch, bk,
                          cap_probe: int, cap_build: int):
         """HYBRID_HASH_BROADCAST/RANDOM: skew-adaptive repartition. Hash
-        bucket histograms of both sides' keys (K28), summed over the
-        shards (K27), pick the popular buckets identically on every
+        bucket histograms of both sides' key columns (K28), summed over
+        the shards (K27), pick the popular buckets identically on every
         shard (K28); popular probe rows stay local, popular build rows
         broadcast, the other rows of both sides hash-exchange."""
         hb = 4096
         self._note_merge("skew_histogram", 2, hb)
-        pk = self._key_values(probe_keys, probe)
-        bk = self._key_values(build_keys, build)
         cnt_p, cnt_b = merge([
             (K.hash_histogram(pk, probe.sel, hb), "sum"),
             (K.hash_histogram(bk, build.sel, hb), "sum"),
@@ -566,17 +567,15 @@ class PxExecutor(Executor):
         new_build = self._concat_batches(build_norm, build_bc)
         return new_probe, new_build, ox_p, ox_b
 
-    def _bloom_prefilter(self, probe: ColumnBatch, probe_keys,
-                         build: ColumnBatch, build_keys,
+    def _bloom_prefilter(self, probe: ColumnBatch, pk,
+                         build: ColumnBatch, bk,
                          est_build: float) -> ColumnBatch:
-        """Join-filter pushdown: a build-side key bitset (K28) OR-merged
-        over the shards (K27) drops probe rows that cannot match BEFORE
-        the exchange (K28's probe)."""
+        """Join-filter pushdown: a bitset of the build side's key columns
+        (K28) OR-merged over the shards (K27) drops probe rows that cannot
+        match BEFORE the exchange (K28's probe)."""
         m = min(self.bloom_max_bits, next_pow2(max(int(4 * est_build), 1024)))
         self._note_merge("bloom", 1, m, elem_bytes=4)
-        bk = self._key_values(build_keys, build)
         (bits,) = merge([(K.bloom_bits(bk, build.sel, m), "or")])
-        pk = self._key_values(probe_keys, probe)
         return probe.with_sel(K.bucket_probe(pk, probe.sel, bits))
 
     # ------------------------------------------------------- emission
@@ -890,12 +889,14 @@ class PxExecutor(Executor):
             method = "hash"
 
         if method == "hash":
+            # both sides hash the same comparable key columns (a float
+            # meeting another type as float64), so equal keys meet
+            lk, rk = self._join_keys(op, left, right)
             # bloom pushdown only where dropping non-matching probe rows
             # is a no-op: inner and semi joins
             if self.join_bloom and op.kind in ("inner", "cross", "semi"):
                 left = self._bloom_prefilter(
-                    left, op.left_keys, right, op.right_keys,
-                    self._est_rows(op.right))
+                    left, lk, right, rk, self._est_rows(op.right))
             cap_l = params.exchange_cap[_exch_id(nid, _JOIN_LEFT)]
             cap_r = params.exchange_cap[_exch_id(nid, _JOIN_RIGHT)]
             use_hybrid = op.kind == "inner" and (
@@ -910,10 +911,10 @@ class PxExecutor(Executor):
             )
             if use_hybrid:
                 left, right, xl, xr = self._hybrid_exchange(
-                    left, op.left_keys, right, op.right_keys, cap_l, cap_r)
+                    left, lk, right, rk, cap_l, cap_r)
             else:
-                left, xl = self._exchange_hash(left, op.left_keys, cap_l)
-                right, xr = self._exchange_hash(right, op.right_keys, cap_r)
+                left, xl = self._exchange_keys(left, lk, cap_l)
+                right, xr = self._exchange_keys(right, rk, cap_r)
             ovf = dict(ovf)
             ovf[_exch_id(nid, _JOIN_LEFT)] = xl
             ovf[_exch_id(nid, _JOIN_RIGHT)] = xr
@@ -1204,6 +1205,16 @@ def shard_put_chunk(mesh, narrow: dict, bases: dict, count: int):
         cols, valid = split_validity(decoded)
         raw[i] = {"cols": cols, "valid": valid, "sel": sel}
     return raw, nbytes
+
+
+def _payload_units(b: ColumnBatch) -> int:
+    """The 8-byte lanes a batch's payload fills in an exchange's
+    accounting: one a column or validity plane, and a VECTOR column's d x
+    4-byte rows in as many as they need."""
+    units = len(b.valid)
+    for a in b.cols.values():
+        units += max(1, -(-K.plane_row_bytes(a) // 8)) if a.dim() == 2 else 1
+    return units
 
 
 def _override(emit, node, result):

@@ -41,7 +41,7 @@ from oceanbase_tpu_torch.sql import parser as TP
 from oceanbase_tpu_torch.sql.logical import Sort, Window
 from oceanbase_tpu_torch.sql.planner import Planner as TPlanner
 from test_torch_px import build_env, check_three
-from torch_twins import rows_equal
+from torch_twins import px_rows, rows_equal
 
 NSH = 8
 
@@ -271,3 +271,240 @@ def test_px_window_partition_exchange(env_range):
         "window was replicated instead of hash-partitioned")
     rows_equal(sorted(ref), sorted(got), "window vs JAX PX")
     rows_equal(sorted(single), sorted(got), "window vs single device")
+
+
+# ---------------------------------------------------------------------------
+# VECTOR columns and float join keys across the exchanges (PX answers on
+# the mesh: `px fallbacks` stays 0)
+
+
+def _vector_twin(monkeypatch):
+    from oceanbase_tpu_torch.parallel import mesh as t_mesh
+    from torch_twins import TwinDatabase
+
+    monkeypatch.setattr(t_mesh, "CPU_SHARDS", 8)
+    d = TwinDatabase.build(n_nodes=1, n_ls=1)
+    s = d.session()
+    s.sql("create table docs (id int primary key, g int, emb vector(4))")
+    rng = np.random.default_rng(2)
+    vals = ", ".join(
+        f"({i}, {i % 5}, '[{', '.join(repr(float(x)) for x in rng.normal(size=4))}]')"
+        for i in range(64))
+    s.sql(f"insert into docs values {vals}")
+    return d, s
+
+
+VECTOR_SQL = [("select id, emb from docs order by id limit 5", 5),
+              ("select id, emb from docs where g = 3", 13)]
+
+
+@pytest.mark.parametrize("sql,nrows", VECTOR_SQL)
+def test_px_vector_column_crosses_exchanges(monkeypatch, sql, nrows):
+    """A VECTOR column crosses the gather and the exchanges as one plane of
+    fixed-width rows (K25, K26): at dop 2 the rows equal the JAX
+    Database's and dop 0's, with no `px fallbacks` on either side."""
+    d, s = _vector_twin(monkeypatch)
+    try:
+        serial = s.t.sql(sql).rows()
+        s.sql("set ob_px_dop = 2")
+        jr, tr = s.j.sql(sql).rows(), s.t.sql(sql).rows()
+        assert len(tr) == len(jr) == len(serial) == nrows
+        for got, want, one in zip(tr, jr, serial):
+            assert got[0] == want[0] == one[0]
+            assert np.array_equal(np.asarray(got[1]), np.asarray(want[1]))
+            assert np.array_equal(np.asarray(got[1]), np.asarray(one[1]))
+        assert d.t._px_executor_obj is not None
+        for db in (d.j, d.t):
+            assert db.metrics.counter("px fallbacks") == 0
+    finally:
+        d.close()
+
+
+def test_px_repartition_moves_row_planes():
+    """repartition and both broadcasts carry a (rows, d) plane: every row
+    arrives whole, at the slot its scalar columns arrive at."""
+    import torch
+
+    from oceanbase_tpu_torch.parallel import exchange as X
+    from oceanbase_tpu_torch.parallel.group import run_spmd
+
+    mesh = _cpu_mesh(4)
+    n, dim = 37, 5
+    rng = np.random.default_rng(31)
+    ids = [torch.from_numpy(np.arange(n, dtype=np.int64) + 100 * s)
+           for s in range(4)]
+    embs = [torch.from_numpy(rng.normal(size=(n, dim)).astype(np.float32))
+            for _s in range(4)]
+    masks = [torch.from_numpy(rng.random(n) < 0.7) for _s in range(4)]
+
+    def body(s):
+        cols = {"id": ids[s], "emb": embs[s]}
+        dest = X.dest_by_hash([ids[s]], 4)
+        got = [X.repartition(cols, masks[s], dest, 4, n)[:2],
+               X.broadcast_rows(cols, masks[s]),
+               X.ring_broadcast_rows(cols, masks[s], 4)]
+        return got
+
+    outs = run_spmd(mesh, body)
+    allid = torch.cat(ids)
+    allemb = torch.cat(embs)
+    for shard in outs:
+        for cols, mask in shard:
+            live = mask.nonzero().squeeze(1)
+            assert cols["emb"].shape == (mask.shape[0], dim)
+            rows = torch.searchsorted(allid, cols["id"][live])
+            assert torch.equal(cols["emb"][live], allemb[rows])
+
+
+def test_px_accounting_counts_vector_row_bytes():
+    """The MeshPlan and `px exchange bytes capacity` count a VECTOR
+    column's rows by their bytes: 8-byte lanes, d x 4 bytes a row."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from oceanbase_tpu_torch.parallel.px import _payload_units
+
+    b = SimpleNamespace(
+        cols={"id": torch.zeros(8, dtype=torch.int64),
+              "emb": torch.zeros((8, 128), dtype=torch.float32),
+              "tiny": torch.zeros((8, 3), dtype=torch.float32)},
+        valid={"emb": torch.ones(8, dtype=torch.bool)})
+    assert _payload_units(b) == 1 + 64 + 2 + 1
+
+
+def _float_key_catalog(pkg: str, n_a: int = 300, n_b: int = 400):
+    """a and b as tests/test_torch_float_keys.py builds them (f DOUBLE, k
+    BIGINT, v BIGINT, g FLOAT), with a signed BIGINT n = k - 2 for a
+    negative key meeting a DOUBLE; b the larger, so a hash join
+    repartitions both sides."""
+    fields = (("f", "float64"), ("k", "int64"), ("v", "int64"),
+              ("g", "float32"), ("n", "int64"))
+    out = {}
+    for name, seed, size in (("a", 1, n_a), ("b", 2, n_b)):
+        r = np.random.default_rng(seed)
+        d = {"f": r.integers(0, 40, size) / 4 - 3,
+             "k": r.integers(0, 5, size).astype(np.int64),
+             "v": r.integers(0, 1000, size).astype(np.int64),
+             "g": (r.integers(0, 30, size) / 2).astype(np.float32)}
+        d["n"] = d["k"] - 2
+        z = np.flatnonzero(d["f"] == 0.0)
+        d["f"][z[::2]] = -0.0
+        d["f"][[3]] = np.nan
+        if pkg == "jax":
+            out[name] = JTable.from_pydict(name, JSchema(tuple(
+                JField(c, getattr(JDT, k)()) for c, k in fields)), d)
+        else:
+            from oceanbase_tpu_torch.core.table import table_from_arrays
+
+            out[name] = table_from_arrays(
+                name, [(c, k, 0, 0, False) for c, k in fields], d)
+        out[name + "_np"] = d
+    return out
+
+
+FLOAT_PX = [
+    # (sql, the numpy oracle's left and right keys or None for a twin)
+    ("select count(*), sum(a.v) from a, b where a.f = b.f", ["f"], ["f"]),
+    ("select count(*), sum(a.v) from a, b where a.n = b.f", ["n"], ["f"]),
+    ("select count(*), sum(a.v) from a, b where a.g = b.f", ["g"], ["f"]),
+    ("select count(*), sum(a.v) from a, b where a.f = b.f and a.k = b.k",
+     None, None),
+    ("select count(*), sum(b.v) from a left join b on a.g = b.g "
+     "and a.k = b.k", None, None),
+]
+
+
+@pytest.fixture(scope="module")
+def float_env():
+    tt = _float_key_catalog("torch")
+    jt = _float_key_catalog("jax")
+    cat_t = {k: v for k, v in tt.items() if not k.endswith("_np")}
+    cat_j = {k: v for k, v in jt.items() if not k.endswith("_np")}
+    return {"np": tt, "tplanner": TPlanner(cat_t), "jplanner": JPlanner(cat_j),
+            "cat_t": cat_t, "jpx": JPx(cat_j, j_make_mesh(4))}
+
+
+class _KeySpy(TPx):
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.hashed = []
+
+    def _exchange_keys(self, b, keys, cap):
+        self.hashed.append([k.dtype for k in keys])
+        return super()._exchange_keys(b, keys, cap)
+
+    def _hybrid_exchange(self, probe, pk, build, bk, *a):
+        self.hashed += [[k.dtype for k in pk], [k.dtype for k in bk]]
+        return super()._hybrid_exchange(probe, pk, build, bk, *a)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+@pytest.mark.parametrize("case", range(len(FLOAT_PX)))
+def test_px_float_key_joins_hash_on_values(float_env, case, hybrid):
+    """Float join keys hash-repartition over 4 shards (the broadcast
+    threshold at 0, the hybrid route on and off): equal values, -0.0 and
+    0.0, a
+    BIGINT and a DOUBLE, a FLOAT and a DOUBLE, meet on one shard, since
+    both sides hash the same float64 keys. One key against numpy, two
+    keys against the JAX PxExecutor."""
+    import torch
+
+    sql, lk, rk = FLOAT_PX[case]
+    px = _KeySpy(float_env["cat_t"], _cpu_mesh(4), broadcast_threshold=0,
+                 hybrid_hash=hybrid, join_bloom=not hybrid)
+    tp = float_env["tplanner"].plan(TP.parse(sql))
+    names = list(tp.output_names)
+    got = px_rows(px.execute(tp.plan), names)
+    assert px.hashed, "the join did not hash-repartition"
+    if lk is not None and len({a[0] for a in (lk, rk)}) > 1:
+        # a float meeting another type: both sides hash float64
+        assert all(dts == [torch.float64] for dts in px.hashed)
+    if lk is None:
+        jp = float_env["jplanner"].plan(JP.parse(sql))
+        rows_equal(px_rows(float_env["jpx"].execute(jp.plan), names), got,
+                   sql)
+        return
+    a, b = float_env["np"]["a_np"], float_env["np"]["b_np"]
+    eq = np.ones((len(a["v"]), len(b["v"])), dtype=bool)
+    for x, y in zip(lk, rk):
+        eq &= (a[x].astype(np.float64)[:, None]
+               == b[y].astype(np.float64)[None, :])
+    li, _ri = np.nonzero(eq)
+    assert got == [(len(li), int(a["v"][li].sum()))], sql
+
+
+def test_px_float_key_twin_at_dop2(monkeypatch):
+    """The float-key statements through a Database pair at dop 2: the
+    two-key join equals the JAX Database, the one-key join numpy, and
+    the port's `px fallbacks` stays 0."""
+    from oceanbase_tpu_torch.parallel import mesh as t_mesh
+    from torch_twins import TwinDatabase
+
+    monkeypatch.setattr(t_mesh, "CPU_SHARDS", 8)
+    d = TwinDatabase.build(n_nodes=1, n_ls=1)
+    try:
+        s = d.session()
+        tabs = _float_key_catalog("torch", 60, 80)
+        for name in ("a", "b"):
+            s.sql(f"create table {name} (id int primary key, f double, "
+                  "k bigint, v bigint, g float)")
+            t = tabs[name + "_np"]
+            t["f"] = np.nan_to_num(t["f"], nan=0.5)  # DML takes no NULL
+            vals = ", ".join(
+                f"({i}, {float(t['f'][i])!r}, {int(t['k'][i])}, "
+                f"{int(t['v'][i])}, {float(t['g'][i])!r})"
+                for i in range(len(t["v"])))
+            s.sql(f"insert into {name} values {vals}")
+        two = ("select count(*), sum(a.v) from a, b where a.f = b.f "
+               "and a.k = b.k")
+        one = "select count(*), sum(a.v) from a, b where a.f = b.f"
+        s.sql("set ob_px_dop = 2")
+        s.sql(two)  # the twin: equal to the JAX Database
+        a, b = tabs["a_np"], tabs["b_np"]
+        li, _ri = np.nonzero(a["f"][:, None] == b["f"][None, :])
+        assert s.t.sql(one).rows() == [(len(li), int(a["v"][li].sum()))]
+        assert d.t._px_executor_obj is not None
+        assert d.t.metrics.counter("px fallbacks") == 0
+    finally:
+        d.close()
