@@ -33,8 +33,15 @@ bit, to its plain version on edge cases of its plan, tiles and look-back
 no row dead, constant keys, spans of 1 to 64 bits in every image mode,
 trivial digits, least significant keys already in row order, DESC on
 minimums, NaN and -0.0, two composites, seventy keys), and run
-K3_REPEAT_RUNS times at K3_REPEAT_ROWS rows with bit-identical orders;
-one more run of Q18, Q20,
+K3_REPEAT_RUNS times at K3_REPEAT_ROWS rows with bit-identical orders.
+K15 runs at D1's shape on its image route (K3's sorted images), with its
+record and columns routes forced beside it, and on `k15_cases`' edge
+cases, each on the route `kernels.k15_route` gives it; K13's entries
+are timed one by one at W1-W3's shapes and held on `k13_synthetic`'s
+edge cases (ragged tiles, segments across many tiles, flags on every
+row and none, NaN), float sums bit-identical over two runs; K17 and its
+yardstick are also timed in turns over K17_ROUNDS rounds. One more run
+of Q18, Q20,
 Q21, Q10, Q15, Q4, Q12, Q13 and S1 records each K3 call's rows, kept
 keys and composites (bits, image width, row bits, passes). Every
 expression tree the statements evaluate runs on K24 (the fused
@@ -603,6 +610,9 @@ from lineitem group by l_orderkey order by l_orderkey limit 7"""
 STREAM_BUDGET_SF10 = 1 << 30
 GRACE_BUDGET_SF10 = 128 << 20
 
+# rounds of K17's interleaved timing beside its yardstick
+K17_ROUNDS = 200
+
 # the TPC-H queries run through the merge, expansion, semi/anti/left
 # joins and DISTINCT, by query number
 NEW_QUERIES = (2, 4, 5, 9, 11, 12, 13, 15, 16, 17, 18, 20, 21, 22)
@@ -777,6 +787,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def interleaved_ms(fns, rounds: int) -> list:
+    """The median milliseconds of each of fns, timed in turns over the
+    same rounds (CUDA events around one call each, after one warm-up
+    call), so that both see the same clocks and neighbours."""
+    import statistics
+
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, t in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -1287,7 +1321,9 @@ def capture_analytic_kernels(sess, kernels) -> dict:
         (U2, {"K14.build": (ex, "build_hash_table", cols_n),
               "K14.probe": (ex, "hash_join_probe",
                             lambda tag, row, b, p, m: m.numel())}),
-        (D1, {"K15_distinct_first": (hashagg, "first_occurrence", cols_n)}),
+        (D1, {"K15_distinct_first": (ex, "distinct_first_mask",
+                                     lambda dk, v, m: m.numel() * (len(dk)
+                                                                   + 1))}),
         (A1, {"K16_hll": (hll, "hll_registers", n0)}),
         (F1, {"K11_probe_run_any.mark_build": (ex, "mark_build", n0)}),
     ]
@@ -1297,11 +1333,11 @@ def capture_analytic_kernels(sess, kernels) -> dict:
     return out
 
 
-def k13_steps(kernels, cap: dict, plain: bool) -> list:
-    """K13's entries on their captured main-path arguments (run flags,
-    segment starts and ends, the prefix sum, the forward and backward
-    segmented max, the frame-bound search), through the kernel or the
-    plain versions."""
+def k13_entries(kernels, cap: dict, plain: bool) -> list:
+    """K13's entries on their captured main-path arguments, as (name,
+    call) pairs: the run flags, segment starts and ends, the prefix sum,
+    the forward and backward segmented max, the frame-bound search,
+    through the kernel or the plain versions."""
     def fn(name):
         return getattr(kernels, f"{name}_plain" if plain else name)
 
@@ -1310,14 +1346,22 @@ def k13_steps(kernels, cap: dict, plain: bool) -> list:
     svals, sflags, s_is_min = cap["K13.suffix"]
     arr, target, lo, hi, *right = cap["K13.search"]
     return [
-        fn("boundaries")(keys),
-        fn("segment_starts")(*cap["K13.starts"]),
-        fn("peer_ends")(*cap["K13.ends"]),
-        fn("prefix_sum")(*cap["K13.sum"]),
-        fn("segmented_scan_minmax")(vals, flags, is_min),
-        fn("suffix_scan_minmax")(svals, sflags, s_is_min),
-        fn("bound_search")(arr, target, lo, hi, *right),
+        ("boundaries", lambda: fn("boundaries")(keys)),
+        ("segment_starts", lambda: fn("segment_starts")(*cap["K13.starts"])),
+        ("peer_ends", lambda: fn("peer_ends")(*cap["K13.ends"])),
+        ("prefix_sum", lambda: fn("prefix_sum")(*cap["K13.sum"])),
+        ("segmented_scan_minmax",
+         lambda: fn("segmented_scan_minmax")(vals, flags, is_min)),
+        ("suffix_scan_minmax",
+         lambda: fn("suffix_scan_minmax")(svals, sflags, s_is_min)),
+        ("bound_search",
+         lambda: fn("bound_search")(arr, target, lo, hi, *right)),
     ]
+
+
+def k13_steps(kernels, cap: dict, plain: bool) -> list:
+    """Every K13 entry once (`k13_entries`), their results in order."""
+    return [call() for _name, call in k13_entries(kernels, cap, plain)]
 
 
 def k14_steps(kernels, cap: dict, plain: bool):
@@ -1870,6 +1914,17 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
            lambda: k13_steps(kernels, captured, plain=False),
            lambda: k13_steps(kernels, captured, plain=True),
            k13_library, k13_bytes, sum(int(t.numel()) for t in got13))
+    # each entry alone: its time and its bound (its inputs read once, its
+    # output written once)
+    entries = {}
+    for (name, call), a, g in zip(k13_entries(kernels, captured, False),
+                                  args13, got13):
+        bm, _by = bound_ms(nbytes(a) + nbytes([g]), int(g.numel()))
+        entries[name] = {"ms": cuda_ms(call, reps), "bound_ms": bm}
+    out[-1]["entries"] = entries
+    print("K13 by entry (ms, bound ms): " + ", ".join(
+        f"{k} {v['ms']:.6f} ({v['bound_ms']:.6f})"
+        for k, v in entries.items()), flush=True)
 
     # K14 at U2's shape: the later orders' (o_custkey, o_orderpriority)
     # built into the set, the earlier orders' distinct pairs probed
@@ -1893,21 +1948,48 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
            nbytes([*bkeys14, bmask14, *pkeys14, pmask14]) + np14 * 4,
            int(bmask14.numel()) + np14)
 
-    # K15 at D1's shape: lineitem's (flag, status, l_suppkey) first rows
-    # along K3's order, written straight into row order
-    cols15, mask15, order15 = captured["K15_distinct_first"]
+    # K15 at D1's shape: lineitem's (flag, status, l_suppkey) first rows,
+    # from K3's sorted images (the image route: the images read once, one
+    # byte written a row at most); the order routes forced on the same
+    # rows beside it (the record route, and the columns route, which is
+    # previous design's walk)
+    dk15, v15, mask15 = captured["K15_distinct_first"]
+    nn15 = int(mask15.shape[0])
+    cols15 = [(k.expand(nn15) if k.dim() == 0 else k).contiguous()
+              for k in (*dk15, v15)]
+    s15 = kernels.sort_order_images(cols15, [False] * len(cols15), mask15)
+    require(s15.route == "image", f"K15 at D1's shape took the {s15.route} "
+            "route, not the image route")
+    order15 = (s15.images & ((1 << s15.rbits) - 1)).to(torch.int32)
     packed15 = torch.zeros_like(cols15[0], dtype=torch.int64)
     for c in cols15:
         packed15 = packed15 * 1_000_003 + c.to(torch.int64)
 
-    record("K15_distinct_first",
-           kernels.first_occurrence(cols15, mask15, order15),
+    got15 = kernels.first_occurrence_images(s15)
+    record("K15_distinct_first", got15,
            kernels.first_occurrence_plain(cols15, mask15, order15),
-           lambda: kernels.first_occurrence(cols15, mask15, order15),
+           lambda: kernels.first_occurrence_images(s15),
            lambda: kernels.first_occurrence_plain(cols15, mask15, order15),
            lambda: torch.unique(packed15, return_inverse=True),
-           nbytes([*cols15, mask15, order15]) + mask15.numel(),
-           int(mask15.numel()) * len(cols15))
+           nbytes([s15.images]) + nn15, nn15)
+    for route in ("record", "columns"):
+        _exact(f"K15 {route} route at D1's shape",
+               kernels.first_occurrence(cols15, mask15, order15, route),
+               got15,
+               kernels.first_occurrence(cols15, mask15, order15, route))
+        out[-1][f"{route}_route_ms"] = cuda_ms(
+            lambda: kernels.first_occurrence(cols15, mask15, order15, route),
+            reps)
+    out[-1]["path"] = "image"
+    out[-1]["k3_images_ms"] = cuda_ms(lambda: kernels.sort_order_images(
+        cols15, [False] * len(cols15), mask15), max(1, reps // 2))
+    out[-1]["k3_order_ms"] = cuda_ms(lambda: kernels.sort_order(
+        cols15, [False] * len(cols15), mask15), max(1, reps // 2))
+    print(f"K15 at D1's shape: path image, record route "
+          f"{out[-1]['record_route_ms']:.6f} ms, columns route "
+          f"{out[-1]['columns_route_ms']:.6f} ms, K3 with images "
+          f"{out[-1]['k3_images_ms']:.6f} ms, with the order "
+          f"{out[-1]['k3_order_ms']:.6f} ms", flush=True)
 
     # K15's write-back at W1's shape (the results of one window spec)
     cols15s, order15s = captured["K15_distinct_first.scatter"]
@@ -2401,6 +2483,234 @@ def k7_synthetic(kernels, dev) -> dict:
           f"for bit, twice, on the paths the model predicts: {paths}",
           flush=True)
     return {"cases": len(cases) + 1, "paths": paths}
+
+
+def k15_cases(rows: int = 1 << 20, big: int = 1 << 24) -> list:
+    """K15's edge cases as numpy arrays, each with the route `k15_route`
+    gives it: (what, key columns, live mask, route). `rows` and `big` set
+    their sizes (the CPU tests build them smaller)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1515)
+    n = rows
+
+    def ints(hi, m=n, dtype=np.int64):
+        return rng.integers(0, hi, m).astype(dtype)
+
+    def floats(dtype):
+        v = rng.integers(-20, 20, n).astype(dtype) / 4
+        v[rng.random(n) < 0.05] = np.nan
+        v[rng.random(n) < 0.05] = -0.0
+        v[rng.random(n) < 0.05] = 0.0
+        return v.astype(dtype)
+
+    i64 = np.iinfo(np.int64)
+    half = rng.random(n) < 0.5
+    blocks = (np.arange(n) // 1000) % 3 != 1
+    return [
+        ("ties", [ints(50, dtype=np.int32), ints(30)], half, "image"),
+        ("dead rows between live ones",
+         [ints(1 << 20), ints(1000, dtype=np.int32)], blocks, "image"),
+        ("no live row", [ints(7), ints(1 << 16)], np.zeros(n, bool), "image"),
+        ("every row live", [ints(7), ints(1 << 16)], np.ones(n, bool),
+         "image"),
+        ("one row", [ints(5, 1), ints(9, 1)], np.ones(1, bool), "rows"),
+        ("a constant key", [np.full(n, 7, np.int32), ints(5000)], half,
+         "image"),
+        ("keys in row order", [np.sort(ints(100)), np.arange(n) // 3],
+         np.ones(n, bool), "rows"),
+        ("a value in row order", [ints(100, dtype=np.int32), np.arange(n)],
+         half, "record"),
+        ("keys past 64 bits", [rng.integers(i64.min, i64.max, n),
+                               rng.integers(i64.min, i64.max, n)], half,
+         "record"),
+        ("float64 with NaN and -0.0", [ints(9, dtype=np.int32),
+                                       floats(np.float64)], half, "record"),
+        ("float32 beside int8", [ints(9, dtype=np.int8),
+                                 floats(np.float32)], half, "record"),
+        ("one-pass composite", [ints(2, dtype=np.bool_),
+                                ints(6, dtype=np.int8)], half, "record"),
+        ("17 keys", [ints(3, dtype=np.int32) for _ in range(17)], half,
+         "columns"),
+        ("17 narrow keys", [ints(3, dtype=np.int8) for _ in range(16)]
+         + [ints(300, dtype=np.int16)], half, "record"),
+        ("many rows", [ints(3, big, np.int32), ints(2, big, np.int32),
+                       ints(100000, big)], rng.random(big) < 0.98, "image"),
+    ]
+
+
+def k15_synthetic(kernels, dev) -> dict:
+    """K15 on its edge cases (`k15_cases`: ties, dead rows between live
+    ones, no live row, every row live, one row, a constant key, keys in
+    row order (no sort at all), a value in row order (K3 drops it: the
+    record route), keys past 64 bits, float keys with NaN and -0.0, a
+    one-pass composite, 17 keys (past a 32-byte record: the columns
+    route), 17 narrow keys, 16M rows), each on the route `k15_route` must
+    send it (read back from `sort_order_images`), against
+    `first_occurrence_plain` over the plain order bit for bit, and again
+    through `distinct_first_mask`; then the record and columns routes
+    forced on an image-route case. Returns {"cases": n, "routes": {route:
+    n}}."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.ops.hashagg import distinct_first_mask
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = k15_cases()
+    routes: dict = {}
+    for what, cols, mask, route in cases:
+        tc, tm = [t(c) for c in cols], t(mask)
+        desc = [False] * len(tc)
+        s = kernels.sort_order_images(tc, desc, tm)
+        require(s.route == route, f"K15 {what}: the {s.route} route, not "
+                f"the {route} route the rule gives")
+        if s.images is not None:
+            got = kernels.first_occurrence_images(s)
+        else:
+            got = kernels.first_occurrence(tc, tm, s.order, s.route)
+        want = kernels.first_occurrence_plain(
+            tc, tm, kernels.sort_order_plain(tc, desc, tm))
+        again = distinct_first_mask(tc[:-1], tc[-1], tm)
+        _exact(f"K15 {what}", got, want, again)
+        routes[route] = routes.get(route, 0) + 1
+    # the order routes forced where the image route would run
+    _what, cols, mask, _route = cases[1]
+    tc, tm = [t(c) for c in cols], t(mask)
+    order = kernels.sort_order(tc, [False] * len(tc), tm)
+    want = kernels.first_occurrence_plain(tc, tm, order)
+    for route in ("record", "columns"):
+        _exact(f"K15 {route} route forced",
+               kernels.first_occurrence(tc, tm, order, route), want,
+               kernels.first_occurrence(tc, tm, order, route))
+    torch.cuda.synchronize()
+    require(set(routes) == set(kernels.K15_ROUTES),
+            f"K15: the edge cases ran the routes {routes}, not all four")
+    print(f"K15: {len(cases) + 2} edge cases equal the plain version bit for "
+          f"bit, twice, on the routes the rule gives: {routes}", flush=True)
+    return {"cases": len(cases) + 2, "routes": routes}
+
+
+def k13_synthetic(kernels, dev) -> dict:
+    """K13's entries on their edge cases against the plain versions: a
+    ragged last tile (1, 17, a tile - 1, a tile, a tile + 1, 3 tiles + 17
+    and 1,000,003 rows), segments that cross many tiles, a flag on every
+    row and on none, NaN and -0.0 among float values; the run flags over
+    int64, float64 (NaN, -0.0), int8 and bool keys. Integers, min/max and
+    the marks exactly (floats by value: -0.0 == 0.0, NaN where the plain
+    version has NaN); float64 sums within rel 1e-12 of the running sum of
+    |x|, float32 sums within one float32 ulp of the float64 cumsum plus
+    that; every entry twice, bit-identical, and float sums also at
+    15,000,577 rows. Returns {"cases": n}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1313)
+    tile = kernels.K13_TILE
+    count = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def twice(what, fn):
+        a, b = fn(), fn()
+        require(torch.equal(_bits(a), _bits(b)), f"K13 {what}: two runs "
+                "differ in their bits")
+        return a
+
+    def same_values(what, got, want):
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"K13 {what}: dtype/shape differs from the plain version")
+        if got.dtype.is_floating_point:
+            nan = torch.isnan(want)
+            ok = torch.equal(torch.isnan(got), nan) and bool(
+                (got[~nan] == want[~nan]).all())
+        else:
+            ok = torch.equal(got, want)
+        require(ok, f"K13 {what}: differs from the plain version")
+
+    def sum_close(what, got, x):
+        x64 = x.to(torch.float64)
+        ref = torch.cumsum(x64, 0)
+        scale = torch.cumsum(x64.abs(), 0)
+        tol = 1e-12 * scale
+        if got.dtype == torch.float32:
+            ref = ref.to(torch.float32).to(torch.float64)
+            ulp = torch.finfo(torch.float32).eps * ref.abs()
+            tol = tol + ulp
+        err = (got.to(torch.float64) - ref).abs()
+        require(bool((err <= tol).all()), f"K13 {what}: float sum off by "
+                f"{float((err - tol).max())} past its tolerance")
+
+    def values(dtype, m):
+        if dtype in (np.float32, np.float64):
+            v = rng.normal(0, 1000, m)
+            v[rng.random(m) < 0.01] = np.nan
+            v[rng.random(m) < 0.01] = -0.0
+            v[rng.random(m) < 0.01] = 0.0
+            return v.astype(dtype)
+        info = np.iinfo(dtype)
+        return rng.integers(int(info.min), int(info.max), m,
+                            endpoint=True).astype(dtype)
+
+    dtypes = (np.int8, np.int16, np.int32, np.int64, np.uint8, np.float32,
+              np.float64)
+    for m in (1, 17, tile - 1, tile, tile + 1, 3 * tile + 17, 1_000_003):
+        flags = {"random": rng.random(m) < 0.03,
+                 "across tiles": rng.random(m) < 2e-5,
+                 "every row": np.ones(m, bool),
+                 "none": np.zeros(m, bool)}
+        for fname, f in flags.items():
+            tf = t(f)
+            tag = f"{m} rows, flags {fname}"
+            for name in ("segment_starts", "peer_ends"):
+                got = twice(f"{name} {tag}",
+                            lambda: getattr(kernels, name)(tf))
+                same_values(f"{name} {tag}", got,
+                            getattr(kernels, name + "_plain")(tf))
+                count += 1
+            for dt in dtypes:
+                tv = t(values(dt, m))
+                for name in ("segmented_scan_minmax", "suffix_scan_minmax"):
+                    for is_min in (True, False):
+                        what = f"{name} {np.dtype(dt).name} min {is_min} {tag}"
+                        got = twice(what, lambda: getattr(kernels, name)(
+                            tv, tf, is_min))
+                        same_values(what, got, getattr(
+                            kernels, name + "_plain")(tv, tf, is_min))
+                        count += 1
+        for dt in (np.int64, np.float32, np.float64):
+            tv = t(values(dt, m))
+            if dt != np.int64:
+                tv = torch.nan_to_num(tv)
+            what = f"prefix_sum {np.dtype(dt).name} {m} rows"
+            got = twice(what, lambda: kernels.prefix_sum(tv))
+            if dt == np.int64:
+                same_values(what, got, kernels.prefix_sum_plain(tv))
+            else:
+                sum_close(what, got, tv)
+            count += 1
+        fk = rng.integers(-2, 2, m) / 2
+        fk[rng.random(m) < 0.01] = np.nan
+        fk[fk == 0] = rng.choice([0.0, -0.0], int((fk == 0).sum()))
+        keys = [t(rng.integers(0, 3, m)), t(fk),
+                t(rng.integers(-2, 2, m).astype(np.int8)),
+                t(rng.random(m) < 0.5)]
+        what = f"boundaries {m} rows"
+        got = twice(what, lambda: kernels.boundaries(keys))
+        same_values(what, got, kernels.boundaries_plain(keys))
+        count += 1
+    big = t(rng.normal(0, 1e6, 15_000_577))
+    for x in (big, big.to(torch.float32)):
+        what = f"prefix_sum {x.dtype} 15,000,577 rows"
+        sum_close(what, twice(what, lambda: kernels.prefix_sum(x)), x)
+        count += 1
+    torch.cuda.synchronize()
+    print(f"K13: {count} edge cases equal the plain versions (float sums "
+          f"within their tolerance), each twice bit-identical", flush=True)
+    return {"cases": count}
 
 
 def k12_float_check(kernels, dev) -> int:
@@ -3309,6 +3619,13 @@ def prepare_checks(kernels, reps: int, k17: dict, k18: dict) -> list:
     out.append(record("K17_slice_scan", k17_run(kernels.slice_scan),
                       k17_run(kernels.slice_scan_plain), k17_library,
                       k17_bytes, cap * (len(pay) + 1)))
+    # K17 sits at parity with its yardstick: both timed in turns
+    km, lm = interleaved_ms([k17_run(kernels.slice_scan), k17_library],
+                            K17_ROUNDS)
+    out[-1]["interleaved"] = {"rounds": K17_ROUNDS, "ms_median": km,
+                              "library_ms_median": lm}
+    print(f"K17 interleaved over {K17_ROUNDS} rounds: median {km:.6f} ms, "
+          f"library median {lm:.6f} ms", flush=True)
 
     # K18 at one streamed Q3 chunk, and at a synthetic chunk of the same
     # capacity with validity bits, exactly full runs and raw float64
@@ -7840,6 +8157,8 @@ def main() -> int:
     k3_cases = k3_synthetic(kernels, torch.device("cuda", 0))
     k4_cases = k4_synthetic(kernels, torch.device("cuda", 0))
     k7_cases = k7_synthetic(kernels, torch.device("cuda", 0))
+    k15_cases = k15_synthetic(kernels, torch.device("cuda", 0))
+    k13_cases = k13_synthetic(kernels, torch.device("cuda", 0))
     k12_cases = k12_float_check(kernels, torch.device("cuda", 0))
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
@@ -8127,9 +8446,10 @@ def main() -> int:
                              if r["name"] in main_launches
                              else main_entries[r["name"]])
     kernels_line = {"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")}
+        {**{k: r[k] for k in ("name", "route", "source", "replaces",
+                              "launches", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms")},
+         **({"path": r["path"]} if "path" in r else {})}
         for r in krecs if r["name"] in KERNEL_LINE
     ]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8165,6 +8485,8 @@ def main() -> int:
                    "k3_synthetic_cases": k3_cases,
                    "k4_synthetic_cases": k4_cases,
                    "k7_synthetic": k7_cases,
+                   "k15_synthetic": k15_cases,
+                   "k13_synthetic": k13_cases,
                    "k12_float_cases": k12_cases,
                    "k3_call_shapes": k3_shapes,
                    "k4_call_shapes": k4_shapes, "k4_device_ms": k4_ms,

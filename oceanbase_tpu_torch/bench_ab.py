@@ -1,8 +1,8 @@
 """The shared part of the kernel A/B harnesses (`bench_k3.py`,
-`bench_k4.py`, `bench_k7.py`, `bench_k8.py`, `bench_k17.py`,
-`bench_k26.py`): each times one kernel at the shapes chip_smoke times it
-at, so two versions of the kernel can be compared on one card in one
-call.
+`bench_k4.py`, `bench_k7.py`, `bench_k8.py`, `bench_k13.py`,
+`bench_k15.py`, `bench_k17.py`, `bench_k26.py`): each times one kernel at
+the shapes chip_smoke times it at, so two versions of the kernel can be
+compared on one card in one call.
 
 Every harness takes `--root DIR` and `--reps N`. `--root` imports
 `oceanbase_tpu_torch` from another checkout (its kernels built there), so

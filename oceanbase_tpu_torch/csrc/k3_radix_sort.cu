@@ -64,7 +64,11 @@
 //   the device (a state word per pass), so the host plans the launches
 //   once, after the one read of the spans, and never waits again; the last
 //   pass of the sort writes the caller's output.
-// Stability of every pass gives the row-index tiebreak.
+// Stability of every pass gives the row-index tiebreak. For K15's image
+// route (kernels.sort_order_images) the plan puts the row inside a 64-bit
+// image where the 32-bit one beside the order would move as many bytes a
+// pass, and the last pass writes the sorted images (img_out) instead of
+// the order: the row is their low bits.
 // Tried on the H100 (PERF.md): the look-back width, plain stores
 // or atomics for the published counts, and tiles of 3072-6144 rows moved
 // the passes by a few per cent; a look-back before the ranking (after a
@@ -344,6 +348,7 @@ struct K3Bufs {
   int* perm[2];
   int* out;
   int* state;
+  void* img_out;  // K15's images: the last pass writes them, not the order
 };
 
 __device__ __forceinline__ const int* k3_order_in(const K3Bufs& b, int psel) {
@@ -656,7 +661,11 @@ __global__ void __launch_bounds__(K3_THREADS, K3_MINB)
     unsigned pos = s_gofs[d] + (unsigned)q;
     if (MODE != K3_KEYS && !a.last_comp) iout[pos] = v;
     if (MODE == K3_ROW) {
-      if (a.last_comp) pout[pos] = (int)(v & rmask);
+      if (a.final_pass && a.b.img_out != nullptr) {
+        ((T*)a.b.img_out)[pos] = v;
+      } else if (a.last_comp) {
+        pout[pos] = (int)(v & rmask);
+      }
     } else {
       pout[pos] = sp[q];
     }
@@ -778,6 +787,10 @@ static void k3_launch_pack(const K3Pack& p, const K3Bufs& b, int g,
 // images of the widest width (null when no composite has an image),
 // perm_a / perm_b n int32 (null when only the last pass writes an order),
 // out the n int32 of the result; scratch ob_k3_scratch_bytes(...) bytes.
+// img_out (K15's image route; then out may be null): one composite whose
+// image holds the row (comp_rbits > 0), and its last pass writes the n
+// sorted images of comp_width bits there instead of the order (the row is
+// their low comp_rbits bits).
 extern "C" int ob_k3_sort(int ncomp, const int* comp_nkeys,
                           const int* comp_bits, const int* comp_width,
                           const int* comp_rbits, const void* const* keys,
@@ -785,11 +798,13 @@ extern "C" int ob_k3_sort(int ncomp, const int* comp_nkeys,
                           const unsigned long long* mins, const int* shifts,
                           long long n, void* scratch, long long scratch_bytes,
                           void* img_a, void* img_b, void* perm_a,
-                          void* perm_b, void* out, int nblocks,
-                          void* stream) {
-  if (ncomp < 1 || n < 1 || n > 0x7fffffffLL || out == nullptr ||
-      scratch == nullptr ||
-      scratch_bytes != ob_k3_scratch_bytes(ncomp, comp_bits, n)) {
+                          void* perm_b, void* out, void* img_out,
+                          int nblocks, void* stream) {
+  if (ncomp < 1 || n < 1 || n > 0x7fffffffLL ||
+      (out == nullptr && img_out == nullptr) || scratch == nullptr ||
+      scratch_bytes != ob_k3_scratch_bytes(ncomp, comp_bits, n) ||
+      (img_out != nullptr &&
+       (ncomp != 1 || comp_width[0] == 0 || comp_rbits[0] == 0))) {
     return (int)cudaErrorInvalidValue;
   }
   long long passes = 0;
@@ -825,6 +840,7 @@ extern "C" int ob_k3_sort(int ncomp, const int* comp_nkeys,
   b.perm[1] = (int*)perm_b;
   b.out = (int*)out;
   b.state = state;
+  b.img_out = img_out;
   int g = 0, m = 0;
   for (int c = 0; c < ncomp; c++) {
     K3Pack p;

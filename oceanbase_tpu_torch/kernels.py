@@ -3,7 +3,8 @@ plain PyTorch versions.
 
 K1 `scalar_reduce`     masked count/sum/min/max   (csrc/k1_scalar_aggregate.cu)
 K2 `groupby_slots`     direct-addressed group-by  (csrc/k2_groupby_direct.cu)
-K3 `sort_order`        stable multi-key order     (csrc/k3_radix_sort.cu)
+K3 `sort_order`, `sort_order_images`
+                       stable multi-key order     (csrc/k3_radix_sort.cu)
 K4 `gather_columns`    multi-column row gather    (csrc/k4_gather_rows.cu)
 K5 `affine_join`       direct-address join probe  (csrc/k5_affine_join.cu)
 K6 `clustered_segments` per-range count and sums  (csrc/k6_clustered_agg.cu)
@@ -18,7 +19,7 @@ K13 `boundaries`, `segment_starts`, `peer_ends`, `prefix_sum`,
                        window and bag set-op scans (csrc/k13_window_scan.cu)
 K14 `hash_set_build`, `hash_set_probe`
                        multi-column hash set      (csrc/k14_hash_set.cu)
-K15 `first_occurrence`, `scatter_rows`
+K15 `first_occurrence`, `first_occurrence_images`, `scatter_rows`
                        first rows through an order (csrc/k15_distinct_first.cu)
 K16 `hll_registers`    HyperLogLog registers      (csrc/k16_hll.cu)
 K17 `slice_scan`       sorted-projection range slice (csrc/k17_slice_scan.cu)
@@ -285,7 +286,7 @@ def _load():
                                       I, I, P]
         lib.ob_k3_spans.argtypes = [I, P, P, P, L, P, I, P]
         lib.ob_k3_sort.argtypes = [I, P, P, P, P, P, P, P, P, P, L, P, L, P,
-                                   P, P, P, P, I, P]
+                                   P, P, P, P, P, I, P]
         lib.ob_k3_scratch_bytes.argtypes = [I, P, L]
         lib.ob_k3_scratch_bytes.restype = ctypes.c_longlong
         lib.ob_k3_tile_rows.argtypes = []
@@ -315,13 +316,16 @@ def _load():
         lib.ob_k12_hash.argtypes = [I, P, L, P, I, P]
         lib.ob_k11_mark_build.argtypes = [P, P, L, L, P, I, P]
         lib.ob_k13_tile_rows.argtypes = []
-        lib.ob_k13_scan.argtypes = [P, I, P, I, I, I, I, L, P, I, L, P, P,
-                                    L, P]
+        lib.ob_k13_scan.argtypes = [P, I, P, I, I, I, I, L, P, P, L, P]
+        lib.ob_k13_scratch_bytes.argtypes = [L]
+        lib.ob_k13_scratch_bytes.restype = ctypes.c_longlong
         lib.ob_k13_flags.argtypes = [I, P, P, L, P, I, P]
         lib.ob_k13_search.argtypes = [P, L, P, P, P, I, L, P, I, P]
         lib.ob_k14_build.argtypes = [I, P, P, L, P, P, L, I, P]
         lib.ob_k14_probe.argtypes = [I, P, P, P, L, P, P, L, P, I, P]
         lib.ob_k15_first.argtypes = [I, P, P, P, L, P, I, P]
+        lib.ob_k15_first_images.argtypes = [P, I, L, I, I, I, P, I, P]
+        lib.ob_k15_first_records.argtypes = [I, P, P, P, L, I, P, P, I, P]
         lib.ob_k15_scatter.argtypes = [I, P, P, P, P, P, L, I, P]
         lib.ob_k16_registers.argtypes = [P, I, P, L, P, I, P]
         lib.ob_k17_slice.argtypes = [P, I, L, L, L, I, I, P, P, P, P, P, P,
@@ -377,6 +381,7 @@ def _load():
                    lib.ob_k11_mark_build, lib.ob_k13_tile_rows,
                    lib.ob_k13_scan, lib.ob_k13_flags, lib.ob_k13_search,
                    lib.ob_k14_build, lib.ob_k14_probe, lib.ob_k15_first,
+                   lib.ob_k15_first_images, lib.ob_k15_first_records,
                    lib.ob_k15_scatter, lib.ob_k16_registers,
                    lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile,
                    lib.ob_k19_assign, lib.ob_k20_update, lib.ob_k21_lists,
@@ -398,13 +403,15 @@ def _load():
                 or lib.ob_k7_fast_c() != K7_FAST_C
                 or lib.ob_k8_tile_rows() != K8_TILE
                 or lib.ob_k8_inline() != K8_INLINE
+                or lib.ob_k13_tile_rows() != K13_TILE
+                or lib.ob_k13_scratch_bytes(1001) != k13_scratch_bytes(1001)
                 or lib.ob_k8_scratch_entries(7, 3)
                 != k8_scratch_entries(7, 3)
                 or lib.ob_k26_chunk_bytes() != K26_CHUNK
                 or lib.ob_k26_inline() != K26_INLINE
                 or lib.ob_k31_merge_one_max() != K31_MERGE_ONE):
             raise RuntimeError("kernels.py and csrc/ disagree on the K3, "
-                               "K7, K8, K26 or K31 layout constants")
+                               "K7, K8, K13, K26 or K31 layout constants")
         _lib = lib
         return lib
 
@@ -656,28 +663,32 @@ class K3Composite(NamedTuple):
         return -(-self.bits // 8)
 
 
-def _k3_image(bits: int, rbits: int) -> tuple:
+def _k3_image(bits: int, rbits: int, row_inside: bool = False) -> tuple:
     """(width, rbits) of a composite of `bits` bits over rows that need
     `rbits` bits: the fewest bytes a pass moves (32-bit image with the row
     8, the 32-bit image beside the order or the 64-bit image with the row
-    16, the 64-bit image beside the order 24)."""
+    16, the 64-bit image beside the order 24); `row_inside` takes the
+    64-bit image with the row over the 32-bit one beside the order (the
+    same bytes a pass), so that the last pass's images say which row each
+    is (K15's image route)."""
     if bits <= 8:
         return 0, 0
     if bits + rbits <= 32:
         return 32, rbits
-    if bits <= 32:
+    if bits <= 32 and not (row_inside and bits + rbits <= 64):
         return 32, 0
     if bits + rbits <= 64:
         return 64, rbits
     return 64, 0
 
 
-def k3_plan(spans, n: int) -> list:
+def k3_plan(spans, n: int, row_inside: bool = False) -> list:
     """K3's composites for keys whose images span [lo, hi] (most
     significant first, the dead flag first), least significant first:
     constant keys dropped (they cannot change the order), the rest packed
     (image - lo) << shift into composites of at most 64 bits and
-    K3_MAX_PACK keys; each in the image that moves the fewest bytes."""
+    K3_MAX_PACK keys; each in the image that moves the fewest bytes
+    (`row_inside`: see `_k3_image`)."""
     groups, cur, used = [], [], 0
     for i in reversed(range(len(spans))):
         lo, hi = spans[i]
@@ -692,7 +703,7 @@ def k3_plan(spans, n: int) -> list:
     if cur:
         groups.append((cur, used))
     rbits = max(1, (n - 1).bit_length())
-    return [K3Composite(tuple(m), bits, *_k3_image(bits, rbits))
+    return [K3Composite(tuple(m), bits, *_k3_image(bits, rbits, row_inside))
             for m, bits in groups]
 
 
@@ -733,15 +744,57 @@ def sort_order_plain(keys, descending, mask: torch.Tensor) -> torch.Tensor:
     return perm.to(torch.int32)
 
 
-def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
-    """K3: int32 [N] row order sorting live rows by `keys` (lexicographic,
-    DESC per flag), dead rows last, ties by row index."""
+def _k3_args(keys, descending):
     keys = list(keys)
     descending = list(descending)
     if len(keys) != len(descending):
         raise ValueError("one descending flag per key")
+    return keys, descending
+
+
+def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
+    """K3: int32 [N] row order sorting live rows by `keys` (lexicographic,
+    DESC per flag), dead rows last, ties by row index."""
+    keys, descending = _k3_args(keys, descending)
     if not _on_cuda(mask, *keys):
         return sort_order_plain(keys, descending, mask)
+    return _k3_launch(keys, descending, mask, False).order
+
+
+class K3Sorted(NamedTuple):
+    """K3's result for K15 (`sort_order_images`): `route` is
+    `k15_route`'s; `order` is K3's int32 order, or None when the rows are
+    already in order ("rows") or the images carry it ("image"); `images`
+    (route "image" only) are the last pass's images in sorted order, int64
+    or int32 as the composite is 64 or 32 bits wide: the keys above the
+    low `rbits` bits, which hold the row; the dead flag is bit `dead_bit`
+    of an image, or, where `dead_bit` is -1, constant: every row live
+    (`live` 1) or none (0)."""
+    order: torch.Tensor | None
+    images: torch.Tensor | None
+    route: str
+    rbits: int = 0
+    dead_bit: int = -1
+    live: int = 1
+
+
+def sort_order_images(keys, descending, mask: torch.Tensor) -> K3Sorted:
+    """K3 for K15 (the first rows of DISTINCT runs): the sort of (dead,
+    keys...) with, where `k15_route` takes the image route, the sorted
+    images of its last pass instead of the order (no byte more is written:
+    the order's row is their low bits). On the CPU: the plain order, route
+    "plain"."""
+    keys, descending = _k3_args(keys, descending)
+    if not _on_cuda(mask, *keys):
+        return K3Sorted(sort_order_plain(keys, descending, mask), None,
+                        "plain")
+    return _k3_launch(keys, descending, mask, True)
+
+
+def _k3_launch(keys, descending, mask, for_k15: bool) -> K3Sorted:
+    """K3 on the card: the spans read back once, the plan, the sort; for
+    K15 the route decides whether the last pass writes images or the
+    order, and whether an order is needed at all."""
     n = int(mask.shape[0])
     if n >= 2**31:
         raise ValueError("K3 orders at most 2^31 - 1 rows")
@@ -752,7 +805,8 @@ def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
         _vector(k, n, "K3 key")
     dev = mask.device
     if n == 0:
-        return torch.empty(0, dtype=torch.int32, device=dev)
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return K3Sorted(empty, None, "rows" if for_k15 else "order")
     lib = _load()
     # most significant first: the dead flag, then the keys in order
     allk = [(mask, True)] + list(zip(keys, descending))
@@ -760,7 +814,6 @@ def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = _stream(dev)
         nb = _blocks(dev, n, 256 * 8)
-        out = torch.empty(n, dtype=torch.int32, device=dev)
         ptrs = [k.data_ptr() for k, _ in allk]
         dts = [DTYPE_CODE[k.dtype] for k, _ in allk]
         descs = [int(bool(d)) for _, d in allk]
@@ -775,19 +828,43 @@ def sort_order(keys, descending, mask: torch.Tensor) -> torch.Tensor:
         got = [v & (2**64 - 1) for v in mm.tolist()]
         spans = [(~got[2 * k] & (2**64 - 1), got[2 * k + 1])
                  for k in range(nk)]
-        plan = k3_plan(spans[:k3_kept(nk, got[-1])], n)
-        if plan:
-            _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out)
-        else:  # every key constant or in row order: the rows stay
-            torch.arange(n, dtype=torch.int32, device=dev, out=out)
+        kept = k3_kept(nk, got[-1])
+        plan = k3_plan(spans[:kept], n)
+        route = "order"
+        if for_k15:
+            inside = k3_plan(spans[:kept], n, True)
+            route = k15_route(inside, kept, nk, [k.dtype for k in keys])
+            if route == "image":
+                plan = inside
+        res = K3Sorted(None, None, route)
+        if route == "image":
+            c = plan[0]
+            images = torch.empty(n, dtype=torch.int64 if c.width == 64
+                                 else torch.int32, device=dev)
+            _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, None,
+                     images)
+            dead = [sh for i, _lo, sh in c.members if i == 0]
+            # a constant dead flag's image: 0 every row live, 1 none
+            res = K3Sorted(None, images, route, c.rbits,
+                           c.rbits + dead[0] if dead else -1,
+                           int(not dead and spans[0][1] == 0))
+        elif plan:
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out, None)
+            res = K3Sorted(out, None, route)
+        elif not for_k15:  # every key constant or in row order
+            res = K3Sorted(torch.arange(n, dtype=torch.int32, device=dev),
+                           None, route)
     count_launch(LAUNCHES, "K3_radix_sort")
-    return out
+    return res
 
 
-def _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out) -> None:
-    """ob_k3_sort over `plan` into `out`: the packs and the digit passes in
-    one C call, their buffers in one workspace (the images, the orders
-    written before the last pass, the scratch)."""
+def _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out,
+             img_out) -> None:
+    """ob_k3_sort over `plan` into `out` (or, K15's image route, the
+    sorted images into `img_out`): the packs and the digit passes in one C
+    call, their buffers in one workspace (the images, the orders written
+    before the last pass, the scratch)."""
     nc = len(plan)
     members = [m for c in plan for m in c.members]
     nm = len(members)
@@ -802,8 +879,9 @@ def _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out) -> None:
     def up(b):
         return -(-b // 256) * 256
 
+    dev = (out if out is not None else img_out).device
     ws = torch.empty(2 * up(img) + 2 * up(perm) + scratch, dtype=torch.uint8,
-                     device=out.device)
+                     device=dev)
     at = ws.data_ptr()
     bufs = [at, at + up(img)] if img else [None, None]
     at += 2 * up(img)
@@ -817,7 +895,8 @@ def _k3_sort(lib, plan, ptrs, dts, descs, n, nb, stream, out) -> None:
         (ctypes.c_int * nm)(*[descs[i] for i, _, _ in members]),
         (ctypes.c_ulonglong * nm)(*[lo for _, lo, _ in members]),
         (ctypes.c_int * nm)(*[sh for _, _, sh in members]), n, at, scratch,
-        *bufs, out.data_ptr(), nb, stream)
+        *bufs, out.data_ptr() if out is not None else None,
+        img_out.data_ptr() if img_out is not None else None, nb, stream)
     _check(rc, "K3_radix_sort")
 
 
@@ -1948,39 +2027,38 @@ def hash_columns(cols):
 # ---------------------------------------------------------------------------
 
 K13_MAX_KEYS = 16
+# rows a tile of a scan holds (ob_k13_tile_rows)
+K13_TILE = 4096
 # value modes of ob_k13_scan (csrc/k13_window_scan.cu)
 _K13_VAL, _K13_START_MARK, _K13_END_MARK = 0, 1, 2
-_I64_MAX = 2**63 - 1
 
 
-def _f64_bits(x: float) -> int:
-    return struct.unpack("<q", struct.pack("<d", x))[0]
+def k13_scratch_bytes(ntiles: int) -> int:
+    """Bytes of one K13 scan's scratch (ob_k13_scratch_bytes): the ticket,
+    a status word a tile and a chunk of 32 tiles (8-byte aligned), each
+    tile's aggregate and each chunk's inclusive prefix."""
+    words = ntiles + -(-ntiles // 32)
+    return 8 + ((4 * words + 7) & ~7) + 8 * words
 
 
 def _k13_scan(x, flags, mode: int, op: str, reverse: bool, segmented: bool,
               n: int, out_dtype: torch.dtype, dev: torch.device):
-    """One K13 scan launch (three kernels: tile pairs, carries, scan)."""
+    """One K13 scan: one launch, single pass (its ticket and status words
+    zeroed by the C entry first)."""
     out = torch.empty(n, dtype=out_dtype, device=dev)
     if n == 0:
         return out
-    if op == "sum":
-        ident = 0
-    elif out_dtype.is_floating_point:
-        ident = _f64_bits(float("inf") if op == "min" else float("-inf"))
-    else:
-        ident = _I64_MAX if op == "min" else _I64_MIN
     lib = _load()
     with torch.cuda.device(dev):
-        ntiles = -(-n // lib.ob_k13_tile_rows())
-        tile_v = torch.empty(ntiles, dtype=torch.int64, device=dev)
-        tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
+        ntiles = -(-n // K13_TILE)
+        scratch = torch.empty(k13_scratch_bytes(ntiles), dtype=torch.uint8,
+                              device=dev)
         rc = lib.ob_k13_scan(
             x.data_ptr() if x is not None else None,
             DTYPE_CODE[x.dtype] if x is not None else 0,
             flags.data_ptr() if flags is not None else None, mode,
             AGG_CODE[op], int(reverse), int(segmented), n, out.data_ptr(),
-            DTYPE_CODE[out_dtype], ident, tile_v.data_ptr(),
-            tile_f.data_ptr(), ntiles, _stream(dev))
+            scratch.data_ptr(), ntiles, _stream(dev))
         _check(rc, "K13_window_scan")
     count_launch(LAUNCHES, "K13_window_scan")
     return out
@@ -2016,7 +2094,7 @@ def boundaries(sorted_keys):
             rc = lib.ob_k13_flags(
                 nk, (ctypes.c_void_p * nk)(*[k.data_ptr() for k in part]),
                 (ctypes.c_int * nk)(*[DTYPE_CODE[k.dtype] for k in part]), n,
-                got.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
+                got.data_ptr(), _blocks(dev, n, K13_TILE), _stream(dev))
             _check(rc, "K13_window_scan flags")
             count_launch(LAUNCHES, "K13_window_scan")
             out = got if out is None else out | got
@@ -2050,7 +2128,8 @@ def prefix_sum_plain(x: torch.Tensor) -> torch.Tensor:
 
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     """K13: the inclusive prefix sum of an int64, float32 or float64
-    column, in its type (floats add in double, in tile order)."""
+    column, in its type (floats add in double, in an association fixed by
+    the tiles, so every run gives the same bits)."""
     if not _on_cuda(x):
         return prefix_sum_plain(x)
     n = int(x.shape[0])
@@ -2382,12 +2461,52 @@ def hash_set_probe(slot_tag, slot_row, build_cols, probe_cols, probe_mask):
 # ---------------------------------------------------------------------------
 
 K15_MAX_SCATTER = 48
+# the record route's record sizes (bytes): the keys widest first, then the
+# flag byte last (csrc/k15_distinct_first.cu)
+K15_RECORD_BYTES = (8, 16, 32)
+K15_ROUTES = ("image", "record", "columns", "rows")
 
 
-def first_occurrence_plain(key_cols, mask: torch.Tensor, order: torch.Tensor):
+def k15_record_layout(dtypes):
+    """(record bytes, each key's byte offset) of K15's record route for
+    keys of these dtypes: widest first, so every key lies on its own
+    alignment, and one flag byte after them, the record's last (live, and
+    whether a key is NaN); None where they need more than 32 bytes."""
+    widths = [torch.empty(0, dtype=d).element_size() for d in dtypes]
+    offs, at = [0] * len(widths), 0
+    for j in sorted(range(len(widths)), key=lambda j: -widths[j]):
+        offs[j] = at
+        at += widths[j]
+    rb = next((r for r in K15_RECORD_BYTES if at + 1 <= r), None)
+    return None if rb is None else (rb, offs)
+
+
+def k15_route(plan, kept: int, nk: int, dtypes) -> str:
+    """K15's route for K3's `plan` of (dead, keys...) with the row inside
+    its images where it fits (`k3_plan(..., row_inside=True)`; nk keys,
+    `kept` of them kept by `k3_kept`) over keys of these dtypes:
+    - "rows": an empty plan (every key constant or in row order), the
+      order is the identity: neighbours compared in row order;
+    - "image": one composite whose image holds the row, no key dropped for
+      being in row order (rows may tie on the kept keys and differ there)
+      and no float key (K3's images merge every NaN): K3's sorted images;
+    - "record": the keys and flags in a record of at most 32 bytes;
+    - "columns": wider keys, read column by column at each sorted row."""
+    if not plan:
+        return "rows"
+    if (kept == nk and len(plan) == 1 and plan[0].width and plan[0].rbits
+            and not any(d.is_floating_point for d in dtypes)):
+        return "image"
+    return "record" if k15_record_layout(dtypes) else "columns"
+
+
+def first_occurrence_plain(key_cols, mask: torch.Tensor, order):
     """Plain version of K15 (the tail of ops/hashagg.py
     distinct_first_mask): run boundaries over (dead, keys...) in sorted
-    order, live run starts, mapped back by the inverse permutation."""
+    order (`order` None: the rows are in that order), live run starts,
+    mapped back by the inverse permutation."""
+    if order is None:
+        order = torch.arange(mask.shape[0], device=mask.device)
     o = order.to(torch.int64)
     sdead = (~mask)[o]
     new_run = boundaries_plain([sdead] + [k[o] for k in key_cols])
@@ -2395,31 +2514,76 @@ def first_occurrence_plain(key_cols, mask: torch.Tensor, order: torch.Tensor):
     return first[torch.argsort(o)]
 
 
-def first_occurrence(key_cols, mask: torch.Tensor, order: torch.Tensor):
+def first_occurrence(key_cols, mask: torch.Tensor, order,
+                     route: str | None = None):
     """K15: bool [n] in row order, set at the first live row of every run
     of equal (keys...) along `order` (K3's stable order of (dead,
-    keys...))."""
+    keys...); None: the rows are in that order). `route` ("record",
+    "columns" or "rows") defaults to the record route where the keys fit
+    a 32-byte record; see `k15_route`."""
     cols = list(key_cols)
     if not _on_cuda(mask, order, *cols):
         return first_occurrence_plain(cols, mask, order)
     n = _flags_arg(mask, "K15 mask")
-    _vector(order, n, "K15 order")
-    if order.dtype != torch.int32:
-        raise TypeError("K15 order must be int32")
     if not cols:
         raise ValueError("K15 takes at least one key column")
+    if order is not None:
+        _vector(order, n, "K15 order")
+        if order.dtype != torch.int32:
+            raise TypeError("K15 order must be int32")
+    layout = k15_record_layout([c.dtype for c in cols])
+    if route is None:
+        route = "rows" if order is None else (
+            "record" if layout else "columns")
+    if (route == "rows") != (order is None) or route not in K15_ROUTES[1:] \
+            or (route == "record" and layout is None):
+        raise ValueError(f"K15 route {route!r} with this order and keys")
     dev = mask.device
-    table = _key_table(cols, n, "K15 key", dev)
     first = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return first
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.ob_k15_first(
-            len(cols), table.data_ptr(),
-            mask.data_ptr(), order.data_ptr(), n, first.data_ptr(),
+        if route == "record":
+            rb, offs = layout
+            table = _key_table(cols, n, "K15 key", dev, offs)
+            rec = torch.empty(n * rb, dtype=torch.uint8, device=dev)
+            rc = lib.ob_k15_first_records(
+                len(cols), table.data_ptr(), mask.data_ptr(),
+                order.data_ptr(), n, rb, rec.data_ptr(), first.data_ptr(),
+                _blocks(dev, n, 256 * 4), _stream(dev))
+        else:
+            table = _key_table(cols, n, "K15 key", dev)
+            rc = lib.ob_k15_first(
+                len(cols), table.data_ptr(), mask.data_ptr(),
+                order.data_ptr() if order is not None else None, n,
+                first.data_ptr(), _blocks(dev, n, 256 * 4), _stream(dev))
+        _check(rc, f"K15_distinct_first {route}")
+    count_launch(LAUNCHES, "K15_distinct_first")
+    return first
+
+
+def first_occurrence_images(s: K3Sorted) -> torch.Tensor:
+    """K15's image route: bool [n] in row order from K3's sorted images
+    (`sort_order_images`): a row starts a run where its image's key bits
+    differ from the previous image's, and is marked when live."""
+    if s.route != "image" or s.images is None:
+        raise ValueError("K15's image route takes K3's images")
+    img = s.images
+    n = int(img.shape[0])
+    _vector(img, n, "K15 images")
+    dev = img.device
+    first = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return first
+    lib = _load()
+    live_const = -1 if s.dead_bit >= 0 else s.live
+    with torch.cuda.device(dev):
+        rc = lib.ob_k15_first_images(
+            img.data_ptr(), img.element_size() * 8, n, s.rbits,
+            max(s.dead_bit, 0), live_const, first.data_ptr(),
             _blocks(dev, n, 256 * 4), _stream(dev))
-        _check(rc, "K15_distinct_first")
+        _check(rc, "K15_distinct_first image")
     count_launch(LAUNCHES, "K15_distinct_first")
     return first
 
@@ -3263,13 +3427,17 @@ def _device_table(values, dev: torch.device) -> torch.Tensor:
     return host.pin_memory().to(dev, non_blocking=True)
 
 
-def _key_table(keys, n: int, what: str, dev: torch.device) -> torch.Tensor:
+def _key_table(keys, n: int, what: str, dev: torch.device,
+               extra=()) -> torch.Tensor:
+    """ObKeys' device table: the addresses, the type codes, then `extra`
+    (a kernel's own entries a column)."""
     for k in keys:
         _vector(k, n, what)
         if k.device != dev:
             raise ValueError(f"{what} on {k.device}, not {dev}")
     return _device_table([k.data_ptr() for k in keys]
-                         + [DTYPE_CODE[k.dtype] for k in keys], dev)
+                         + [DTYPE_CODE[k.dtype] for k in keys] + list(extra),
+                         dev)
 
 
 def _plane(t: torch.Tensor, what: str) -> None:

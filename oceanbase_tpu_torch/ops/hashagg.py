@@ -6,8 +6,8 @@ Counterpart of `oceanbase_tpu/ops/hashagg.py`: the ungrouped path
 over `assign_group_slots` and `_apply_agg`, kernel K29), the sort-based
 group-by (`sort_groupby`: the order from K3, the sorted keys through K4,
 the segmented reduction K8), the first-occurrence mask of DISTINCT
-aggregates (`distinct_first_mask`: the order from K3, the run starts
-written back through it by K15) and the HyperLogLog count of
+aggregates (`distinct_first_mask`: K3's sorted images or order, the run
+starts written back by K15) and the HyperLogLog count of
 `approx_ndv` (K16).
 """
 
@@ -17,12 +17,14 @@ import torch
 
 from ..kernels import (
     first_occurrence,
+    first_occurrence_images,
     gather_columns,
     groupby_slots,
     hash_groupby,
     scalar_reduce,
     segmented_reduce,
     slot_aggregate,
+    sort_order_images,
 )
 from .hashing import next_pow2
 from .hll import hll_count
@@ -123,11 +125,14 @@ def distinct_first_mask(key_vals: list[torch.Tensor], val: torch.Tensor,
     """First-occurrence mask for DISTINCT aggregates: True for exactly one
     live row per (group keys, value) combination, the lowest such row, in
     row order. K3 orders (dead, keys..., value) stably, and K15 marks each
-    run's first live row straight into row order (no inverse sort).
-    Values compare with `!=`: every NaN row is its own value, -0.0 and 0.0
-    are one."""
+    run's first live row straight into row order (no inverse sort): from
+    K3's sorted images where one composite holds every key and the row,
+    else by the order (`kernels.k15_route`). Values compare with `!=`:
+    every NaN row is its own value, -0.0 and 0.0 are one."""
     n = int(mask.shape[0])
     cols = [(k.expand(n) if k.dim() == 0 else k).contiguous()
             for k in (*key_vals, val)]
-    order = sort_indices(cols, [False] * len(cols), mask)
-    return first_occurrence(cols, mask, order)
+    s = sort_order_images(cols, [False] * len(cols), mask)
+    if s.images is not None:
+        return first_occurrence_images(s)
+    return first_occurrence(cols, mask, s.order)

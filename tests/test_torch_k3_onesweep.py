@@ -552,7 +552,8 @@ class ModelLib:
 
     def ob_k3_sort(self, nc, nkeys, bits, widths, rbits, keys, dts, descs,
                    mins, shifts, n, scratch, scratch_bytes, img_a, img_b,
-                   perm_a, perm_b, out, nb, stream):
+                   perm_a, perm_b, out, img_out, nb, stream):
+        assert img_out is None  # sort_order asks for the order alone
         comps, m = [], 0
         for c in range(nc):
             members = []
