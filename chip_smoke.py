@@ -417,6 +417,10 @@ def statement_text(queries_text, q: int, sf: float) -> str:
     return text
 
 CMP_SF = 0.1  # the scale at which card and CPU results are compared
+# a direct GROUP BY whose 45 groups pack into 128 slots (k2_domain_phase)
+K2_C1 = ("select o_orderpriority, o_orderstatus, l_returnflag, count(*) as n"
+         " from orders, lineitem where o_orderkey = l_orderkey group by "
+         "o_orderpriority, o_orderstatus, l_returnflag")
 SQLITE_SF = 0.01  # the scale of the sqlite oracle (its Q20/Q21 are quadratic)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -1397,7 +1401,7 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
 
     from oceanbase_tpu_torch.bench_ab import chained_sort
     from oceanbase_tpu_torch.expr.compile import _parse_date
-    from oceanbase_tpu_torch.ops.hashing import pack_keys
+    from oceanbase_tpu_torch.ops.hashing import dense_keys
 
     cols = ("l_discount", "l_extendedprice", "l_linenumber", "l_linestatus",
             "l_orderkey", "l_partkey", "l_quantity", "l_returnflag",
@@ -1460,13 +1464,14 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
         lambda: torch.sum(torch.where(m6, v6, 0)),
         n + sector_bytes(live6, 8) + 8, nsel6)
 
-    # K2 at Q1's shape: domain 8, the live count + 9 aggregates
+    # K2 at Q1's shape: the dense slots of (returnflag, linestatus), 6
+    # of them, laid out in 8 packed slots; the live count + 9 aggregates
     cutoff = _parse_date("1998-09-02")
     m1 = sel & (c["l_shipdate"] <= cutoff)
-    packed, dom = pack_keys([c["l_returnflag"], c["l_linestatus"]],
-                            [len(b.dicts["l_returnflag"]),
-                             len(b.dicts["l_linestatus"])])
-    packed = packed.contiguous()
+    doms = [len(b.dicts["l_returnflag"]), len(b.dicts["l_linestatus"])]
+    packed = dense_keys([c["l_returnflag"], c["l_linestatus"]],
+                        doms).contiguous()
+    dom = kernels.k2_layout(doms)[0]
     price = c["l_extendedprice"]
     dp = price * (100 - c["l_discount"].to(torch.int64))
     ch = dp * (100 + c["l_tax"].to(torch.int64))
@@ -1481,7 +1486,7 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
     live1 = m1.nonzero().squeeze(1)
     k2_bytes = n * (packed.element_size() + 1) \
         + sum(sector_bytes(live1, v.element_size()) for v in vals) \
-        + len(aggs) * dom * 8
+        + len(aggs) * kernels.k2_layout(doms)[1] * 8
 
     def k2_library():
         res = []
@@ -1493,10 +1498,10 @@ def kernel_checks(sess, kernels, reps: int, captured: dict) -> list[dict]:
 
     record(
         "K2_groupby_direct",
-        kernels.groupby_slots(packed, dom, aggs),
-        kernels.groupby_slots_plain(packed, dom, aggs),
-        lambda: kernels.groupby_slots(packed, dom, aggs),
-        lambda: kernels.groupby_slots_plain(packed, dom, aggs),
+        kernels.groupby_slots(packed, doms, aggs),
+        kernels.groupby_slots_plain(packed, doms, aggs),
+        lambda: kernels.groupby_slots(packed, doms, aggs),
+        lambda: kernels.groupby_slots_plain(packed, doms, aggs),
         k2_library, k2_bytes, nsel1 * len(aggs))
 
     # K3 at S1's shape: (price desc, orderkey, linenumber) over 60M rows,
@@ -2052,17 +2057,16 @@ def float_checks(sess, kernels) -> list[dict]:
     import torch
 
     from oceanbase_tpu_torch.expr.compile import _parse_date
-    from oceanbase_tpu_torch.ops.hashing import pack_keys
+    from oceanbase_tpu_torch.ops.hashing import dense_keys
 
     b = sess.executor.table_batch(
         "lineitem", ("l_extendedprice", "l_linestatus", "l_returnflag",
                      "l_shipdate"))
     c = b.cols
     mask = b.sel & (c["l_shipdate"] <= _parse_date("1998-09-02"))
-    packed, dom = pack_keys([c["l_returnflag"], c["l_linestatus"]],
-                            [len(b.dicts["l_returnflag"]),
-                             len(b.dicts["l_linestatus"])])
-    packed = packed.contiguous()
+    dom = [len(b.dicts["l_returnflag"]), len(b.dicts["l_linestatus"])]
+    packed = dense_keys([c["l_returnflag"], c["l_linestatus"]],
+                        dom).contiguous()
     out = []
     for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
         v = (c["l_extendedprice"].to(torch.float64) / 100.0).to(dt)
@@ -2711,6 +2715,266 @@ def k13_synthetic(kernels, dev) -> dict:
     print(f"K13: {count} edge cases equal the plain versions (float sums "
           f"within their tolerance), each twice bit-identical", flush=True)
     return {"cases": count}
+
+
+def k17_synthetic(kernels, dev) -> dict:
+    """K17 on its edge cases against its plain version, every output bit
+    for bit and twice: a slice starting at every residue mod 16 (the
+    kernel copies 16 bytes a thread by funnel shifts), an empty range, a
+    low bound past the high one, a range wider than the slice (overflow),
+    a slice clipped at the table's end with a capacity that is no multiple
+    of 16, 17 bounds, int8 / int16 / int64 bounds against int8, int32 and
+    int64 keys, 5 columns of every width and 40 (a table past the kernel's
+    64 parameter entries, in device memory), and a 15,000,577-row table.
+    Returns {"cases": n}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1717)
+    count = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def check(what, key, n, lows, highs, cap, pay, sel):
+        nonlocal count
+
+        def run(fn):
+            o, s_, r_, v_ = fn(key, n, lows, highs, cap, pay, sel)
+            return [*o, s_, r_, v_]
+
+        got, again = run(kernels.slice_scan), run(kernels.slice_scan)
+        want = run(kernels.slice_scan_plain)
+        for i, (g, a, w) in enumerate(zip(got, again, want)):
+            require(g.dtype == w.dtype and g.shape == w.shape
+                    and torch.equal(g, w), f"K17 {what}: output {i} differs "
+                    "from the plain version")
+            require(torch.equal(g, a), f"K17 {what}: two runs differ")
+        count += 1
+
+    n, cap2 = 3000, 4096
+    widths = (np.int64, np.int16, np.int8, np.int32, np.bool_)
+    cols = [t(rng.integers(-100, 100, cap2).astype(w)) for w in widths]
+    sel = t((rng.random(cap2) < 0.9) & (np.arange(cap2) < n))
+    for kdt, bdts in ((np.int32, (np.int16, np.int64)),
+                      (np.int64, (np.int8, np.int32)),
+                      (np.int8, (np.int16, np.int8))):
+        if kdt is np.int8:
+            keys = np.sort(rng.integers(-128, 128, n))
+        else:
+            keys = np.arange(n)
+        key = t(np.concatenate([keys, np.zeros(cap2 - n)]).astype(kdt))
+        for bdt in bdts:
+            def b(v, side, dt=bdt):
+                # numpy's astype wraps a value past the bound's width
+                return (t(np.array([v]).astype(dt)).reshape(()), side)
+
+            cases = [(f"residue {r}", [b(512 + r, "left")],
+                      [b(512 + r + 700, "left")], 1024) for r in range(16)]
+            cases += [
+                ("empty", [b(200, "left")], [b(200, "left")], 1024),
+                ("lo above hi", [b(300, "right")], [b(100, "left")], 1024),
+                ("overflow", [b(10, "left")], [b(2900, "right")], 1024),
+                ("clip at the end", [b(2990, "left")], [], 1029),
+                ("17 bounds", [b(v, s) for v, s in zip(
+                    rng.integers(100, 700, 9), ["left", "right"] * 5)],
+                 [b(v, s) for v, s in zip(rng.integers(900, 1500, 8),
+                                          ["right", "left"] * 4)], 1024)]
+            for what, lows, highs, cap in cases:
+                for pay in (cols, (cols * 8)[:40]):
+                    check(f"{what} ({kdt.__name__} key, {bdt.__name__} "
+                          f"bounds, {len(pay)} columns)", key, n, lows,
+                          highs, cap, pay, sel)
+    big = 15_000_577
+    key = torch.sort(torch.randint(0, 1 << 20, (big,), device=dev)).values
+    pay = [key, key.to(torch.int32), (key & 1).to(torch.bool)]
+    bsel = torch.rand(big, device=dev) < 0.9
+    for r in range(3):
+        lo = torch.tensor(300_001 + r, dtype=torch.int64, device=dev)
+        hi = torch.tensor(700_003, dtype=torch.int64, device=dev)
+        check(f"{big} rows", key, big - r, [(lo, "left")], [(hi, "right")],
+              big // 2 + 13, pay, bsel)
+    print(f"kernel K17_slice_scan: {count} synthetic cases bit-identical to "
+          "the plain version (every start residue mod 16, empty, lo > hi, "
+          "overflow, clipped, 17 bounds, narrow bounds, 40 columns, "
+          f"{big} rows), two runs bit-identical", flush=True)
+    return {"cases": count}
+
+
+def k24_paths(kernels, dev) -> dict:
+    """K24's two row widths and its uniform values on the card, against
+    the plain version bit for bit: Q6's predicate form (8 rows a thread),
+    the same tree on 4 rows, an AND of
+    40 compares (a chunk's file past FILE8_BYTES a row: 4 rows), and a
+    program whose row code reads only uniform values (a constant column
+    stored from the prologue). 1,000,003 rows, a capacity no multiple of a
+    tile.
+    Returns {"cases": n, "paths": [...]}."""
+    import numpy as np
+    import torch
+
+    from oceanbase_tpu_torch.core.column import ColumnBatch
+    from oceanbase_tpu_torch.core.dtypes import DataType, Field, Schema
+    from oceanbase_tpu_torch.expr import compile as xc
+    from oceanbase_tpu_torch.expr import ir as E
+    from oceanbase_tpu_torch.expr import program as xp
+
+    rng = np.random.default_rng(2424)
+    cap = 1_000_003
+    cols = {"d": rng.integers(8000, 10600, cap).astype(np.int32),
+            "disc": rng.integers(0, 11, cap).astype(np.int32),
+            "q": rng.integers(100, 5100, cap).astype(np.int32),
+            "i64": rng.integers(-2**40, 2**40, cap)}
+    types = {"d": DataType.date(), "disc": DataType.decimal(12, 2),
+             "q": DataType.decimal(12, 2), "i64": DataType.int64()}
+    b = ColumnBatch(
+        cols={k: torch.from_numpy(v).to(dev) for k, v in cols.items()},
+        valid={}, sel=torch.from_numpy(rng.random(cap) < 0.95).to(dev),
+        nrows=torch.tensor(0, device=dev),
+        schema=Schema(tuple(Field(k, types[k]) for k in cols)), dicts={})
+    c, lit = E.ColRef, E.Literal
+    dec2 = DataType.decimal(12, 2)
+    q6 = E.BoolOp("and", (
+        E.Compare(">=", c("d"), lit("1994-01-01", DataType.date())),
+        E.Compare("<", c("d"), lit("1995-01-01", DataType.date())),
+        E.Between(c("disc"), lit(0.05, dec2), lit(0.07, dec2)),
+        E.Compare("<", c("q"), lit(24, DataType.int64()))))
+    wide = E.BoolOp("and", tuple(
+        E.Compare("<", c("i64"), lit(i * 1000, DataType.int64()))
+        for i in range(40)))
+
+    def lowered(e):
+        return xp.lower((e,), b, xc._route, xc._predicate_route,
+                        xc.set_params, {}, False, True)
+
+    def same(prog, what):
+        got = kernels.fused_expr(prog, b)
+        again = kernels.fused_expr(prog, b)
+        want = kernels.fused_expr_plain(prog, b)
+        for g, a, w in zip(got, again, want):
+            require(_same_t(g, w), f"K24 {what}: differs from the plain "
+                    "version")
+            require(_same_t(g, a), f"K24 {what}: two runs differ")
+
+    def shape(prog):
+        return [(ch.rows, ch.n32, ch.n64) for ch in prog.chunks]
+
+    paths = []
+    p8 = lowered(q6)
+    require([ch.rows for ch in p8.chunks] == [8],
+            "K24: Q6's predicate form left 8 rows a thread")
+    same(p8, "Q6's form on 8 rows")
+    paths.append(("q6 form", shape(p8)))
+    keep = xp.FILE8_BYTES
+    xp.FILE8_BYTES = 0
+    try:
+        p4 = lowered(q6)
+    finally:
+        xp.FILE8_BYTES = keep
+    require([ch.rows for ch in p4.chunks] == [4],
+            "K24: a zero threshold did not take 4 rows")
+    same(p4, "Q6's form on 4 rows")
+    for g, w in zip(kernels.fused_expr(p8, b), kernels.fused_expr(p4, b)):
+        require(_same_t(g, w), "K24: the two row widths differ on Q6's form")
+    paths.append(("q6 form, 4 rows", shape(p4)))
+    p_wide = lowered(wide)
+    require(any(ch.rows == 4 for ch in p_wide.chunks),
+            "K24: 40 live compares took no chunk to 4 rows")
+    same(p_wide, "an AND of 40 compares")
+    paths.append(("and of 40", shape(p_wide)))
+    # a row code of uniform operands only: zeros_like(column) + 5, stored
+    rec = xp._Recorder(b.cols, b.valid, {})
+    tb = xp.TraceBatch(rec, b)
+    col = tb.cols["i64"]
+    s5 = rec.binary("add", torch.zeros_like(col), 5)
+    p_uni = xp.Program()
+    p_uni.out_dtypes = [rec.vtype[s5.vid]]
+    p_uni.pairs = [(0, None)]
+    xp.schedule(rec.ins, rec.vtype, [s5.vid], p_uni)
+    require(all(x & xp.UNI for ch in p_uni.chunks for op, *r in ch.code
+                if op == xp.OP_STORE for x in r[2:3]),
+            "K24: the constant column is not stored from the prologue")
+    same(p_uni, "a store of uniform values")
+    require(bool((kernels.fused_expr(p_uni, b)[0] == 5).all()),
+            "K24: the uniform store is not 5 on every row")
+    paths.append(("uniform store", shape(p_uni)))
+    print(f"kernel K24_fused_expr: both row widths and a uniform store "
+          f"bit-identical to the plain version on {cap} rows: {paths}",
+          flush=True)
+    return {"cases": 4, "paths": paths}
+
+
+def k2_domain_phase(small, Session, uk, kernels) -> dict:
+    """The direct GROUP BY past 64 packed slots on the card against the
+    CPU, every row bit for bit: the statement whose 5 x 3 x 3 groups pack
+    into 128 slots at SF 0.1, and two dictionary keys of 5 values, one
+    nullable (50 dense slots, 128 packed) with and without a key of
+    domain 1, over 200,000 rows. Each must take the direct path (the
+    domains recorded at engine.executor.groupby_direct) and launch K2 on
+    the card. Returns one record per statement."""
+    import numpy as np
+    import torch
+
+    import oceanbase_tpu_torch.engine.executor as ex
+    from oceanbase_tpu_torch.core.table import table_from_arrays
+
+    rng = np.random.default_rng(1818)
+    m = 200_000
+    data = {"a": rng.integers(0, 5, m).astype(np.int32),
+            "b": rng.integers(0, 5, m).astype(np.int32),
+            "one": np.zeros(m, np.int32),
+            "v": rng.integers(-10**6, 10**6, m)}
+    valid = {"b": rng.random(m) > 0.2}
+    data["b"][~valid["b"]] = 0
+    dt = table_from_arrays(
+        "kd", [("a", "varchar", 0, 0, False), ("b", "varchar", 0, 0, True),
+               ("one", "varchar", 0, 0, False), ("v", "int64", 0, 0, False)],
+        data, {"a": [f"a{i}" for i in range(5)],
+               "b": [f"b{i}" for i in range(5)], "one": ["only"]}, valid)
+    stmts = [
+        ("K2_C1", small, K2_C1 + " order by o_orderpriority, o_orderstatus, "
+         "l_returnflag", [5, 3, 3]),
+        ("K2_NULLABLE", {"kd": dt}, "select a, b, count(*) as n, sum(v) as s,"
+         " min(v) as lo from kd group by a, b order by a, b", [5, 5, 2]),
+        ("K2_DOMAIN1", {"kd": dt}, "select one, a, b, count(*) as n, "
+         "max(v) as hi from kd group by one, a, b order by a, b",
+         [1, 5, 5, 2])]
+    seen = []
+    orig = ex.groupby_direct
+
+    def counted(keys, domains, *a, **kw):
+        seen.append(list(domains))
+        return orig(keys, domains, *a, **kw)
+
+    ex.groupby_direct = counted
+    recs = []
+    try:
+        for name, tables, text, doms in stmts:
+            rows = {}
+            for dev in ("cuda", "cpu"):
+                seen.clear()
+                k0 = kernels.LAUNCHES["K2_groupby_direct"]
+                sess = Session(tables, unique_keys=uk, device=dev)
+                rs = sess.sql(text)
+                rows[dev] = row_bits(rs.rows())
+                require(doms in seen, f"{name} on {dev}: not the direct path "
+                        f"over {doms} (saw {seen})")
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    require(kernels.LAUNCHES["K2_groupby_direct"] > k0,
+                            f"{name}: K2 was not launched on the card")
+                del sess
+            require(rows["cuda"] == rows["cpu"], f"{name}: the card's rows "
+                    "differ from the CPU's")
+            dense, slots = kernels.k2_layout(doms)[:2]
+            print(f"{name}: {len(rows['cuda'])} rows on the card equal to the "
+                  f"CPU's, direct path over {doms} ({dense} dense slots, "
+                  f"{slots} packed)", flush=True)
+            recs.append({"statement": name, "rows": len(rows["cuda"]),
+                         "domains": doms, "dense": dense, "packed": slots})
+    finally:
+        ex.groupby_direct = orig
+    return recs
 
 
 def k12_float_check(kernels, dev) -> int:
@@ -8159,6 +8423,8 @@ def main() -> int:
     k7_cases = k7_synthetic(kernels, torch.device("cuda", 0))
     k15_cases = k15_synthetic(kernels, torch.device("cuda", 0))
     k13_cases = k13_synthetic(kernels, torch.device("cuda", 0))
+    k17_cases = k17_synthetic(kernels, torch.device("cuda", 0))
+    k24_path = k24_paths(kernels, torch.device("cuda", 0))
     k12_cases = k12_float_check(kernels, torch.device("cuda", 0))
     # the statement list holds both sessions (and their cached columns)
     del sess, ds_sess, runs
@@ -8186,6 +8452,7 @@ def main() -> int:
     print(f"sqlite phase in {time.perf_counter() - t0:.3f} s", flush=True)
     small = datagen.generate(sf=CMP_SF, seed=args.seed)
     small_ds = tpcds.datagen.generate(sf=CMP_SF, seed=DS_SEED)
+    k2_recs = k2_domain_phase(small, Session, sql_suite.UNIQUE_KEYS, kernels)
     # every statement: all 22 queries, S1 twice, T1, the analytic ones and
     # the TPC-DS star queries
     crecs = card_vs_cpu(small, Session, sql_suite.UNIQUE_KEYS,
@@ -8487,6 +8754,9 @@ def main() -> int:
                    "k7_synthetic": k7_cases,
                    "k15_synthetic": k15_cases,
                    "k13_synthetic": k13_cases,
+                   "k17_synthetic": k17_cases,
+                   "k24_paths": k24_path,
+                   "k2_domain": k2_recs,
                    "k12_float_cases": k12_cases,
                    "k3_call_shapes": k3_shapes,
                    "k4_call_shapes": k4_shapes, "k4_device_ms": k4_ms,

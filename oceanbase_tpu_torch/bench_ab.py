@@ -1,6 +1,6 @@
 """The shared part of the kernel A/B harnesses (`bench_k3.py`,
 `bench_k4.py`, `bench_k7.py`, `bench_k8.py`, `bench_k13.py`,
-`bench_k15.py`, `bench_k17.py`, `bench_k26.py`): each times one kernel at
+`bench_k15.py`, `bench_k17.py`, `bench_k24.py`, `bench_k26.py`): each times one kernel at
 the shapes chip_smoke times it at, so two versions of the kernel can be
 compared on one card in one call.
 
@@ -63,6 +63,29 @@ def timed(torch, fn, reps: int) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def interleaved(torch, fns, rounds: int) -> list:
+    """The median milliseconds of each of fns, timed in turns over the
+    same rounds (CUDA events around one call each, after one warm-up call:
+    a single call's host work before its launch is in its interval), as
+    chip_smoke.py's interleaved_ms."""
+    import statistics
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, t in zip(fns, times):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            t.append(s.elapsed_time(e))
+    return [statistics.median(t) for t in times]
 
 
 def device_kernels(torch, fn, calls: int = 5) -> dict:

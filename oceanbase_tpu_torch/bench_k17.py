@@ -12,8 +12,12 @@ reads (l_shipdate, l_quantity and l_discount int32, l_extendedprice
 int64), every row live. `--root` and the parent / change order are as
 `bench_ab.py` says. The kernel's result is held to its plain version bit
 for bit first. Prints one JSON line: the root, the card, the mean
-milliseconds of `reps` calls (`bench_ab.timed`), the rows and the slice
-capacity.
+milliseconds of `reps` calls back to back (`bench_ab.timed`), the medians
+of K17 and of its yardstick (searchsorted, a host read, then
+`narrow().clone()` of each plane, as chip_smoke's K17 record) timed in
+turns over `ROUNDS` single calls (`bench_ab.interleaved`: a single call's
+host work is in its time), the yardstick's mean back to back, the rows
+and the slice capacity.
 """
 
 import sys
@@ -27,6 +31,7 @@ ROWS = 59_986_052
 DAY0, DAY1 = 8036, 10561  # 1992-01-02 .. 1998-12-01, days since 1970
 LOW, HIGH = 8766, 9131  # 1994-01-01, 1995-01-01
 SEED = 6
+ROUNDS = 200
 
 
 def main() -> int:
@@ -60,8 +65,19 @@ def main() -> int:
                          run(kernels.slice_scan_plain)):
         print("K17 differs from its plain version", file=sys.stderr)
         return 1
+    def library():
+        start = min(int(torch.searchsorted(key, lows[0][0].reshape(1))),
+                    ROWS - cap)
+        return [c.narrow(0, start, cap).clone() for c in [*pay, sel]]
+
     ms = bench_ab.timed(torch, lambda: run(kernels.slice_scan), reps)
-    bench_ab.report(torch, root, ms=ms, rows=ROWS, cap=cap)
+    lib_ms = bench_ab.timed(torch, library, reps)
+    turn_ms, turn_lib = bench_ab.interleaved(
+        torch, [lambda: run(kernels.slice_scan), library], ROUNDS)
+    bench_ab.report(torch, root, ms=ms, library_ms=lib_ms,
+                    interleaved={"rounds": ROUNDS, "ms_median": turn_ms,
+                                 "library_ms_median": turn_lib},
+                    rows=ROWS, cap=cap)
     return 0
 
 

@@ -72,39 +72,6 @@ __device__ __forceinline__ long long k26_f(const K26Args& a, int s, int f) {
   return a.t != nullptr ? __ldg(a.t + i) : a.e[i];
 }
 
-// Bytes sh .. sh + 15 of the 32 bytes A:B (little endian), sh in 1..15.
-__device__ __forceinline__ uint4 k26_shift(uint4 A, uint4 B, int sh) {
-  int r = (sh & 3) * 8;
-  unsigned o0, o1, o2, o3;
-  switch (sh >> 2) {
-    case 0:
-      o0 = __funnelshift_r(A.x, A.y, r);
-      o1 = __funnelshift_r(A.y, A.z, r);
-      o2 = __funnelshift_r(A.z, A.w, r);
-      o3 = __funnelshift_r(A.w, B.x, r);
-      break;
-    case 1:
-      o0 = __funnelshift_r(A.y, A.z, r);
-      o1 = __funnelshift_r(A.z, A.w, r);
-      o2 = __funnelshift_r(A.w, B.x, r);
-      o3 = __funnelshift_r(B.x, B.y, r);
-      break;
-    case 2:
-      o0 = __funnelshift_r(A.z, A.w, r);
-      o1 = __funnelshift_r(A.w, B.x, r);
-      o2 = __funnelshift_r(B.x, B.y, r);
-      o3 = __funnelshift_r(B.y, B.z, r);
-      break;
-    default:
-      o0 = __funnelshift_r(A.w, B.x, r);
-      o1 = __funnelshift_r(B.x, B.y, r);
-      o2 = __funnelshift_r(B.y, B.z, r);
-      o3 = __funnelshift_r(B.z, B.w, r);
-      break;
-  }
-  return make_uint4(o0, o1, o2, o3);
-}
-
 // The 16 bytes of rows row .. row + 15 of the mask plane, each kept only
 // where its row % per_host == host_lane.
 __device__ __forceinline__ uint4 k26_stripe(uint4 v, long long row,
@@ -187,7 +154,7 @@ __device__ __forceinline__ void k26_chunk(const unsigned char* src,
       for (int u = 0; u < K26_UNROLL; u++) {
         long long i = v + (long long)u * K26_THREADS;
         if (i < nvec) {
-          uint4 y = k26_shift(x[u], z[u], sh);
+          uint4 y = ob_funnel16(x[u], z[u], sh);
           if (vrow >= 0) y = k26_stripe(y, vrow + 16 * i, per_host, host_lane);
           d[i] = y;
         }

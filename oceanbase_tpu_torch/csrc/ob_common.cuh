@@ -52,6 +52,39 @@ __device__ __forceinline__ double ob_ldg_f64(const void* p, int dt,
   return __ldg((const double*)p + i);
 }
 
+// Bytes sh .. sh + 15 of the 32 bytes A:B (little endian), sh in 1..15.
+__device__ __forceinline__ uint4 ob_funnel16(uint4 A, uint4 B, int sh) {
+  int r = (sh & 3) * 8;
+  unsigned o0, o1, o2, o3;
+  switch (sh >> 2) {
+    case 0:
+      o0 = __funnelshift_r(A.x, A.y, r);
+      o1 = __funnelshift_r(A.y, A.z, r);
+      o2 = __funnelshift_r(A.z, A.w, r);
+      o3 = __funnelshift_r(A.w, B.x, r);
+      break;
+    case 1:
+      o0 = __funnelshift_r(A.y, A.z, r);
+      o1 = __funnelshift_r(A.z, A.w, r);
+      o2 = __funnelshift_r(A.w, B.x, r);
+      o3 = __funnelshift_r(B.x, B.y, r);
+      break;
+    case 2:
+      o0 = __funnelshift_r(A.z, A.w, r);
+      o1 = __funnelshift_r(A.w, B.x, r);
+      o2 = __funnelshift_r(B.x, B.y, r);
+      o3 = __funnelshift_r(B.y, B.z, r);
+      break;
+    default:
+      o0 = __funnelshift_r(A.w, B.x, r);
+      o1 = __funnelshift_r(B.x, B.y, r);
+      o2 = __funnelshift_r(B.y, B.z, r);
+      o3 = __funnelshift_r(B.z, B.w, r);
+      break;
+  }
+  return make_uint4(o0, o1, o2, o3);
+}
+
 __device__ __forceinline__ long long ob_combine_i64(int op, long long a,
                                                     long long b) {
   if (op == OB_MIN) return b < a ? b : a;

@@ -94,7 +94,7 @@ from ..ops.hashagg import (
     scalar_aggregate,
     sort_groupby,
 )
-from ..ops.hashing import next_pow2, pack_keys
+from ..ops.hashing import dense_keys, next_pow2
 from ..ops.join import (
     build_hash_table,
     expand_join,
@@ -2731,11 +2731,13 @@ class Executor:
                 if vv is not None:
                     pk_vals.append(vv.to(torch.int64))
                     pk_doms.append(2)
-            packed, domain = pack_keys(pk_vals, pk_doms)
+            # K2 reduces over the dense slots (at most 64) and lays the
+            # groups out in pack_keys's slots, whose bits unpack below
             slot_used, res = groupby_direct(
-                packed.contiguous(), domain, child.sel, agg_ops, agg_vals,
-                agg_masks)
+                dense_keys(pk_vals, pk_doms), pk_doms, child.sel, agg_ops,
+                agg_vals, agg_masks)
             bits = [max(1, int(d - 1).bit_length()) for d in pk_doms]
+            domain = 1 << sum(bits)
             slots = torch.arange(domain, dtype=torch.int64, device=dev)
             cols = {}
             shift = 0

@@ -58,11 +58,14 @@ import torch
 
 from ..kernels import DTYPE_CODE
 
-# launch limits of one chunk (csrc/k24_fused_expr.cu must match)
+# launch limits of one chunk (csrc/k24_fused_expr.cu must match):
+# instructions (the prologue's and the row code's), row values live at
+# once (a shared file's slots), inputs, outputs, uniform slots
 MAX_INS = 160
 MAX_REGS = 32
 MAX_IN = 32
 MAX_OUT = 32
+MAX_UNI = 64
 
 # opcodes (csrc/k24_fused_expr.cu must match)
 (OP_LOAD, OP_PARAM, OP_CONST, OP_LUT, OP_CAST, OP_ADD, OP_SUB, OP_MUL,
@@ -70,7 +73,6 @@ MAX_OUT = 32
  OP_AND, OP_OR, OP_NOT, OP_NEG, OP_ABS, OP_MIN, OP_MAX, OP_ROUND,
  OP_SELECT, OP_STORE) = range(27)
 
-_REMAT = (OP_LOAD, OP_PARAM, OP_CONST)
 CODE_DTYPE = {v: k for k, v in DTYPE_CODE.items()}
 # the torch op of each arithmetic, compare and logic opcode: what K24's
 # plain version runs (kernels.fused_expr_plain), with operands already of
@@ -471,19 +473,55 @@ def is_trace(batch) -> bool:
 # scheduling: SSA -> chunks of register code
 # ---------------------------------------------------------------------------
 
+# the shared file's bytes a row (32-bit slots 4, int64 / float64 slots 8)
+# up to which a chunk runs 8 rows a thread, past which 4
+# (csrc/k24_fused_expr.cu K24_FILE8_BYTES)
+FILE8_BYTES = 96
+# an operand naming a uniform slot (the prologue's values) has this bit
+UNI = 0x80
+_WIDE = (torch.int64, torch.float64)
+_CMP = (OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE)
+
+
+def uniform_values(ins) -> list:
+    """Which SSA values are the same on every row: parameters, constants
+    and every instruction whose operands all are (a LUT read at a uniform
+    index included). The kernel computes them once, in a chunk's
+    prologue, and no row register holds them."""
+    uni = []
+    for op, _t, args, _t2, _imm in ins:
+        if op in (OP_PARAM, OP_CONST):
+            uni.append(True)
+        elif op == OP_LOAD:
+            uni.append(False)
+        else:
+            uni.append(all(uni[a] for a in args))
+    return uni
+
 
 class Chunk:
-    """One launch: code [(op, t, dst, a, b, c, t2, imm)] with dtype
-    codes, its input and output tables, and the code's bytes in the
-    kernel's layout."""
+    """One launch: the uniform prologue `ucode` (dst a uniform slot) and
+    the row code `code` [(op, t, dst, a, b, c, t2, imm)] with dtype codes,
+    an operand being a slot of the shared file in its class (32-bit
+    values, int64 / float64) or UNI | a uniform slot; its input and output
+    tables; n32 / n64 the file's slots of each class; `rows` the rows a
+    thread runs (8 where the file is small, else 4); `hoisted`: the row
+    code starts with every LOAD; `nregs` the row values live at once; the
+    code's bytes in the kernel's layout (prologue first)."""
 
-    __slots__ = ("code", "inputs", "outputs", "nregs", "blob")
+    __slots__ = ("code", "ucode", "inputs", "outputs", "nregs", "n32", "n64",
+                 "rows", "hoisted", "blob")
 
     def __init__(self):
         self.code: list = []
+        self.ucode: list = []
         self.inputs: list = []
         self.outputs: list = []
         self.nregs = 0
+        self.n32 = 0
+        self.n64 = 0
+        self.rows = 4
+        self.hoisted = True
         self.blob = b""
 
 
@@ -510,7 +548,7 @@ class Program:
 
     @property
     def n_instructions(self) -> int:
-        return sum(len(c.code) for c in self.chunks)
+        return sum(len(c.code) + len(c.ucode) for c in self.chunks)
 
 
 # Device copies of the programs' host lookup tables, keyed by the host
@@ -558,11 +596,102 @@ def _encode(code) -> bytes:
     return bytes(out)
 
 
+def _order(vcode, hoist: bool) -> list:
+    """The chunk's virtual row code [(op, dtype, dst vid, arg vids, t2,
+    imm)] reordered to keep few values live: from each store (in order),
+    an instruction's operands are computed before it, the one with the
+    most instructions under it first (as Sethi and Ullman order a tree).
+    `hoist`: every LOAD first (in order), else each LOAD where its value
+    is first needed."""
+    by_dst = {e[2]: i for i, e in enumerate(vcode) if e[2] is not None}
+    size: dict = {}
+
+    def weight(i):
+        if i not in size:
+            size[i] = 1 + sum(weight(by_dst[a]) for a in vcode[i][3]
+                              if a in by_dst)
+        return size[i]
+
+    out, seen = [], set()
+    if hoist:
+        for i, e in enumerate(vcode):
+            if e[0] == OP_LOAD:
+                out.append(e)
+                seen.add(i)
+
+    def visit(i):
+        stack = [(i, False)]
+        while stack:
+            j, done = stack.pop()
+            if j in seen:
+                continue
+            if done:
+                seen.add(j)
+                out.append(vcode[j])
+                continue
+            stack.append((j, True))
+            args = [by_dst[a] for a in dict.fromkeys(vcode[j][3])
+                    if a in by_dst and by_dst[a] not in seen]
+            # the heaviest operand first: pushed last
+            for k in sorted(args, key=weight):
+                stack.append((k, False))
+
+    for i, e in enumerate(vcode):
+        if e[2] is None:
+            visit(i)
+    return out
+
+
+def _allocate(vcode, vtype, uslot, hoist: bool):
+    """File slots for a chunk's virtual row code, reordered (`_order`):
+    each value a slot of its class (32-bit values, int64 / float64), the
+    lowest free first, an operand's slot free for the result of the
+    instruction that reads it last. Returns (code, n32, n64)."""
+    vcode = _order(vcode, hoist)
+    last: dict = {}
+    for i, e in enumerate(vcode):
+        for a in e[3]:
+            if a not in uslot:
+                last[a] = i
+    free = {False: [], True: []}
+    top = {False: 0, True: 0}
+    reg: dict = {}
+    code = []
+    for i, (op, t, dst, args, t2, imm) in enumerate(vcode):
+        ops = [UNI | uslot[a] if a in uslot else reg[a] for a in args]
+        for a in dict.fromkeys(args):
+            if a not in uslot and last[a] == i:
+                free[vtype[a] in _WIDE].append(reg.pop(a))
+        d = 0
+        if dst is not None:
+            w = vtype[dst] in _WIDE
+            if free[w]:
+                free[w].sort()
+                d = free[w].pop(0)
+            else:
+                d = top[w]
+                top[w] += 1
+            reg[dst] = d
+            if last.get(dst, -1) <= i:
+                free[w].append(reg.pop(dst))
+        ops += [0] * (3 - len(ops))
+        code.append((op, DTYPE_CODE[t], d, ops[0], ops[1], ops[2],
+                     DTYPE_CODE[t2] if t2 is not None else 0, imm))
+    return code, top[False], top[True]
+
+
 def schedule(ins, vtype, outputs, prog: Program, max_ins=MAX_INS,
-             max_regs=MAX_REGS, max_in=MAX_IN, max_out=MAX_OUT):
-    """Allocate registers and cut the SSA list into chunks within the
-    launch limits. `outputs` lists the vids the program writes, in
-    order; a value live across a cut is spilled to a temporary."""
+             max_regs=MAX_REGS, max_in=MAX_IN, max_out=MAX_OUT,
+             max_uni=MAX_UNI):
+    """Cut the SSA list into chunks within the launch limits and allocate
+    each chunk's registers. `outputs` lists the vids the program writes,
+    in order; a row value live across a cut is spilled to a temporary.
+    Uniform values (`uniform_values`) leave the row code: each chunk's
+    prologue computes the ones it reads, once per block."""
+    uni = uniform_values(ins)
+    for v, (op, t, _a, _t2, _imm) in enumerate(ins):
+        if not uni[v] and op not in _CMP and vtype[v] != t:
+            raise NotLowerable(f"opcode {op} of {t} makes {vtype[v]}")
     # live instructions only, with the output stores placed right after
     # each output's definition (at the end for reloadable values)
     live = set(outputs)
@@ -573,13 +702,13 @@ def schedule(ins, vtype, outputs, prog: Program, max_ins=MAX_INS,
     stores_after: dict = {}
     tail = []
     for k, v in enumerate(outputs):
-        if ins[v][0] in _REMAT:
+        if ins[v][0] == OP_LOAD or uni[v]:
             tail.append((k, v))
         else:
             stores_after.setdefault(v, []).append(k)
     order = []
     for i in range(len(ins)):
-        if i in live:
+        if i in live and not uni[i]:
             order.append(("ins", i))
             for k in stores_after.get(i, ()):
                 order.append(("store", k, i))
@@ -588,68 +717,110 @@ def schedule(ins, vtype, outputs, prog: Program, max_ins=MAX_INS,
     for pos, item in enumerate(order):
         args = ins[item[1]][2] if item[0] == "ins" else (item[2],)
         for a in args:
-            last[a] = pos
+            if not uni[a]:
+                last[a] = pos
     spilled: dict = {}
 
-    def new_chunk():
-        return Chunk(), {}, list(range(max_regs - 1, -1, -1)), {}
+    def closure(vs, have):
+        """The uniform values `vs` need that `have` lacks, in SSA order."""
+        need, stack = set(), [v for v in vs if uni[v] and v not in have]
+        while stack:
+            v = stack.pop()
+            if v in need:
+                continue
+            need.add(v)
+            stack += [a for a in ins[v][2] if a not in have]
+        return sorted(need)
 
-    cur, reg, free, in_idx = new_chunk()
+    class _Cut:
+        def __init__(self):
+            self.chunk = Chunk()
+            self.vcode = []      # (op, dtype, dst vid, arg vids, t2, imm)
+            self.live = set()    # row vids in registers
+            self.uvals = []      # uniform vids, SSA order
+            self.in_idx = {}
 
-    def input_slot(desc):
-        k = in_idx.get(desc)
-        if k is None:
-            k = in_idx[desc] = len(cur.inputs)
-            cur.inputs.append(desc)
-        return k
+        def input_slot(self, desc):
+            k = self.in_idx.get(desc)
+            if k is None:
+                k = self.in_idx[desc] = len(self.chunk.inputs)
+                self.chunk.inputs.append(desc)
+            return k
 
-    def alloc(v):
-        r = free.pop()
-        reg[v] = r
-        cur.nregs = max(cur.nregs, r + 1)
-        return r
+        def note_live(self):
+            self.chunk.nregs = max(self.chunk.nregs, len(self.live))
+
+    cur = _Cut()
 
     def bring(v):
-        """Make v live in a register of this chunk."""
-        if v in reg:
-            return reg[v]
-        op, t, args, t2, imm = ins[v]
-        if op in _REMAT:
-            if op == OP_LOAD:
-                imm = input_slot(imm)
-            code = (op, DTYPE_CODE[t], 0, 0, 0, 0, 0, imm)
+        """Make v available to this chunk's row code."""
+        if uni[v]:
+            for u in closure((v,), set(cur.uvals)):
+                cur.uvals.append(u)
+                if ins[u][0] == OP_LUT:
+                    cur.input_slot(ins[u][4])
+            cur.uvals.sort()
+            return
+        if v in cur.live:
+            return
+        op, t, _args, _t2, imm = ins[v]
+        if op == OP_LOAD:
+            cur.vcode.append((OP_LOAD, t, v, (), None, cur.input_slot(imm)))
         else:
-            code = (OP_LOAD, DTYPE_CODE[vtype[v]], 0, 0, 0, 0, 0,
-                    input_slot(("tmp", spilled[v])))
-        r = alloc(v)
-        cur.code.append((code[0], code[1], r) + code[3:])
-        return r
+            cur.vcode.append((OP_LOAD, vtype[v], v, (), None,
+                              cur.input_slot(("tmp", spilled[v]))))
+        cur.live.add(v)
+        cur.note_live()
 
     def close(pos):
-        for v, r in list(reg.items()):
-            if ins[v][0] in _REMAT or v in spilled or last.get(v, -1) < pos:
+        for v in sorted(cur.live):
+            if ins[v][0] == OP_LOAD or v in spilled or last.get(v, -1) < pos:
                 continue
             k = len(prog.tmp_dtypes)
             prog.tmp_dtypes.append(vtype[v])
             spilled[v] = k
-            cur.code.append((OP_STORE, DTYPE_CODE[vtype[v]], 0, r, 0, 0, 0,
-                             len(cur.outputs)))
-            cur.outputs.append(("tmp", k))
-        cur.blob = _encode(cur.code)
-        prog.chunks.append(cur)
+            cur.vcode.append((OP_STORE, vtype[v], None, (v,), None,
+                              len(cur.chunk.outputs)))
+            cur.chunk.outputs.append(("tmp", k))
+        finish(cur)
+        prog.chunks.append(cur.chunk)
+
+    def finish(c):
+        ch = c.chunk
+        uslot = {u: i for i, u in enumerate(c.uvals)}
+        for u in c.uvals:
+            op, t, args, t2, imm = ins[u]
+            if op == OP_LUT:
+                imm = c.in_idx[imm]
+            ops = [UNI | uslot[a] for a in args] + [0] * (3 - len(args))
+            ch.ucode.append((op, DTYPE_CODE[t], uslot[u], ops[0], ops[1],
+                             ops[2], DTYPE_CODE[t2] if t2 is not None else 0,
+                             imm))
+        # every LOAD first where the file's slots allow, else each LOAD at
+        # its first reader
+        code, n32, n64 = _allocate(c.vcode, vtype, uslot, True)
+        ch.hoisted = n32 + n64 <= max_regs
+        if not ch.hoisted:
+            code, n32, n64 = _allocate(c.vcode, vtype, uslot, False)
+        ch.code, ch.n32, ch.n64 = code, n32, n64
+        ch.rows = 8 if 4 * n32 + 8 * n64 <= FILE8_BYTES else 4
+        ch.blob = _encode(ch.ucode + ch.code)
 
     def fits(args, new_in, new_out, pos):
-        missing = [a for a in dict.fromkeys(args) if a not in reg]
-        ndead = sum(1 for a in dict.fromkeys(args)
-                    if a in reg and last[a] <= pos)
-        spills = sum(1 for v in reg if ins[v][0] not in _REMAT
+        rows = [a for a in dict.fromkeys(args) if not uni[a]]
+        missing = [a for a in rows if a not in cur.live]
+        unew = closure([a for a in args if uni[a]], set(cur.uvals))
+        ndead = sum(1 for a in rows if a in cur.live and last[a] <= pos)
+        spills = sum(1 for v in cur.live if ins[v][0] != OP_LOAD
                      and v not in spilled and last.get(v, -1) > pos) + 1
-        nins = len(cur.code) + len(missing) + 1 + spills
-        nregs = len(reg) + len(missing) + 1 - ndead
-        nin = len(cur.inputs) + new_in + len(missing)
-        nout = len(cur.outputs) + new_out + spills
+        nuni = len(cur.uvals) + len(unew)
+        nins = (len(cur.vcode) + nuni + len(missing) + 1 + spills)
+        nregs = len(cur.live) + len(missing) + 1 - ndead
+        nin = (len(cur.chunk.inputs) + new_in + len(missing)
+               + sum(1 for u in unew if ins[u][0] == OP_LUT))
+        nout = len(cur.chunk.outputs) + new_out + spills
         return (nins <= max_ins and nregs <= max_regs and nin <= max_in
-                and nout <= max_out)
+                and nout <= max_out and nuni <= max_uni)
 
     for pos, item in enumerate(order):
         if item[0] == "store":
@@ -658,29 +829,29 @@ def schedule(ins, vtype, outputs, prog: Program, max_ins=MAX_INS,
         else:
             v = item[1]
             op, t, args, t2, imm = ins[v]
-            if op in _REMAT:
+            if op == OP_LOAD:
                 continue
             new_in, new_out = (1 if op == OP_LUT else 0), 0
-        if cur.code and not fits(args, new_in, new_out, pos):
+        if cur.vcode and not fits(args, new_in, new_out, pos):
             close(pos)
-            cur, reg, free, in_idx = new_chunk()
-        rs = [bring(a) for a in args]
+            cur = _Cut()
+        for a in args:
+            bring(a)
         for a in dict.fromkeys(args):
-            if last[a] <= pos and a in reg:
-                free.append(reg.pop(a))
+            if not uni[a] and last[a] <= pos:
+                cur.live.discard(a)
         if item[0] == "store":
-            cur.code.append((OP_STORE, DTYPE_CODE[vtype[v]], 0, rs[0], 0, 0,
-                             0, len(cur.outputs)))
-            cur.outputs.append(("out", k))
+            cur.vcode.append((OP_STORE, vtype[v], None, (v,), None,
+                              len(cur.chunk.outputs)))
+            cur.chunk.outputs.append(("out", k))
             continue
-        ext = rs + [0] * (3 - len(rs))
-        t2c = DTYPE_CODE[t2] if t2 is not None else 0
-        imm2 = input_slot(imm) if op == OP_LUT else imm
-        d = alloc(v)
-        if last.get(v, -1) <= pos:
-            free.append(reg.pop(v))
-        cur.code.append((op, DTYPE_CODE[t], d, ext[0], ext[1], ext[2], t2c,
-                         imm2))
+        imm2 = cur.input_slot(imm) if op == OP_LUT else imm
+        cur.vcode.append((op, t, v, tuple(args), t2, imm2))
+        if last.get(v, -1) > pos:
+            cur.live.add(v)
+            cur.note_live()
+        else:
+            cur.chunk.nregs = max(cur.chunk.nregs, len(cur.live) + 1)
     close(len(order))
 
 

@@ -71,6 +71,7 @@ import struct
 import subprocess
 import threading
 from pathlib import Path
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -283,7 +284,7 @@ def _load():
         lib.ob_k1_reduce_int.argtypes = [P, I, P, L, I, L, P, I, P]
         lib.ob_k1_reduce_float.argtypes = [P, I, P, L, I, D, P, P, I, P]
         lib.ob_k2_groupby.argtypes = [P, I, L, I, I, P, P, P, P, P, P, P, P,
-                                      I, I, P]
+                                      I, I, L, L, I, P, P, P, P, P]
         lib.ob_k3_spans.argtypes = [I, P, P, P, L, P, I, P]
         lib.ob_k3_sort.argtypes = [I, P, P, P, P, P, P, P, P, P, L, P, L, P,
                                    P, P, P, P, P, I, P]
@@ -328,8 +329,8 @@ def _load():
         lib.ob_k15_first_records.argtypes = [I, P, P, P, L, I, P, P, I, P]
         lib.ob_k15_scatter.argtypes = [I, P, P, P, P, P, L, I, P]
         lib.ob_k16_registers.argtypes = [P, I, P, L, P, I, P]
-        lib.ob_k17_slice.argtypes = [P, I, L, L, L, I, I, P, P, P, P, P, P,
-                                     P, P, I, P]
+        lib.ob_k17_slice.argtypes = [ctypes.c_char_p, I, P, P, P]
+        lib.ob_k17_args_bytes.argtypes = []
         lib.ob_k18_decode.argtypes = [I, P, P, P, P, P, P, P, P, P, L, L, P,
                                       P]
         lib.ob_k18_run_tile.argtypes = []
@@ -345,7 +346,6 @@ def _load():
         lib.ob_k23_tile_rows.argtypes = []
         lib.ob_k24_run.argtypes = [ctypes.c_char_p, I, P]
         lib.ob_k24_prog_bytes.argtypes = []
-        lib.ob_k24_tile_rows.argtypes = []
         lib.ob_k25_tile_rows.argtypes = []
         lib.ob_k25_dest.argtypes = [I, I, P, L, I, P, I, P, I, L, I, P, I, P]
         lib.ob_k25_pack.argtypes = [P, P, L, I, L, I, P, P, P, P, P, P, P, I,
@@ -383,12 +383,12 @@ def _load():
                    lib.ob_k14_build, lib.ob_k14_probe, lib.ob_k15_first,
                    lib.ob_k15_first_images, lib.ob_k15_first_records,
                    lib.ob_k15_scatter, lib.ob_k16_registers,
-                   lib.ob_k17_slice, lib.ob_k18_decode, lib.ob_k18_run_tile,
+                   lib.ob_k17_slice, lib.ob_k17_args_bytes, lib.ob_k18_decode, lib.ob_k18_run_tile,
                    lib.ob_k19_assign, lib.ob_k20_update, lib.ob_k21_lists,
                    lib.ob_k22_probe, lib.ob_k22_tile, lib.ob_k22_smem_k,
                    lib.ob_k23_first_live, lib.ob_k23_tile_rows,
                    lib.ob_k24_run, lib.ob_k24_prog_bytes,
-                   lib.ob_k24_tile_rows, lib.ob_k25_tile_rows,
+                   lib.ob_k25_tile_rows,
                    lib.ob_k25_dest, lib.ob_k25_pack,
                    lib.ob_k25_round_robin, lib.ob_k26_recv,
                    lib.ob_k26_chunk_bytes, lib.ob_k26_inline,
@@ -553,27 +553,79 @@ K2_SMEM_BYTES = 96 * 1024      # shared-memory budget of one K2 block
 K2_SM_SMEM_BYTES = 224 * 1024  # usable shared memory of one H100 SM
 
 
-def groupby_slots_plain(keys: torch.Tensor, domain: int, aggs):
-    """Plain version of K2 (ops/hashagg.py groupby_direct / executor
-    _direct_slot_agg): one masked reduction per (slot, aggregate)."""
-    slot_is = [keys == g for g in range(domain)]
+def k2_layout(domains) -> tuple:
+    """pack_keys's layout of keys with these domains (key 0 least
+    significant): (dense domain D = the product of the domains, packed
+    slots = 1 << the sum of each key's whole bits, [(shift, bits, domain,
+    dense radix)] of the keys of domain >= 2, the mask of the bits of the
+    keys of domain 1, which are always 0). An int is one key."""
+    if isinstance(domains, int):
+        domains = [domains]
+    dense, shift, keys, zmask = 1, 0, [], 0
+    for d in domains:
+        d = int(d)
+        if d < 1:
+            raise ValueError(f"K2 key domain {d} < 1")
+        b = max(1, (d - 1).bit_length())
+        if d == 1:
+            zmask |= 1 << shift
+        else:
+            keys.append((shift, b, d, dense))
+        dense *= d
+        shift += b
+    return dense, 1 << shift, keys, zmask
+
+
+def k2_spread(domains) -> list:
+    """The dense slot of each packed slot (-1: a key field outside its
+    domain, no row has it): the map K2's final pass applies."""
+    dense, slots, keys, zmask = k2_layout(domains)
     out = []
-    for op, values, mask in aggs:
-        out.append(torch.stack([
-            scalar_reduce_plain(op, mask & g, values) for g in slot_is
-        ]))
+    for p in range(slots):
+        d = 0 if not p & zmask else -1
+        for shift, b, dom, radix in keys:
+            f = (p >> shift) & ((1 << b) - 1)
+            if d < 0 or f >= dom:
+                d = -1
+                break
+            d += f * radix
+        out.append(d)
     return out
 
 
-def groupby_slots(keys: torch.Tensor, domain: int, aggs):
-    """K2: for each (op, values|None, mask) in `aggs`, the [domain] tensor
-    of that aggregate over rows whose packed key equals each slot."""
+def groupby_slots_plain(keys: torch.Tensor, domains, aggs):
+    """Plain version of K2 (ops/hashagg.py groupby_direct / executor
+    _direct_slot_agg): one masked reduction per (dense slot, aggregate),
+    then each packed slot takes its dense slot's result, or an empty
+    slot's where it has none."""
+    dense, _slots, _keys, _z = k2_layout(domains)
+    slot_is = [keys == g for g in range(dense)]
+    slot_is.append(torch.zeros_like(keys, dtype=torch.bool))
+    idx = torch.tensor([dense if d < 0 else d for d in k2_spread(domains)],
+                       dtype=torch.int64, device=keys.device)
+    out = []
+    for op, values, mask in aggs:
+        per = torch.stack([
+            scalar_reduce_plain(op, mask & g, values) for g in slot_is])
+        out.append(per[idx])
+    return out
+
+
+def groupby_slots(keys: torch.Tensor, domains, aggs):
+    """K2: for each (op, values|None, mask) in `aggs`, the aggregate over
+    the rows of each slot. keys: each row's dense mixed-radix slot over
+    key domains `domains` (key 0 least significant: key i times the
+    product of the domains before it; an int is one key); the results
+    come out in pack_keys's packed slots (`k2_layout`), a packed slot no
+    key combination maps to holding the aggregate's identity."""
     if not aggs:
         return []
-    if not 1 <= domain <= 64:
-        raise ValueError(f"K2 domain {domain} outside 1..64")
     if not _on_cuda(keys, *(v for _, v, _ in aggs), *(m for _, _, m in aggs)):
-        return groupby_slots_plain(keys, domain, aggs)
+        return groupby_slots_plain(keys, domains, aggs)
+    dense, slots, kfields, zmask = k2_layout(domains)
+    # the executor admits the direct path at a dense domain <= 64
+    if dense > 64:
+        raise ValueError(f"K2 dense domain {dense} outside 1..64")
     n = int(keys.shape[0])
     _vector(keys, n, "K2 keys")
     if keys.dtype not in (torch.int32, torch.int64):
@@ -589,12 +641,15 @@ def groupby_slots(keys: torch.Tensor, domain: int, aggs):
     lib = _load()
     dev = keys.device
     results = []
-    # per-thread cells: a block holds K2_THREADS * aggregates * domain
-    # 8-byte cells; split the aggregates to fit the shared-memory budget
-    per_agg = K2_THREADS * domain * 8
+    nk = len(kfields)
+    kshift, kbits, kdom, kradix = ((ctypes.c_int * max(nk, 1))(
+        *(f[i] for f in kfields)) for i in range(4))
+    # per-thread cells: a block holds K2_THREADS * aggregates * D 8-byte
+    # cells; split the aggregates to fit the shared-memory budget
+    per_agg = K2_THREADS * dense * 8
     step = max(1, min(K2_MAX_AGGS, K2_SMEM_BYTES // per_agg))
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sms = _sm_count(dev)
         stream = _stream(dev)
         for c0 in range(0, len(aggs), step):
             chunk = aggs[c0:c0 + step]
@@ -615,16 +670,17 @@ def groupby_slots(keys: torch.Tensor, domain: int, aggs):
                 idv = _identity(op, v.dtype if op != "count" else torch.int64)
                 ident[j] = (struct.unpack("<q", struct.pack("<d", idv))[0]
                             if fl else int(idv))
-            out = torch.empty((na, domain), dtype=torch.int64, device=dev)
+            out = torch.empty((na, slots), dtype=torch.int64, device=dev)
             resident = max(1, K2_SM_SMEM_BYTES // (na * per_agg))
             nb = max(1, min(-(-max(n, 1) // (K2_THREADS * 8)),
                             sms * resident))
-            part = torch.empty((nb, na, domain), dtype=torch.int64,
+            part = torch.empty((nb, na, dense), dtype=torch.int64,
                                device=dev)
             rc = lib.ob_k2_groupby(
-                keys.data_ptr(), DTYPE_CODE[keys.dtype], n, domain, na,
+                keys.data_ptr(), DTYPE_CODE[keys.dtype], n, dense, na,
                 vals, dts, masks, ops, ident, isf, out.data_ptr(),
-                part.data_ptr(), K2_THREADS, nb, stream)
+                part.data_ptr(), K2_THREADS, nb, slots, zmask, nk, kshift,
+                kbits, kdom, kradix, stream)
             _check(rc, "K2_groupby_direct")
             for j, (op, v, _m) in enumerate(chunk):
                 row = out[j]
@@ -2742,14 +2798,60 @@ def slice_scan_plain(key, n: int, lows, highs, cap: int, payload, sel):
             torch.clamp((hi - lo) - cap, min=0))
 
 
-def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
-    """K17: the sliced payload columns, sel, nrows and overflow of a
-    sorted-projection scan, in one launch; the bounds are read on the
-    device. lows/highs: lists of (0-d tensor, 'left'|'right')."""
-    bvals = [v for v, _s in lows] + [v for v, _s in highs]
-    payload = list(payload)
-    if not _on_cuda(key, sel, *payload, *bvals):
-        return slice_scan_plain(key, n, lows, highs, cap, payload, sel)
+# the head of csrc/k17_slice_scan.cu's K17Args: key, sel, table, n, cap,
+# cap2, sel_off, key_dt, ncols, nbounds, pad; K17_INLINE entries follow
+_K17_HDR = struct.Struct("<QQQqqqqiiii")
+K17_THREADS = 256
+K17_PLANS_MAX = 64
+
+
+class K17Plan(NamedTuple):
+    """One call's arguments to K17 but for the output's address: the
+    K17Args image, the device table past K17_INLINE entries (kept alive
+    with the plan), the output allocation's bytes, its parts (sizes for
+    one split: nrows and overflow, then each column's slice and sel, each
+    followed by its padding to 16 bytes) with the dtype of each part that
+    is an output, and the grid."""
+    blob: bytes
+    table: torch.Tensor | None
+    nbytes: int
+    sizes: tuple
+    views: tuple
+    sel_off: int
+    nblocks: int
+
+
+_K17_PLANS: OrderedDict = OrderedDict()
+_K17_LOCK = threading.Lock()
+_K17_SCRATCH: dict = {}
+
+
+def _k17_id(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), t.dtype, t.shape)
+
+
+def _pad16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def k17_plan(key, n: int, lows, highs, cap: int, payload, sel,
+             sms: int) -> K17Plan:
+    """K17's arguments for a call, cached by everything they are made of
+    (every tensor's address, dtype and shape, the bounds' sides, n, cap,
+    the card's SM count): a call over the same columns and bounds reuses
+    the table, and a changed address is another entry, built and checked
+    anew (device, contiguity, widths). The outputs lie in one allocation:
+    nrows and overflow in its first 16 bytes, then each column's slice
+    and sel at 16-byte aligned offsets."""
+    ck = (_k17_id(key), n, cap, _k17_id(sel), sms,
+          tuple(_k17_id(c) for c in payload),
+          tuple((_k17_id(v), s) for v, s in lows),
+          tuple((_k17_id(v), s) for v, s in highs))
+    with _K17_LOCK:
+        hit = _K17_PLANS.get(ck)
+        if hit is not None:
+            _K17_PLANS.move_to_end(ck)
+            return hit
     cap2 = int(sel.shape[0])
     _vector(key, cap2, "K17 key")
     _vector(sel, cap2, "K17 sel")
@@ -2759,45 +2861,105 @@ def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
         raise TypeError("K17 sel must be bool")
     if not 0 < cap < cap2 or n > cap2:
         raise ValueError(f"K17 slices {cap} of {cap2} rows ({n} stored)")
-    for v in bvals:
+    bounds = [(v, s, False) for v, s in lows] + [(v, s, True)
+                                                 for v, s in highs]
+    for v, _s, _h in bounds:
         if v.numel() != 1 or v.dtype not in _RANGE_DTYPES:
             raise TypeError("K17 bounds are integer scalars")
+    _on_cuda(key, sel, *payload, *(v for v, _s, _h in bounds))
+    entries, views, sizes, off = [], [], [16], 16
     for c in payload:
         _vector(c, cap2, "K17 column")
-        if c.element_size() not in _WIDTHS:
-            raise TypeError(f"K17 column width {c.element_size()}")
+        w = c.element_size()
+        if w not in _WIDTHS:
+            raise TypeError(f"K17 column width {w}")
+        entries += [c.data_ptr(), off * 16 + w]
+        views.append((len(sizes), c.dtype))
+        sizes += [cap * w, _pad16(cap * w) - cap * w]
+        off += _pad16(cap * w)
+    sel_off = off
+    views.append((len(sizes), torch.bool))
+    sizes += [cap, _pad16(cap) - cap]
+    off += _pad16(cap)
+    for v, side, high in bounds:
+        entries += [v.data_ptr(), DTYPE_CODE[v.dtype] * 4
+                    + int(side == "right") + (2 if high else 0)]
+    table = None
+    if len(entries) > K17_INLINE:
+        table = _device_table(entries, key.device)
+        entries = []
+    vectors = sum(_pad16(cap * c.element_size()) // 16 for c in payload) \
+        + _pad16(cap) // 16
+    nblocks = max(1, min(-(-vectors // (K17_THREADS * 4)), sms * 4))
+    blob = _K17_HDR.pack(
+        key.data_ptr(), sel.data_ptr(),
+        table.data_ptr() if table is not None else 0, n, cap, cap2, sel_off,
+        DTYPE_CODE[key.dtype], len(payload), len(bounds), 0) + struct.pack(
+        f"<{K17_INLINE}q", *(entries + [0] * (K17_INLINE - len(entries))))
+    plan = K17Plan(blob, table, off, tuple(sizes), tuple(views), sel_off,
+                   nblocks)
+    with _K17_LOCK:
+        _K17_PLANS[ck] = plan
+        while len(_K17_PLANS) > K17_PLANS_MAX:
+            _K17_PLANS.popitem(last=False)
+    return plan
+
+
+def _k17_scratch(dev: torch.device, stream: int, sms: int) -> torch.Tensor:
+    """The ticket and the per-block counts of K17's launches on one stream
+    (the ticket is 0 between launches: the last block puts it back)."""
+    k = (dev.index, stream)
+    t = _K17_SCRATCH.get(k)
+    if t is None:
+        t = _K17_SCRATCH[k] = torch.zeros(1 + sms * 4, dtype=torch.int64,
+                                          device=dev)
+    return t
+
+
+def slice_scan(key, n: int, lows, highs, cap: int, payload, sel):
+    """K17: the sliced payload columns, sel, nrows and overflow of a
+    sorted-projection scan, in one launch and nothing else; the bounds are
+    read on the device. lows/highs: lists of (0-d tensor, 'left'|'right').
+    The outputs are views of one allocation. The plan (`k17_plan`) checks
+    that every tensor lies on sel's device."""
+    if not sel.is_cuda:
+        return slice_scan_plain(key, n, lows, highs, cap, list(payload), sel)
     dev = sel.device
-    outs = [torch.empty(cap, dtype=c.dtype, device=dev) for c in payload]
-    osel = torch.empty(cap, dtype=torch.bool, device=dev)
-    nrows = torch.zeros((), dtype=torch.int64, device=dev)
-    ovf = torch.empty((), dtype=torch.int64, device=dev)
-    order = sorted(range(len(payload)),
-                   key=lambda i: payload[i].element_size())
-    nc = len(order)
-    gstart = (ctypes.c_int * 5)()
-    gwidth = (ctypes.c_int * 4)(*_WIDTHS)
-    for g, w in enumerate(_WIDTHS):
-        gstart[g + 1] = gstart[g] + sum(
-            1 for i in order if payload[i].element_size() == w)
-    sides = [s for _v, s in lows] + [s for _v, s in highs]
-    entries = ([payload[i].data_ptr() for i in order]
-               + [outs[i].data_ptr() for i in order])
-    for i, (v, side) in enumerate(zip(bvals, sides)):
-        entries += [v.data_ptr(), DTYPE_CODE[v.dtype],
-                    int(side == "right") | (2 if i >= len(lows) else 0)]
-    # a short table rides the kernel's parameters, a longer one device
-    # memory (csrc/k17_slice_scan.cu K17_INLINE)
-    inline, table = param_table(entries, K17_INLINE, dev)
+    sms = _sm_count(dev)
+    plan = k17_plan(key, n, lows, highs, cap, payload, sel, sms)
     lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.ob_k17_slice(
-            key.data_ptr(), DTYPE_CODE[key.dtype], n, cap, cap2, len(bvals),
-            nc, inline, table.data_ptr() if table is not None else None,
-            gstart, gwidth, sel.data_ptr(), osel.data_ptr(), nrows.data_ptr(),
-            ovf.data_ptr(), _blocks(dev, cap, 256 * 4), _stream(dev))
+    if not _k17_checked:
+        _k17_check(lib)
+    with _on_device(dev):
+        stream = _stream(dev)
+        buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+        rc = lib.ob_k17_slice(plan.blob, plan.nblocks, buf.data_ptr(),
+                              _k17_scratch(dev, stream, sms).data_ptr(),
+                              stream)
         _check(rc, "K17_slice_scan")
     count_launch(LAUNCHES, "K17_slice_scan")
-    return outs, osel, nrows, ovf
+    parts = buf.split_with_sizes(plan.sizes)
+    outs = [parts[i].view(dt) for i, dt in plan.views]
+    nrows, ovf = parts[0].view(torch.int64).unbind()
+    return outs[:-1], outs[-1], nrows, ovf
+
+
+_k17_checked = False
+
+
+def _k17_check(lib) -> None:
+    global _k17_checked
+    if int(lib.ob_k17_args_bytes()) != _K17_HDR.size + 8 * K17_INLINE:
+        raise RuntimeError("K17 argument layout differs from the source")
+    _k17_checked = True
+
+
+def _on_device(dev: torch.device):
+    """The device context a launch on `dev` needs (none when it is the
+    current device already)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -3273,8 +3435,9 @@ def first_live(sel, k: int, cols):
 # ---------------------------------------------------------------------------
 
 # the header of csrc/k24_fused_expr.cu's K24Prog: n, qrow, in[32],
-# out[32], n_ins, nregs; the instructions follow, 16 bytes each
-_K24_HDR = struct.Struct("<qQ32Q32Qii")
+# out[32], n_ins, n_uni, n32, n64, rows, pad; the instructions follow,
+# 16 bytes each, the uniform prologue first
+_K24_HDR = struct.Struct("<qQ32Q32Qiiiiii")
 _K24_MAX_INS = 160
 _k24_checked = False
 
@@ -3313,10 +3476,16 @@ def _k24_io(program, batch, ext, dev):
     return outs, tmps, resolve
 
 
+def _k24_wide(code: int) -> bool:
+    return code in (DTYPE_CODE[torch.int64], DTYPE_CODE[torch.float64])
+
+
 def fused_expr_plain(program, batch, qrow=None, ext=()):
     """Plain version of K24: the same chunks, instruction by instruction,
     as torch ops of each instruction's dtype (operands are already of
-    it, so no torch promotion applies). Returns the output columns."""
+    it, so no torch promotion applies): a chunk's uniform prologue as 0-d
+    tensors, its row code over a file of two classes (32-bit values,
+    int64 / float64). Returns the output columns."""
     from .expr import program as P
 
     dev = batch.sel.device
@@ -3326,14 +3495,17 @@ def fused_expr_plain(program, batch, qrow=None, ext=()):
         ins = [resolve(d) for d in ch.inputs]
         dst = [outs[k] if kind == "out" else tmps[k]
                for kind, k in ch.outputs]
-        r = [None] * max(ch.nregs, 1)
-        for op, t, d, a, b, c, t2, imm in ch.code:
+        u = {}
+        regs = {}
+
+        def get(x, wide):
+            if x & P.UNI:
+                return u[x & ~P.UNI]
+            return regs[(wide, x)]
+
+        for op, t, d, a, b, c, t2, imm in ch.ucode:
             dt = code_dt[t]
-            if op == P.OP_LOAD:
-                v = ins[imm]
-                if v.dtype != dt:
-                    raise TypeError(f"K24 load of {v.dtype} as {dt}")
-            elif op == P.OP_PARAM:
+            if op == P.OP_PARAM:
                 if dt.is_floating_point:
                     v = qrow[imm:imm + 1].view(torch.float64).reshape(
                         ()).to(dt)
@@ -3342,19 +3514,37 @@ def fused_expr_plain(program, batch, qrow=None, ext=()):
             elif op == P.OP_CONST:
                 v = P.const_tensor(imm, dt, dev)
             elif op == P.OP_LUT:
-                v = ins[imm][r[a]]
+                v = ins[imm][get(a, True)]
             elif op == P.OP_CAST:
-                v = r[a].to(dt)
+                v = get(a, False).to(dt)
+            elif op == P.OP_SELECT:
+                v = torch.where(get(a, False), get(b, False), get(c, False))
+            elif op in P.PLAIN_UNARY:
+                v = P.PLAIN_UNARY[op](get(a, False))
+            else:
+                v = P.PLAIN_BINARY[op](get(a, False), get(b, False))
+            u[d] = v
+        for op, t, d, a, b, c, t2, imm in ch.code:
+            dt = code_dt[t]
+            w = _k24_wide(t)
+            if op == P.OP_LOAD:
+                v = ins[imm]
+                if v.dtype != dt:
+                    raise TypeError(f"K24 load of {v.dtype} as {dt}")
+            elif op == P.OP_LUT:
+                v = ins[imm][get(a, True)]
+            elif op == P.OP_CAST:
+                v = get(a, _k24_wide(t2)).to(dt)
             elif op == P.OP_STORE:
-                dst[imm].copy_(r[a])
+                dst[imm].copy_(get(a, w))
                 continue
             elif op == P.OP_SELECT:
-                v = torch.where(r[a], r[b], r[c])
+                v = torch.where(get(a, False), get(b, w), get(c, w))
             elif op in P.PLAIN_UNARY:
-                v = P.PLAIN_UNARY[op](r[a])
+                v = P.PLAIN_UNARY[op](get(a, w))
             else:
-                v = P.PLAIN_BINARY[op](r[a], r[b])
-            r[d] = v
+                v = P.PLAIN_BINARY[op](get(a, w), get(b, w))
+            regs[(_k24_wide(DTYPE_CODE[v.dtype]), d)] = v
     return outs
 
 
@@ -3383,12 +3573,10 @@ def fused_expr(program, batch, qrow=None, ext=()):
     cap = batch.capacity
     if cap == 0:
         return outs
-    tile = int(lib.ob_k24_tile_rows())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = max(1, min(-(-cap // tile), sms * 16))
+    sms = _sm_count(dev)
     qptr = qrow.data_ptr() if qrow is not None else 0
     pad = b"\0" * (16 * _K24_MAX_INS)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         stream = _stream(dev)
         for ch in program.chunks:
             ins = [resolve(d) for d in ch.inputs]
@@ -3401,10 +3589,11 @@ def fused_expr(program, batch, qrow=None, ext=()):
             optrs = [t.data_ptr() for t in dst]
             hdr = _K24_HDR.pack(
                 cap, qptr, *(ptrs + [0] * (32 - len(ptrs))),
-                *(optrs + [0] * (32 - len(optrs))), len(ch.code),
-                max(ch.nregs, 1))
+                *(optrs + [0] * (32 - len(optrs))),
+                len(ch.ucode) + len(ch.code), len(ch.ucode), ch.n32, ch.n64,
+                ch.rows, 0)
             blob = hdr + ch.blob + pad[len(ch.blob):]
-            rc = lib.ob_k24_run(blob, nblocks, stream)
+            rc = lib.ob_k24_run(blob, sms, stream)
             _check(rc, "K24_fused_expr")
             count_launch(LAUNCHES, "K24_fused_expr")
     return outs
@@ -3424,6 +3613,8 @@ def _device_table(values, dev: torch.device) -> torch.Tensor:
     """An int64 table (column addresses, type codes, sizes) on the card,
     copied from pinned memory without a host sync."""
     host = torch.tensor(list(values), dtype=torch.int64)
+    if dev.type == "cpu":
+        return host
     return host.pin_memory().to(dev, non_blocking=True)
 
 

@@ -78,22 +78,26 @@ def scalar_aggregate(mask: torch.Tensor, agg_ops: list[str],
     return out
 
 
-def groupby_direct(packed_keys: torch.Tensor, domain: int,
-                   mask: torch.Tensor, agg_ops: list[str], agg_values: list,
+def groupby_direct(keys: torch.Tensor, domains, mask: torch.Tensor,
+                   agg_ops: list[str], agg_values: list,
                    agg_masks: list | None = None):
-    """Direct-addressed group-by for bit-packed bounded keys (K2).
+    """Direct-addressed group-by for bounded keys (K2).
 
-    packed_keys in [0, domain). Returns (slot_used [domain], aggs [domain]
-    each); a slot is used when any row under `mask` carries its key. Each
-    aggregate reduces over `mask`, or over its own entry of `agg_masks`
-    (the executor's direct path, `_direct_slot_agg`: NULL arguments drop
-    out of their aggregate only). One K2 launch serves every aggregate."""
+    keys: each row's dense mixed-radix slot over the key domains
+    `domains` (`ops.hashing.dense_keys`; an int is one key, keys in
+    [0, domains)). Returns (slot_used, aggs) over pack_keys's packed slots
+    of those domains (`kernels.k2_layout`), as the JAX package's
+    groupby_direct returns them for the packed key; a slot is used when
+    any row under `mask` carries its key. Each aggregate reduces over
+    `mask`, or over its own entry of `agg_masks` (the executor's direct
+    path, `_direct_slot_agg`: NULL arguments drop out of their aggregate
+    only). One K2 launch serves every aggregate."""
     masks = agg_masks if agg_masks is not None else [mask] * len(agg_ops)
     specs = [("count", None, mask)] + [
         (op, None if op == "count" else v, m)
         for op, v, m in zip(agg_ops, agg_values, masks)
     ]
-    res = groupby_slots(packed_keys, domain, specs)
+    res = groupby_slots(keys, domains, specs)
     return res[0] > 0, res[1:]
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of `oceanbase_tpu/ops/hashing.py`: when every group key has a
 small static domain (dictionary codes, bools), the keys bit-pack into one
-int key that is its own perfect-hash slot (`pack_keys`). Multi-column join
+int key that is its own perfect-hash slot (`pack_keys`); the direct
+group-by (K2) takes the dense mixed-radix slot instead (`dense_keys`) and
+lays its results out in `pack_keys`'s slots. Multi-column join
 keys hash-combine through the splitmix64 finalizer (`mix64`,
 `hash_combine`, kernel K12). torch has no uint64 shift or add, so the
 hash runs on int64 bits: multiplies and adds wrap modulo 2^64 alike, and
@@ -39,6 +41,22 @@ def pack_keys(columns: list[torch.Tensor], domains: list[int]
         packed = packed | (c.to(dtype) << shift)
         shift += b
     return packed, 1 << total
+
+
+def dense_keys(columns: list[torch.Tensor], domains: list[int]
+               ) -> torch.Tensor:
+    """The dense mixed-radix slot of bounded-domain key columns: key i
+    times the product of the domains before it (key 0 least significant),
+    in [0, product of the domains); int32 (the direct group-by admits a
+    product of at most 64)."""
+    slots = torch.zeros(columns[0].shape, dtype=torch.int32,
+                        device=columns[0].device)
+    radix = 1
+    for c, d in zip(columns, domains):
+        if d > 1:
+            slots = slots + c.to(torch.int32) * radix
+        radix *= int(d)
+    return slots
 
 
 def next_pow2(n: int) -> int:
