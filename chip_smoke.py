@@ -40,7 +40,15 @@ cases, each on the route `kernels.k15_route` gives it; K13's entries
 are timed one by one at W1-W3's shapes and held on `k13_synthetic`'s
 edge cases (ragged tiles, segments across many tiles, flags on every
 row and none, NaN), float sums bit-identical over two runs; K17 and its
-yardstick are also timed in turns over K17_ROUNDS rounds. One more run
+yardstick are also timed in turns over K17_ROUNDS rounds. K10 and K2 are
+held to their plain versions on their edge shapes at card sizes
+(`k10_edge_phase`: a run across many output tiles, tile edges, sorted
+and random probes, wide windows, the total against the capacity, dead
+sides, int64 extremes, unaligned views, Q21's kind; `k2_edge_phase`:
+repeated aggregates, per-aggregate masks, every value type, NaN, a split
+into several launches, odd views), with each call's launches counted by the
+library where it makes them (K10: 2 an expansion, 1 a range search; K2:
+its split plan). One more run
 of Q18, Q20,
 Q21, Q10, Q15, Q4, Q12, Q13 and S1 records each K3 call's rows, kept
 keys and composites (bits, image width, row bits, passes). Every
@@ -2974,6 +2982,278 @@ def k2_domain_phase(small, Session, uk, kernels) -> dict:
                          "domains": doms, "dense": dense, "packed": slots})
     finally:
         ex.groupby_direct = orig
+    return recs
+
+
+def call_launches(kernels, name: str, fn) -> int:
+    """The kernels one fn() call launched for K2 or K10, by the library's
+    own count at each launch (`kernels.kernel_launches`)."""
+    import torch
+
+    torch.cuda.synchronize()
+    k0 = kernels.kernel_launches(name)
+    fn()
+    torch.cuda.synchronize()
+    return kernels.kernel_launches(name) - k0
+
+
+def _same_bits(torch, got, want, what: str) -> None:
+    """Each tensor of `got` equals its twin in `want`: dtype, shape and
+    values, NaN equal to NaN."""
+    require(len(got) == len(want), f"{what}: {len(got)} outputs, want "
+            f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"{what}: output {i} is {g.dtype} {tuple(g.shape)}, the "
+                f"plain version's {w.dtype} {tuple(w.shape)}")
+        ok = torch.equal(g, w) if not g.dtype.is_floating_point else bool(
+            ((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+        require(ok, f"{what}: output {i} differs from the plain version")
+
+
+def k10_edge_phase(kernels, dev=None) -> list:
+    """K10's edge shapes at card sizes: every output of expand_join equal
+    to expand_join_plain bit for bit (and two runs alike), join_ranges to
+    join_ranges_plain, with the kernels each call launched (2 for an
+    expansion with slots, 1 without, 1 for the range search alone). Shapes: one probe row whose run spans many output
+    tiles; runs across tile edges (probe rows not a multiple of the tile);
+    a sorted probe against the same keys in random order; a window of live
+    keys wider than the shared tile (fan-out 20); the pairs' total above,
+    equal to and below the capacity, and capacity 0; all dead on either
+    side; int64 extremes (live build keys of int64 max beside the dead
+    tail's); probe keys and sel at unaligned addresses; one probe row; and
+    Q21's kind (1.5% of a sorted probe live, the capacity twice the rows:
+    the slots past the total dominate). The launches are the library's own
+    count (`call_launches`). Returns one record a case."""
+    import torch
+
+    dev = dev or torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1919)
+    i64max = torch.iinfo(torch.int64).max
+
+    def build(keys, live):
+        """sort_build_side's layout: live keys ascending, the dead after
+        them as int64 max; order the row of each sorted position."""
+        k = torch.where(live, keys, i64max)
+        sk, order = torch.sort(k, stable=True)
+        nl = live.sum().reshape(())
+        return sk.contiguous(), order.to(torch.int32), nl
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), device=dev, generator=g,
+                             dtype=torch.int64)
+
+    def frac(n, p):
+        return torch.rand(n, device=dev, generator=g) < p
+
+    cases = []
+    # one probe row's run spans many fill tiles
+    bk = torch.cat([torch.full((300_000,), 7, device=dev,
+                               dtype=torch.int64), ints(700_000, 8, 10**6)])
+    sk, od, nl = build(bk, frac(1_000_000, 0.9))
+    pk = ints(10_000, 8, 10**6)
+    pk[4321] = 7
+    cases.append(("long_run", sk, od, nl, pk, frac(10_000, 0.7)
+                  | (torch.arange(10_000, device=dev) == 4321)))
+    # sorted probe across tile edges, then the same keys in random order
+    bk = ints(3_000_000, 0, 1_000_000)
+    sk, od, nl = build(bk, frac(3_000_000, 0.8))
+    pk = ints(1_000_003, 0, 1_000_000).sort().values
+    ps = frac(1_000_003, 0.6)
+    cases.append(("tile_edges", sk, od, nl, pk, ps))
+    perm = torch.randperm(1_000_003, device=dev, generator=g)
+    cases.append(("random_order", sk, od, nl, pk[perm].contiguous(),
+                  ps[perm].contiguous()))
+    # fan-out 20: a tile's window of live keys is wider than shared memory
+    bk = ints(4_000_000, 0, 200_000)
+    sk, od, nl = build(bk, torch.ones(4_000_000, device=dev,
+                                      dtype=torch.bool))
+    cases.append(("wide_window", sk, od, nl,
+                  ints(600_000, 0, 200_000).sort().values,
+                  frac(600_000, 0.9)))
+    # all dead on either side
+    bk = ints(500_000, 0, 1000)
+    sk, od, nl = build(bk, torch.zeros(500_000, device=dev, dtype=torch.bool))
+    cases.append(("dead_build", sk, od, nl, ints(70_001, 0, 1000),
+                  frac(70_001, 0.9)))
+    sk, od, nl = build(bk, frac(500_000, 0.5))
+    cases.append(("dead_probe", sk, od, nl, ints(70_001, 0, 1000),
+                  torch.zeros(70_001, device=dev, dtype=torch.bool)))
+    # int64 extremes: live build keys of int64 max and min beside the tail
+    bk = ints(200_000, -50, 50)
+    bk[:1000] = i64max
+    bk[1000:2000] = torch.iinfo(torch.int64).min
+    sk, od, nl = build(bk, frac(200_000, 0.7))
+    pk = ints(100_000, -60, 60)
+    pk[::5] = i64max
+    pk[1::7] = torch.iinfo(torch.int64).min
+    cases.append(("int64_extremes", sk, od, nl, pk, frac(100_000, 0.8)))
+    # unaligned probe keys and sel (views one element in)
+    bk = ints(800_000, 0, 100_000)
+    sk, od, nl = build(bk, frac(800_000, 0.9))
+    pk = ints(300_001, 0, 100_000)
+    ps = frac(300_001, 0.5)
+    cases.append(("unaligned", sk, od, nl, pk[1:], ps[1:]))
+    cases.append(("one_row", sk, od, nl, pk[:1].clone(),
+                  torch.ones(1, device=dev, dtype=torch.bool)))
+    # Q21's kind: a sorted probe, 1.5% live, the capacity twice the rows
+    bk = ints(1 << 23, 0, 1 << 21).sort().values
+    sk, od, nl = build(bk, torch.arange(1 << 23, device=dev) < (1 << 23) - 77)
+    cases.append(("q21_kind", sk, od, nl, bk.clone(), frac(1 << 23, 0.015)))
+
+    recs = []
+    for name, sk, od, nl, pk, ps in cases:
+        want_cnt = kernels.join_ranges_plain(sk, nl, pk, ps)
+        total = int(want_cnt.sum())
+        npr = int(pk.numel())
+        caps = ([total, max(total - 1, 0), total + 4097, 0]
+                if name in ("long_run", "tile_edges")
+                else [2 * npr + 1024] if name == "q21_kind" else [total + 333])
+        for cap in caps:
+            def call(cap=cap):
+                return list(kernels.expand_join(sk, od, nl, pk, ps, cap))
+
+            got = call()
+            _same_bits(torch, got, list(kernels.expand_join_plain(
+                sk, od, nl, pk, ps, cap)), f"K10 {name} cap {cap}")
+            _same_bits(torch, call(), got, f"K10 {name} cap {cap} run 2")
+            n_k = call_launches(kernels, "K10", call)
+            require(n_k == (2 if cap > 0 else 1), f"K10 {name} cap {cap}: "
+                    f"{n_k} launches a call")
+            recs.append({"case": name, "probe_rows": npr,
+                         "build_rows": int(sk.numel()), "nlive": int(nl),
+                         "live": int(ps.sum()), "total": total, "cap": cap,
+                         "launches": n_k})
+        got = kernels.join_ranges(sk, nl, pk, ps)
+        _same_bits(torch, [got], [want_cnt], f"K10 ranges {name}")
+        n_r = call_launches(kernels, "K10",
+                            lambda: kernels.join_ranges(sk, nl, pk, ps))
+        require(n_r == 1, f"K10 ranges {name}: {n_r} launches a call")
+        recs[-1]["ranges_launches"] = n_r
+        print(f"k10_edge {name}: {npr} probe rows, {int(ps.sum())} live, "
+              f"{total} pairs, caps {caps}: the six outputs and the counts "
+              f"bit-identical to the plain versions, 2 launches an "
+              f"expansion, 1 a range search", flush=True)
+    return recs
+
+
+def k2_edge_phase(kernels, dev=None, n: int = 4_000_037) -> list:
+    """K2's edge shapes at card sizes against groupby_slots_plain, two
+    runs alike in their bits: integer results exact, float64 sums to rel
+    1e-12, float32 sums to rel 1e-4 (the plain version adds in float32,
+    the kernel in double), min and max exact with NaN; each call's
+    launches, by the library's own count (`call_launches`), equal to its
+    split plan (`k2_split`), LAUNCHES counting each. Shapes: Q1's repeated aggregates (10 over 6
+    distinct, one mask); per-aggregate masks beside a shared one; int8,
+    int16, int32, int64, uint8 and bool values; float32 and float64 with
+    NaN under min and max; more aggregates than a launch takes (40 over 64
+    dense slots); keys, masks and values at odd offsets with a length not
+    a multiple of 16; 70 repeats of one count; one row; `n` rows (the
+    views n // 4 + 3). Returns one record a case."""
+    import torch
+
+    dev = dev or torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(219)
+
+    def ints(n, lo, hi, dt=torch.int64):
+        return torch.randint(lo, hi, (n,), device=dev, generator=g,
+                             dtype=dt)
+
+    def frac(n, p):
+        return torch.rand(n, device=dev, generator=g) < p
+
+    cases = []
+    k = ints(n, 0, 6, torch.int32)
+    m = frac(n, 0.97)
+    q, p = ints(n, 1, 51, torch.int32), ints(n, 90_000, 10_500_000)
+    cases.append(("repeats", k, [3, 2], [
+        ("count", None, m), ("sum", q, m), ("sum", p, m), ("count", None, m),
+        ("sum", q, m), ("min", p, m), ("count", None, m), ("max", q, m),
+        ("count", None, m), ("sum", p, m)]))
+    m2, m3 = frac(n, 0.5), frac(n, 0.1)
+    cases.append(("masks", k, [3, 2], [
+        ("count", None, m), ("sum", q, m2), ("count", None, m3),
+        ("max", p, m2), ("sum", p, m), ("min", q, m3)]))
+    vals = [ints(n, -128, 128, torch.int8), ints(n, -30000, 30000,
+                                                  torch.int16),
+            ints(n, -2**31, 2**31 - 1, torch.int32), ints(n, -2**62, 2**62),
+            ints(n, 0, 256, torch.uint8), frac(n, 0.5)]
+    cases.append(("int_types", k, [3, 2], [
+        (op, v, m2) for v in vals
+        for op in (("sum",) if v.dtype == torch.bool else ("sum", "min",
+                                                           "max"))]))
+    f64 = torch.randn(n, device=dev, generator=g, dtype=torch.float64) * 1e3
+    f64[::1001] = float("nan")
+    f32 = (torch.randn(n, device=dev, generator=g) * 1e3).to(torch.float32)
+    f32[5::2003] = float("nan")
+    fm = frac(n, 0.8)
+    fm[::1001] = False  # NaN reaches min and max through the other mask
+    cases.append(("floats", k, [3, 2], [
+        ("sum", f64, fm), ("min", f64, m), ("max", f64, m), ("sum", f32, fm),
+        ("min", f32, m), ("max", f32, m), ("sum", f64, m)]))
+    k64 = ints(n, 0, 64)
+    cases.append(("split", k64, [4, 4, 4], [
+        (("sum", "min", "max", "count")[i % 4],
+         ints(n, -10**6, 10**6) if i % 4 != 3 else None, frac(n, 0.9))
+        for i in range(40)]))
+    big = n // 4 + 3
+    kb, mb = ints(big + 3, 0, 15, torch.int32), frac(big + 3, 0.7)
+    vb, wb = ints(big + 1, -10**9, 10**9), ints(big + 3, -1000, 1000,
+                                                 torch.int32)
+    cases.append(("views", kb[3:], [3, 5], [
+        ("count", None, mb[1:big + 1]), ("sum", vb[1:], mb[1:big + 1]),
+        ("min", wb[3:], mb[2:big + 2]), ("max", vb[1:], mb[3:])]))
+    cases.append(("many_outs", k, [3, 2], [("count", None, m)] * 70
+                  + [("sum", q, m)]))
+    cases.append(("one_row", k[:1].clone(), [3, 2], [
+        ("count", None, m[:1].clone()), ("sum", p[:1].clone(),
+                                         m[:1].clone())]))
+
+    recs = []
+    for name, keys, doms, aggs in cases:
+        def call():
+            return kernels.groupby_slots(keys, doms, aggs)
+
+        l0 = kernels.LAUNCHES["K2_groupby_direct"]
+        got = call()
+        torch.cuda.synchronize()
+        plan = kernels.k2_plan(keys, doms, aggs,
+                               kernels._sm_count(keys.device))
+        require(kernels.LAUNCHES["K2_groupby_direct"] - l0
+                == len(plan.launches), f"K2 {name}: LAUNCHES counted "
+                f"{kernels.LAUNCHES['K2_groupby_direct'] - l0}, the plan "
+                f"has {len(plan.launches)} launches")
+        want = kernels.groupby_slots_plain(keys, doms, aggs)
+        _same_bits(torch, call(), got, f"K2 {name} run 2")
+        worst = 0.0
+        for i, ((op, v, _m), a, b) in enumerate(zip(aggs, got, want)):
+            require(a.dtype == b.dtype and a.shape == b.shape,
+                    f"K2 {name} aggregate {i}: {a.dtype} {tuple(a.shape)} "
+                    f"against {b.dtype} {tuple(b.shape)}")
+            if op == "sum" and a.dtype.is_floating_point:
+                tol = 1e-12 if a.dtype == torch.float64 else 1e-4
+                fa, fb = a.to(torch.float64), b.to(torch.float64)
+                both = torch.isnan(fa) & torch.isnan(fb)
+                rel = torch.where(both, 0.0, (fa - fb).abs()
+                                  / fb.abs().clamp(min=1e-300))
+                rel = float(rel.max())
+                require(rel <= tol, f"K2 {name} aggregate {i}: rel error "
+                        f"{rel} above {tol}")
+                worst = max(worst, rel)
+            else:
+                _same_bits(torch, [a], [b], f"K2 {name} aggregate {i}")
+        n_k = call_launches(kernels, "K2", call)
+        require(n_k == len(plan.launches), f"K2 {name}: {n_k} kernels a "
+                f"call, the plan has {len(plan.launches)}")
+        uniq, _ix = kernels.k2_unique(aggs)
+        recs.append({"case": name, "rows": int(keys.numel()),
+                     "domains": doms, "aggregates": len(aggs),
+                     "distinct": len(uniq), "launches": n_k,
+                     "max_rel_err_float_sum": worst})
+        print(f"k2_edge {name}: {int(keys.numel())} rows, {len(aggs)} "
+              f"aggregates ({len(uniq)} distinct) in {n_k} launches, equal "
+              f"to the plain version (float sums rel {worst:.3e}), two runs "
+              f"bit-identical", flush=True)
     return recs
 
 
@@ -8453,6 +8733,11 @@ def main() -> int:
     small = datagen.generate(sf=CMP_SF, seed=args.seed)
     small_ds = tpcds.datagen.generate(sf=CMP_SF, seed=DS_SEED)
     k2_recs = k2_domain_phase(small, Session, sql_suite.UNIQUE_KEYS, kernels)
+    t0 = time.perf_counter()
+    k10_edge = k10_edge_phase(kernels)
+    k2_edge = k2_edge_phase(kernels)
+    print(f"K10 and K2 edge phases in {time.perf_counter() - t0:.3f} s",
+          flush=True)
     # every statement: all 22 queries, S1 twice, T1, the analytic ones and
     # the TPC-DS star queries
     crecs = card_vs_cpu(small, Session, sql_suite.UNIQUE_KEYS,
@@ -8757,6 +9042,7 @@ def main() -> int:
                    "k17_synthetic": k17_cases,
                    "k24_paths": k24_path,
                    "k2_domain": k2_recs,
+                   "k10_edge": k10_edge, "k2_edge": k2_edge,
                    "k12_float_cases": k12_cases,
                    "k3_call_shapes": k3_shapes,
                    "k4_call_shapes": k4_shapes, "k4_device_ms": k4_ms,

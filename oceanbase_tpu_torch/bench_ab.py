@@ -1,6 +1,7 @@
-"""The shared part of the kernel A/B harnesses (`bench_k3.py`,
-`bench_k4.py`, `bench_k7.py`, `bench_k8.py`, `bench_k13.py`,
-`bench_k15.py`, `bench_k17.py`, `bench_k24.py`, `bench_k26.py`): each times one kernel at
+"""The shared part of the kernel A/B harnesses (`bench_k2.py`,
+`bench_k3.py`, `bench_k4.py`, `bench_k7.py`, `bench_k8.py`,
+`bench_k10.py`, `bench_k13.py`, `bench_k15.py`, `bench_k17.py`,
+`bench_k24.py`, `bench_k26.py`): each times one kernel at
 the shapes chip_smoke times it at, so two versions of the kernel can be
 compared on one card in one call.
 

@@ -4,21 +4,26 @@ compared end to end in one call.
     python3 oceanbase_tpu_torch/bench_stmts.py [--root DIR] [--reps N]
 
 The tables are the port's TPC-H generator's at SF 10 and chip_smoke's
-seed. Statements: S1, Q2, Q11, Q15, Q18 and Q21 on the Session, and Q18,
-the range sort of every lineitem row (PX4_SORT) and a DISTINCT over
-l_suppkey (PX4_DISTINCT) on a PxExecutor over four shards of the one card
-(one thread a shard), with chip_smoke.py's texts.
+seed. Statements: S1, Q2, Q11, Q15, Q18 and Q21 on the Session; the
+statements that run K2 or K10 (Q1, Q4, Q5, Q9, Q12, X1, D1, D2, R1, R2,
+F1, F2, texts from the checkout's chip_smoke.py); and Q18, the range
+sort of every lineitem row (PX4_SORT) and a DISTINCT over l_suppkey
+(PX4_DISTINCT) on a PxExecutor over four shards of the one card (one
+thread a shard), with chip_smoke.py's texts.
 
 `--root` and the parent / change order are as `bench_ab.py` says. Prints
 one JSON line a statement: the root, the card, the statement, its rows,
 the cold run's wall ms, the wall ms of `reps` warm runs (each to its row
 count, then the card synchronized) and their median, the peak memory the
 warm runs allocated, and from torch.profiler over one more run the device
-ms by kernel (`kernels_ms`), their sum (`device_ms`) and the sum over
-K4's kernels (`k4_ms`: every kernel whose name holds "k4_"); both null
-where the profiler saw no device event (it may lose them once the PX
-shards' threads have run).
+ms by kernel (`kernels_ms`), their sum (`device_ms`) and the sums over
+K2's, K4's and K10's kernels (`k2_ms`, `k4_ms`, `k10_ms`: every kernel
+whose name starts "k2_", "k4_", "k10_"); all null where the profiler saw
+no device event (it may lose them once the PX shards' threads have run).
 """
+
+import importlib.util
+import os
 
 import statistics
 import sys
@@ -45,12 +50,27 @@ order by l_shipdate, l_orderkey, l_linenumber"""
 Q11_FRACTION = "0.00001"
 
 
+def smoke_texts():
+    """chip_smoke.py's module beside this checkout's package (its texts)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_texts", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def statements(queries):
     q11 = queries[11].replace("* 0.0001", f"* {Q11_FRACTION}")
+    cs = smoke_texts()
     return [("S1", S1, False), ("Q2", queries[2], False), ("Q11", q11, False),
             ("Q15", queries[15], False), ("Q18", queries[18], False),
-            ("Q21", queries[21], False), ("PX4_Q18", queries[18], True),
-            ("PX4_SORT", PX_SORT, True), ("PX4_DISTINCT", PX_DISTINCT, True)]
+            ("Q21", queries[21], False)] + [
+        (f"Q{q}", queries[q], False) for q in (1, 4, 5, 9, 12)] + [
+        (name, getattr(cs, name), False)
+        for name in ("X1", "D1", "D2", "R1", "R2", "F1", "F2")] + [
+        ("PX4_Q18", queries[18], True), ("PX4_SORT", PX_SORT, True),
+        ("PX4_DISTINCT", PX_DISTINCT, True)]
 
 
 def main() -> int:
@@ -98,8 +118,10 @@ def main() -> int:
             warm_ms=warm, warm_median_ms=statistics.median(warm),
             peak_memory_bytes=peak,
             device_ms=sum(per.values()) if per else None,
-            k4_ms=sum(v for k, v in per.items() if "k4_" in k)
-            if per else None, kernels_ms=per)
+            **{f"{k}_ms": sum(v for n, v in per.items()
+                              if n.replace("void ", "").startswith(k + "_"))
+               if per else None for k in ("k2", "k4", "k10")},
+            kernels_ms=per)
         del run
         torch.cuda.empty_cache()
     return 0

@@ -283,8 +283,9 @@ def _load():
                       ctypes.c_double)
         lib.ob_k1_reduce_int.argtypes = [P, I, P, L, I, L, P, I, P]
         lib.ob_k1_reduce_float.argtypes = [P, I, P, L, I, D, P, P, I, P]
-        lib.ob_k2_groupby.argtypes = [P, I, L, I, I, P, P, P, P, P, P, P, P,
-                                      I, I, L, L, I, P, P, P, P, P]
+        lib.ob_k2_groupby.argtypes = [ctypes.c_char_p, I, P, P, P]
+        lib.ob_k2_args_bytes.argtypes = []
+        lib.ob_k2_cells.argtypes = []
         lib.ob_k3_spans.argtypes = [I, P, P, P, L, P, I, P]
         lib.ob_k3_sort.argtypes = [I, P, P, P, P, P, P, P, P, P, L, P, L, P,
                                    P, P, P, P, P, I, P]
@@ -309,10 +310,14 @@ def _load():
         lib.ob_k5_probe.argtypes = [P, I, P, L, L, L, L, P, I, P, P, I, P]
         lib.ob_k9_merge_join.argtypes = [P, I, P, L, P, I, P, L, P, L, P, I,
                                          P]
-        lib.ob_k10_ranges.argtypes = [P, P, P, P, L, P, I, P]
-        lib.ob_k10_expand.argtypes = [P, P, L, P, P, P, L, L, P, P, P, L, P,
-                                      P, P, P, P, P, I, P]
-        lib.ob_k10_tile_rows.argtypes = []
+        lib.ob_k10_ranges.argtypes = [P, L, P, P, P, L, P, I, P]
+        lib.ob_k10_expand.argtypes = [P, P, L, P, P, P, L, L, P, P, P, P, L,
+                                      P, P, P, P, P, P, I, I, P]
+        lib.ob_k10_scratch_bytes.argtypes = [L]
+        lib.ob_k10_scratch_bytes.restype = ctypes.c_longlong
+        for fn in (lib.ob_k2_kernel_launches, lib.ob_k10_kernel_launches):
+            fn.argtypes = []
+            fn.restype = ctypes.c_longlong
         lib.ob_k11_run_any.argtypes = [P, L, P, P, L, P, I, P]
         lib.ob_k12_hash.argtypes = [I, P, L, P, I, P]
         lib.ob_k11_mark_build.argtypes = [P, P, L, L, P, I, P]
@@ -370,13 +375,14 @@ def _load():
         lib.ob_k31_merge_one.argtypes = [P, P, I, I, P, P, P]
         lib.ob_k31_merge_one_max.argtypes = []
         for fn in (lib.ob_k1_reduce_int, lib.ob_k1_reduce_float,
-                   lib.ob_k2_groupby, lib.ob_k3_spans, lib.ob_k3_sort,
+                   lib.ob_k2_groupby, lib.ob_k2_args_bytes, lib.ob_k2_cells,
+                   lib.ob_k3_spans, lib.ob_k3_sort,
                    lib.ob_k3_tile_rows, lib.ob_k4_gather, lib.ob_k5_affine,
                    lib.ob_k6_segments, lib.ob_k7_topk, lib.ob_k7_fast_c,
                    lib.ob_k7_word, lib.ob_k8_segreduce,
                    lib.ob_k8_tile_rows, lib.ob_k8_inline, lib.ob_k5_probe,
                    lib.ob_k9_merge_join,
-                   lib.ob_k10_ranges, lib.ob_k10_expand, lib.ob_k10_tile_rows,
+                   lib.ob_k10_ranges, lib.ob_k10_expand,
                    lib.ob_k11_run_any, lib.ob_k12_hash,
                    lib.ob_k11_mark_build, lib.ob_k13_tile_rows,
                    lib.ob_k13_scan, lib.ob_k13_flags, lib.ob_k13_search,
@@ -547,10 +553,13 @@ def scalar_reduce(op: str, mask: torch.Tensor, values=None):
 # K2: direct-addressed group-by
 # ---------------------------------------------------------------------------
 
-K2_MAX_AGGS = 32
-K2_THREADS = 128
-K2_SMEM_BYTES = 96 * 1024      # shared-memory budget of one K2 block
-K2_SM_SMEM_BYTES = 224 * 1024  # usable shared memory of one H100 SM
+K2_MAX_AGGS = 32   # distinct aggregates a launch (csrc/k2_groupby_direct.cu)
+K2_MAX_MASKS = 8   # distinct masks a launch
+K2_MAX_OUTS = 64   # output rows a launch
+K2_CELLS = 704     # distinct aggregates x dense slots a launch
+K2_BLOCK_ROWS = 8192  # rows a block takes at a time (16 a lane, 2 chunks)
+K2_BLOCKS_PER_SM = 2
+K2_PLANS_MAX = 64
 
 
 def k2_layout(domains) -> tuple:
@@ -611,21 +620,122 @@ def groupby_slots_plain(keys: torch.Tensor, domains, aggs):
     return out
 
 
-def groupby_slots(keys: torch.Tensor, domains, aggs):
-    """K2: for each (op, values|None, mask) in `aggs`, the aggregate over
-    the rows of each slot. keys: each row's dense mixed-radix slot over
-    key domains `domains` (key 0 least significant: key i times the
-    product of the domains before it; an int is one key); the results
-    come out in pack_keys's packed slots (`k2_layout`), a packed slot no
-    key combination maps to holding the aggregate's identity."""
-    if not aggs:
-        return []
-    if not _on_cuda(keys, *(v for _, v, _ in aggs), *(m for _, _, m in aggs)):
-        return groupby_slots_plain(keys, domains, aggs)
-    dense, slots, kfields, zmask = k2_layout(domains)
+# csrc/k2_groupby_direct.cu's K2Params: keys, masks[8], n, slots, zmask,
+# aligned, key_dt, D, nagg, nmask, nout, nk, shift/bits/dom/radix [6];
+# then K2_MAX_AGGS K2Agg (vals, ident, dt, op, isf, mask) and K2_MAX_OUTS
+# K2Out (agg, row, dt, pad)
+_K2_HDR = struct.Struct("<Q8QqqqQ6i24i")
+_K2_AGG = struct.Struct("<Qq4i")
+_K2_OUT = struct.Struct("<4i")
+
+
+class K2Launch(NamedTuple):
+    """One K2 launch: its K2Params image and its grid."""
+    blob: bytes
+    nblocks: int
+
+
+class K2Plan(NamedTuple):
+    """A call's launches, its packed slots, and per aggregate of the call
+    the output row's dtype (the kernel writes each aggregate's row, a
+    repeated aggregate's too) and the dtype a float32 result narrows to
+    (None: the row is the result)."""
+    launches: tuple
+    slots: int
+    views: tuple
+
+
+_K2_PLANS: OrderedDict = OrderedDict()
+_K2_LOCK = threading.Lock()
+_K2_SCRATCH: dict = {}
+
+
+def _k2_id(t) -> tuple | None:
+    """A tensor as a plan's key sees it: address, dtype, shape, strides."""
+    if t is None:
+        return None
+    return (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+
+
+def k2_unique(aggs) -> tuple[list, list]:
+    """The distinct aggregates of a call, in first-occurrence order (the
+    same op over the same values and mask tensors, by `_k2_id`; a count's
+    values do not matter), each reduced once; and each aggregate's index
+    among them. A distinct aggregate serves at most K2_MAX_OUTS output
+    rows; a further repeat starts a new one."""
+    uniq, index, seen, uses = [], [], {}, []
+    for op, v, m in aggs:
+        key = (op, None if op == "count" else _k2_id(v), _k2_id(m))
+        u = seen.get(key)
+        if u is None or uses[u] == K2_MAX_OUTS:
+            u = seen[key] = len(uniq)
+            uniq.append((op, v, m))
+            uses.append(0)
+        uses[u] += 1
+        index.append(u)
+    return uniq, index
+
+
+def k2_split(uniq, index, dense: int) -> list[list[int]]:
+    """The launches of a call: consecutive runs of the distinct aggregates,
+    each at most K2_MAX_AGGS of them, K2_MAX_MASKS distinct masks, K2_CELLS
+    cells (aggregates x the dense domain) and K2_MAX_OUTS output rows."""
+    per = max(1, min(K2_MAX_AGGS, K2_CELLS // dense))
+    outs = [0] * len(uniq)
+    for u in index:
+        outs[u] += 1
+    groups, cur, masks, nout = [], [], set(), 0
+    for u, (_op, _v, m) in enumerate(uniq):
+        mk = _k2_id(m)
+        if cur and (len(cur) == per or nout + outs[u] > K2_MAX_OUTS
+                    or (mk not in masks and len(masks) == K2_MAX_MASKS)):
+            groups.append(cur)
+            cur, masks, nout = [], set(), 0
+        cur.append(u)
+        masks.add(mk)
+        nout += outs[u]
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _k2_out_dtype(op: str, v) -> torch.dtype:
+    """The dtype the kernel writes an aggregate's row in: int64 for counts
+    and integer sums, float64 for float ones (a float32 result narrows in
+    the wrapper), the values' own type for integer min and max."""
+    if op == "count":
+        return torch.int64
+    if v.dtype.is_floating_point:
+        return torch.float64
+    return torch.int64 if op == "sum" else v.dtype
+
+
+def _aligned16(t) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def k2_plan(keys, domains, aggs, sms: int) -> K2Plan:
+    """K2's launches for a call, cached by everything they are made of
+    (each tensor's `_k2_id`, the ops, the domains, the card's SM count): a
+    call over the same tensors reuses the images, and a changed address is
+    another entry, built and checked anew (device, contiguity, dtypes)."""
+    doms = (int(domains),) if isinstance(domains, int) else tuple(
+        int(d) for d in domains)
+    ck = (_k2_id(keys), doms, sms, tuple(
+        (op, None if op == "count" else _k2_id(v), _k2_id(m))
+        for op, v, m in aggs))
+    with _K2_LOCK:
+        hit = _K2_PLANS.get(ck)
+        if hit is not None:
+            _K2_PLANS.move_to_end(ck)
+            return hit
+    dense, slots, kfields, zmask = k2_layout(doms)
     # the executor admits the direct path at a dense domain <= 64
     if dense > 64:
         raise ValueError(f"K2 dense domain {dense} outside 1..64")
+    if len(kfields) > 6:
+        raise ValueError(f"K2 takes at most 6 keys of domain >= 2, got "
+                         f"{len(kfields)}")
     n = int(keys.shape[0])
     _vector(keys, n, "K2 keys")
     if keys.dtype not in (torch.int32, torch.int64):
@@ -638,58 +748,116 @@ def groupby_slots(keys: torch.Tensor, domains, aggs):
             raise TypeError("K2 masks must be bool")
         if op != "count":
             _vector(v, n, "K2 values")
-    lib = _load()
-    dev = keys.device
-    results = []
+    uniq, index = k2_unique(aggs)
     nk = len(kfields)
-    kshift, kbits, kdom, kradix = ((ctypes.c_int * max(nk, 1))(
-        *(f[i] for f in kfields)) for i in range(4))
-    # per-thread cells: a block holds K2_THREADS * aggregates * D 8-byte
-    # cells; split the aggregates to fit the shared-memory budget
-    per_agg = K2_THREADS * dense * 8
-    step = max(1, min(K2_MAX_AGGS, K2_SMEM_BYTES // per_agg))
-    with torch.cuda.device(dev):
-        sms = _sm_count(dev)
+    kf = [[f[i] for f in kfields] + [0] * (6 - nk) for i in range(4)]
+    nblocks = max(1, min(-(-max(n, 1) // K2_BLOCK_ROWS),
+                         sms * K2_BLOCKS_PER_SM))
+    launches = []
+    for group in k2_split(uniq, index, dense):
+        masks, mask_ix = [], {}
+        aligned = int(_aligned16(keys))
+        entries = []
+        for a, u in enumerate(group):
+            op, v, m = uniq[u]
+            mk = _k2_id(m)
+            if mk not in mask_ix:
+                mask_ix[mk] = len(masks)
+                aligned |= int(_aligned16(m)) << (1 + len(masks))
+                masks.append(m)
+            fl = op != "count" and v.dtype.is_floating_point
+            idv = _identity(op, v.dtype if op != "count" else torch.int64)
+            ident = (struct.unpack("<q", struct.pack("<d", idv))[0] if fl
+                     else int(idv))
+            if op != "count":
+                aligned |= int(_aligned16(v)) << (9 + a)
+            entries.append(_K2_AGG.pack(
+                v.data_ptr() if op != "count" else 0, ident,
+                DTYPE_CODE[v.dtype] if op != "count" else 0, AGG_CODE[op],
+                int(fl), mask_ix[mk]))
+        outs = [_K2_OUT.pack(group.index(u), row,
+                             DTYPE_CODE[_k2_out_dtype(*aggs[row][:2])], 0)
+                for row, u in enumerate(index) if u in group]
+        blob = _K2_HDR.pack(
+            keys.data_ptr(), *([m.data_ptr() for m in masks]
+                               + [0] * (K2_MAX_MASKS - len(masks))),
+            n, slots, zmask, aligned, DTYPE_CODE[keys.dtype], dense,
+            len(group), len(masks), len(outs), nk, *kf[0], *kf[1], *kf[2],
+            *kf[3]) + b"".join(entries) + bytes(
+                _K2_AGG.size * (K2_MAX_AGGS - len(group))) + b"".join(
+                outs) + bytes(_K2_OUT.size * (K2_MAX_OUTS - len(outs)))
+        launches.append(K2Launch(blob, nblocks))
+    views = tuple(
+        (_k2_out_dtype(op, v),
+         v.dtype if op != "count" and v.dtype == torch.float32 else None)
+        for op, v, _m in aggs)
+    plan = K2Plan(tuple(launches), slots, views)
+    with _K2_LOCK:
+        _K2_PLANS[ck] = plan
+        while len(_K2_PLANS) > K2_PLANS_MAX:
+            _K2_PLANS.popitem(last=False)
+    return plan
+
+
+def _k2_scratch(dev: torch.device, stream: int, sms: int) -> torch.Tensor:
+    """The ticket and the per-block partials of K2's launches on one
+    stream (the ticket is 0 between launches: the last block puts it
+    back)."""
+    k = (dev.index, stream)
+    t = _K2_SCRATCH.get(k)
+    if t is None:
+        t = _K2_SCRATCH[k] = torch.zeros(
+            4 + sms * K2_BLOCKS_PER_SM * K2_CELLS, dtype=torch.int64,
+            device=dev)
+    return t
+
+
+_k2_checked = False
+
+
+def _k2_check(lib) -> None:
+    global _k2_checked
+    want = _K2_HDR.size + K2_MAX_AGGS * _K2_AGG.size \
+        + K2_MAX_OUTS * _K2_OUT.size
+    if int(lib.ob_k2_args_bytes()) != want or int(lib.ob_k2_cells()) \
+            != K2_CELLS:
+        raise RuntimeError("K2 argument layout differs from the source")
+    _k2_checked = True
+
+
+def groupby_slots(keys: torch.Tensor, domains, aggs):
+    """K2: for each (op, values|None, mask) in `aggs`, the aggregate over
+    the rows of each slot. keys: each row's dense mixed-radix slot over
+    key domains `domains` (key 0 least significant: key i times the
+    product of the domains before it; an int is one key); the results
+    come out in pack_keys's packed slots (`k2_layout`), a packed slot no
+    key combination maps to holding the aggregate's identity. Repeated
+    aggregates are reduced once (`k2_unique`), each result its own
+    tensor; one launch per `k2_split` group, counted each."""
+    if not aggs:
+        return []
+    if not _on_cuda(keys, *(v for _, v, _ in aggs), *(m for _, _, m in aggs)):
+        return groupby_slots_plain(keys, domains, aggs)
+    dev = keys.device
+    sms = _sm_count(dev)
+    plan = k2_plan(keys, domains, aggs, sms)
+    lib = _load()
+    if not _k2_checked:
+        _k2_check(lib)
+    with _on_device(dev):
         stream = _stream(dev)
-        for c0 in range(0, len(aggs), step):
-            chunk = aggs[c0:c0 + step]
-            na = len(chunk)
-            vals = (ctypes.c_void_p * na)()
-            masks = (ctypes.c_void_p * na)()
-            dts = (ctypes.c_int * na)()
-            ops = (ctypes.c_int * na)()
-            ident = (ctypes.c_longlong * na)()
-            isf = (ctypes.c_int * na)()
-            for j, (op, v, m) in enumerate(chunk):
-                fl = v is not None and op != "count" and v.dtype.is_floating_point
-                vals[j] = v.data_ptr() if op != "count" else None
-                masks[j] = m.data_ptr()
-                dts[j] = DTYPE_CODE[v.dtype] if op != "count" else 0
-                ops[j] = AGG_CODE[op]
-                isf[j] = 1 if fl else 0
-                idv = _identity(op, v.dtype if op != "count" else torch.int64)
-                ident[j] = (struct.unpack("<q", struct.pack("<d", idv))[0]
-                            if fl else int(idv))
-            out = torch.empty((na, slots), dtype=torch.int64, device=dev)
-            resident = max(1, K2_SM_SMEM_BYTES // (na * per_agg))
-            nb = max(1, min(-(-max(n, 1) // (K2_THREADS * 8)),
-                            sms * resident))
-            part = torch.empty((nb, na, dense), dtype=torch.int64,
-                               device=dev)
-            rc = lib.ob_k2_groupby(
-                keys.data_ptr(), DTYPE_CODE[keys.dtype], n, dense, na,
-                vals, dts, masks, ops, ident, isf, out.data_ptr(),
-                part.data_ptr(), K2_THREADS, nb, slots, zmask, nk, kshift,
-                kbits, kdom, kradix, stream)
+        out = torch.empty((len(aggs), plan.slots), dtype=torch.int64,
+                          device=dev)
+        scratch = _k2_scratch(dev, stream, sms)
+        for ln in plan.launches:
+            rc = lib.ob_k2_groupby(ln.blob, ln.nblocks, out.data_ptr(),
+                                   scratch.data_ptr(), stream)
             _check(rc, "K2_groupby_direct")
-            for j, (op, v, _m) in enumerate(chunk):
-                row = out[j]
-                if isf[j]:
-                    results.append(row.view(torch.float64).to(v.dtype))
-                else:
-                    results.append(row.to(_acc_dtype(
-                        op, v.dtype if op != "count" else None)))
-    count_launch(LAUNCHES, "K2_groupby_direct")
+            count_launch(LAUNCHES, "K2_groupby_direct")
+    results = []
+    for row, (dt, narrow) in zip(out, plan.views):
+        r = row if dt == torch.int64 else row.view(dt)[:plan.slots]
+        results.append(r if narrow is None else r.to(narrow))
     return results
 
 
@@ -1830,26 +1998,70 @@ def _check_ranges_args(skeys, nlive, probe_keys, probe_sel):
     return nb, npr
 
 
+def kernel_launches(name: str) -> int:
+    """The kernels the library has launched for K2 or K10 ("K2", "K10"),
+    counted where each launch is made (a call's launches are the change
+    across it)."""
+    lib = _load()
+    return int({"K2": lib.ob_k2_kernel_launches,
+                "K10": lib.ob_k10_kernel_launches}[name]())
+
+
+def _k10_vec(probe_keys, probe_sel) -> int:
+    """1 when K10 may read the probe keys 16 bytes and sel 2 bytes a pair
+    of rows (their addresses allow it), else 0."""
+    return int(probe_keys.data_ptr() % 16 == 0
+               and probe_sel.data_ptr() % 2 == 0)
+
+
 def join_ranges(skeys, nlive, probe_keys, probe_sel):
     """K10's range phase alone (the sorted-range semi/anti join): cnt
-    int64 [np], the live build rows each live probe key matches. Counts as
-    a K10 launch."""
+    int64 [np], the live build rows each live probe key matches. One
+    launch; counts as a K10 launch."""
     if not _on_cuda(skeys, nlive, probe_keys, probe_sel):
         return join_ranges_plain(skeys, nlive, probe_keys, probe_sel)
-    _nb, npr = _check_ranges_args(skeys, nlive, probe_keys, probe_sel)
+    nb, npr = _check_ranges_args(skeys, nlive, probe_keys, probe_sel)
+    _k10_sizes(npr, nb)
     dev = probe_keys.device
     cnt = torch.empty(npr, dtype=torch.int64, device=dev)
     nl = nlive.reshape(1).contiguous()
     lib = _load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         rc = lib.ob_k10_ranges(
-            skeys.data_ptr(), nl.data_ptr(), probe_keys.data_ptr(),
+            skeys.data_ptr(), nb, nl.data_ptr(), probe_keys.data_ptr(),
             probe_sel.data_ptr(), npr, cnt.data_ptr(),
-            _blocks(dev, npr, 256 * 4), _stream(dev))
+            _k10_vec(probe_keys, probe_sel), _stream(dev))
         _check(rc, "K10_expand_join ranges")
     count_launch(LAUNCHES, "K10_expand_join")
     count_launch(ENTRY_LAUNCHES, "K10_expand_join.ranges")
     return cnt
+
+
+def _k10_sizes(npr: int, nb: int) -> None:
+    if not 0 < npr < 2**31 or not 0 < nb < 2**31:
+        raise ValueError(f"K10 takes 1 to 2^31 - 1 rows a side, got {npr} "
+                         f"probe rows and {nb} build rows")
+
+
+_K10_SCRATCH: dict = {}
+_K10_LOCK = threading.Lock()
+K10_FILL_BLOCKS_PER_SM = 3  # the fill's blocks stay: a few an SM
+
+
+def _k10_scratch(lib, dev: torch.device, stream: int, npr: int):
+    """(scratch, epoch) of an expansion of npr probe rows on one stream:
+    the ticket (0 between launches: the last taker puts it back) and a
+    status a tile, whose words carry the epoch of the call that wrote
+    them, so the buffer is never cleared; it grows to the largest call."""
+    need = int(lib.ob_k10_scratch_bytes(npr))
+    k = (dev.index, stream)
+    with _K10_LOCK:
+        buf, epoch = _K10_SCRATCH.get(k, (None, 0))
+        if buf is None or buf.numel() * 8 < need:
+            buf = torch.zeros(-(-need // 8), dtype=torch.int64, device=dev)
+        epoch += 1
+        _K10_SCRATCH[k] = (buf, epoch)
+    return buf, epoch
 
 
 def expand_join_plain(skeys, order, nlive, probe_keys, probe_sel, cap: int):
@@ -1883,17 +2095,16 @@ def expand_join(skeys, order, nlive, probe_keys, probe_sel, cap: int):
     _vector(order, nb, "K10 build order")
     if order.dtype != torch.int32:
         raise TypeError("K10 build order must be int32")
-    if npr < 1 or nb < 1 or cap < 0:
-        raise ValueError(f"K10 needs rows on both sides and cap >= 0, got "
-                         f"{npr} probe rows, {nb} build rows, cap {cap}")
+    if cap < 0:
+        raise ValueError(f"K10 needs cap >= 0, got {cap}")
+    _k10_sizes(npr, nb)
     dev = probe_keys.device
     lib = _load()
-    tile = lib.ob_k10_tile_rows()
-    ntiles = -(-npr // tile)
     i64 = dict(dtype=torch.int64, device=dev)
-    lo = torch.empty(npr, **i64)
-    cnt = torch.empty(npr, **i64)
-    tsum = torch.empty(ntiles, **i64)
+    i32 = dict(dtype=torch.int32, device=dev)
+    run_end, run_row, run_lo = (torch.empty(npr, **i64),
+                                torch.empty(npr, **i32),
+                                torch.empty(npr, **i32))
     total = torch.empty(1, **i64)
     starts = torch.empty(npr, **i64)
     offs = torch.empty(npr, **i64)
@@ -1901,14 +2112,17 @@ def expand_join(skeys, order, nlive, probe_keys, probe_sel, cap: int):
     br = torch.empty(cap, dtype=torch.int32, device=dev)
     valid = torch.empty(cap, dtype=torch.bool, device=dev)
     nl = nlive.reshape(1).contiguous()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
+        stream = _stream(dev)
+        scratch, epoch = _k10_scratch(lib, dev, stream, npr)
         rc = lib.ob_k10_expand(
             skeys.data_ptr(), order.data_ptr(), nb, nl.data_ptr(),
             probe_keys.data_ptr(), probe_sel.data_ptr(), npr, cap,
-            lo.data_ptr(), cnt.data_ptr(), tsum.data_ptr(), ntiles,
-            total.data_ptr(), starts.data_ptr(), offs.data_ptr(),
-            pr.data_ptr(), br.data_ptr(), valid.data_ptr(),
-            _blocks(dev, max(npr, cap), 256 * 4), _stream(dev))
+            run_end.data_ptr(), run_row.data_ptr(), run_lo.data_ptr(),
+            scratch.data_ptr(), epoch, total.data_ptr(), starts.data_ptr(),
+            offs.data_ptr(), pr.data_ptr(), br.data_ptr(), valid.data_ptr(),
+            _k10_vec(probe_keys, probe_sel),
+            _sm_count(dev) * K10_FILL_BLOCKS_PER_SM, stream)
         _check(rc, "K10_expand_join")
     count_launch(LAUNCHES, "K10_expand_join")
     return pr, br, valid, total[0], starts, offs
